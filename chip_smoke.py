@@ -7,23 +7,44 @@ Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It imports nothing of JAX or of ``fleetflow_tpu``. Phases,
 each of which fails the run:
 
-  1. print the card (nvidia-smi name and power limit) and build the four
+  1. print the card (nvidia-smi name and power limit) and build the five
      CUDA kernels from ``fleetflow_tpu_torch/csrc`` (nvcc, in parallel);
-  2. hold each kernel against its plain PyTorch version on the same inputs
+  2. hold K1-K4 against their plain PyTorch versions on the same inputs
      at the headline size, synthetic_problem(10000, 1000, seed=0,
      n_tenants=8, port_fraction=0.2, volume_fraction=0.1), and time both
      with CUDA events;
-  3. run the main path through the public entry points: a
-     ``GpuSolverScheduler()`` places the fleet cold, then reschedules warm
-     after one node down, 5% of the nodes down, and a capacity refresh;
-     every result must have 0 violations (checked again by the host numpy
-     verifier) and no service on a dead node, and every kernel must have
-     been launched by that run;
-  4. print the per-kernel JSON line, the card line, and last
+  3. ``[main]``: the unbucketed path without the active-set sub-solve
+     (``GpuSolverScheduler(bucket=False)`` with FLEET_SUBSOLVE=0): a cold
+     place of the fleet, then warm reschedules after one node down, 5% of
+     the nodes down and a capacity refresh; one more reschedule under
+     torch.profiler must make no host-to-device copy in its refine range;
+  4. ``[default]``: ``GpuSolverScheduler()`` as a user creates it
+     (bucketed staging with phantom rows, sub-solve on) on the headline
+     fleet plus a 200-row tenant stage that starts inert: a cold place over
+     the padded rows, the burst pattern kill1, arrive, kill3, depart,
+     arrive, kill3 (each kill takes the busiest live nodes and revives
+     those killed two bursts before; arrive/depart scatter the tenant's
+     rows), one arrival of 64 id-free services into phantom rows
+     (ProblemDelta(n_real=...)), and 8 rolling kills of the busiest node.
+     At least one burst must be localized and two mini tiers exercised;
+     one more localized reschedule under torch.profiler must make no
+     host-to-device copy in its sub-solve range; K5 (gather, commit) is
+     held against its plain version on the plan of a kill3 burst;
+  5. ``[ab]``: phase 4's solves replayed on fresh schedulers with the same
+     node masks, the sub-solve off (FLEET_SUBSOLVE=0) and on, in the order
+     off, on, on, off; one line per solve with its wall ms both ways;
+  6. print the per-kernel JSON line, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
-``--profile`` drives the main path once more under torch.profiler and
-prints the device time by kernel and the device busy share of the run.
+Every solve of phases 3 to 5 must have 0 violations (checked again by
+the host numpy verifier), 0 violations before the host repair backstop, no
+host repair move and no service on a dead node; a localized solve may move
+no row outside the churn's constraint closure. Every kernel of a phase's
+path must have been launched by that phase, the launch counts set to 0
+just before it and read just after.
+
+``--profile`` drives phases 3 and 4 once more under torch.profiler and
+prints the device time by kernel and the device busy share of the solves.
 
 It exits non-zero without printing a result when CUDA is absent or the
 package is not beside it.
@@ -33,12 +54,22 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+from collections import deque
+from contextlib import contextmanager, nullcontext
+from typing import Optional
 
 N_SERVICES, N_NODES = 10_000, 1_000
+TENANT_ROWS = 200          # the burst pattern's arriving/departing stage
+ARRIVALS = 64              # id-free services arriving into phantom rows
+ROLLING_KILLS = 8
+BURSTS = ("kill1", "arrive", "kill3", "depart", "arrive", "kill3")
+KERNEL_NAMES = ("k1_sweep", "k2_prerepair", "k3_rebuild", "k4_greedy",
+                "k5_subsolve")
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, and the
 # float32 rate outside the tensor cores (the kernels do float32/int32 work)
 PEAK_BYTES_S = 3.35e12
@@ -298,14 +329,29 @@ def drive_main_path(np, pt, sched, ProblemDelta, record) -> None:
     return pt
 
 
-def run_main_path(torch, np, pkg_main, pt, dev_name):
-    """Phase 3: the scheduler a user would call, cold then three warm
-    reschedules. Returns the launch counts of the run."""
-    GpuSolverScheduler, ProblemDelta, verify, _ext = pkg_main
-    sched = GpuSolverScheduler()
-    seen = {}
+@contextmanager
+def subsolve_off():
+    """FLEET_SUBSOLVE=0 around the block, the previous value restored."""
+    prev = os.environ.get("FLEET_SUBSOLVE")
+    os.environ["FLEET_SUBSOLVE"] = "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("FLEET_SUBSOLVE", None)
+        else:
+            os.environ["FLEET_SUBSOLVE"] = prev
 
-    def record(label, placement, pt_now):
+
+def make_record(sched, verify, _ext, dev_name: str, tag: str,
+                echo: bool = True):
+    """The per-solve check and report line of a phase: every solve must be
+    feasible (host verify agrees), need no host repair, leave nothing on a
+    dead node and run on the card. Returns record(label, placement, pt,
+    **extra) -> the row (printed when `echo`)."""
+    seen = dict(_ext.LAUNCHES)
+
+    def record(label, placement, pt_now, **extra):
         res = sched.last_result
         launched = {k: v - seen.get(k, 0) for k, v in _ext.LAUNCHES.items()}
         seen.update(_ext.LAUNCHES)
@@ -328,21 +374,41 @@ def run_main_path(torch, np, pkg_main, pt, dev_name):
                    chain=tel.get("best_chain"),
                    pre_repair_violations=res.pre_repair_violations,
                    warm_h2d_copies=res.warm_h2d_copies,
-                   soft=round(res.soft, 6), launches=launched,
+                   soft=round(res.soft, 6), **extra, launches=launched,
                    timings_ms={k: round(v, 3)
                                for k, v in res.timings_ms.items()})
-        print(f"[main] {json.dumps(row)}", flush=True)
+        if echo:
+            print(f"[{tag}] {json.dumps(row)}", flush=True)
+        return row
 
-    torch.cuda.synchronize()
-    _ext.reset_launches()
-    pt = drive_main_path(np, pt, sched, ProblemDelta, record)
+    return record
+
+
+def read_launches(torch, _ext, tag: str, path: tuple, off: tuple = ()):
+    """The phase's launch counts: every kernel of its path launched, none
+    of `off`."""
     torch.cuda.synchronize()
     launches = dict(_ext.LAUNCHES)
-    if any(v == 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: "
-                             f"{launches}")
-    print(f"[main] launches {json.dumps(launches)}", flush=True)
-    warm_h2d_check(torch, np, sched, pt, ProblemDelta, record)
+    if any(launches[k] == 0 for k in path) or any(launches[k] for k in off):
+        raise AssertionError(f"[{tag}] launches {launches}: expected all of "
+                             f"{path}, none of {off}")
+    print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
+def run_main_path(torch, np, pkg_main, pt, dev_name):
+    """Phase 3: the unbucketed scheduler without the sub-solve, cold then
+    three warm reschedules. Returns the launch counts of the run."""
+    GpuSolverScheduler, ProblemDelta, verify, _ext = pkg_main[:4]
+    with subsolve_off():
+        sched = GpuSolverScheduler(bucket=False)
+        torch.cuda.synchronize()
+        _ext.reset_launches()
+        record = make_record(sched, verify, _ext, dev_name, "main")
+        pt = drive_main_path(np, pt, sched, ProblemDelta, record)
+        launches = read_launches(torch, _ext, "main", KERNEL_NAMES[:4],
+                                 off=("k5_subsolve",))
+        warm_h2d_check(torch, np, sched, pt, ProblemDelta, record)
     return launches
 
 
@@ -365,79 +431,481 @@ def h2d_in_range(prof, name: str) -> tuple[int, int, list]:
     return len(roots), ops, h2d
 
 
-def warm_h2d_check(torch, np, sched, pt, ProblemDelta, record) -> None:
-    """One more warm reschedule (the busiest live node down) under
-    torch.profiler: the card must make no host-to-device copy inside the
-    warm dispatch, the solve's refine range. A probe range that uploads
-    one small tensor shows that the count sees such a copy."""
+def profiled(torch, run):
+    """run() under torch.profiler, after a probe range that uploads one
+    small tensor (it shows that the count sees such a copy). Returns
+    (run's result, profiler)."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    from fleetflow_tpu_torch.solver.api import REFINE_RANGE
-    valid = pt.node_valid.copy()
-    load = np.bincount(sched.last_result.assignment, minlength=pt.N)
-    valid[int(np.argmax(np.where(valid, load, -1)))] = False
-    pt = dataclasses.replace(pt, node_valid=valid.copy())
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function("chip_smoke.h2d_probe"):
             torch.tensor([1, 2, 3], device=torch.device("cuda", 0))
-        placed = sched.reschedule(pt, delta=ProblemDelta(
-            node_valid=valid.copy()))
+        out = run()
         torch.cuda.synchronize()
-    record("warm_one_more_node_down_profiled", placed, pt)
+    return out, prof
+
+
+def check_no_h2d(prof, range_name: str, tag: str) -> None:
+    """The card made no host-to-device copy in the `range_name` range (a
+    warm dispatch), and the probe's upload was seen."""
     probe = h2d_in_range(prof, "chip_smoke.h2d_probe")
-    warm = h2d_in_range(prof, REFINE_RANGE)
+    warm = h2d_in_range(prof, range_name)
     if probe[0] != 1 or not probe[2]:
         raise AssertionError(f"the host-to-device count missed the probe's "
                              f"upload: {probe}")
     if warm[0] != 1 or warm[1] == 0:
-        raise AssertionError(f"no warm dispatch traced: {warm}")
+        raise AssertionError(f"no {range_name} dispatch traced: {warm}")
     if warm[2]:
-        raise AssertionError(f"host-to-device copies in the warm dispatch: "
+        raise AssertionError(f"host-to-device copies in {range_name}: "
                              f"{warm[2]}")
-    print(f"[h2d] warm dispatch under torch.profiler: {warm[1]} device "
+    print(f"[{tag}] {range_name} under torch.profiler: {warm[1]} device "
           f"operations, 0 host-to-device copies; the probe's torch.tensor "
           f"upload showed {len(probe[2])}: {probe[2]}", flush=True)
 
 
-def profile_main_path(torch, np, pkg_main, pt) -> None:
-    """--profile: the main path once more under torch.profiler; prints the
-    kernels' device time by name and their share of the solves' wall time
-    (the solves run slower under the profiler than without it)."""
-    GpuSolverScheduler, ProblemDelta, _verify, _ext = pkg_main
-    from torch.profiler import ProfilerActivity, profile
-    sched = GpuSolverScheduler()
-    walls = {}
-
-    def record(label, placement, _pt):
-        walls[label] = round(placement.solve_ms, 3)
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        drive_main_path(np, pt, sched, ProblemDelta, record)
-        torch.cuda.synchronize()
+def warm_h2d_check(torch, np, sched, pt, ProblemDelta, record) -> None:
+    """One more warm reschedule (the busiest live node down) under
+    torch.profiler: the card must make no host-to-device copy inside the
+    warm dispatch, the solve's refine range."""
     from fleetflow_tpu_torch.solver.api import REFINE_RANGE
-    rows = []
-    for ev in prof.key_averages():
-        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            continue                  # host-side ops; their kernels follow
-        if ev.key == REFINE_RANGE:
-            continue                  # the range's device-side span
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        rows.append((dev_us, ev.count, ev.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    solve_ms = sum(walls.values())
-    print(f"[profile] solves under the profiler (ms): {json.dumps(walls)}",
+    valid = pt.node_valid.copy()
+    load = np.bincount(sched.last_result.assignment, minlength=pt.N)
+    valid[int(np.argmax(np.where(valid, load, -1)))] = False
+    pt = dataclasses.replace(pt, node_valid=valid.copy())
+    placed, prof = profiled(torch, lambda: sched.reschedule(
+        pt, delta=ProblemDelta(node_valid=valid.copy())))
+    record("warm_one_more_node_down_profiled", placed, pt)
+    check_no_h2d(prof, REFINE_RANGE, "h2d")
+
+
+def deactivate_rows(pt, start: int):
+    """Rows [start:] made inert as phantom services are (zero demand, no
+    conflict or coloc ids, eligible everywhere) until the tenant arrives."""
+    out = dataclasses.replace(
+        pt, demand=pt.demand.copy(), port_ids=pt.port_ids.copy(),
+        volume_ids=pt.volume_ids.copy(), anti_ids=pt.anti_ids.copy(),
+        coloc_ids=pt.coloc_ids.copy(), eligible=pt.eligible.copy())
+    out.demand[start:] = 0.0
+    for arr in (out.port_ids, out.volume_ids, out.anti_ids, out.coloc_ids):
+        arr[start:] = -1
+    out.eligible[start:] = True
+    return out
+
+
+def with_arrivals(np, pt, k: int, rng):
+    """`pt` with k id-free services appended (demands drawn from the real
+    rows', eligible on every node) and the delta that writes them into
+    phantom rows."""
+    grow = lambda a: np.concatenate(  # noqa: E731
+        [a, np.full((k, a.shape[1]), -1, dtype=a.dtype)])
+    dem = pt.demand[rng.choice(pt.S, k, replace=False)].astype(np.float32)
+    elig = np.ones((k, pt.N), dtype=bool)
+    names = [f"arrival{i}" for i in range(k)]
+    pt2 = dataclasses.replace(
+        pt, service_names=pt.service_names + names,
+        demand=np.concatenate([pt.demand, dem]),
+        eligible=np.concatenate([pt.eligible, elig]),
+        dep_adj=np.pad(pt.dep_adj, ((0, k), (0, k))),
+        dep_depth=np.concatenate([pt.dep_depth,
+                                  np.zeros(k, pt.dep_depth.dtype)]),
+        port_ids=grow(pt.port_ids), volume_ids=grow(pt.volume_ids),
+        anti_ids=grow(pt.anti_ids), coloc_ids=grow(pt.coloc_ids),
+        replica_of=(pt.replica_of + names if pt.replica_of
+                    else pt.replica_of))
+    rows = np.arange(pt.S, pt.S + k)
+    return pt2, dict(demand_rows=(rows, dem), eligible_rows=(rows, elig),
+                     n_real=pt2.S)
+
+
+def closure_kept(np, index, prev, new, cur, scattered) -> int:
+    """A localized solve moves only rows of the churn's closure: every row
+    outside closure(stranded ∪ scattered) keeps its previous node. Returns
+    the closure size; raises on a row that escaped it."""
+    S_old, S = prev.shape[0], cur.S
+    park = int(np.argmax(cur.node_valid))
+    prev_full = np.concatenate([prev, np.full(S - S_old, park, np.int32)])
+    stranded = np.flatnonzero(~(cur.node_valid[prev_full]
+                                & cur.eligible[np.arange(S), prev_full]))
+    affected = np.union1d(stranded, np.asarray(scattered, dtype=np.int64))
+    inside = np.zeros(S, dtype=bool)
+    inside[index.closure(affected)] = True
+    escaped = np.flatnonzero(~inside[:S_old] & (new[:S_old] != prev))
+    if escaped.size:
+        raise AssertionError(f"localized solve moved {escaped.size} rows "
+                             f"outside the closure: {escaped[:10]}")
+    return int(inside.sum())
+
+
+def busiest(np, assignment, valid, k: int):
+    """The k live nodes hosting most services."""
+    loads = np.bincount(assignment, minlength=valid.shape[0]).astype(
+        np.float64)
+    loads[~valid] = -1.0
+    return np.argsort(loads)[-k:]
+
+
+def drive_default(np, pt, sched, ProblemDelta, record, index, S: int,
+                  tenant: tuple, replay: Optional[list] = None):
+    """The [default] phase's solves: cold, the burst pattern, one arrival
+    into phantom rows, rolling kills. Each kill takes the busiest live
+    nodes of the previous placement, or with `replay` the node masks of an
+    earlier drive, in order. Returns (rows, pt, valid, masks)."""
+    arr_rows, arr_dem, arr_elig = tenant
+    rows = [record("cold", sched.place(pt), pt)]
+    prev = sched.last_result.assignment
+    valid = pt.node_valid.copy()
+    dead: deque = deque()
+    masks: list = []
+
+    def burst(label, cur, delta_kw, scattered=()):
+        placed = sched.reschedule(cur, delta=ProblemDelta(**delta_kw))
+        res = sched.last_result
+        sub = res.subsolve
+        extra = dict(kind=label.split(":")[0],
+                     delta_stage_ms=round(res.timings_ms.get(
+                         "delta_stage_ms", 0.0), 3),
+                     subsolve=None if sub is None else {
+                         k: sub[k] for k in ("outcome", "rows", "tier",
+                                             "ms")},
+                     moved=int((placed.raw[:prev.shape[0]] != prev).sum()))
+        if sub is not None and sub["outcome"] == "localized":
+            extra["closure"] = closure_kept(np, index, prev, placed.raw, cur,
+                                            scattered)
+        rows.append(record(label, placed, cur, **extra))
+        return placed.raw
+
+    def kill(valid, k, revive_after):
+        if replay is not None:
+            masks.append(replay[len(masks)])
+            return masks[-1].copy()
+        victims = busiest(np, prev, valid, k)
+        valid = valid.copy()
+        valid[victims] = False
+        if len(dead) >= revive_after:
+            valid[dead.popleft()] = True
+        dead.append(victims)
+        masks.append(valid.copy())
+        return valid
+
+    for i, kind in enumerate(BURSTS):
+        valid = kill(valid, 1 if kind == "kill1" else 3, 2)
+        fields, delta_kw, scattered = {}, dict(node_valid=valid), ()
+        if kind in ("arrive", "depart"):
+            tdem = arr_dem if kind == "arrive" else np.zeros_like(arr_dem)
+            telig = arr_elig if kind == "arrive" else np.ones_like(arr_elig)
+            demand, eligible = pt.demand.copy(), pt.eligible.copy()
+            demand[S:] = tdem
+            eligible[S:] = telig
+            fields = dict(demand=demand, eligible=eligible)
+            delta_kw.update(demand_rows=(arr_rows, tdem),
+                            eligible_rows=(arr_rows, telig))
+            scattered = arr_rows
+        pt = dataclasses.replace(pt, node_valid=valid, **fields)
+        prev = burst(f"{kind}:{i}", pt, delta_kw, scattered)
+
+    pt, delta_kw = with_arrivals(np, dataclasses.replace(pt, node_valid=valid),
+                                 ARRIVALS, np.random.default_rng(1))
+    prev = burst("arrival_n_real", pt, dict(delta_kw, node_valid=valid),
+                 delta_kw["demand_rows"][0])
+
+    for i in range(ROLLING_KILLS):
+        valid = kill(valid, 1, 2)
+        pt = dataclasses.replace(pt, node_valid=valid)
+        prev = burst(f"rolling_kill:{i}", pt, dict(node_valid=valid))
+    return rows, pt, valid, masks
+
+
+def default_fleet(np, lower, S=N_SERVICES, N=N_NODES,
+                  tenant_rows=TENANT_ROWS):
+    """The [default] phase's fleet: the headline problem with S +
+    `tenant_rows` rows, the last ones an inert tenant stage. Returns (pt,
+    tenant rows, demand and eligibility)."""
+    full = lower.synthetic_problem(S + tenant_rows, N, seed=0, n_tenants=8,
+                                   port_fraction=0.2, volume_fraction=0.1)
+    tenant = (np.arange(S, S + tenant_rows),
+              full.demand[S:].astype(np.float32), full.eligible[S:].copy())
+    return deactivate_rows(full, S), tenant
+
+
+def run_default_phase(torch, np, pkg_main, lower, dev_name, S=N_SERVICES,
+                      N=N_NODES, tenant_rows=TENANT_ROWS):
+    """Phase 4: GpuSolverScheduler() as a user creates it. Returns (launch
+    counts, K5 record)."""
+    GpuSolverScheduler, ProblemDelta, verify, _ext, subsolve = pkg_main
+    pt, tenant = default_fleet(np, lower, S, N, tenant_rows)
+    index = subsolve.ActiveIndex(pt)
+    sched = GpuSolverScheduler()
+    outcomes0 = dict(subsolve.OUTCOME_COUNTS)
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    record = make_record(sched, verify, _ext, dev_name, "default")
+    rows, pt, valid, masks = drive_default(np, pt, sched, ProblemDelta,
+                                           record, index, S, tenant)
+    launches = read_launches(torch, _ext, "default", KERNEL_NAMES)
+    outcomes = {k: v - outcomes0[k]
+                for k, v in subsolve.OUTCOME_COUNTS.items()}
+    subs = [r["subsolve"] for r in rows if r.get("subsolve")]
+    tiers = sorted({s["tier"] for s in subs})
+    localized = sum(s["outcome"] == "localized" for s in subs)
+    print(f"[default] bucket {json.dumps(sched.last_result.bucket)}; "
+          f"sub-solve outcomes {json.dumps(outcomes)}; tiers {tiers}",
           flush=True)
-    print(f"[profile] kernels busy {busy_ms:.3f} ms of {solve_ms:.3f} ms of "
-          f"solves ({100 * busy_ms / solve_ms:.1f}%), "
-          f"{sum(r[1] for r in rows)} kernel launches", flush=True)
-    for dev_us, n, key in rows[:15]:
-        print(f"[profile] {dev_us / 1e3:10.3f} ms {n:6d}x {key[:90]}",
-              flush=True)
+    if localized == 0 or len(tiers) < 2:
+        raise AssertionError(f"{localized} localized bursts, mini tiers "
+                             f"{tiers}: expected >= 1 and >= 2")
+    if launches["k5_subsolve"] != 2 * len(subs):
+        raise AssertionError(f"K5 launched {launches['k5_subsolve']} times "
+                             f"for {len(subs)} sub-solves (2 each)")
+
+    # one more localized reschedule under torch.profiler (the busiest live
+    # node down): no host-to-device copy in the sub-solve's range
+    from fleetflow_tpu_torch.solver.api import SUBSOLVE_RANGE
+    prev = sched.last_result.assignment
+    valid = valid.copy()
+    valid[busiest(np, prev, valid, 1)] = False
+    pt = dataclasses.replace(pt, node_valid=valid)
+    placed, prof = profiled(torch, lambda: sched.reschedule(
+        pt, delta=ProblemDelta(node_valid=valid)))
+    row = record("kill1_profiled", placed, pt,
+                 subsolve=sched.last_result.subsolve)
+    if (row["subsolve"] or {}).get("outcome") != "localized":
+        raise AssertionError(f"the profiled burst did not localize: {row}")
+    check_no_h2d(prof, SUBSOLVE_RANGE, "h2d")
+    return launches, check_k5(torch, np, sched, pt, valid, ProblemDelta,
+                              subsolve), masks
+
+
+def compare_subsolve(np, pkg_main, lower, dev_name, masks, S=N_SERVICES,
+                     N=N_NODES, tenant_rows=TENANT_ROWS) -> dict:
+    """The [default] solves again on fresh GpuSolverScheduler()s, the same
+    padded fleet and the same node masks (those of phase 4), with the
+    sub-solve off (FLEET_SUBSOLVE=0, the full path on every burst) and on,
+    in the order off, on, on, off. Every solve passes the phase's checks.
+    Prints each solve's wall ms both ways, with the on runs' plan_ms and
+    subsolve_ms; returns the summed wall ms of the bursts by mode."""
+    GpuSolverScheduler, ProblemDelta, verify, _ext, subsolve = pkg_main
+    pt0, tenant = default_fleet(np, lower, S, N, tenant_rows)
+    index = subsolve.ActiveIndex(pt0)
+    runs: dict = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        with (subsolve_off() if mode == "off" else nullcontext()):
+            sched = GpuSolverScheduler()
+            record = make_record(sched, verify, _ext, dev_name,
+                                 f"ab-{mode}", echo=False)
+            rows = drive_default(np, pt0, sched, ProblemDelta, record,
+                                 index, S, tenant, replay=masks)[0]
+        subs = [r.get("subsolve") for r in rows[1:]]
+        if mode == "off" and any(subs):
+            raise AssertionError(f"FLEET_SUBSOLVE=0 ran a sub-solve: {subs}")
+        runs[mode].append(rows)
+    totals = {}
+    for mode, rs in runs.items():
+        totals[mode] = [round(sum(r["ms"] for r in rows[1:]), 3)
+                        for rows in rs]
+    for i, row in enumerate(runs["on"][0]):
+        t_on = [rows[i]["timings_ms"] for rows in runs["on"]]
+        print("[ab] " + json.dumps(dict(
+            solve=row["solve"],
+            off_ms=[rows[i]["ms"] for rows in runs["off"]],
+            off_sweeps=[rows[i]["sweeps"] for rows in runs["off"]],
+            on_ms=[rows[i]["ms"] for rows in runs["on"]],
+            on_sweeps=[rows[i]["sweeps"] for rows in runs["on"]],
+            outcome=[(rows[i].get("subsolve") or {}).get("outcome")
+                     for rows in runs["on"]],
+            plan_ms=[t.get("plan_ms") for t in t_on],
+            subsolve_ms=[t.get("subsolve_ms") for t in t_on])), flush=True)
+    print(f"[ab] bursts' summed wall ms (off, on, on, off order; by mode): "
+          f"{json.dumps(totals)}", flush=True)
+    return totals
+
+
+def host_planner_ms(np, subsolve, rp, plan) -> dict:
+    """Host clock of the planner on the resident state `plan` came from,
+    median of 5: plan_active in all, and two of its parts, the closure
+    (which reads dep_adj[:, inside] of the S x S matrix) and the frozen
+    conflict occupancy (a Python loop over the closure's ids)."""
+    index, pt, mirror = rp._index, rp.pt, rp._mirror
+    S = pt.S
+    prev = mirror[:S]
+    stranded = np.nonzero(~(pt.node_valid[prev]
+                            & pt.eligible[np.arange(S), prev]))[0]
+    rows = plan.rows[:plan.n_sub].astype(np.int64)
+    in_sub = np.zeros(max(index.S, S), dtype=bool)
+    in_sub[rows] = True
+    conf = index.conflict[rows[rows < index.S]]
+    ids = np.unique(conf[conf >= 0])
+    calls = {
+        "plan_active": lambda: subsolve.plan_active(
+            index, pt, mirror, rp.prob.S, rp.prob.T,
+            np.empty(0, np.int64), G_full=rp.prob.G, Gc_full=rp.prob.Gc),
+        "closure": lambda: index.closure(stranded),
+        "frozen_occupancy": lambda: index.frozen_occupancy(
+            ids, index._conf_inv, prev, in_sub, pt.N),
+    }
+    out = {}
+    for name, fn in calls.items():
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        out[name] = round(statistics.median(times), 3)
+    out["closure_ids"] = int(ids.size)
+    return out
+
+
+def check_k5(torch, np, sched, pt, valid, ProblemDelta, subsolve):
+    """K5 against its plain version on the plan of a kill3 burst (the
+    three busiest live nodes down, merged into the resident state): exact
+    equality of every gathered plane and of the committed assignment;
+    CUDA-event times of the kernel, the plain version and the library
+    calls (index_select gathers, clone + index_copy_)."""
+    rp = sched._slots[0].resident
+    prev = sched.last_result.assignment
+    valid = valid.copy()
+    valid[busiest(np, prev, valid, 3)] = False
+    cur = dataclasses.replace(pt, node_valid=valid)
+    rp.apply_delta(cur, ProblemDelta(node_valid=valid))
+    plan = rp.take_active_plan()
+    if plan is None:
+        raise AssertionError("the kill3 burst planned no sub-solve")
+    planner = host_planner_ms(np, subsolve, rp, plan)
+    staged = subsolve.stage_subsolve(rp, plan)
+    rows, prob, a = staged[0], rp.prob, rp.assignment
+    n_sub, tier = plan.n_sub, plan.tier
+    out_k = subsolve.k5_gather(prob, a, rows, n_sub)
+    out_p = subsolve.k5_gather_plain(prob, a, rows, n_sub)
+    names = ("demand", "eligible", "preferred", "seed")
+    for name, x, y in zip(names, out_k, out_p):
+        if (x is None) != (y is None) or (
+                x is not None and not torch.equal(x, y)):
+            raise AssertionError(f"K5 gather {name} differs")
+    # two chains: the gathered seed, and the seed with its real rows
+    # rotated by one node. Tied violations, so the least soft decides;
+    # then violations decide against the soft score (the other chain's key
+    # is +inf), either way round
+    seed = out_k[3]
+    chain1 = seed.clone()
+    chain1[:n_sub] = (chain1[:n_sub] + 1) % prob.N
+    best = torch.stack([seed, chain1])
+    for v, f, want in (([0, 0], [0.5, 0.25], 1), ([1, 0], [-1.0, 5.0], 1),
+                       ([0, 2], [3.0, -4.0], 0)):
+        viol = torch.tensor(v, dtype=torch.float32, device=a.device)
+        soft = torch.tensor(f, device=a.device)
+        new_k, b_k = subsolve.k5_commit(best, viol, soft, rows, a)
+        new_p, b_p = subsolve.k5_commit_plain(best, viol, soft, rows, a)
+        torch.cuda.synchronize()
+        if not (torch.equal(new_k, new_p) and torch.equal(b_k, b_p)
+                and int(b_k[0]) == want):
+            raise AssertionError(f"K5 commit differs (viol {v}, soft {f})")
+        if want == 1 and torch.equal(new_k, a):
+            raise AssertionError("K5 commit changed no row")
+    viol = torch.zeros(2, device=a.device)
+    soft = torch.tensor([0.5, 0.25], device=a.device)
+
+    def gather_k():
+        subsolve.k5_gather(prob, a, rows, n_sub)
+
+    def gather_p():
+        subsolve.k5_gather_plain(prob, a, rows, n_sub)
+
+    def commit_k():
+        subsolve.k5_commit(best, viol, soft, rows, a)
+
+    def commit_p():
+        subsolve.k5_commit_plain(best, viol, soft, rows, a)
+
+    g = torch.clamp(rows.long(), max=prob.S - 1)
+    keep = rows.long() < prob.S
+    src = best[1][keep]
+
+    def library():
+        for plane in (prob.demand, prob.eligible, prob.preferred, a):
+            if plane is not None:
+                torch.index_select(plane, 0, g)
+        a.clone().index_copy_(0, rows.long()[keep], src)
+
+    ms = cuda_ms(torch, gather_k, reps=20) + cuda_ms(torch, commit_k,
+                                                     reps=20)
+    plain = cuda_ms(torch, gather_p, reps=20) + cuda_ms(torch, commit_p,
+                                                        reps=20)
+    lib = cuda_ms(torch, library, reps=20)
+    W, el = prob.eligible.shape[1], prob.eligible.element_size()
+    pref_row = 4.0 * prob.N if prob.preferred is not None else 0.0
+    # gather: per real slot one demand row, eligibility row, preference
+    # row and assignment entry read; per slot the same written, plus the
+    # rows and the N validity bytes read once. commit: the (S,) assignment
+    # read and written, the winner's tier entries and rows read
+    row_bytes = 12.0 + W * el + pref_row
+    g_bytes = (4.0 * tier + prob.N + n_sub * (row_bytes + 4.0)
+               + tier * (row_bytes + 4.0))
+    c_bytes = 8.0 * prob.S + 8.0 * tier + 16.0
+    print(f"[planner] kill3 plan on the host: {json.dumps(planner)}",
+          flush=True)
+    print(f"[k5_subsolve] kill3 plan: {n_sub} closure rows in a tier of "
+          f"{tier}; gathered planes and committed assignment equal; kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms",
+          flush=True)
+    return dict(
+        name="k5_subsolve", route="cuda",
+        source="fleetflow_tpu_torch/csrc/k5_subsolve.cu",
+        replaces="fleetflow_tpu/solver/subsolve.py:378",
+        max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=lib, ops=0.0,
+        bytes=g_bytes + c_bytes, tier=tier, n_sub=n_sub)
+
+
+def profile_phases(torch, np, pkg_main, lower, pt) -> None:
+    """--profile: phases 3 and 4 once more, each under torch.profiler;
+    prints the kernels' device time by name and their share of the solves'
+    wall time (the solves run slower under the profiler than without)."""
+    GpuSolverScheduler, ProblemDelta, _verify, _ext, subsolve = pkg_main
+    from torch.profiler import ProfilerActivity, profile
+    from fleetflow_tpu_torch.solver.api import REFINE_RANGE, SUBSOLVE_RANGE
+
+    def main_drive(record):
+        with subsolve_off():
+            drive_main_path(np, pt, GpuSolverScheduler(bucket=False),
+                            ProblemDelta, record)
+
+    def default_drive(record):
+        pt0, tenant = default_fleet(np, lower)
+        drive_default(np, pt0, GpuSolverScheduler(), ProblemDelta, record,
+                      subsolve.ActiveIndex(pt0), N_SERVICES, tenant)
+
+    for tag, drive in (("main", main_drive), ("default", default_drive)):
+        walls = {}
+
+        def record(label, placement, _pt, **_extra):
+            walls[label] = round(placement.solve_ms, 3)
+            return {}
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            drive(record)
+            torch.cuda.synchronize()
+        rows = []
+        for ev in prof.key_averages():
+            if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+                continue              # host-side ops; their kernels follow
+            if ev.key in (REFINE_RANGE, SUBSOLVE_RANGE):
+                continue              # a range's device-side span
+            dev_us = getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0))
+            rows.append((dev_us, ev.count, ev.key))
+        rows.sort(reverse=True)
+        busy_ms = sum(r[0] for r in rows) / 1e3
+        solve_ms = sum(walls.values())
+        print(f"[profile {tag}] solves under the profiler (ms): "
+              f"{json.dumps(walls)}", flush=True)
+        print(f"[profile {tag}] kernels busy {busy_ms:.3f} ms of "
+              f"{solve_ms:.3f} ms of solves "
+              f"({100 * busy_ms / solve_ms:.1f}%), "
+              f"{sum(r[1] for r in rows)} kernel launches", flush=True)
+        for dev_us, n, key in rows[:15]:
+            print(f"[profile {tag}] {dev_us / 1e3:10.3f} ms {n:6d}x "
+                  f"{key[:90]}", flush=True)
 
 
 def small_agreement(torch, lower, solve):
@@ -464,7 +932,8 @@ def main() -> int:
         from fleetflow_tpu_torch import _ext
         from fleetflow_tpu_torch.lower import tensors as lower
         from fleetflow_tpu_torch.sched import GpuSolverScheduler
-        from fleetflow_tpu_torch.solver import anneal, greedy, kernels, problem
+        from fleetflow_tpu_torch.solver import (anneal, greedy, kernels,
+                                                problem, subsolve)
         from fleetflow_tpu_torch.solver.api import solve
         from fleetflow_tpu_torch.solver.repair import verify
         from fleetflow_tpu_torch.solver.resident import ProblemDelta
@@ -480,28 +949,34 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
     build_s = _ext.build(verbose=True)
-    print(f"[build] 4 kernels built in {build_s:.1f} s", flush=True)
+    print(f"[build] {len(_ext.KERNELS)} kernels built in {build_s:.1f} s",
+          flush=True)
 
     recs = check_kernels(torch, np, (anneal, kernels, greedy, problem, lower),
                          dev)
     small_agreement(torch, lower, solve)
-    pkg_main = (GpuSolverScheduler, ProblemDelta, verify, _ext)
+    pkg_main = (GpuSolverScheduler, ProblemDelta, verify, _ext, subsolve)
     pt = lower.synthetic_problem(N_SERVICES, N_NODES, seed=0, n_tenants=8,
                                  port_fraction=0.2, volume_fraction=0.1)
-    launches = run_main_path(torch, np, pkg_main, pt, str(dev))
+    by_phase = {"main": run_main_path(torch, np, pkg_main, pt, str(dev))}
+    by_phase["default"], recs["k5_subsolve"], masks = run_default_phase(
+        torch, np, pkg_main, lower, str(dev))
+    compare_subsolve(np, pkg_main, lower, str(dev), masks)
     if "--profile" in sys.argv[1:]:
-        profile_main_path(torch, np, pkg_main, pt)
+        profile_phases(torch, np, pkg_main, lower, pt)
     out = []
-    for name in ("k1_sweep", "k2_prerepair", "k3_rebuild", "k4_greedy"):
+    for name in KERNEL_NAMES:
         r = recs[name]
         t_bytes = r.pop("bytes") / PEAK_BYTES_S * 1e3
         t_ops = r.pop("ops") / PEAK_OPS_S * 1e3
-        r["launches"] = launches[name]
+        r["launches"] = sum(counts[name] for counts in by_phase.values())
+        r["launches_by_phase"] = {p: c[name] for p, c in by_phase.items()}
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         out.append({k: r[k] for k in (
-            "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            "name", "route", "source", "replaces", "launches",
+            "launches_by_phase", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")})
     print(f"[done] {time.perf_counter() - t0:.1f} s after the build started",
           flush=True)
     print(json.dumps({"kernels": out}), flush=True)

@@ -1,8 +1,9 @@
 """fleetflow_tpu_torch: the placement solver of fleetflow on PyTorch and CUDA.
 
-A port of ``fleetflow_tpu``'s device path (staging, batched greedy seed,
-parallel-Metropolis anneal, fused churn pre-repair, exact violation gate,
-resident warm reschedules) to one NVIDIA Hopper card. The four kernels that
+A port of ``fleetflow_tpu``'s device path (bucketed staging with phantom
+rows, batched greedy seed, parallel-Metropolis anneal, fused churn
+pre-repair, exact violation gate, resident warm reschedules with the
+churn-localized sub-solve) to one NVIDIA Hopper card. The five kernels that
 carry the hot path are hand-written CUDA C++ under ``csrc/``; every other
 device step is plain PyTorch. The package imports neither JAX nor
 ``fleetflow_tpu``: what it needs of the host layers it keeps as its own copy

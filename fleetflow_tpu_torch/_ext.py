@@ -39,6 +39,7 @@ KERNELS = {
     "k2_prerepair": "k2_prerepair.cu",
     "k3_rebuild": "k3_rebuild.cu",
     "k4_greedy": "k4_greedy.cu",
+    "k5_subsolve": "k5_subsolve.cu",
 }
 _HEADERS = ("common.cuh",)
 

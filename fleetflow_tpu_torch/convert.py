@@ -1,11 +1,13 @@
 """Carry state across from the JAX package, as plain numpy arrays.
 
-The reference's ``DeviceProblem``, ``ChainState`` and ``ProblemTensors``
-fields, read out with ``np.asarray``, become the port's ``TorchProblem``,
-``ChainState`` and ``ProblemTensors``, so both packages compute on the same
-data. This module imports nothing of the reference: the caller hands over
-arrays and statics. The reference's uint32 eligibility words become int32
-words with the same bits.
+The reference's ``DeviceProblem`` (padded or not), ``ChainState``,
+``ProblemTensors``, ``ActivePlan`` and resident sub-solve mirror, read out
+with ``np.asarray``, become the port's ``TorchProblem``, ``ChainState``,
+``ProblemTensors``, ``ActivePlan`` and ``ResidentProblem``, so both
+packages compute on the same data. This module imports nothing of the
+reference: the caller hands over arrays and statics. The reference's uint32
+eligibility words become int32 words with the same bits. Device tensors
+land on the card unless the caller names the CPU.
 """
 
 from __future__ import annotations
@@ -19,10 +21,14 @@ from .core.model import PlacementStrategy
 from .device import resolve_device
 from .lower.tensors import ProblemTensors
 from .solver.anneal import ChainState
+from .solver.buckets import BucketInfo
 from .solver.problem import TorchProblem
+from .solver.resident import ResidentProblem
+from .solver.subsolve import ActivePlan
 
-__all__ = ["problem_from_reference", "state_from_reference",
-           "tensors_from_reference"]
+__all__ = ["problem_from_reference", "padded_problem_from_reference",
+           "state_from_reference", "tensors_from_reference",
+           "plan_from_reference", "resident_from_reference"]
 
 PROBLEM_ARRAYS = ("demand", "capacity", "conflict_ids", "coloc_ids",
                   "eligible", "node_valid", "node_topology")
@@ -102,3 +108,64 @@ def tensors_from_reference(fields: Mapping[str, object],
         kw["strategy"] = PlacementStrategy(getattr(kw["strategy"], "value",
                                                    kw["strategy"]))
     return ProblemTensors(**kw)
+
+
+def padded_problem_from_reference(arrays: Mapping[str, np.ndarray],
+                                  statics: Mapping[str, int], orig_S: int,
+                                  device=None
+                                  ) -> tuple[TorchProblem, BucketInfo]:
+    """A padded reference DeviceProblem (staged on its tier ladder, with
+    n_real) as the port's padded TorchProblem, with the BucketInfo of a
+    staging of `orig_S` real rows."""
+    prob = problem_from_reference(arrays, statics, device=device)
+    if prob.S > orig_S and prob.n_real is None:
+        raise ValueError("a padded problem needs its n_real")
+    return prob, BucketInfo(orig_S=int(orig_S), padded_S=prob.S, G=prob.G,
+                            Gc=prob.Gc)
+
+
+PLAN_ARRAYS = {"rows": np.int32, "sub_conflict": np.int32,
+               "sub_coloc": np.int32, "load0": np.float32,
+               "used0": np.int32, "coloc0": np.int32, "topo0": np.int32}
+PLAN_INTS = ("n_sub", "tier", "G_sub", "Gc_sub", "affected")
+
+
+def plan_from_reference(fields: Mapping[str, object], device=None
+                        ) -> tuple[ActivePlan, tuple]:
+    """A reference ActivePlan's fields as the port's ActivePlan (host
+    arrays), and its arrays staged for one sub-solve dispatch, in the order
+    ``subsolve.stage_subsolve`` gives them, on the card unless `device`
+    names the CPU."""
+    device = resolve_device(device)
+    kw = {k: np.array(fields[k], dtype=dt, copy=True)
+          for k, dt in PLAN_ARRAYS.items()}
+    kw.update({k: int(fields[k]) for k in PLAN_INTS})
+    plan = ActivePlan(**kw)
+    staged = tuple(_tensor(kw[k], torch.float32 if dt == np.float32
+                           else torch.int32, device)
+                   for k, dt in PLAN_ARRAYS.items())
+    return plan, staged
+
+
+def resident_from_reference(pt: ProblemTensors, mirror: np.ndarray,
+                            feasible: bool,
+                            pending_rows: Optional[np.ndarray] = None, *,
+                            bucket: bool = True,
+                            device=None) -> ResidentProblem:
+    """The port's ResidentProblem of the fleet `pt` (staged as the
+    reference stages it), carrying the reference's sub-solve mirror: the
+    padded host assignment `mirror` becomes the device assignment and the
+    mirror, `feasible` the frozen-base precondition and `pending_rows` the
+    churn pending since the mirror's solve. On the card unless `device`
+    names the CPU."""
+    rp = ResidentProblem(pt, resolve_device(device), bucket=bucket)
+    padded = np.array(mirror, dtype=np.int32, copy=True)
+    if padded.shape != (rp.prob.S,):
+        raise ValueError(f"mirror of {padded.shape} rows for a staging of "
+                         f"{rp.prob.S}")
+    rp.assignment = rp.upload(padded, torch.int32)
+    rp.note_host_assignment(padded=padded, feasible=feasible)
+    if pending_rows is not None:
+        rp._pending_rows = np.asarray(pending_rows, dtype=np.int64)
+        rp._pending_churn = True
+    return rp

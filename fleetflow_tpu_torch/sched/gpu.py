@@ -8,6 +8,12 @@ and the changed rows. Content drift a delta cannot express (a relowered
 fleet, new conflict ids, a changed shape) falls back to a cold staging that
 still warm-starts from the stage's last host assignment.
 
+Staging is bucketed by default (``bucket=None`` means on, as in the
+reference's scheduler; FLEET_BUCKET=0 turns it off everywhere): the
+resident problem is padded onto its tier ladder with phantom rows, so
+arrivals inside the tier ride the delta path, and each warm reschedule
+tries the churn-localized sub-solve first (solver/subsolve.py).
+
 The scheduler runs on the card: ``GpuSolverScheduler()`` raises when CUDA
 is absent, and the CPU is used only when the caller passes device="cpu".
 The byte-budget LRU slot eviction of the reference is not ported yet:
@@ -42,12 +48,15 @@ class _StageSlot:
 
 class GpuSolverScheduler:
     def __init__(self, *, chains: Optional[int] = None, steps: int = 128,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, bucket: Optional[bool] = None):
         # device=None is the card and raises without CUDA (no fallback)
         self.device = resolve_device(device)
         self.chains = chains
         self.steps = steps
         self.seed = seed
+        # None -> ON for the scheduler (the churn path bucketing exists
+        # for); False, or FLEET_BUCKET=0, stages exact shapes
+        self.bucket = bucket
         self._slots: list[_StageSlot] = []
         self.last_result: Optional[SolveResult] = None
 
@@ -73,6 +82,13 @@ class GpuSolverScheduler:
         slot is compatible with `pt`, else COLD (full staging). Returns
         (slot, resident_warm)."""
         i = self._find(pt, stage)
+        if i is None and warm and stage is None:
+            # a fleet grown inside its tier (arrivals into phantom rows)
+            # has a new S and names: its slot is the keyless one whose
+            # staging the delta extends
+            i = next((j for j, s in enumerate(self._slots)
+                      if s.key is None and s.resident.assignment is not None
+                      and s.resident.compatible(pt, delta)), None)
         slot = self._slots[i] if i is not None else None
         if (warm and slot is not None
                 and slot.resident.assignment is not None
@@ -85,7 +101,8 @@ class GpuSolverScheduler:
                 # is implicit
                 rp.apply_delta(pt, ProblemDelta())
             return slot, True
-        resident = ResidentProblem(pt, self.device)
+        resident = ResidentProblem(pt, self.device,
+                                   bucket=self.bucket is not False)
         if slot is None:
             slot = _StageSlot(resident=resident, key=stage)
             self._slots.append(slot)
@@ -105,9 +122,12 @@ class GpuSolverScheduler:
                 and slot.last_assignment is not None
                 and slot.last_assignment.shape[0] == pt.S):
             init = slot.last_assignment
+        # the slot's own staging decides whether the solve is padded, not a
+        # fresh read of FLEET_BUCKET
         res = solve(pt, prob=slot.resident.prob, chains=self.chains,
                     steps=self.steps, seed=self.seed, init_assignment=init,
-                    resident=slot.resident, resident_warm=resident_warm)
+                    bucket=slot.resident.bucket, resident=slot.resident,
+                    resident_warm=resident_warm)
         ms = (time.perf_counter() - t0) * 1e3
         slot.last_assignment = res.assignment
         self.last_result = res

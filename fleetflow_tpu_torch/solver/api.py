@@ -9,9 +9,14 @@
         ──host verify/repair backstop──▶ SolveResult
 
 Everything between the seed and the host decision runs on the solve's
-device; the host reads the result once. This slice runs the reference's
-single-device configuration without shape buckets, active-set sub-solve,
-multiplexer or mesh; the seed is always the batched greedy (K4).
+device; the host reads the result once. A bucketed solve runs on the
+problem padded onto its tier ladder (phantom rows, solver/buckets.py) and
+reports the real rows only. A resident warm solve first tries the
+churn-localized sub-solve (solver/subsolve.py: K5 gather, K3/K2/K1 over the
+mini tier, K5 commit, K3 gate on the full problem) and falls back to the
+full path above when there is no plan or the gate rejects its result. The
+multiplexer and the mesh are not ported; the seed is always the batched
+greedy (K4).
 """
 
 from __future__ import annotations
@@ -26,10 +31,13 @@ import torch
 
 from ..device import resolve_device
 from ..lower.tensors import ProblemTensors
+from . import subsolve as _sub
 from .anneal import (TRACE_COLS, anneal_adaptive_states, anneal_states,
                      backend_proposals_per_step, chain_states_from_assignment,
                      prerepair_state_counted, solve_trace_blocks,
                      state_soft_score, state_violation_stats)
+from .buckets import (_env_flag, bucket_config, pad_assignment,
+                      pad_problem_tiers, stage_problem_tiers)
 from .greedy import greedy_place_batched, placement_order
 from .kernels import STAT_KEYS, exact_stats_and_soft, soft_score
 from .problem import TorchProblem, prepare_problem, unify_conflict_ids
@@ -37,10 +45,14 @@ from .repair import RepairResult, repair, soft_score_host, verify
 from .resident import ResidentProblem
 
 __all__ = ["solve", "SolveResult", "make_chain_inits", "DEFAULT_STEPS",
-           "REFINE_RANGE"]
+           "REFINE_RANGE", "SUBSOLVE_RANGE"]
 
 DEFAULT_STEPS = 128   # max sweeps of the adaptive anneal
-REFINE_RANGE = "fleet.refine"   # torch.profiler range around _refine
+# torch.profiler ranges around the device work of a solve: on a warm solve
+# each is a warm dispatch, in which the card must make no host-to-device
+# copy
+REFINE_RANGE = "fleet.refine"       # _refine, the full path
+SUBSOLVE_RANGE = "fleet.subsolve"   # the localized sub-solve
 
 
 @dataclass
@@ -67,6 +79,13 @@ class SolveResult:
     # counterpart of the reference's transfer guard for the resident state)
     warm_h2d_copies: int = 0
     device: str = ""
+    # shape bucketing of this solve, {"orig_S", "padded_S", "pad_waste"},
+    # or None for an exact-shape solve
+    bucket: Optional[dict] = None
+    # the churn-localized sub-solve: {rows, tier, affected, outcome, ms}
+    # when one ran ("localized" = committed by the exact gate,
+    # "fallback_infeasible" = the full path re-ran), None otherwise
+    subsolve: Optional[dict] = None
 
     @property
     def violations(self) -> int:
@@ -163,6 +182,7 @@ def solve(pt: ProblemTensors, *, device=None,
           seed_batch: int = 256, seed_rounds: int = 2,
           adaptive: bool = True, anneal_block: int = 1,
           proposals_per_step: Optional[int] = None,
+          bucket: Optional[bool] = None,
           resident: Optional[ResidentProblem] = None,
           resident_warm: bool = False) -> SolveResult:
     """Solve a placement instance end to end.
@@ -171,11 +191,18 @@ def solve(pt: ProblemTensors, *, device=None,
     pre-staged `prob` pins the device it lives on. `init_assignment`
     warm-starts from a previous placement on the host; `resident` with
     `resident_warm=True` warm-starts from the resident device assignment
-    with no problem tensor crossing the host boundary. Warm starts run the
-    fused pre-repair (K2) and are sticky: each service pays
-    `migration_weight` of soft score for leaving its previous node.
-    `chains=None` is 2 on the card and 1 on the CPU; the proposal width is
-    256 on the card and 64 on the CPU (both capped at S/2)."""
+    with no problem tensor crossing the host boundary, and tries the
+    churn-localized sub-solve first. Warm starts run the fused pre-repair
+    (K2) and are sticky: each service pays `migration_weight` of soft score
+    for leaving its previous node. `chains=None` is 2 on the card and 1 on
+    the CPU; the proposal width is 256 on the card and 64 on the CPU (both
+    capped at S/2).
+
+    `bucket` pads the problem onto its tier ladder with phantom rows
+    (solver/buckets.py). None defers to FLEET_BUCKET (default off for a
+    direct solve), and a pre-padded `prob` (a bucketed resident staging)
+    is used as it is. The returned assignment, violations and soft score
+    are those of the real rows."""
     timings: dict[str, float] = {}
     t = time.perf_counter
     if resident is not None:
@@ -190,9 +217,27 @@ def solve(pt: ProblemTensors, *, device=None,
                          and resident.assignment is not None)
 
     t_start = t()
+    binfo = None
+    if prob is None and resident is not None:
+        prob = resident.prob
+    if bucket is None:
+        bucket = (_env_flag("FLEET_BUCKET", False)
+                  or (prob is not None and prob.S != pt.S))
+    # a resident staging keeps the config it was padded under, so a
+    # pre-padded staging passes through pad_problem_tiers unchanged
+    cfg = resident.cfg if resident is not None else bucket_config()
+    bucket = bool(bucket and cfg.enabled)
     if prob is None:
-        prob = resident.prob if resident is not None else prepare_problem(
-            pt, dev)
+        # cold: stage directly at the padded shape, or at the exact one
+        if bucket:
+            prob, binfo = stage_problem_tiers(pt, cfg, dev)
+        else:
+            prob = prepare_problem(pt, dev)
+    elif bucket:
+        prob, binfo = pad_problem_tiers(prob, cfg)
+    if binfo is not None:
+        binfo.orig_S = pt.S
+    bucketed = binfo is not None and prob.S != pt.S
     if resident_warm:
         timings["delta_stage_ms"] = resident.consume_delta_ms()
     timings["stage_ms"] = (t() - t_start) * 1e3
@@ -200,20 +245,30 @@ def solve(pt: ProblemTensors, *, device=None,
     t_seed = t()
     warm = init_assignment is not None or resident_warm
     if resident_warm:
+        # the previous padded winner, phantoms re-parked at delta time
         seed_assignment = resident.assignment
         t0 = min(t0, 0.1)      # warm start: refine, don't re-scramble
     elif warm:
-        seed_assignment = torch.tensor(
-            np.asarray(init_assignment, dtype=np.int32), device=dev)
+        seed_np = np.asarray(init_assignment, dtype=np.int32)
+        if bucketed:
+            seed_np = pad_assignment(seed_np, prob.S, pt.node_valid)
+        seed_assignment = torch.tensor(seed_np, device=dev)
         t0 = min(t0, 0.1)
     else:
         order_np = placement_order(pt.demand, pt.dep_depth,
                                    unify_conflict_ids(pt))
+        if bucketed:
+            # phantoms last: zero demand and eligible everywhere, the
+            # greedy parks them on a valid node
+            order_np = np.concatenate(
+                [order_np, np.arange(pt.S, prob.S, dtype=np.int32)])
         order = torch.tensor(order_np, dtype=torch.int32, device=dev)
         seed_assignment = greedy_place_batched(prob, order, batch=seed_batch,
                                                rounds=seed_rounds)
     timings["seed_ms"] = (t() - t_seed) * 1e3
 
+    # the widths and budgets follow the PADDED row count, as the
+    # reference's static arguments do
     M = (proposals_per_step if proposals_per_step is not None
          else backend_proposals_per_step(prob.S, dev))
     trace_blocks = solve_trace_blocks()
@@ -222,21 +277,55 @@ def solve(pt: ProblemTensors, *, device=None,
     gen.manual_seed(int(seed))
 
     t_anneal = t()
-    h2d_before = resident.h2d_copies if resident is not None else 0
-    # a named profiler range: on a warm solve it is the warm dispatch, in
-    # which the card must make no host-to-device copy
-    with torch.profiler.record_function(REFINE_RANGE):
-        winner, dstats, dsoft, sweeps_run, accepted, dtelem = _refine(
-            prob, seed_assignment, gen, t0, t1, migration_weight,
-            chains=chains, steps=steps,
-            warm=bool(warm and migration_weight > 0), adaptive=adaptive,
-            anneal_block=anneal_block,
-            proposals_per_step=M, fused_prerepair=warm,
-            prerepair_moves=prerepair_moves,
-            skip_feasible_polish=bool(resident_warm and adaptive),
-            trace_blocks=trace_blocks)
-    warm_h2d = (resident.h2d_copies - h2d_before
-                if resident is not None and resident_warm else 0)
+    sub_plan = None
+    if resident_warm and adaptive:
+        # the host planner: closure, compact ids and the frozen base
+        t_plan = t()
+        sub_plan = resident.take_active_plan()
+        timings["plan_ms"] = (t() - t_plan) * 1e3
+    sub_info = None
+    uploads = 0     # ResidentProblem.upload calls inside the dispatch ranges
+    if sub_plan is not None:
+        t_sub = t()
+        # the plan's small arrays upload before the dispatch range opens
+        staged = _sub.stage_subsolve(resident, sub_plan)
+        h2d0 = resident.h2d_copies
+        with torch.profiler.record_function(SUBSOLVE_RANGE):
+            (winner, dstats, dsoft, sweeps_run, accepted,
+             dtelem) = _sub.subsolve_dispatch(
+                prob, resident.assignment, staged, sub_plan, gen, t0, t1,
+                migration_weight, chains=chains, steps=steps,
+                block=anneal_block,
+                proposals_per_step=(
+                    proposals_per_step if proposals_per_step is not None
+                    else backend_proposals_per_step(sub_plan.tier, dev)),
+                trace_blocks=trace_blocks)
+        uploads += resident.h2d_copies - h2d0
+        # the exact full-problem gate rules: feasible commits the scattered
+        # result; otherwise the full path re-runs from the untouched seed
+        sub_feasible = float(dstats["total"]) == 0
+        timings["subsolve_ms"] = (t() - t_sub) * 1e3
+        outcome = "localized" if sub_feasible else "fallback_infeasible"
+        _sub.record_outcome(outcome)
+        sub_info = {"rows": sub_plan.n_sub, "tier": sub_plan.tier,
+                    "affected": sub_plan.affected, "outcome": outcome,
+                    "ms": round(timings["subsolve_ms"], 2)}
+        if not sub_feasible:
+            sub_plan = None
+    if sub_plan is None:
+        h2d0 = resident.h2d_copies if resident is not None else 0
+        with torch.profiler.record_function(REFINE_RANGE):
+            winner, dstats, dsoft, sweeps_run, accepted, dtelem = _refine(
+                prob, seed_assignment, gen, t0, t1, migration_weight,
+                chains=chains, steps=steps,
+                warm=bool(warm and migration_weight > 0), adaptive=adaptive,
+                anneal_block=anneal_block,
+                proposals_per_step=M, fused_prerepair=warm,
+                prerepair_moves=prerepair_moves,
+                skip_feasible_polish=bool(resident_warm and adaptive),
+                trace_blocks=trace_blocks)
+        if resident is not None:
+            uploads += resident.h2d_copies - h2d0
     if resident is not None:
         resident.adopt(winner)
     # one fetch of the scalars, one of the assignment; np.array(copy=True)
@@ -253,7 +342,9 @@ def solve(pt: ProblemTensors, *, device=None,
            dtelem.get("init_soft", zero).to(torch.float32)]
         + [row for _e, _t, dev_row in blocks for row in dev_row]
     ).cpu().numpy().astype(np.float64)
-    assignment = np.array(winner.cpu().numpy(), dtype=np.int32, copy=True)
+    padded_host = np.array(winner.cpu().numpy(), dtype=np.int32, copy=True)
+    # phantom placements never leave the solver
+    assignment = padded_host[:pt.S] if bucketed else padded_host
     dstats_h = dict(zip(STAT_KEYS, scalars[:5]))
     soft = float(scalars[5])
     accepted_h = int(scalars[6])
@@ -274,14 +365,23 @@ def solve(pt: ProblemTensors, *, device=None,
             rr: RepairResult = repair(pt, assignment)
             assignment, stats, moves = rr.assignment, rr.stats, rr.moves
             if resident is not None and moves:
-                resident.adopt_host(assignment)
-            soft = float(soft_score(prob, torch.tensor(assignment,
-                                                       device=dev)))
-    if resident_warm and sweeps_run == 0 and stats["total"] == 0:
-        # the trusted 0-sweep exit returned the carried RANKING score,
-        # which includes the stickiness bonus: report the plain objective
+                resident.adopt_host(assignment, pt.node_valid)
+            if not bucketed:
+                soft = float(soft_score(prob, torch.tensor(assignment,
+                                                           device=dev)))
+    if bucketed or (resident_warm and sweeps_run == 0
+                    and stats["total"] == 0):
+        # the padded problem's mean denominators count phantoms, and the
+        # trusted 0-sweep exit returned the carried RANKING score (with the
+        # stickiness bonus): report the plain objective of the real rows
         soft = soft_score_host(pt, assignment)
     timings["verify_repair_ms"] = (t() - t_verify) * 1e3
+    if resident is not None:
+        # the sub-solve's mirror and frozen-base precondition; a host
+        # repair already refreshed the mirror through adopt_host
+        resident.note_host_assignment(
+            padded=None if moves else padded_host,
+            feasible=stats["total"] == 0)
     timings["total_ms"] = (t() - t_start) * 1e3
 
     telemetry = None
@@ -297,6 +397,8 @@ def solve(pt: ProblemTensors, *, device=None,
             "prerepair_moves": prerepair_h,
             "exit_sweep": int(sweeps_run),
             "best_chain": best_chain,
+            "path": ("subsolve" if sub_info is not None
+                     and sub_info["outcome"] == "localized" else "full"),
         }
     return SolveResult(
         assignment=assignment, stats=stats, soft=soft,
@@ -305,4 +407,6 @@ def solve(pt: ProblemTensors, *, device=None,
         chains=chains, steps=int(sweeps_run), proposals_per_step=M,
         accepted_moves=accepted_h if adaptive else -1,
         fused_prerepair=warm, telemetry=telemetry,
-        warm_h2d_copies=warm_h2d, device=str(dev))
+        warm_h2d_copies=uploads if resident_warm else 0, device=str(dev),
+        bucket=binfo.to_dict() if binfo is not None else None,
+        subsolve=sub_info)

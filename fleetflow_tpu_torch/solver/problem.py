@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -173,44 +173,56 @@ def unify_conflict_ids(pt: ProblemTensors) -> np.ndarray:
 
 
 def prepare_problem(pt: ProblemTensors, device: torch.device,
-                    packed: Optional[bool] = None) -> TorchProblem:
+                    packed: Optional[bool] = None,
+                    extents: Optional[Callable[..., tuple]] = None
+                    ) -> TorchProblem:
     """Stage a ProblemTensors onto `device`. `packed=None` defers to
-    FLEET_PACKED (default on); `packed=False` is the dense layout."""
+    FLEET_PACKED (default on); `packed=False` is the dense layout.
+    `extents(S, K, C, G, Gc)` returns the padded (S, K, C, G, Gc) to stage
+    at, the rows and columns past the real ones filled as inert phantoms
+    (solver/buckets.py); None stages the exact shapes."""
     if packed is None:
         packed = packed_enabled()
     device = torch.device(device)
     conflict = unify_conflict_ids(pt)
-    G = int(conflict.max(initial=-1)) + 1
-    T = int(pt.node_topology.max(initial=0)) + 1
+    S, N = pt.S, pt.N
+    real = (S, conflict.shape[1], pt.coloc_ids.shape[1],
+            max(int(conflict.max(initial=-1)) + 1, 1),
+            int(pt.coloc_ids.max(initial=-1)) + 1)
+    S_pad, K_pad, C_pad, G, Gc = real if extents is None else extents(*real)
 
-    def put(arr, dtype):
+    def put(arr, dtype, cols=None, fill=None):
         # torch.tensor always copies: a CPU staging must not alias the
         # caller's numpy arrays, which the resident merge updates in place
+        if cols is not None and (S_pad, cols) != arr.shape:
+            out = np.full((S_pad, cols), fill, dtype=arr.dtype)
+            out[:S, : arr.shape[1]] = arr
+            arr = out
         return torch.tensor(np.ascontiguousarray(arr), dtype=dtype,
                             device=device)
 
     if pt.preferred is None:
         preferred = (None if packed else
-                     torch.zeros((pt.S, pt.N), dtype=torch.float32,
+                     torch.zeros((S_pad, N), dtype=torch.float32,
                                  device=device))
     else:
-        preferred = put(pt.preferred, torch.float32)
+        preferred = put(pt.preferred, torch.float32, N, 0.0)
     if packed:
-        eligible = put(pack_bool_rows(pt.eligible), torch.int32)
+        eligible = put(pack_bool_rows(pt.eligible), torch.int32,
+                       packed_width(N), -1)
     else:
-        eligible = put(pt.eligible, torch.bool)
+        eligible = put(pt.eligible, torch.bool, N, True)
     return TorchProblem(
-        demand=put(pt.demand, torch.float32),
+        demand=put(pt.demand, torch.float32, pt.demand.shape[1], 0.0),
         capacity=put(pt.capacity, torch.float32),
-        conflict_ids=put(conflict, torch.int32),
-        coloc_ids=put(pt.coloc_ids, torch.int32),
+        conflict_ids=put(conflict, torch.int32, K_pad, -1),
+        coloc_ids=put(pt.coloc_ids, torch.int32, C_pad, -1),
         eligible=eligible,
         node_valid=put(pt.node_valid, torch.bool),
         node_topology=put(pt.node_topology, torch.int32),
         preferred=preferred,
-        S=pt.S, N=pt.N, G=max(G, 1),
-        Gc=int(pt.coloc_ids.max(initial=-1)) + 1,
-        T=T,
+        S=S_pad, N=N, G=G, Gc=Gc,
+        T=int(pt.node_topology.max(initial=0)) + 1,
         strategy=STRATEGY_CODES[PlacementStrategy(pt.strategy)],
         max_skew=int(pt.max_skew),
     )

@@ -2,7 +2,8 @@
 the card, at small sizes, over the branches chip_smoke.py's headline
 instance does not reach: pack and fill_lowest strategies, a preference
 plane, the dense eligibility layout, a spread constraint, phantom rows,
-stickiness, a frozen base.
+stickiness, a frozen base; and K5, the sub-solve's gather and commit, at
+the 10k x 1k headline size with mini tiers of 256 and 4096 rows.
 
 Every test needs a CUDA card and skips without one. On the card (which has
 no JAX, so the repository's conftest cannot load):
@@ -10,7 +11,8 @@ no JAX, so the repository's conftest cannot load):
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 
 Tolerances: assignments, integer planes, stats and move counts must be
-equal. Loads: the plain versions add with index_add_, which on the card
+equal (K5's gathered planes and committed assignments too: they are
+copies). Loads: the plain versions add with index_add_, which on the card
 groups the contributions to one row before adding them, where the kernels
 add one at a time in index order; float32 loads agree to rtol 1e-5.
 """
@@ -26,7 +28,8 @@ import torch
 from fleetflow_tpu_torch import _ext
 from fleetflow_tpu_torch.core.model import PlacementStrategy
 from fleetflow_tpu_torch.lower.tensors import synthetic_problem
-from fleetflow_tpu_torch.solver import anneal, greedy, kernels
+from fleetflow_tpu_torch.solver import anneal, greedy, kernels, subsolve
+from fleetflow_tpu_torch.solver.buckets import stage_problem_tiers
 from fleetflow_tpu_torch.solver.problem import (prepare_problem,
                                                 unify_conflict_ids)
 
@@ -172,17 +175,129 @@ def test_wrappers_raise_on_bad_input(dev):
 
 
 def test_main_path_on_the_card(dev):
+    """The default scheduler: a bucketed cold place, a one-node kill that
+    localizes (K5 around K1-K3), then three more nodes down."""
     from fleetflow_tpu_torch.sched import GpuSolverScheduler
     from fleetflow_tpu_torch.solver.resident import ProblemDelta
     pt = synthetic_problem(800, 64, seed=5, n_tenants=3)
     sched = GpuSolverScheduler()
     _ext.reset_launches()
     first = sched.place(pt)
-    assert first.feasible
+    assert first.feasible and sched.last_result.bucket["padded_S"] > 800
+    busiest = np.argsort(-np.bincount(first.raw, minlength=pt.N))
     valid = pt.node_valid.copy()
-    valid[np.argsort(-np.bincount(first.raw, minlength=pt.N))[:3]] = False
-    pt = dataclasses.replace(pt, node_valid=valid)
-    again = sched.reschedule(pt, delta=ProblemDelta(node_valid=valid))
-    assert again.feasible and pt.node_valid[again.raw].all()
-    assert sched.last_result.warm_h2d_copies == 0
+    for dead in (busiest[:1], busiest[1:4]):
+        valid[dead] = False
+        pt = dataclasses.replace(pt, node_valid=valid.copy())
+        again = sched.reschedule(pt, delta=ProblemDelta(
+            node_valid=valid.copy()))
+        assert again.feasible and pt.node_valid[again.raw].all()
+        assert sched.last_result.warm_h2d_copies == 0
+        if len(dead) == 1:
+            assert sched.last_result.subsolve["outcome"] == "localized"
     assert all(v > 0 for v in _ext.LAUNCHES.values()), _ext.LAUNCHES
+
+
+@pytest.fixture(scope="module")
+def headline(request):
+    """The 10k x 1k headline fleet staged bucketed on the card, packed and
+    dense with a preference plane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    pt = synthetic_problem(10_000, 1_000, seed=0, n_tenants=8,
+                           port_fraction=0.2, volume_fraction=0.1)
+    packed, _ = stage_problem_tiers(pt, device=dev, packed=True)
+    pref = (np.random.default_rng(0).random((pt.S, pt.N)) * 0.5).astype(
+        np.float32)
+    dense, _ = stage_problem_tiers(dataclasses.replace(pt, preferred=pref),
+                                   device=dev, packed=False)
+    return pt, {"packed": packed, "dense": dense}
+
+
+def _plan_rows(S, S_pad, tier, seed):
+    rng = np.random.default_rng(seed)
+    n_sub = int(tier * 0.7)
+    rows = np.full(tier, S_pad, dtype=np.int32)
+    rows[:n_sub] = np.sort(rng.choice(S, n_sub, replace=False))
+    return rows, n_sub
+
+
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+@pytest.mark.parametrize("tier", [256, 4096])
+def test_k5_gather_matches_plain(dev, headline, layout, tier):
+    pt, probs = headline
+    prob = dataclasses.replace(probs[layout])
+    valid = prob.node_valid.clone()
+    valid[:3] = False                        # phantoms park on node 3
+    prob.node_valid = valid
+    rows, n_sub = _plan_rows(pt.S, prob.S, tier, tier)
+    rows_t = torch.tensor(rows, device=dev)
+    a = torch.randint(0, prob.N, (prob.S,), dtype=torch.int32, device=dev)
+    before = _ext.LAUNCHES["k5_subsolve"]
+    out = subsolve.k5_gather(prob, a, rows_t, n_sub)
+    ref = subsolve.k5_gather_plain(prob, a, rows_t, n_sub)
+    assert _ext.LAUNCHES["k5_subsolve"] == before + 1
+    for x, y in zip(out, ref):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert x.dtype == y.dtype and torch.equal(x, y)
+    assert bool((out[3][n_sub:] == 3).all())
+
+
+@pytest.mark.parametrize("tier", [256, 4096])
+def test_k5_commit_matches_plain(dev, headline, tier):
+    pt, probs = headline
+    S_pad = probs["packed"].S
+    rows, _ = _plan_rows(pt.S, S_pad, tier, tier + 1)
+    rows_t = torch.tensor(rows, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(tier)
+    best = torch.randint(0, 1000, (2, tier), dtype=torch.int32, device=dev,
+                         generator=gen)
+    a = torch.randint(0, 1000, (S_pad,), dtype=torch.int32, device=dev,
+                      generator=gen)
+    keep = a.clone()
+    viol = torch.tensor([3.0, 1.0], device=dev)
+    soft = torch.tensor([-5.0, 2.0], device=dev)
+    out, b = subsolve.k5_commit(best, viol, soft, rows_t, a)
+    ref, rb = subsolve.k5_commit_plain(best, viol, soft, rows_t, a)
+    assert torch.equal(out, ref) and torch.equal(b, rb) and int(b[0]) == 1
+    assert torch.equal(a, keep)               # the input is never written
+
+
+@pytest.mark.parametrize("viol,soft,best", [
+    ([0.0, 0.0], [1.5, 1.5], 0),      # full tie: the first chain
+    ([2.0, 2.0], [0.5, -0.5], 1),     # tied violations: the least soft
+    ([1.0, 0.0, 0.0], [-9.0, 3.0, 2.0], 2),
+])
+def test_k5_commit_ties(dev, viol, soft, best):
+    rows = torch.tensor([0, 3, 7, 10], dtype=torch.int32, device=dev)
+    C = len(viol)
+    best_assign = (torch.arange(C, device=dev, dtype=torch.int32)[:, None]
+                   * 10 + torch.arange(4, device=dev,
+                                       dtype=torch.int32)[None])
+    a = torch.full((10,), -1, dtype=torch.int32, device=dev)
+    v = torch.tensor(viol, device=dev)
+    s = torch.tensor(soft, device=dev)
+    out, b = subsolve.k5_commit(best_assign, v, s, rows, a)
+    ref, rb = subsolve.k5_commit_plain(best_assign, v, s, rows, a)
+    assert int(b[0]) == int(rb[0]) == best
+    assert torch.equal(out, ref)
+    assert out[[0, 3, 7]].tolist() == [best * 10, best * 10 + 1,
+                                       best * 10 + 2]   # row 10 dropped
+
+
+def test_k5_wrappers_raise_on_bad_input(dev, headline):
+    _, probs = headline
+    prob = probs["packed"]
+    a = torch.zeros(prob.S, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        subsolve.k5_gather(prob, a, torch.zeros(16, dtype=torch.int64,
+                                                device=dev), 4)
+    with pytest.raises(ValueError):
+        subsolve.k5_commit(torch.zeros((2, 16), dtype=torch.int64,
+                                       device=dev),
+                           torch.zeros(2, device=dev),
+                           torch.zeros(2, device=dev),
+                           torch.zeros(16, dtype=torch.int32, device=dev), a)

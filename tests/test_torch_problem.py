@@ -21,7 +21,10 @@ import torch
 from fleetflow_tpu.core.model import PlacementStrategy as RefStrategy
 from fleetflow_tpu.lower.tensors import synthetic_problem as ref_synthetic
 from fleetflow_tpu.solver import problem as ref_problem
-from fleetflow_tpu_torch.convert import (problem_from_reference,
+from fleetflow_tpu_torch.convert import (padded_problem_from_reference,
+                                         plan_from_reference,
+                                         problem_from_reference,
+                                         resident_from_reference,
                                          state_from_reference,
                                          tensors_from_reference)
 from fleetflow_tpu_torch.core.errors import SolverError
@@ -196,6 +199,76 @@ class TestConvert:
         assert pt2.strategy is port_pt.strategy
 
 
+    @pytest.mark.parametrize("packed", [True, False])
+    def test_padded_problem_from_reference(self, packed, monkeypatch):
+        from fleetflow_tpu.solver.buckets import stage_problem_tiers as ref_st
+        from fleetflow_tpu_torch.solver.buckets import stage_problem_tiers
+        monkeypatch.setenv("FLEET_PACKED", "1" if packed else "0")
+        ref_pt, port_pt = make_pair(101, 19, 6, coloc=True)
+        dp, rinfo = ref_st(ref_pt, reuse_device_constants=False)
+        conv, info = padded_problem_from_reference(*ref_arrays(dp), 101,
+                                                   device=CPU)
+        tp, pinfo = stage_problem_tiers(port_pt, device=CPU)
+        assert conv.S > 101 and conv.n_real == 101
+        for f in dataclasses.fields(tp):
+            a, b = getattr(conv, f.name), getattr(tp, f.name)
+            if isinstance(a, torch.Tensor):
+                assert a.dtype == b.dtype and torch.equal(a, b), f.name
+            else:
+                assert a == b, f.name
+        assert info == pinfo and info.padded_S == rinfo.padded_S
+
+    def test_plan_from_reference(self, monkeypatch):
+        from fleetflow_tpu.solver.subsolve import ActiveIndex, plan_active
+        from fleetflow_tpu_torch.solver.subsolve import ActivePlan
+        monkeypatch.setenv("FLEET_SUBSOLVE_MIN", "16")
+        monkeypatch.setenv("FLEET_SUBSOLVE_FRAC", "1.0")
+        ref_pt, _ = make_pair(300, 30, 2, n_tenants=1)
+        mirror = np.random.default_rng(2).integers(0, 30, 320).astype(
+            np.int32)
+        valid = ref_pt.node_valid.copy()
+        valid[5] = False
+        cur = dataclasses.replace(ref_pt, node_valid=valid)
+        plan, outcome = plan_active(ActiveIndex(ref_pt), cur, mirror, 320,
+                                    30, np.array([3]))
+        assert plan is not None, outcome
+        fields = {f.name: getattr(plan, f.name)
+                  for f in dataclasses.fields(plan)}
+        conv, staged = plan_from_reference(fields, device=CPU)
+        assert isinstance(conv, ActivePlan)
+        names = ("rows", "sub_conflict", "sub_coloc", "load0", "used0",
+                 "coloc0", "topo0")
+        for name, t in zip(names, staged):
+            a, b = fields[name], getattr(conv, name)
+            assert a.dtype == b.dtype and np.array_equal(a, b), name
+            assert np.array_equal(to_np(t), a), name
+        for name in ("n_sub", "tier", "G_sub", "Gc_sub", "affected"):
+            assert getattr(conv, name) == fields[name], name
+
+    def test_resident_from_reference(self):
+        from fleetflow_tpu.solver import solve as ref_solve
+        from fleetflow_tpu.solver.resident import ResidentProblem as RefRP
+        ref_pt, port_pt = make_pair(90, 11, 3)
+        ref_rp = RefRP(ref_pt)
+        ref_solve(ref_pt, prob=ref_rp.prob, resident=ref_rp, steps=8,
+                  bucket=True)
+        pending = np.array([4, 9])
+        rp = resident_from_reference(port_pt, ref_rp._mirror,
+                                     ref_rp._mirror_feasible, pending,
+                                     device=CPU)
+        assert np.array_equal(to_np(rp.assignment), ref_rp._mirror)
+        assert np.array_equal(rp._mirror, ref_rp._mirror)
+        assert rp._mirror_feasible and rp._pending_churn
+        assert np.array_equal(rp._pending_rows, pending)
+        for name in ("demand", "conflict_ids", "coloc_ids", "eligible"):
+            a = np.asarray(getattr(ref_rp.prob, name))
+            a = a.view(np.int32) if a.dtype == np.uint32 else a
+            assert np.array_equal(a, to_np(getattr(rp.prob, name))), name
+        with pytest.raises(ValueError):
+            resident_from_reference(port_pt, ref_rp._mirror[:90], True,
+                                    device=CPU)
+
+
 class TestBoundaries:
     def test_package_imports_no_jax(self):
         """Every module of the port (and chip_smoke.py) imports in a fresh
@@ -242,6 +315,38 @@ class TestBoundaries:
                                  np.zeros((1, 6, 1), np.int32),
                                  np.zeros((1, 6, 1), np.int32),
                                  np.zeros((1, 1), np.int32))
+
+    def test_subsolve_carriers_raise_without_cuda(self, monkeypatch):
+        """The padded-problem, plan and mirror carriers land on the card by
+        default too."""
+        dp, _, _, pt = staged_pair(30, 6, 1)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(SolverError):
+            padded_problem_from_reference(*ref_arrays(dp), 30)
+        plan = {"rows": np.zeros(16, np.int32),
+                "sub_conflict": np.full((16, 4), -1, np.int32),
+                "sub_coloc": np.full((16, 4), -1, np.int32),
+                "load0": np.zeros((6, 3), np.float32),
+                "used0": np.zeros((6, 16), np.int32),
+                "coloc0": np.zeros((6, 1), np.int32),
+                "topo0": np.zeros(6, np.int32), "n_sub": 1, "tier": 16,
+                "G_sub": 16, "Gc_sub": 0, "affected": 1}
+        with pytest.raises(SolverError):
+            plan_from_reference(plan)
+        with pytest.raises(SolverError):
+            resident_from_reference(pt, np.zeros(64, np.int32), True)
+
+    def test_stage_problem_tiers_raises_without_cuda(self, monkeypatch):
+        """Padded staging lands on the card by default, never on the host
+        in its place; the CPU only when asked for by name."""
+        from fleetflow_tpu_torch.solver.buckets import stage_problem_tiers
+        pt = synthetic_problem(30, 6, seed=1)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(SolverError):
+            stage_problem_tiers(pt)
+        prob, info = stage_problem_tiers(pt, device="cpu")
+        assert prob.device == CPU and prob.S == info.padded_S > pt.S
+        assert prob.n_real == pt.S
 
     def test_kernel_wrappers_take_plain_version_only_on_cpu(self):
         """A CPU tensor runs the plain version and launches nothing."""
