@@ -12,7 +12,9 @@ each of which fails the run:
   2. hold K1-K4 against their plain PyTorch versions on the same inputs
      at the headline size, synthetic_problem(10000, 1000, seed=0,
      n_tenants=8, port_fraction=0.2, volume_fraction=0.1), and time both
-     with CUDA events;
+     with CUDA events; then K1-K3 with a lane axis, at 8 lanes of 2000x200
+     and 2 lanes of the padded phase-4 fleet, against their plain versions
+     and against the solo kernel launched lane by lane;
   3. ``[main]``: the unbucketed path without the active-set sub-solve
      (``GpuSolverScheduler(bucket=False)`` with FLEET_SUBSOLVE=0): a cold
      place of the fleet, then warm reschedules after one node down, 5% of
@@ -33,10 +35,24 @@ each of which fails the run:
   5. ``[ab]``: phase 4's solves replayed on fresh schedulers with the same
      node masks, the sub-solve off (FLEET_SUBSOLVE=0) and on, in the order
      off, on, on, off; one line per solve with its wall ms both ways;
-  6. print the per-kernel JSON line, the card line, and last
+  6. ``[mux]``: the tenant multiplexer (FLEET_SUBSOLVE=0). Stages of the
+     reference bench's mux leg, synthetic_problem(S, N, seed=i,
+     port_fraction=0.3, volume_fraction=0.2) at 900x100 and 2000x200 with
+     K = 2, 3, 5, 8 (and 16 at 2000x200) and one node killed a stage, 8
+     stages of 2000x200 with 15% of their nodes down, and two stagings of
+     the phase-4 fleet (one node down, 5% down): each lane of one
+     ``solve_multiplexed`` batch must equal a solo resident-warm solve of
+     a double-built stage bit for bit, with the batch's and the solo
+     solves' wall ms; one more batch under torch.profiler must make no
+     host-to-device copy in its ``fleet.mux`` range;
+  7. ``[slots]``: the slot manager on keyed 2000x200 stages: 12 stages
+     under 8 slots (the 8 newest resident, 4 evicted with snapshots, their
+     card memory freed), a warm re-admission after churn bit-identical to
+     a never-evicted control, a 1-byte budget, the byte accounting;
+  8. print the per-kernel JSON line, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
-Every solve of phases 3 to 5 must have 0 violations (checked again by
+Every solve of phases 3 to 7 must have 0 violations (checked again by
 the host numpy verifier), 0 violations before the host repair backstop, no
 host repair move and no service on a dead node; a localized solve may move
 no row outside the churn's constraint closure. Every kernel of a phase's
@@ -44,7 +60,8 @@ path must have been launched by that phase, the launch counts set to 0
 just before it and read just after.
 
 ``--profile`` drives phases 3 and 4 once more under torch.profiler and
-prints the device time by kernel and the device busy share of the solves.
+prints the device time by kernel and the device busy share of the solves,
+then 8 stages of 2000x200 solved one by one and in one batch.
 
 It exits non-zero without printing a result when CUDA is absent or the
 package is not beside it.
@@ -439,8 +456,13 @@ def profiled(torch, run):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # one kernel and a sync first: a copy made the moment the tracing
+        # starts was once missed by it
+        torch.zeros(1, device=torch.device("cuda", 0)).add_(1)
+        torch.cuda.synchronize()
         with record_function("chip_smoke.h2d_probe"):
             torch.tensor([1, 2, 3], device=torch.device("cuda", 0))
+        torch.cuda.synchronize()
         out = run()
         torch.cuda.synchronize()
     return out, prof
@@ -908,6 +930,604 @@ def profile_phases(torch, np, pkg_main, lower, pt) -> None:
                   f"{key[:90]}", flush=True)
 
 
+# -- the lane axis of K1-K3 and the tenant multiplexer ----------------------
+
+MUX_TIERS = ((900, 100), (2000, 200))   # the reference bench's mux leg
+MUX_KS = (2, 3, 5, 8)                   # ladder rungs 2, 4, 8
+MUX_CAP_K = 16                          # the ladder's cap, at 2000x200
+MUX_STEPS = 64
+SLOT_STAGES = 12                        # keyed 2000x200 stages in [slots]
+# what memory_allocated() may keep of an evicted slot's device_nbytes:
+# none, since the allocator rounds each block UP (to 512 bytes), so freeing
+# a slot's tensors drops it by at least their bytes
+SLOT_ALLOWANCE = 0
+
+
+def lane_problems(np, torch, problem, buckets, pts, dev):
+    """The stagings of `pts` (one tier), each lane with its own node
+    losses (the busiest nodes of a greedy seed, 1 + lane % 4 of them, and
+    5% of the nodes on every other lane) and stickiness, stacked on a lane
+    axis. Returns (stacked problem, solo problems, seeds (L, S))."""
+    from fleetflow_tpu_torch.solver import greedy, multiplex
+    solo, seeds = [], []
+    for i, pt in enumerate(pts):
+        prob, _ = buckets.stage_problem_tiers(pt, device=dev)
+        order = np.concatenate([
+            greedy.placement_order(pt.demand, pt.dep_depth,
+                                   problem.unify_conflict_ids(pt)),
+            np.arange(pt.S, prob.S, dtype=np.int32)])
+        seed = greedy.greedy_place_batched(prob, torch.tensor(
+            order, dtype=torch.int32, device=dev))
+        k = 1 + i % 4 if i % 2 == 0 else max(1, prob.N // 20)
+        dead = torch.bincount(seed.long(), minlength=prob.N).argsort(
+            descending=True)[:k]
+        valid = prob.node_valid.clone()
+        valid[dead] = False
+        solo.append(dataclasses.replace(prob, node_valid=valid,
+                                        sticky_prev=seed,
+                                        sticky_w=0.5 + 0.0625 * i))
+        seeds.append(seed)
+    return multiplex.stack_problems(solo), solo, torch.stack(seeds)
+
+
+def check_lane_kernels(torch, np, pkg, dev, recs, tag, pts):
+    """K1, K2 and K3 with a lane axis on the stagings of `pts`: each lane
+    kernel against its plain version (a loop of the solo plain versions:
+    integer planes, stats and moves equal, loads within LOAD_RTOL) and
+    against the solo kernel launched lane by lane (bit-equal: the same
+    code on the same data); CUDA-event times of both and the bound."""
+    anneal, kernels, _greedy, problem, _lower, buckets = pkg
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    prob, solo, seeds = lane_problems(np, torch, problem, buckets, pts, dev)
+    L, S, N, G = prob.lanes, prob.S, prob.N, prob.G
+    K, Kc = prob.conflict_ids.shape[-1], prob.coloc_ids.shape[-1]
+    W, Gc1 = prob.eligible.shape[-1], max(prob.Gc, 1)
+    size = f"{pts[0].S}x{pts[0].N}"
+
+    def lane_rec(name, ms, plain, err, t_bytes, t_ops):
+        b_ms, o_ms = t_bytes / PEAK_BYTES_S * 1e3, t_ops / PEAK_OPS_S * 1e3
+        recs[name].setdefault("lanes", []).append(dict(
+            L=L, size=size, padded_S=S, max_abs_err=err, ms=ms,
+            plain_ms=plain, bound_ms=max(b_ms, o_ms),
+            bound_by="bytes" if b_ms >= o_ms else "operations"))
+
+    # K3: two chains a lane, the seed and a perturbed copy
+    rng = np.random.default_rng(0)
+    pert = seeds.clone()
+    cols = torch.tensor(rng.choice(S, S // 3, replace=False), device=dev)
+    pert[:, cols] = torch.tensor(rng.integers(0, 10, (L, cols.numel())),
+                                 dtype=torch.int32, device=dev)
+    both = torch.stack([seeds, pert], 1).contiguous()
+    out_k = kernels.k3_rebuild(prob, both, with_stats=True)
+    out_p = kernels.k3_rebuild_plain(prob, both, with_stats=True)
+    torch.cuda.synchronize()
+    for i in range(L):
+        out_s = kernels.k3_rebuild(solo[i], both[i], with_stats=True)
+        if not all(torch.equal(x[i], y) for x, y in zip(out_k, out_s)):
+            raise AssertionError(f"[{tag}] K3 lane {i} differs from the "
+                                 f"solo kernel")
+    for name, a, b in zip(("used", "coloc", "topo", "stats"), out_k[1:],
+                          out_p[1:]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"[{tag}] K3 lanes: {name} differs")
+    err = max_err(torch, out_k[0], out_p[0])
+    if not torch.allclose(out_k[0], out_p[0], rtol=LOAD_RTOL, atol=0):
+        raise AssertionError(f"[{tag}] K3 lanes: load differs by {err}")
+    if float(out_k[4][:, 1, 4].min()) == 0:
+        raise AssertionError(f"[{tag}] K3 lanes: a perturbed lane shows no "
+                             f"violation")
+    ms = cuda_ms(torch, lambda: kernels.k3_rebuild(prob, both,
+                                                   with_stats=True), reps=10)
+    plain = cuda_ms(torch, lambda: kernels.k3_rebuild_plain(
+        prob, both, with_stats=True), reps=3)
+    R = 2 * L
+    lane_rec("k3_rebuild", ms, plain, err, L * (
+        4.0 * (2 * S + S * 3 + S * K + S * Kc + N + N * 3 + 2 * S) + N)
+        + 4.0 * R * (N * 3 + N * G + N * Gc1 + prob.T + 5), 0.0)
+    print(f"[{tag}] K3 {L} lanes x 2 chains at {size} (padded {S}): equal to "
+          f"the solo kernel lane by lane and to the plain version (load max "
+          f"|err| {err:.3g}); kernel {ms:.3f} ms, plain {plain:.3f} ms",
+          flush=True)
+
+    # K1: 8 sweeps a lane from per-lane draws, each lane at its own
+    # temperature and stickiness; lane 1 inactive for the last 4
+    M = anneal.default_proposals_per_step(S)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    base = anneal.chain_states_from_assignment(prob, both)
+    temps = [1.0 / (1 + i) for i in range(L)]
+    st_k, st_p, st_s = base.clone(), base.clone(), base.clone()
+    applied = 0
+    draws = []
+    for sweep in range(8):
+        per = [anneal.draw_proposals(solo[i], st_k.lane(i), gen, M)
+               for i in range(L)]
+        s_idx, b_idx, u = (torch.stack([d[k] for d in per]) for k in range(3))
+        draws.append((s_idx, b_idx, u))
+        active = [i != 1 or sweep < 4 for i in range(L)]
+        _, acc_k = anneal.batched_step_apply(prob, st_k, s_idx, b_idx, u,
+                                             temps, active)
+        _, acc_p = anneal.batched_step_plain(prob, st_p, s_idx, b_idx, u,
+                                             temps, active)
+        for i in range(L):
+            if active[i]:
+                anneal.batched_step_apply(solo[i], st_s.lane(i), s_idx[i],
+                                          b_idx[i], u[i], temps[i])
+        if not torch.equal(acc_k, acc_p):
+            raise AssertionError(f"[{tag}] K1 lanes: applied counts differ")
+        applied += int(acc_k.sum())
+    torch.cuda.synchronize()
+    for name in ("assignment", "used", "coloc", "topo"):
+        if not torch.equal(getattr(st_k, name), getattr(st_p, name)):
+            raise AssertionError(f"[{tag}] K1 lanes: {name} differs")
+    for x, y in zip(st_k, st_s):
+        if not torch.equal(x, y):
+            raise AssertionError(f"[{tag}] K1 lanes differ from the solo "
+                                 f"kernel")
+    # over 16 chains and 8 sweeps a node can lose most of its services in
+    # one sweep: the kernel (one at a time, proposal order) and the plain
+    # index_add_ (grouped) then leave different residues of the cancelled
+    # sum, so loads agree within LOAD_RTOL of the plane's largest load
+    k1_err = max_err(torch, st_k.load, st_p.load)
+    atol = LOAD_RTOL * float(st_p.load.abs().max())
+    close = torch.isclose(st_k.load, st_p.load, rtol=LOAD_RTOL, atol=atol)
+    if not bool(close.all()):
+        raise AssertionError(
+            f"[{tag}] K1 lanes: {int((~close).sum())} loads differ, "
+            f"{st_k.load[~close][:4].tolist()} against the plain "
+            f"{st_p.load[~close][:4].tolist()}")
+    if applied == 0:
+        raise AssertionError(f"[{tag}] K1 lanes applied no move")
+    s_idx, b_idx, u = draws[0]
+    ms = cuda_ms(torch, lambda st: anneal.batched_step_apply(
+        prob, st, s_idx, b_idx, u, temps), setup=lambda: (base.clone(),),
+        reps=20)
+    plain = cuda_ms(torch, lambda st: anneal.batched_step_plain(
+        prob, st, s_idx, b_idx, u, temps), setup=lambda: (base.clone(),),
+        reps=3)
+    Kc_b = 4.0 * Kc
+    per_prop = (12 + 4 + 12 + 4 * K + Kc_b + 2 * 4 + 2 + 2 * 12 + 2 * 12
+                + 2 * 4 * K + 2 * Kc_b)
+    lane_rec("k1_sweep", ms, plain, k1_err, R * M * per_prop + R * 4.0,
+             R * M * 120.0)
+    print(f"[{tag}] K1 {L} lanes x 2 chains x {M} proposals, 8 sweeps "
+          f"({applied} moves; lane 1 frozen for 4): equal to the solo kernel "
+          f"and to the plain version (load max |err| {k1_err:.3g}); kernel "
+          f"{ms:.3f} ms, plain {plain:.3f} ms", flush=True)
+
+    # K2: each lane's seed, with its own nodes down
+    st0 = anneal.chain_states_from_assignment(prob, seeds)
+    st_k, st_p = st0.clone(), st0.clone()
+    _, mv_k = anneal.prerepair_state_counted(prob, st_k, 256)
+    _, mv_p = anneal.prerepair_plain(prob, st_p, 256)
+    torch.cuda.synchronize()
+    for i in range(L):
+        st_s = st0.lane(i).clone()
+        _, mv_s = anneal.prerepair_state_counted(solo[i], st_s, 256)
+        if int(mv_s[0]) != int(mv_k[i]) or not all(
+                torch.equal(x, y[i]) for x, y in zip(st_s, st_k)):
+            raise AssertionError(f"[{tag}] K2 lane {i} differs from the "
+                                 f"solo kernel")
+    if not torch.equal(mv_k, mv_p):
+        raise AssertionError(f"[{tag}] K2 lanes: moves {mv_k.tolist()} != "
+                             f"{mv_p.tolist()}")
+    for x, y in zip(st_k, st_p):
+        if not torch.equal(x, y):
+            raise AssertionError(f"[{tag}] K2 lanes: state differs")
+    moves = int(mv_k.sum())
+    if int(mv_k.min()) == 0:
+        raise AssertionError(f"[{tag}] K2 lanes: a lane moved nothing: "
+                             f"{mv_k.tolist()}")
+    ms = cuda_ms(torch, lambda st: anneal.prerepair_state_counted(
+        prob, st, 256), setup=lambda: (st0.clone(),))
+    plain = cuda_ms(torch, lambda st: anneal.prerepair_plain(prob, st, 256),
+                    setup=lambda: (st0.clone(),), reps=2)
+    Ks = float((prob.conflict_ids >= 0).sum(-1).float().mean())
+    lane_rec("k2_prerepair", ms, plain, 0.0,
+             L * (4.0 * (2 * S) + 4.0 * 2 * N * 3 + N)
+             + moves * (4.0 * (W + 3 + N * Ks) + 2 * 12 + 8.0 * Ks),
+             moves * N * (12.0 + Ks))
+    print(f"[{tag}] K2 {L} lanes: moves {mv_k.tolist()}, equal to the solo "
+          f"kernel and to the plain version; kernel {ms:.3f} ms, plain "
+          f"{plain:.3f} ms", flush=True)
+    torch.use_deterministic_algorithms(False)
+
+
+def same_lane(np, ref, got, label: str) -> None:
+    """A batched lane is the solo resident-warm solve of its stage: the
+    assignment, stats, sweeps, pre-repair moves and telemetry rows equal,
+    the soft score within 1e-6 relative."""
+    rt, gt = ref.telemetry or {}, got.telemetry or {}
+    diffs = []
+    if not np.array_equal(ref.assignment, got.assignment):
+        diffs.append(f"{int((ref.assignment != got.assignment).sum())} "
+                     f"services placed elsewhere")
+    if ref.stats != got.stats:
+        diffs.append(f"stats {ref.stats} != {got.stats}")
+    if ref.steps != got.steps:
+        diffs.append(f"sweeps {ref.steps} != {got.steps}")
+    for key in ("blocks", "prerepair_moves", "exit_sweep", "best_chain",
+                "init"):
+        if rt.get(key) != gt.get(key):
+            diffs.append(f"telemetry {key} differs")
+    if abs(ref.soft - got.soft) > 1e-6 * max(abs(ref.soft), 1e-30):
+        diffs.append(f"soft {ref.soft} != {got.soft}")
+    if gt.get("path") != "mux":
+        diffs.append(f"path {gt.get('path')}")
+    if diffs:
+        raise AssertionError(f"[mux] {label} differs from its solo solve: "
+                             f"{'; '.join(diffs)}")
+
+
+def lane_contract(pt, res, dev_name: str, label: str) -> None:
+    """Every lane ends feasible on the card, with no host repair and
+    nothing on a dead node."""
+    on_dead = int((~pt.node_valid[res.assignment]).sum())
+    if (res.violations or res.pre_repair_violations or res.moves_repaired
+            or on_dead or res.device != dev_name):
+        raise AssertionError(
+            f"[mux] {label}: violations {res.violations}, pre-repair "
+            f"{res.pre_repair_violations}, repair moves {res.moves_repaired}"
+            f", on dead nodes {on_dead}, device {res.device}")
+
+
+def mux_stage(solve, ResidentProblem, ProblemDelta, pt, seed: int, dead,
+              dev, steps: int):
+    """A resident-warm stage: `pt` staged on the card (bucketed, as the
+    scheduler stages it) and cold-solved with `seed`, then the nodes
+    `dead` killed through a delta. Returns (churned pt, resident)."""
+    rp = ResidentProblem(pt, dev)
+    solve(pt, prob=rp.prob, resident=rp, seed=seed, steps=steps,
+          bucket=rp.bucket)
+    valid = pt.node_valid.copy()
+    valid[dead] = False
+    cur = dataclasses.replace(pt, node_valid=valid)
+    rp.apply_delta(cur, ProblemDelta(node_valid=valid))
+    return cur, rp
+
+
+def mux_fleets(lower):
+    """fleet(S, N, i): the reference bench mux leg's stage i at S x N,
+    synthetic_problem(S, N, seed=i, port_fraction=0.3,
+    volume_fraction=0.2), made once."""
+    made: dict = {}
+
+    def fleet(S, N, i):
+        if (S, N, i) not in made:
+            made[(S, N, i)] = lower.synthetic_problem(
+                S, N, seed=i, port_fraction=0.3, volume_fraction=0.2)
+        return made[(S, N, i)]
+    return fleet
+
+
+def run_mux_phase(torch, np, mods, fleet, dev_name, tenant_fleet):
+    """[mux]: per tier and K, each lane of ONE solve_multiplexed batch held
+    bit for bit against a solo resident-warm solve of a double-built stage
+    (FLEET_SUBSOLVE=0, same seeds), the lane contract checked, and the
+    batch's wall ms against the solo solves' (per stage); then one batch
+    under torch.profiler with no host-to-device copy in its fleet.mux
+    range. Returns (launch counts, rows)."""
+    _ext, solve, ResidentProblem, ProblemDelta, multiplex = mods
+    dev = torch.device(dev_name)
+
+    def small_stage(S, N, i, steps):
+        # one node killed a stage, as the reference's mux tests churn
+        return mux_stage(solve, ResidentProblem, ProblemDelta, fleet(S, N, i),
+                         i, [i % N], dev, steps)
+
+    def heavy_stage(S, N, i, steps):
+        # 15% of the nodes down, more than K2's 256 moves can clear: the
+        # lanes sweep and exit on different sweeps
+        dead = np.random.default_rng(10 + i).choice(N, 3 * N // 20,
+                                                    replace=False)
+        return mux_stage(solve, ResidentProblem, ProblemDelta, fleet(S, N, i),
+                         i, dead, dev, steps)
+
+    rng = np.random.default_rng(2)
+    big_dead = [None, None]
+
+    def big_stage(_S, _N, i, steps):
+        # the headline fleet twice: one node down, then 5% of the nodes
+        pt = tenant_fleet
+        if big_dead[i] is None:
+            k = 1 if i == 0 else pt.N // 20
+            big_dead[i] = rng.choice(pt.N, k, replace=False)
+        return mux_stage(solve, ResidentProblem, ProblemDelta, pt, i,
+                         big_dead[i], dev, steps)
+
+    # (S, N, K, stage factory, max sweeps): the bench leg's grid at its 64
+    # sweeps, the ladder's cap, lanes that sweep, and the headline pair at
+    # the scheduler's default 128
+    grid = [(S, N, K, small_stage, MUX_STEPS)
+            for S, N in MUX_TIERS for K in MUX_KS]
+    grid.append((*MUX_TIERS[1], MUX_CAP_K, small_stage, MUX_STEPS))
+    grid.append((*MUX_TIERS[1], 8, heavy_stage, MUX_STEPS))
+    grid.append((tenant_fleet.S, tenant_fleet.N, 2, big_stage, 128))
+    rows = []
+    with subsolve_off():
+        torch.cuda.synchronize()
+        _ext.reset_launches()
+        for S, N, K, build, steps in grid:
+            serial, serial_ms = [], []
+            for i in range(K):
+                cur, rp = build(S, N, i, steps)
+                t = time.perf_counter()
+                serial.append(solve(cur, prob=rp.prob, resident=rp,
+                                    resident_warm=True, seed=100 + i,
+                                    steps=steps, bucket=rp.bucket))
+                serial_ms.append((time.perf_counter() - t) * 1e3)
+            built = [build(S, N, i, steps) for i in range(K)]
+            entries = [multiplex.MuxEntry(pt=cur, resident=rp, seed=100 + i)
+                       for i, (cur, rp) in enumerate(built)]
+            before = dict(_ext.LAUNCHES)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = multiplex.solve_multiplexed(entries, steps=steps,
+                                              device=dev)
+            batch_ms = (time.perf_counter() - t) * 1e3
+            launched = {k: _ext.LAUNCHES[k] - before[k]
+                        for k in ("k1_sweep", "k2_prerepair", "k3_rebuild")}
+            for i, (got, (cur, _rp)) in enumerate(zip(res, built)):
+                label = f"{S}x{N} K={K} lane {i}"
+                same_lane(np, serial[i], got, label)
+                lane_contract(cur, got, dev_name, label)
+                if got.timings_ms.get("mux_k") != multiplex.mux_k(K):
+                    raise AssertionError(f"[mux] {label} ran on rung "
+                                         f"{got.timings_ms.get('mux_k')}")
+            # (the plain versions of a CPU rehearsal launch nothing)
+            if dev.type == "cuda" and launched["k2_prerepair"] != 1:
+                raise AssertionError(f"[mux] {S}x{N} K={K}: launches "
+                                     f"{launched}: one K2 for all lanes")
+            row = dict(tier=f"{S}x{N}", padded_S=entries[0].resident.prob.S,
+                       churn="15% down" if build is heavy_stage else
+                       ("1 / 5% down" if build is big_stage else "1 down"),
+                       K=K, ladder=multiplex.mux_k(K), steps=steps,
+                       batch_ms=round(batch_ms, 3),
+                       per_stage_mux=round(batch_ms / K, 3),
+                       per_stage_serial=round(statistics.median(serial_ms),
+                                              3),
+                       serial_ms=[round(x, 3) for x in serial_ms],
+                       mux_stack_ms=round(res[0].timings_ms["mux_stack_ms"],
+                                          3),
+                       sweeps=[r.steps for r in res],
+                       prerepair_moves=[r.telemetry["prerepair_moves"]
+                                        for r in res],
+                       launches=launched)
+            rows.append(row)
+            print(f"[mux] {json.dumps(row)}", flush=True)
+        launches = read_launches(torch, _ext, "mux", KERNEL_NAMES[:4],
+                                 off=("k5_subsolve",))
+        if not any(any(r["sweeps"]) for r in rows):
+            raise AssertionError("[mux] no lane swept: K1 ran no lane")
+
+        # one more batch under torch.profiler: the card makes no
+        # host-to-device copy inside the batched dispatch
+        S, N = MUX_TIERS[1]
+        built = [small_stage(S, N, i, MUX_STEPS) for i in range(8)]
+        entries = [multiplex.MuxEntry(pt=cur, resident=rp, seed=300 + i)
+                   for i, (cur, rp) in enumerate(built)]
+        res, prof = profiled(torch, lambda: multiplex.solve_multiplexed(
+            entries, steps=MUX_STEPS, device=dev))
+        for i, (got, (cur, _rp)) in enumerate(zip(res, built)):
+            lane_contract(cur, got, dev_name, f"profiled lane {i}")
+        check_no_h2d(prof, multiplex.MUX_RANGE, "h2d")
+    return launches, rows
+
+
+def run_slots_phase(torch, np, mods, fleet, dev_name):
+    """[slots]: the slot manager on the card with keyed 2000x200 stages.
+    Count bound (12 stages, 8 slots: the 8 newest resident, 4 evicted with
+    snapshots), the evictions' card memory freed, a warm re-admission
+    bit-identical to a never-evicted control (FLEET_SUBSOLVE=0), a
+    place_many of all 12 stages after churn (bit-identical to solo
+    reschedules, its placements the seeds of the next), a 1-byte budget
+    that keeps one slot and still places every stage, and the byte
+    accounting. Returns the launch counts."""
+    _ext, GpuSolverScheduler, ProblemDelta, verify = mods
+    S, N = MUX_TIERS[1]
+    pts = {f"s{i}": fleet(S, N, i) for i in range(SLOT_STAGES)}
+    keys = list(pts)
+
+    def placed_ok(pl, pt, label):
+        host = verify(pt, pl.raw)
+        if not pl.feasible or pl.violations or host["total"]:
+            raise AssertionError(f"[slots] {label}: violations "
+                                 f"{pl.violations}, host {host}")
+
+    with subsolve_off():
+        torch.cuda.synchronize()
+        _ext.reset_launches()
+        sched = GpuSolverScheduler()
+        # each eviction's own drop of memory_allocated(), read on either
+        # side of it (inside the place() that admits the next stage)
+        drops = []
+        evict = sched._evict
+
+        def measured_evict(slot):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            evict(slot)
+            torch.cuda.synchronize()
+            drops.append(before - torch.cuda.memory_allocated())
+
+        sched._evict = measured_evict
+        for k in keys[:8]:
+            placed_ok(sched.place(pts[k], stage=k), pts[k], k)
+        torch.cuda.synchronize()
+        mem8 = torch.cuda.memory_allocated()
+        st8 = sched.slots_status()
+        bytes8 = {s["stage"]: s["bytes"] for s in st8["slots"]}
+        for k in keys[8:]:
+            placed_ok(sched.place(pts[k], stage=k), pts[k], k)
+        torch.cuda.synchronize()
+        mem12 = torch.cuda.memory_allocated()
+        st = sched.slots_status()
+        resident = [s["stage"] for s in st["slots"]]
+        evicted = [e["stage"] for e in st["evicted"]]
+        if (resident != keys[::-1][:8] or evicted != keys[:4]
+                or not all(e["snapshot"] for e in st["evicted"])):
+            raise AssertionError(f"[slots] resident {resident}, evicted "
+                                 f"{st['evicted']}")
+        admitted = sum(s["bytes"] for s in st["slots"]
+                       if s["stage"] in keys[8:])
+        evicted_bytes = sum(bytes8[k] for k in keys[:4])
+        freed = sum(drops)
+        if len(drops) != 4 or freed < evicted_bytes - SLOT_ALLOWANCE:
+            raise AssertionError(
+                f"[slots] evictions freed {drops} bytes of the card, the "
+                f"evicted slots held {evicted_bytes}")
+        if sched.byte_drift() != 0 or st["resident_bytes"] != sum(
+                s["bytes"] for s in st["slots"]):
+            raise AssertionError(f"[slots] accounting: drift "
+                                 f"{sched.byte_drift()}, {st}")
+        print(f"[slots] 12 stages, 8 slots: resident {resident}, evicted "
+              f"{evicted} with snapshots; the 4 evictions dropped "
+              f"memory_allocated by {drops} = {freed} bytes for "
+              f"{evicted_bytes} evicted (allowance {SLOT_ALLOWANCE}); "
+              f"memory_allocated {mem8} -> {mem12} bytes over the 4 places "
+              f"that admitted {admitted} bytes; resident_bytes "
+              f"{st['resident_bytes']}, drift 0", flush=True)
+
+        # warm re-admission of an evicted stage after churn (its busiest
+        # node down) against a control scheduler that never evicted it
+        k = keys[0]
+        control = GpuSolverScheduler(resident_bytes=1 << 40)
+        first = control.place(pts[k], stage=k)
+        valid = pts[k].node_valid.copy()
+        valid[int(np.bincount(first.raw, minlength=N).argmax())] = False
+        cur = dataclasses.replace(pts[k], node_valid=valid)
+        want = control.reschedule(cur, stage=k,
+                                  delta=ProblemDelta(node_valid=valid))
+        got = sched.reschedule(cur, stage=k,
+                               delta=ProblemDelta(node_valid=valid))
+        placed_ok(got, cur, "readmitted")
+        if not np.array_equal(want.raw, got.raw) or not (
+                cur.node_valid[got.raw].all()):
+            raise AssertionError("[slots] the re-admitted stage differs from "
+                                 "the never-evicted control")
+        st = sched.slots_status()
+        if st["slots"][0]["stage"] != k or st["slots"][0]["evictions"] != 1:
+            raise AssertionError(f"[slots] re-admission: {st['slots'][0]}")
+        print(f"[slots] {k} re-admitted warm after churn: bit-identical to "
+              f"the never-evicted control ({sched.last_result.steps} sweeps,"
+              f" {sched.last_result.timings_ms.get('total_ms', 0.0):.3f} ms "
+              f"solve); evicted now "
+              f"{[e['stage'] for e in st['evicted']]}", flush=True)
+
+        # place_many over the bound: 12 warm keyed stages (4 of them
+        # evicted) in one call under 8 slots; the call evicts nothing until
+        # its solves are done, so every stage batches and equals a solo
+        # reschedule on a scheduler that never evicts, and the evictions
+        # after it keep the placements it returned
+        # (each stage with its busiest node down)
+        from fleetflow_tpu_torch.solver import multiplex
+        roomy = GpuSolverScheduler()
+        roomy._max_slots = SLOT_STAGES
+        many = GpuSolverScheduler()
+        cur = {}
+        for k in keys:
+            first = roomy.place(pts[k], stage=k)
+            many.place(pts[k], stage=k)
+            valid = pts[k].node_valid.copy()
+            valid[int(np.bincount(first.raw, minlength=N).argmax())] = False
+            cur[k] = dataclasses.replace(pts[k], node_valid=valid)
+        want = [roomy.reschedule(cur[k], stage=k, delta=ProblemDelta(
+            node_valid=cur[k].node_valid.copy())) for k in keys]
+        stages = multiplex.MUX_LANES["stage"]
+        t_many = time.perf_counter()
+        got = many.place_many([{"pt": cur[k], "warm_start": True, "stage": k,
+                                "delta": ProblemDelta(
+                                    node_valid=cur[k].node_valid.copy())}
+                               for k in keys])
+        many_ms = (time.perf_counter() - t_many) * 1e3
+        for k, w, g in zip(keys, want, got):
+            placed_ok(g, cur[k], f"place_many {k}")
+            if not cur[k].node_valid[g.raw].all():
+                raise AssertionError(f"[slots] place_many {k}: a service "
+                                     f"on the dead node")
+            if not np.array_equal(w.raw, g.raw):
+                raise AssertionError(f"[slots] place_many {k} differs from "
+                                     f"its solo reschedule")
+        st = many.slots_status()
+        if (multiplex.MUX_LANES["stage"] != stages + SLOT_STAGES
+                or [s["stage"] for s in st["slots"]] != keys[::-1][:8]
+                or many.byte_drift() != 0):
+            raise AssertionError(f"[slots] place_many over the bound: {st}")
+        for k, g in zip(keys[:4], got):
+            again = many.reschedule(cur[k], stage=k)
+            if not np.array_equal(again.raw, g.raw):
+                raise AssertionError(f"[slots] {k} did not warm-start from "
+                                     f"the placement place_many returned")
+        print(f"[slots] place_many of {SLOT_STAGES} warm stages under 8 "
+              f"slots: every stage batched ({many_ms:.3f} ms wall) and "
+              f"bit-identical to its solo reschedule; the 4 evicted after it "
+              f"re-admit from the placements it returned", flush=True)
+
+        tiny = GpuSolverScheduler(resident_bytes=1)
+        for k in keys[:3]:
+            placed_ok(tiny.place(pts[k], stage=k), pts[k], f"tiny {k}")
+        st = tiny.slots_status()
+        if (len(st["slots"]) != 1 or st["slots"][0]["stage"] != keys[2]
+                or st["budget_bytes"] != 1 or st["resident_bytes"] <= 0):
+            raise AssertionError(f"[slots] 1-byte budget: {st}")
+        print(f"[slots] 1-byte budget: one slot ({keys[2]}, "
+              f"{st['resident_bytes']} bytes), every stage placed",
+              flush=True)
+        return read_launches(torch, _ext, "slots", KERNEL_NAMES[:4],
+                             off=("k5_subsolve",))
+
+
+def profile_mux(torch, mods, fleet, dev_name) -> None:
+    """--profile: 8 stages of 2000x200 (one node killed a stage) solved
+    one by one, and the same stages (double-built) in one batch, each
+    under torch.profiler: wall ms, kernels' device time and their count."""
+    from torch.profiler import ProfilerActivity, profile
+    from fleetflow_tpu_torch.solver.api import REFINE_RANGE
+    _ext, solve, ResidentProblem, ProblemDelta, multiplex = mods
+    ranges = (REFINE_RANGE, multiplex.MUX_RANGE)
+    dev = torch.device(dev_name)
+    S, N = MUX_TIERS[1]
+
+    def stages():
+        return [mux_stage(solve, ResidentProblem, ProblemDelta,
+                          fleet(S, N, i), i, [i % N], dev, MUX_STEPS)
+                for i in range(8)]
+
+    def serial(built):
+        for i, (cur, rp) in enumerate(built):
+            solve(cur, prob=rp.prob, resident=rp, resident_warm=True,
+                  seed=100 + i, steps=MUX_STEPS, bucket=rp.bucket)
+
+    def batched(built):
+        multiplex.solve_multiplexed(
+            [multiplex.MuxEntry(pt=cur, resident=rp, seed=100 + i)
+             for i, (cur, rp) in enumerate(built)], steps=MUX_STEPS,
+            device=dev)
+
+    with subsolve_off():
+        for tag, run in (("serial", serial), ("batched", batched)):
+            built = stages()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                run(built)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3
+            busy, launches = 0.0, 0
+            for ev in prof.key_averages():
+                # a range's device-side span is not a kernel
+                if (str(getattr(ev, "device_type", "")).endswith("CUDA")
+                        and ev.key not in ranges):
+                    busy += getattr(ev, "self_device_time_total",
+                                    getattr(ev, "self_cuda_time_total", 0))
+                    launches += ev.count
+            print(f"[profile mux] 8 stages of {S}x{N}, {tag}: {wall:.3f} ms "
+                  f"under the profiler, kernels busy {busy / 1e3:.3f} ms "
+                  f"({100 * busy / 1e3 / wall:.1f}%), {launches} device "
+                  f"operations", flush=True)
+
+
 def small_agreement(torch, lower, solve):
     """A small instance solved on the card and with the plain versions on
     the CPU: both feasible, soft scores close."""
@@ -932,11 +1552,13 @@ def main() -> int:
         from fleetflow_tpu_torch import _ext
         from fleetflow_tpu_torch.lower import tensors as lower
         from fleetflow_tpu_torch.sched import GpuSolverScheduler
-        from fleetflow_tpu_torch.solver import (anneal, greedy, kernels,
-                                                problem, subsolve)
+        from fleetflow_tpu_torch.solver import (anneal, buckets, greedy,
+                                                kernels, multiplex, problem,
+                                                subsolve)
         from fleetflow_tpu_torch.solver.api import solve
         from fleetflow_tpu_torch.solver.repair import verify
-        from fleetflow_tpu_torch.solver.resident import ProblemDelta
+        from fleetflow_tpu_torch.solver.resident import (ProblemDelta,
+                                                         ResidentProblem)
     except ImportError as e:
         return fail(f"fleetflow_tpu_torch is not importable here ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -954,6 +1576,13 @@ def main() -> int:
 
     recs = check_kernels(torch, np, (anneal, kernels, greedy, problem, lower),
                          dev)
+    fleet = mux_fleets(lower)
+    tenant_fleet = default_fleet(np, lower)[0]
+    lane_pkg = (anneal, kernels, greedy, problem, lower, buckets)
+    check_lane_kernels(torch, np, lane_pkg, dev, recs, "lanes",
+                       [fleet(*MUX_TIERS[1], i) for i in range(8)])
+    check_lane_kernels(torch, np, lane_pkg, dev, recs, "lanes",
+                       [tenant_fleet, tenant_fleet])
     small_agreement(torch, lower, solve)
     pkg_main = (GpuSolverScheduler, ProblemDelta, verify, _ext, subsolve)
     pt = lower.synthetic_problem(N_SERVICES, N_NODES, seed=0, n_tenants=8,
@@ -962,8 +1591,16 @@ def main() -> int:
     by_phase["default"], recs["k5_subsolve"], masks = run_default_phase(
         torch, np, pkg_main, lower, str(dev))
     compare_subsolve(np, pkg_main, lower, str(dev), masks)
+    by_phase["mux"], _mux_rows = run_mux_phase(
+        torch, np, (_ext, solve, ResidentProblem, ProblemDelta, multiplex),
+        fleet, str(dev), tenant_fleet)
+    by_phase["slots"] = run_slots_phase(
+        torch, np, (_ext, GpuSolverScheduler, ProblemDelta, verify), fleet,
+        str(dev))
     if "--profile" in sys.argv[1:]:
         profile_phases(torch, np, pkg_main, lower, pt)
+        profile_mux(torch, (_ext, solve, ResidentProblem, ProblemDelta,
+                            multiplex), fleet, str(dev))
     out = []
     for name in KERNEL_NAMES:
         r = recs[name]
@@ -976,7 +1613,7 @@ def main() -> int:
         out.append({k: r[k] for k in (
             "name", "route", "source", "replaces", "launches",
             "launches_by_phase", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")})
+            "bound_by", "library_ms", "lanes") if k in r})
     print(f"[done] {time.perf_counter() - t0:.1f} s after the build started",
           flush=True)
     print(json.dumps({"kernels": out}), flush=True)

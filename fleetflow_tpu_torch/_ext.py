@@ -8,6 +8,11 @@ the first wrapper call on a CUDA tensor builds every source at once (one
 directory named after a hash of the sources and flags so a changed source
 never loads a stale library.
 
+K1-K3 take a lane axis (the tenant multiplexer): L same-tier problems
+stacked on a leading axis, with the per-lane scalars in one by-value
+:class:`Lanes` struct (``FFLanes`` in ``csrc/common.cuh``); a solo call is
+L = 1.
+
 Every C entry point returns a ``cudaError_t`` (0 = success) taken from
 ``cudaGetLastError()`` right after its launches; :func:`check` raises on
 anything else. ``LAUNCHES`` counts the entry-point calls per kernel: a
@@ -25,10 +30,12 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import Optional
+
 import torch
 
-__all__ = ["KERNELS", "LAUNCHES", "build", "library", "launch",
-           "reset_launches", "check_inputs"]
+__all__ = ["KERNELS", "LAUNCHES", "MAX_LANES", "Lanes", "lanes_arg",
+           "build", "library", "launch", "reset_launches", "check_inputs"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent / "_ext_build"
@@ -49,6 +56,36 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
+# the lane ladder's cap (solver/multiplex.py): FF_MAX_LANES in common.cuh
+MAX_LANES = 16
+
+
+class Lanes(ctypes.Structure):
+    """The per-lane scalars of a lane-aware launch, passed BY VALUE (a
+    device array would be a host-to-device copy inside the warm
+    dispatch): K1's temperature, the stickiness bonus, the real-row count
+    and K1's active flag of each lane."""
+    _fields_ = [("temp", ctypes.c_float * MAX_LANES),
+                ("sticky_w", ctypes.c_float * MAX_LANES),
+                ("n_real", ctypes.c_int * MAX_LANES),
+                ("active", ctypes.c_int * MAX_LANES)]
+
+
+def lanes_arg(n_real, sticky_w=None, temp=None, active=None) -> Lanes:
+    """A :class:`Lanes` of len(n_real) lanes; the unset fields of a lane
+    are 0 (active: 1)."""
+    L = len(n_real)
+    if not 1 <= L <= MAX_LANES:
+        raise ValueError(f"{L} lanes: the kernels take 1 to {MAX_LANES}")
+    out = Lanes()
+    for i in range(L):
+        out.n_real[i] = int(n_real[i])
+        out.sticky_w[i] = 0.0 if sticky_w is None else float(sticky_w[i])
+        out.temp[i] = 0.0 if temp is None else float(temp[i])
+        out.active[i] = 1 if active is None else int(bool(active[i]))
+    return out
+
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -58,14 +95,22 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def check_inputs(name: str, *tensors: torch.Tensor) -> None:
-    """The wrapper contract: a CUDA tensor launches the kernel or raises."""
-    dev = tensors[0].device
-    for t in tensors:
+def check_inputs(name: str, *tensors: Optional[torch.Tensor],
+                 lanes: Optional[int] = None) -> None:
+    """The wrapper contract: a CUDA tensor launches the kernel or raises.
+    Every tensor lies on one device and is contiguous (a lane's stride is
+    its per-lane size); with `lanes`, every one is stacked on a leading
+    axis of that extent. None (an absent optional plane) is skipped."""
+    present = [t for t in tensors if t is not None]
+    dev = present[0].device
+    for t in present:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: non-contiguous tensor {tuple(t.shape)}")
+        if lanes is not None and (t.dim() == 0 or t.shape[0] != lanes):
+            raise ValueError(f"{name}: tensor {tuple(t.shape)} is not "
+                             f"stacked on {lanes} lanes")
 
 
 def _nvcc() -> str:
@@ -151,6 +196,8 @@ def _c_arg(a):
         return ctypes.c_int(int(a))
     if isinstance(a, float):
         return ctypes.c_float(a)
+    if isinstance(a, Lanes):            # by value
+        return a
     raise TypeError(f"unsupported kernel argument {type(a).__name__}")
 
 
@@ -158,7 +205,8 @@ def launch(name: str, fn: str, device: torch.device, *args) -> None:
     """Call C entry point `fn` of kernel `name` on `device`'s current
     stream, raise on the CUDA error it returns, and count the launch.
     Tensors pass as device pointers, None as a null pointer, ints as C
-    ints and floats as C floats; the stream is appended last."""
+    ints, floats as C floats and a :class:`Lanes` by value; the stream is
+    appended last."""
     c_args = [_c_arg(a) for a in args]
     c_args.append(ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     err = getattr(library(name), fn)(*c_args)

@@ -1,18 +1,19 @@
 """Carry state across from the JAX package, as plain numpy arrays.
 
-The reference's ``DeviceProblem`` (padded or not), ``ChainState``,
-``ProblemTensors``, ``ActivePlan`` and resident sub-solve mirror, read out
-with ``np.asarray``, become the port's ``TorchProblem``, ``ChainState``,
-``ProblemTensors``, ``ActivePlan`` and ``ResidentProblem``, so both
-packages compute on the same data. This module imports nothing of the
-reference: the caller hands over arrays and statics. The reference's uint32
-eligibility words become int32 words with the same bits. Device tensors
-land on the card unless the caller names the CPU.
+The reference's ``DeviceProblem`` (padded or not, or K of them stacked on a
+lane axis), ``ChainState``, ``ProblemTensors``, ``ActivePlan`` and resident
+sub-solve mirror, read out with ``np.asarray``, become the port's
+``TorchProblem``, ``ChainState``, ``ProblemTensors``, ``ActivePlan`` and
+``ResidentProblem``, so both packages compute on the same data. This
+module imports nothing of the reference: the caller hands over arrays and
+statics. The reference's uint32 eligibility words become int32 words with
+the same bits. Device tensors land on the card unless the caller names the
+CPU.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -22,11 +23,13 @@ from .device import resolve_device
 from .lower.tensors import ProblemTensors
 from .solver.anneal import ChainState
 from .solver.buckets import BucketInfo
+from .solver.multiplex import stack_problems
 from .solver.problem import TorchProblem
 from .solver.resident import ResidentProblem
 from .solver.subsolve import ActivePlan
 
 __all__ = ["problem_from_reference", "padded_problem_from_reference",
+           "stacked_problem_from_reference",
            "state_from_reference", "tensors_from_reference",
            "plan_from_reference", "resident_from_reference"]
 
@@ -73,6 +76,19 @@ def problem_from_reference(arrays: Mapping[str, np.ndarray],
         kw["sticky_prev"] = _tensor(prev, torch.int32, device)
         kw["sticky_w"] = float(np.asarray(arrays["sticky_w"]))
     return TorchProblem(**kw)
+
+
+def stacked_problem_from_reference(
+        arrays_per_lane: Sequence[tuple[Mapping[str, np.ndarray],
+                                        Mapping[str, int]]],
+        device=None) -> TorchProblem:
+    """One lane-stacked TorchProblem from K reference DeviceProblems' fields
+    (one (arrays, statics) pair per lane, as for
+    :func:`problem_from_reference`). Raises ValueError on lanes of
+    different tiers, as the reference's ``stack_problems`` does. On the
+    card unless `device` names the CPU."""
+    return stack_problems([problem_from_reference(arrays, statics, device)
+                           for arrays, statics in arrays_per_lane])
 
 
 def state_from_reference(assignment: np.ndarray, load: np.ndarray,

@@ -17,6 +17,22 @@
 // rounded to float32 as the reference and the plain versions round it
 #define FF_CAP_TOL ((float)(1.0 + 1e-6))
 
+// The lane axis of the tenant multiplexer (solver/multiplex.py): K1-K3 take
+// L same-tier lanes stacked on a leading axis. Every stacked plane is a
+// contiguous (L, ...) tensor, so a lane's stride is its per-lane size. The
+// per-lane scalars travel BY VALUE in this struct, sized for the lane
+// ladder's cap: they change every sweep (the temperature), and as device
+// arrays they would be a host-to-device copy inside the warm dispatch.
+// K1 reads all four fields; K2 and K3 read n_real only. A solo call is L = 1.
+#define FF_MAX_LANES 16
+
+struct FFLanes {
+  float temp[FF_MAX_LANES];      // K1's Metropolis temperature
+  float sticky_w[FF_MAX_LANES];  // stickiness bonus (with sticky_prev)
+  int n_real[FF_MAX_LANES];      // rows >= n_real are phantoms
+  int active[FF_MAX_LANES];      // 0: K1 leaves the lane untouched
+};
+
 FF_EXPORT const char* ff_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

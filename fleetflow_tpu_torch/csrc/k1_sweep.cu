@@ -18,10 +18,19 @@
 //      scatter, so the result is bit-equal); the integer planes and the
 //      assignment are updated by all threads with integer atomics.
 //
+// Lanes (the tenant multiplexer, fleetflow_tpu/solver/multiplex.py's
+// vmapped _refine): L same-tier problems stacked on a leading axis, the
+// state (L, C, ...) and the proposals (L, C, M). The grid is (C, L); a
+// block offsets its problem and state pointers by its lane's strides and
+// returns at once when its lane is inactive (a lane whose anneal exited
+// stays frozen). Each block runs the solo code, so a lane's result equals
+// a solo sweep bit for bit; a solo call is L = 1.
+//
 // Bound: latency. A sweep moves a few hundred proposals' rows (a few tens
 // of KB), far below what the card's bandwidth or ALUs notice; its time is
 // the launch plus one block's dependent phases. Design: one block per
-// chain, no global scratch; the serial float apply is M iterations.
+// (chain, lane), no global scratch; the serial float apply is M
+// iterations.
 #include "common.cuh"
 
 namespace {
@@ -41,6 +50,26 @@ struct Problem {
   float sticky_w;
   int strategy, max_skew, n_real;
 };
+
+// lane `lane`'s problem: every stacked plane is a contiguous (L, ...)
+// tensor, so its lane stride is its per-lane size
+__device__ __forceinline__ Problem lane_problem(Problem p, int lane,
+                                                const FFLanes& ls) {
+  const size_t S = p.S, N = p.N, l = lane;
+  p.demand += l * S * 3;
+  p.cap += l * N * 3;
+  p.cids += l * S * p.K;
+  p.colids += l * S * p.Kc;
+  p.elig = static_cast<const char*>(p.elig) +
+           l * S * p.stride * (p.packed ? sizeof(int) : 1);
+  p.valid += l * N;
+  p.ntopo += l * N;
+  if (p.pref != nullptr) p.pref += l * S * N;
+  if (p.sticky_prev != nullptr) p.sticky_prev += l * S;
+  p.sticky_w = ls.sticky_w[lane];
+  p.n_real = ls.n_real[lane];
+  return p;
+}
 
 __device__ __forceinline__ float overflow_mass(const float l[3], const float c[3]) {
   const float x0 = fmaxf(l[0] - c[0], 0.f) / fmaxf(c[0], 1e-6f);
@@ -134,12 +163,16 @@ __device__ float move_delta(const Problem& p, const float* ld, const int* us,
   return d_cap + d_conf + d_elig + d_skew + (soft_after - soft_before) + d_pref + d_coloc;
 }
 
-__global__ void k1_sweep_kernel(Problem p, int* assignment, float* load,
-                                int* used, int* coloc, int* topo,
+__global__ void k1_sweep_kernel(Problem p0, FFLanes ls, int C,
+                                int* assignment, float* load, int* used,
+                                int* coloc, int* topo,
                                 const int* __restrict__ s_idx,
                                 const int* __restrict__ b_idx,
-                                const float* __restrict__ u, float temp, int M,
+                                const float* __restrict__ u, int M,
                                 int* applied_out) {
+  const int lane = blockIdx.y;
+  if (!ls.active[lane]) return;  // the whole block: no barrier is skipped
+  const Problem p = lane_problem(p0, lane, ls);
   extern __shared__ int sm[];
   int* s_sm = sm;
   int* a_sm = sm + M;
@@ -149,12 +182,13 @@ __global__ void k1_sweep_kernel(Problem p, int* assignment, float* load,
   __shared__ float red_v[32];
   __shared__ int red_i[32];
 
-  const int c = blockIdx.x;
-  int* asg = assignment + (size_t)c * p.S;
-  float* ld = load + (size_t)c * p.N * 3;
-  int* us = used + (size_t)c * p.N * p.G;
-  int* co = coloc + (size_t)c * p.N * p.Gc1;
-  int* tp = topo + (size_t)c * p.T;
+  // the state row of (lane, chain): the state is (L, C, ...)
+  const size_t c = (size_t)lane * C + blockIdx.x;
+  int* asg = assignment + c * p.S;
+  float* ld = load + c * p.N * 3;
+  int* us = used + c * p.N * p.G;
+  int* co = coloc + c * p.N * p.Gc1;
+  int* tp = topo + c * p.T;
 
   int tmax = 0, tmin = 0;
   if (p.max_skew > 0) {
@@ -170,13 +204,13 @@ __global__ void k1_sweep_kernel(Problem p, int* assignment, float* load,
     tmin = (int)lo;
   }
 
-  const float t = fmaxf(temp, 1e-8f);
+  const float t = fmaxf(ls.temp[lane], 1e-8f);
   for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    const int s = s_idx[(size_t)c * M + m];
-    const int b = b_idx[(size_t)c * M + m];
+    const int s = s_idx[c * M + m];
+    const int b = b_idx[c * M + m];
     const int a = asg[s];
     const float delta = move_delta(p, ld, us, co, tp, tmax, tmin, s, a, b);
-    const float uu = u[(size_t)c * M + m];
+    const float uu = u[c * M + m];
     const bool accept = ((delta < 0.f) || (uu < expf(-delta / t))) && (a != b);
     s_sm[m] = s;
     a_sm[m] = a;
@@ -241,17 +275,17 @@ __global__ void k1_sweep_kernel(Problem p, int* assignment, float* load,
 }  // namespace
 
 FF_EXPORT int ff_k1_sweep(
-    int C, int S, int N, int G, int Gc1, int T, const float* demand,
+    int L, int C, int S, int N, int G, int Gc1, int T, const float* demand,
     const float* cap, const int* cids, int K, const int* colids, int Kc,
     const void* elig, int packed, int stride, const unsigned char* valid,
     const int* ntopo, const float* pref, const int* sticky_prev,
-    float sticky_w, int strategy, int max_skew, int n_real, int* assignment,
-    float* load, int* used, int* coloc, int* topo, const int* s_idx,
-    const int* b_idx, const float* u, float temp, int M, int* applied,
-    cudaStream_t stream) {
+    int strategy, int max_skew, FFLanes lanes, int* assignment, float* load,
+    int* used, int* coloc, int* topo, const int* s_idx, const int* b_idx,
+    const float* u, int M, int* applied, cudaStream_t stream) {
+  if (L < 1 || L > FF_MAX_LANES) return static_cast<int>(cudaErrorInvalidValue);
   Problem p{S, N, G, Gc1, T, K, Kc, demand, cap, cids, colids, elig, packed,
-            stride, valid, ntopo, pref, sticky_prev, sticky_w, strategy,
-            max_skew, n_real};
+            stride, valid, ntopo, pref, sticky_prev, 0.f, strategy, max_skew,
+            0};
   int threads = ((M + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
   if (threads < 32) threads = 32;
@@ -259,8 +293,8 @@ FF_EXPORT int ff_k1_sweep(
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(k1_sweep_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  k1_sweep_kernel<<<C, threads, smem, stream>>>(p, assignment, load, used,
-                                                 coloc, topo, s_idx, b_idx, u,
-                                                 temp, M, applied);
+  k1_sweep_kernel<<<dim3(C, L), threads, smem, stream>>>(
+      p, lanes, C, assignment, load, used, coloc, topo, s_idx, b_idx, u, M,
+      applied);
   return static_cast<int>(cudaGetLastError());
 }

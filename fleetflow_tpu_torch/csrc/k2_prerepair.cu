@@ -11,30 +11,51 @@
 // when the loop takes it, so the walk is the initial stranded set in index
 // order, cut at max_moves. Returns the number of moves applied.
 //
+// Lanes (the tenant multiplexer): L same-tier problems stacked on a
+// leading axis, one chain each, the state (L, 1, ...). One persistent block
+// per lane (grid L) runs the solo loop on its lane's planes, so a lane
+// equals a solo pre-repair; the moves come back as (L,).
+//
 // Bound: latency. Each of at most max_moves (≤256) iterations reads the
 // (N, 3) load and capacity and K conflict columns of the (N, G) occupancy
 // (~30 KB at N=1000), and the iterations are strictly sequential. Design:
-// one persistent block runs the whole loop: a block-wide compaction builds
+// one persistent block per lane runs the whole loop: a block-wide compaction builds
 // the stranded list, then each iteration is a block-wide argmin over the
 // nodes followed by a one-thread update of the state and a barrier.
 #include "common.cuh"
 
 namespace {
 
-__global__ void k2_kernel(int S, int N, int G, int Gc1, int T,
-                          const float* __restrict__ demand,
-                          const float* __restrict__ cap,
-                          const int* __restrict__ cids, int K,
-                          const int* __restrict__ colids, int Kc,
-                          const void* elig, int packed, int stride,
-                          const unsigned char* __restrict__ valid,
-                          const int* __restrict__ ntopo, int n_real,
-                          int* asg, float* ld, int* us, int* co, int* tp,
-                          int max_moves, int* moves_out, int* list) {
+// 1024 threads a block: the register budget must fit 64 a thread
+__global__ void __launch_bounds__(1024) k2_kernel(
+    int S, int N, int G, int Gc1, int T, const float* __restrict__ demand,
+    const float* __restrict__ cap, const int* __restrict__ cids, int K,
+    const int* __restrict__ colids, int Kc, const void* elig, int packed,
+    int stride, const unsigned char* __restrict__ valid,
+    const int* __restrict__ ntopo, FFLanes ls, int* asg, float* ld, int* us,
+    int* co, int* tp, int max_moves, int* moves_out, int* list) {
   __shared__ int part[1024];
   __shared__ float red_v[32];
   __shared__ int red_i[32];
   __shared__ int n_todo;
+
+  // this block's lane: every stacked plane and the state are contiguous
+  // (L, ...), so a lane's stride is its per-lane size
+  const size_t l = blockIdx.x;
+  demand += l * S * 3;
+  cap += l * N * 3;
+  cids += l * S * K;
+  colids += l * S * Kc;
+  elig = static_cast<const char*>(elig) + l * S * stride * (packed ? sizeof(int) : 1);
+  valid += l * N;
+  ntopo += l * N;
+  const int n_real = ls.n_real[l];
+  asg += l * S;
+  ld += l * N * 3;
+  us += l * N * G;
+  co += l * N * Gc1;
+  tp += l * T;
+  list += l * (S + 1);
 
   // 1. the stranded services, in index order
   const int chunk = (S + blockDim.x - 1) / blockDim.x;
@@ -125,20 +146,23 @@ __global__ void k2_kernel(int S, int N, int G, int Gc1, int T,
     }
     __syncthreads();
   }
-  if (threadIdx.x == 0) moves_out[0] = moves;
+  if (threadIdx.x == 0) moves_out[l] = moves;
 }
 
 }  // namespace
 
 FF_EXPORT int ff_k2_prerepair(
-    int S, int N, int G, int Gc1, int T, const float* demand, const float* cap,
-    const int* cids, int K, const int* colids, int Kc, const void* elig,
-    int packed, int stride, const unsigned char* valid, const int* ntopo,
-    int n_real, int* assignment, float* load, int* used, int* coloc,
-    int* topo, int max_moves, int* moves, int* scratch, cudaStream_t stream) {
-  k2_kernel<<<1, 1024, 0, stream>>>(S, N, G, Gc1, T, demand, cap, cids, K,
+    int L, int S, int N, int G, int Gc1, int T, const float* demand,
+    const float* cap, const int* cids, int K, const int* colids, int Kc,
+    const void* elig, int packed, int stride, const unsigned char* valid,
+    const int* ntopo, FFLanes lanes, int* assignment, float* load, int* used,
+    int* coloc, int* topo, int max_moves, int* moves, int* scratch,
+    cudaStream_t stream) {
+  // scratch: the stranded list of each lane, (L, S + 1)
+  if (L < 1 || L > FF_MAX_LANES) return static_cast<int>(cudaErrorInvalidValue);
+  k2_kernel<<<L, 1024, 0, stream>>>(S, N, G, Gc1, T, demand, cap, cids, K,
                                     colids, Kc, elig, packed, stride, valid,
-                                    ntopo, n_real, assignment, load, used,
+                                    ntopo, lanes, assignment, load, used,
                                     coloc, topo, max_moves, moves, scratch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,14 @@
 // reference's CPU scatter, so the result is bit-equal to it. The integer
 // planes use atomics (exact in any order).
 //
+// Lanes (the tenant multiplexer): L same-tier problems stacked on a
+// leading axis and C chains each fold into L·C rows; row r reads the planes
+// of lane r / C at that lane's stride (every stacked plane is a contiguous
+// (L, ...) tensor) and its n_real from the by-value lane scalars. Each row
+// keeps the stable, service-order load sum, so a lane's planes and stats
+// equal a solo rebuild's bit for bit; a solo call is L = 1. A frozen base
+// is one remainder shared by every row.
+//
 // Bound: bytes. The rebuild reads the assignment, demand and id tables
 // once and writes the planes; at S=10000, N=1000, G≈830 the (C, N, G) used
 // plane (zeroed, then scattered) dominates. Design: simple passes (init,
@@ -48,16 +56,21 @@ __global__ void k3_init(int C, int N, int G, int Gc1, int T, int n_chunks,
 
 constexpr int kChunk = 256;  // services per block of the stable fill
 
-// grid (chunks, C), kChunk threads: integer scatters and per-chunk counts
-__global__ void k3_scatter(int S, int N, int G, int Gc1, int T,
+// grid (chunks, L·C), kChunk threads: integer scatters and per-chunk counts
+__global__ void k3_scatter(int C, int S, int N, int G, int Gc1, int T,
                            const int* __restrict__ assign,
                            const int* __restrict__ cids, int K,
                            const int* __restrict__ colids, int Kc,
-                           const int* __restrict__ ntopo, int n_real,
+                           const int* __restrict__ ntopo, FFLanes ls,
                            int* used, int* coloc, int* topo, int* ccount) {
   const int c = blockIdx.y, chunk = blockIdx.x;
   const int s = chunk * kChunk + threadIdx.x;
   if (s >= S) return;
+  const size_t lane = c / C;
+  cids += lane * S * K;
+  colids += lane * S * Kc;
+  ntopo += lane * N;
+  const int n_real = ls.n_real[lane];
   const int a = assign[(size_t)c * S + s];
   if (a < 0 || a >= N) return;  // out of range: dropped, as XLA drops it
   atomicAdd(&ccount[((size_t)c * gridDim.x + chunk) * N + a], 1);
@@ -73,7 +86,7 @@ __global__ void k3_scatter(int S, int N, int G, int Gc1, int T,
   if (s < n_real) atomicAdd(&topo[(size_t)c * T + ntopo[a]], 1);
 }
 
-// one thread per (chain, node): exclusive prefix of the chunk counts over
+// one thread per (row, node): exclusive prefix of the chunk counts over
 // chunks, leaving the node's total in counts
 __global__ void k3_chunk_scan(int C, int N, int n_chunks, int* ccount,
                               int* counts) {
@@ -91,7 +104,7 @@ __global__ void k3_chunk_scan(int C, int N, int n_chunks, int* ccount,
   }
 }
 
-// one block per chain: exclusive scan of the per-node counts
+// one block per row: exclusive scan of the per-node counts
 __global__ void k3_scan(int N, const int* __restrict__ counts, int* offsets) {
   __shared__ int part[1024];
   const int c = blockIdx.x;
@@ -119,7 +132,7 @@ __global__ void k3_scan(int N, const int* __restrict__ counts, int* offsets) {
   }
 }
 
-// grid (chunks, C), kChunk threads: service s goes to its node's offset +
+// grid (chunks, L·C), kChunk threads: service s goes to its node's offset +
 // the same-node count of earlier chunks + its rank within its own chunk
 __global__ void k3_fill(int S, int N, const int* __restrict__ assign,
                         const int* __restrict__ offsets,
@@ -142,26 +155,28 @@ __global__ void k3_fill(int S, int N, const int* __restrict__ assign,
   perm[(size_t)c * S + pos] = s;
 }
 
-// one thread per (chain, node): sum the node's services, already in index
+// one thread per (row, node): sum the node's services, already in index
 // order, onto the base row
-__global__ void k3_load(int C, int S, int N, const int* __restrict__ offsets,
+__global__ void k3_load(int rows, int C, int S, int N,
+                        const int* __restrict__ offsets,
                         const int* __restrict__ perm,
                         const float* __restrict__ demand,
                         const float* __restrict__ load0, float* load) {
   const size_t step = grid_stride();
-  for (size_t i = grid_tid(); i < (size_t)C * N; i += step) {
+  for (size_t i = grid_tid(); i < (size_t)rows * N; i += step) {
     const int c = (int)(i / N), n = (int)(i % N);
     const int lo = offsets[(size_t)c * (N + 1) + n];
     const int hi = offsets[(size_t)c * (N + 1) + n + 1];
     const int* seg = perm + (size_t)c * S;
+    const float* dem = demand + (size_t)(c / C) * S * 3;  // the row's lane
     float l0 = load0 ? load0[n * 3 + 0] : 0.f;
     float l1 = load0 ? load0[n * 3 + 1] : 0.f;
     float l2 = load0 ? load0[n * 3 + 2] : 0.f;
     for (int x = lo; x < hi; ++x) {
       const int s = seg[x];
-      l0 = l0 + demand[(size_t)s * 3 + 0];
-      l1 = l1 + demand[(size_t)s * 3 + 1];
-      l2 = l2 + demand[(size_t)s * 3 + 2];
+      l0 = l0 + dem[(size_t)s * 3 + 0];
+      l1 = l1 + dem[(size_t)s * 3 + 1];
+      l2 = l2 + dem[(size_t)s * 3 + 2];
     }
     float* out = load + ((size_t)c * N + n) * 3;
     out[0] = l0;
@@ -170,8 +185,9 @@ __global__ void k3_load(int C, int S, int N, const int* __restrict__ offsets,
   }
 }
 
-// grid (blocks, C): per-chain counts of the three integer stats
-__global__ void k3_stats(int S, int N, int G, const float* __restrict__ load,
+// grid (blocks, L·C): per-row counts of the three integer stats
+__global__ void k3_stats(int C, int S, int N, int G,
+                         const float* __restrict__ load,
                          const float* __restrict__ cap,
                          const int* __restrict__ used,
                          const int* __restrict__ assign, const void* elig,
@@ -180,6 +196,10 @@ __global__ void k3_stats(int S, int N, int G, const float* __restrict__ load,
                          unsigned long long* acc) {
   __shared__ long long sm[32];
   const int c = blockIdx.y;
+  const size_t lane = c / C;
+  cap += lane * N * 3;
+  elig = static_cast<const char*>(elig) + lane * S * stride * (packed ? sizeof(int) : 1);
+  valid += lane * N;
   const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t step = (size_t)gridDim.x * blockDim.x;
   long long cells = 0, pairs = 0, bad = 0;
@@ -210,7 +230,7 @@ __global__ void k3_stats(int S, int N, int G, const float* __restrict__ load,
   }
 }
 
-// one block per chain: skew from the topology counts, then the five stats
+// one block per row: skew from the topology counts, then the five stats
 __global__ void k3_finalize(int T, const int* __restrict__ topo, int max_skew,
                             const unsigned long long* __restrict__ acc,
                             float* stats) {
@@ -247,41 +267,44 @@ __global__ void k3_finalize(int T, const int* __restrict__ topo, int max_skew,
 }  // namespace
 
 FF_EXPORT int ff_k3_rebuild(
-    const int* assign, int C, int S, int N, int G, int Gc1, int T,
+    const int* assign, int L, int C, int S, int N, int G, int Gc1, int T,
     const float* demand, const int* cids, int K, const int* colids, int Kc,
-    const int* ntopo, int n_real, const float* load0, const int* used0,
+    const int* ntopo, FFLanes lanes, const float* load0, const int* used0,
     const int* coloc0, const int* topo0, float* load, int* used, int* coloc,
     int* topo, const float* cap, const void* elig, int packed, int stride,
     const unsigned char* valid, int max_skew, float* stats, int* scratch,
     cudaStream_t stream) {
-  // scratch: acc (4 u64 per chain) | counts (C,N) | offsets (C,N+1) |
-  // perm (C,S) | chunk counts (C,chunks,N)
+  // the L·C rows of (lane, chain); scratch: acc (4 u64 per row) | counts
+  // (rows,N) | offsets (rows,N+1) | perm (rows,S) | chunk counts
+  // (rows,chunks,N)
+  if (L < 1 || L > FF_MAX_LANES) return static_cast<int>(cudaErrorInvalidValue);
+  const int R = L * C;
   const int n_chunks = (S + kChunk - 1) / kChunk;
   unsigned long long* acc = reinterpret_cast<unsigned long long*>(scratch);
-  int* counts = scratch + 8 * C;
-  int* offsets = counts + (size_t)C * N;
-  int* perm = offsets + (size_t)C * (N + 1);
-  int* ccount = perm + (size_t)C * S;
+  int* counts = scratch + 8 * R;
+  int* offsets = counts + (size_t)R * N;
+  int* perm = offsets + (size_t)R * (N + 1);
+  int* ccount = perm + (size_t)R * S;
   const int th = 256;
-  const long long big = (long long)C * N * (G > 3 ? G : 3);
+  const long long big = (long long)R * N * (G > 3 ? G : 3);
   k3_init<<<ff_blocks(big, th), th, 0, stream>>>(
-      C, N, G, Gc1, T, n_chunks, load0, used0, coloc0, topo0, load, used,
+      R, N, G, Gc1, T, n_chunks, load0, used0, coloc0, topo0, load, used,
       coloc, topo, ccount, acc);
-  const dim3 chunks(n_chunks, C);
-  k3_scatter<<<chunks, kChunk, 0, stream>>>(S, N, G, Gc1, T, assign, cids, K,
-                                           colids, Kc, ntopo, n_real, used,
+  const dim3 chunks(n_chunks, R);
+  k3_scatter<<<chunks, kChunk, 0, stream>>>(C, S, N, G, Gc1, T, assign, cids,
+                                           K, colids, Kc, ntopo, lanes, used,
                                            coloc, topo, ccount);
-  k3_chunk_scan<<<ff_blocks((long long)C * N, 128), 128, 0, stream>>>(
-      C, N, n_chunks, ccount, counts);
-  k3_scan<<<C, 1024, 0, stream>>>(N, counts, offsets);
+  k3_chunk_scan<<<ff_blocks((long long)R * N, 128), 128, 0, stream>>>(
+      R, N, n_chunks, ccount, counts);
+  k3_scan<<<R, 1024, 0, stream>>>(N, counts, offsets);
   k3_fill<<<chunks, kChunk, 0, stream>>>(S, N, assign, offsets, ccount, perm);
-  k3_load<<<ff_blocks((long long)C * N, 128), 128, 0, stream>>>(
-      C, S, N, offsets, perm, demand, load0, load);
+  k3_load<<<ff_blocks((long long)R * N, 128), 128, 0, stream>>>(
+      R, C, S, N, offsets, perm, demand, load0, load);
   if (stats != nullptr) {
-    dim3 grid(ff_blocks((long long)N * (G > 3 ? G : 3), th, 64), C);
-    k3_stats<<<grid, th, 0, stream>>>(S, N, G, load, cap, used, assign, elig,
-                                      packed, stride, valid, acc);
-    k3_finalize<<<C, 256, 0, stream>>>(T, topo, max_skew, acc, stats);
+    dim3 grid(ff_blocks((long long)N * (G > 3 ? G : 3), th, 64), R);
+    k3_stats<<<grid, th, 0, stream>>>(C, S, N, G, load, cap, used, assign,
+                                      elig, packed, stride, valid, acc);
+    k3_finalize<<<R, 256, 0, stream>>>(T, topo, max_skew, acc, stats);
   }
   return static_cast<int>(cudaGetLastError());
 }

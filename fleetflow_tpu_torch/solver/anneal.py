@@ -21,6 +21,12 @@ from the host, one launch per sweep and one host sync per block, where the
 reference ran ``lax.while_loop``/``lax.scan`` on the device. Chain ranking
 reads the carried state (plain PyTorch reductions); the winner's final
 stats are rebuilt from scratch by K3 (solver/kernels.py).
+
+The tenant multiplexer (solver/multiplex.py) stacks L same-tier problems on
+a leading lane axis: K1 and K2 then take lane-stacked states (L, C, ...)
+in one launch, and ``anneal_adaptive_lanes`` runs the adaptive loop of
+every lane at once, each lane exiting on its own. The solo anneal is its
+one-lane case.
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ __all__ = ["ChainState", "TRACE_COLS", "W_CAP", "W_CONF", "W_ELIG", "W_SKEW",
            "draw_proposals", "batched_step_apply", "batched_step_plain",
            "default_proposals_per_step",
            "backend_proposals_per_step", "anneal_states",
-           "anneal_adaptive_states", "solve_trace_blocks", "temperature"]
+           "anneal_adaptive_states", "anneal_adaptive_lanes",
+           "solve_trace_blocks", "temperature"]
 
 W_CAP = 1e3     # per-unit overflow mass (normalized units)
 W_CONF = 1e4    # per conflicting co-placement
@@ -79,13 +86,33 @@ class ChainState(NamedTuple):
         return ChainState(*(t.expand((chains,) + t.shape[1:]).clone()
                             for t in self))
 
+    # a lane-stacked state (the multiplexer) carries a leading (L,) axis:
+    # assignment (L, C, S), load (L, C, N, R), ...
+
+    def lane(self, i: int) -> "ChainState":
+        """Lane i of a lane-stacked state (views: updates land in it)."""
+        return ChainState(*(t[i] for t in self))
+
+    def as_lanes(self) -> "ChainState":
+        """A state as a lane-stacked state of one lane (views)."""
+        return ChainState(*(t.unsqueeze(0) for t in self))
+
+    def expand_lanes(self, chains: int) -> "ChainState":
+        """C copies of each lane's one-chain state (owned, not views)."""
+        return ChainState(*(t.expand((t.shape[0], chains) + t.shape[2:])
+                            .clone() for t in self))
+
 
 def chain_states_from_assignment(prob: TorchProblem, assignment: torch.Tensor,
                                  base: Optional[tuple] = None) -> ChainState:
     """The carried state of each chain of `assignment` ((C, S) or (S,)),
     rebuilt by K3; `base` is an optional frozen (load0, used0, coloc0,
-    topo0) remainder the rows accumulate onto."""
-    a = assignment[None] if assignment.dim() == 1 else assignment
+    topo0) remainder the rows accumulate onto. A lane-stacked problem
+    takes (L, C, S) or (L, S) and gives a lane-stacked state."""
+    if prob.lanes:
+        a = assignment[:, None] if assignment.dim() == 2 else assignment
+    else:
+        a = assignment[None] if assignment.dim() == 1 else assignment
     load, used, coloc, topo, _ = k3_rebuild(prob, a, base)
     return ChainState(a.to(torch.int32).clone(), load, used, coloc, topo)
 
@@ -94,7 +121,12 @@ def chain_states_from_assignment(prob: TorchProblem, assignment: torch.Tensor,
 
 def prerepair_plain(prob: TorchProblem, st: ChainState,
                     max_moves: int) -> tuple[ChainState, torch.Tensor]:
-    """Plain PyTorch version of K2; see :func:`prerepair_state_counted`."""
+    """Plain PyTorch version of K2; see :func:`prerepair_state_counted`. A
+    lane-stacked problem runs the solo version lane by lane."""
+    if prob.lanes:
+        moves = [prerepair_plain(prob.lane(i), st.lane(i), max_moves)[1]
+                 for i in range(prob.lanes)]
+        return st, torch.cat(moves)
     a = st.assignment[0]
     load, used, coloc, topo = st.load[0], st.used[0], st.coloc[0], st.topo[0]
     rows = torch.arange(prob.S, device=a.device)
@@ -149,25 +181,30 @@ def prerepair_state_counted(prob: TorchProblem, st: ChainState,
     conflicts, eligibility) or else the least-utilized eligible node; the
     first index wins ties. Updates the one-chain state `st` in place and
     returns (st, applied moves as a (1,) int32 device tensor); no host
-    sync."""
-    if st.assignment.shape[0] != 1:
+    sync. A lane-stacked problem takes a lane-stacked one-chain state
+    (L, 1, ...) and returns (L,) moves, one launch for all lanes."""
+    chains = st.assignment.shape[1 if prob.lanes else 0]
+    if chains != 1:
         raise ValueError("prerepair_state_counted takes a one-chain state")
     if st.assignment.device.type == "cpu":
         return prerepair_plain(prob, st, max_moves)
     dev = st.assignment.device
-    moves = torch.empty(1, dtype=torch.int32, device=dev)
-    scratch = torch.empty(prob.S + 1, dtype=torch.int32, device=dev)
-    _ext.check_inputs("prerepair_state_counted", *st, prob.demand, prob.capacity,
-                      prob.conflict_ids, prob.coloc_ids, prob.eligible,
-                      prob.node_valid, prob.node_topology)
+    L = prob.lanes or 1
+    moves = torch.empty(L, dtype=torch.int32, device=dev)
+    scratch = torch.empty(L * (prob.S + 1), dtype=torch.int32, device=dev)
+    n_real, _sticky = prob.lane_scalars()
+    _ext.check_inputs("prerepair_state_counted", *st, prob.demand,
+                      prob.capacity, prob.conflict_ids, prob.coloc_ids,
+                      prob.eligible, prob.node_valid, prob.node_topology,
+                      lanes=prob.lanes or None)
     _ext.launch(
         "k2_prerepair", "ff_k2_prerepair", dev,
-        prob.S, prob.N, prob.G, st.coloc.shape[2], prob.T,
+        L, prob.S, prob.N, prob.G, st.coloc.shape[-1], prob.T,
         prob.demand, prob.capacity,
-        prob.conflict_ids, prob.conflict_ids.shape[1],
-        prob.coloc_ids, prob.coloc_ids.shape[1],
-        prob.eligible, int(prob.eligible_packed), prob.eligible.shape[1],
-        prob.node_valid, prob.node_topology, prob.real_rows,
+        prob.conflict_ids, prob.conflict_ids.shape[-1],
+        prob.coloc_ids, prob.coloc_ids.shape[-1],
+        prob.eligible, int(prob.eligible_packed), prob.eligible.shape[-1],
+        prob.node_valid, prob.node_topology, _ext.lanes_arg(n_real),
         st.assignment, st.load, st.used, st.coloc, st.topo,
         int(max_moves), moves, scratch)
     return st, moves
@@ -377,8 +414,18 @@ def _proposal_delta(prob: TorchProblem, st: ChainState, s, a, b):
 
 def batched_step_plain(prob: TorchProblem, st: ChainState,
                        s_idx: torch.Tensor, b_idx: torch.Tensor,
-                       u: torch.Tensor, temp: float):
-    """Plain PyTorch version of K1; see :func:`batched_step_apply`."""
+                       u: torch.Tensor, temp, active=None):
+    """Plain PyTorch version of K1; see :func:`batched_step_apply`. A
+    lane-stacked problem runs the solo version on each active lane."""
+    if prob.lanes:
+        applied = torch.zeros(s_idx.shape[:2], dtype=torch.int32,
+                              device=s_idx.device)
+        for i in range(prob.lanes):
+            if active is None or active[i]:
+                applied[i] = batched_step_plain(
+                    prob.lane(i), st.lane(i), s_idx[i], b_idx[i], u[i],
+                    temp[i])[1]
+        return st, applied
     C, M = s_idx.shape
     S, N = prob.S, prob.N
     dev = s_idx.device
@@ -438,40 +485,59 @@ def batched_step_plain(prob: TorchProblem, st: ChainState,
 
 def batched_step_apply(prob: TorchProblem, st: ChainState,
                        s_idx: torch.Tensor, b_idx: torch.Tensor,
-                       u: torch.Tensor, temp: float):
+                       u: torch.Tensor, temp, active=None):
     """K1: one parallel-Metropolis sweep of every chain, given M proposals
     per chain (move service s_idx[c, m] to node b_idx[c, m], uniform draw
     u[c, m]). Deltas are evaluated against the pre-sweep state; a proposal
     is accepted when Δ<0 or u<exp(-Δ/T), the lowest accepted index wins per
     service and per target node, and the winners are applied to `st` in
     place (departures in proposal order, then arrivals). Returns (st, the
-    applied moves per chain as (C,) int32)."""
+    applied moves per chain as (C,) int32).
+
+    A lane-stacked problem (L lanes) takes the state (L, C, ...), the
+    proposals (L, C, M), one temperature per lane in `temp` and, in
+    `active`, which lanes sweep (None: all); an inactive lane is left
+    untouched and applies 0 moves. One launch for all lanes; returns (st,
+    applied (L, C))."""
     if s_idx.device.type == "cpu":
-        return batched_step_plain(prob, st, s_idx, b_idx, u, temp)
-    C, M = s_idx.shape
+        return batched_step_plain(prob, st, s_idx, b_idx, u, temp, active)
+    if prob.lanes:
+        L, C, M = s_idx.shape
+        temps = list(temp)
+    else:
+        (C, M), L, temps = s_idx.shape, 1, [temp]
+    lead = s_idx.shape[:-1]
     if (s_idx.dtype != torch.int32 or b_idx.dtype != torch.int32
-            or u.dtype != torch.float32 or b_idx.shape != (C, M)
-            or u.shape != (C, M) or st.assignment.shape[0] != C):
-        raise ValueError("batched_step_apply: proposals must be (C, M) i32, i32, f32 "
-                         "matching the chain count")
+            or u.dtype != torch.float32 or b_idx.shape != s_idx.shape
+            or u.shape != s_idx.shape or st.assignment.shape[:-1] != lead
+            or len(temps) != L):
+        raise ValueError("batched_step_apply: proposals must be (C, M) "
+                         "i32, i32, f32 ((L, C, M) with lanes) matching the "
+                         "chain count, with one temperature per lane")
     dev = s_idx.device
-    applied = torch.empty(C, dtype=torch.int32, device=dev)
-    _ext.check_inputs("batched_step_apply", *st, s_idx, b_idx, u, prob.demand,
-                      prob.capacity, prob.conflict_ids, prob.coloc_ids,
-                      prob.eligible, prob.node_valid, prob.node_topology)
+    # an inactive lane's blocks return before writing their count
+    alloc = torch.empty if active is None or all(active) else torch.zeros
+    applied = alloc(lead, dtype=torch.int32, device=dev)
+    n_real, sticky_w = prob.lane_scalars()
+    if prob.sticky_prev is None:
+        sticky_w = None
+    _ext.check_inputs("batched_step_apply", *st, s_idx, b_idx, u,
+                      prob.demand, prob.capacity, prob.conflict_ids,
+                      prob.coloc_ids, prob.eligible, prob.node_valid,
+                      prob.node_topology, prob.preferred, prob.sticky_prev,
+                      lanes=prob.lanes or None)
     _ext.launch(
         "k1_sweep", "ff_k1_sweep", dev,
-        C, prob.S, prob.N, prob.G, st.coloc.shape[2], st.topo.shape[1],
+        L, C, prob.S, prob.N, prob.G, st.coloc.shape[-1], st.topo.shape[-1],
         prob.demand, prob.capacity,
-        prob.conflict_ids, prob.conflict_ids.shape[1],
-        prob.coloc_ids, prob.coloc_ids.shape[1],
-        prob.eligible, int(prob.eligible_packed), prob.eligible.shape[1],
+        prob.conflict_ids, prob.conflict_ids.shape[-1],
+        prob.coloc_ids, prob.coloc_ids.shape[-1],
+        prob.eligible, int(prob.eligible_packed), prob.eligible.shape[-1],
         prob.node_valid, prob.node_topology, prob.preferred,
-        prob.sticky_prev,
-        float(prob.sticky_w) if prob.sticky_prev is not None else 0.0,
-        prob.strategy, prob.max_skew, prob.real_rows,
+        prob.sticky_prev, prob.strategy, prob.max_skew,
+        _ext.lanes_arg(n_real, sticky_w, temps, active),
         st.assignment, st.load, st.used, st.coloc, st.topo,
-        s_idx, b_idx, u, float(temp), M, applied)
+        s_idx, b_idx, u, M, applied)
     return st, applied
 
 
@@ -531,64 +597,140 @@ def anneal_adaptive_states(prob: TorchProblem, init_assignments: torch.Tensor,
     The exit check is the one host sync per block. `exit_on_feasible_init`
     (the resident warm path) skips even the first block when a chain
     starts feasible. `trace_blocks` > 0 records one TRACE_COLS row per
-    block, the first trace_blocks blocks only."""
+    block, the first trace_blocks blocks only. One lane of
+    :func:`anneal_adaptive_lanes`."""
     C, S = init_assignments.shape
     M = (proposals_per_step if proposals_per_step is not None
          else default_proposals_per_step(S))
-    n_blocks = -(-max_steps // block)
     states = (init_states if init_states is not None else
               chain_states_from_assignment(prob, init_assignments))
+    best, viol, soft, sweeps, accepted, telem = anneal_adaptive_lanes(
+        prob.as_lanes(), states.as_lanes(), [gen], [t0], [t1],
+        max_steps=max_steps, block=block, proposals_per_step=M,
+        exit_on_feasible_init=exit_on_feasible_init,
+        trace_blocks=trace_blocks)
+    return best[0], viol[0], soft[0], sweeps[0], accepted[0], telem[0]
 
-    def chain_scores(st):
-        return (state_violation_stats(prob, st)["total"],
-                state_soft_score(prob, st))
 
-    viol0, soft0 = chain_scores(states)
+def _stack(parts: list) -> torch.Tensor:
+    """torch.stack, as a view when there is one part."""
+    return parts[0].unsqueeze(0) if len(parts) == 1 else torch.stack(parts)
+
+
+def _lead_soft(best_viol: torch.Tensor, best_soft: torch.Tensor):
+    """(L,) best soft among each lane's least-violating chains."""
+    least = best_viol == best_viol.min(1, keepdim=True).values
+    return torch.where(least, best_soft,
+                       torch.full_like(best_soft, float("inf"))).min(1).values
+
+
+def anneal_adaptive_lanes(prob: TorchProblem, states: ChainState,
+                          gens: list, t0s: list, t1s: list, *,
+                          max_steps: int, block: int,
+                          proposals_per_step: int,
+                          exit_on_feasible_init: bool = False,
+                          trace_blocks: int = 0, live: Optional[list] = None):
+    """The adaptive anneal of L lanes of a lane-stacked problem at once
+    (the multiplexer's vmapped while_loop), from the lane-stacked state
+    `states` (L, C, ...), which it updates in place.
+
+    Each lane is the solo anneal of its own stage: it draws from its own
+    generator `gens[l]` in the solo order, runs its own schedule t0s[l] ->
+    t1s[l] and exits on its own. A lane that has exited stays frozen (K1
+    skips it, it draws nothing more), so its state, best-ever and sweep
+    count are exactly what the solo anneal leaves; lanes not in `live`
+    (the ladder's padding) never sweep. The carried scores are computed
+    lane by lane, in the solo layout, so their float sums are the solo
+    sums. One K1 launch a sweep for all lanes and one host sync a block,
+    on the (L,) "seen feasible" vector.
+
+    Returns (best (L, C, S), best_viol (L, C), best_soft (L, C), sweeps
+    [L ints], accepted (L, C), [L telemetry dicts]), each lane as
+    :func:`anneal_adaptive_states` returns it."""
+    L, C, S = states.assignment.shape
+    M = proposals_per_step
+    live = [True] * L if live is None else [bool(x) for x in live]
+    dev = states.assignment.device
+    views = [prob.lane(i) for i in range(L)]
+    n_blocks = -(-max_steps // block)
+    # what a lane that does not sweep contributes: proposals K1 ignores and
+    # scores that never improve its best (one lane always sweeps when the
+    # loop runs)
+    idle = idle_score = None
+    if L > 1:
+        idle = (torch.zeros((C, M), dtype=torch.int32, device=dev),
+                torch.zeros((C, M), dtype=torch.int32, device=dev),
+                torch.zeros((C, M), dtype=torch.float32, device=dev))
+        idle_score = torch.full((C,), float("inf"), device=dev)
+
+    def lane_scores(i):
+        st = states.lane(i)
+        return (state_violation_stats(views[i], st)["total"],
+                state_soft_score(views[i], st))
+
+    def scores(active):
+        per = [lane_scores(i) if active[i] else (idle_score, idle_score)
+               for i in range(L)]
+        return _stack([v for v, _ in per]), _stack([f for _, f in per])
+
+    viol0, soft0 = scores(live)
     best_assign = states.assignment.clone()
     best_viol, best_soft = viol0.clone(), soft0.clone()
-    seen = viol0.min() == 0
-    accepted = torch.zeros(C, dtype=torch.int32, device=best_assign.device)
-    rows = []
-
-    def lead_soft(bv, bs):
-        return torch.where(bv == bv.min(), bs,
-                           torch.full_like(bs, float("inf"))).min()
-
-    done = bool(seen) if exit_on_feasible_init else False
+    seen = viol0.min(1).values == 0
+    accepted = torch.zeros((L, C), dtype=torch.int32, device=dev)
+    rows: list = [[] for _ in range(L)]
+    ran = [0] * L
+    done = seen.tolist() if exit_on_feasible_init else [False] * L
+    active = [live[i] and not done[i] for i in range(L)]
     b = 0
-    while not done and b < n_blocks:
+    while any(active) and b < n_blocks:
         for j in range(block):
-            temp = temperature(t0, t1, max_steps, b * block + j)
-            s_idx, b_idx, u = draw_proposals(prob, states, gen, M)
+            sweep = b * block + j
+            temps = [temperature(t0s[i], t1s[i], max_steps, sweep)
+                     for i in range(L)]
+            draws = [draw_proposals(views[i], states.lane(i), gens[i], M)
+                     if active[i] else idle for i in range(L)]
+            s_idx, b_idx, u = (_stack([d[k] for d in draws])
+                               for k in range(3))
             _, applied = batched_step_apply(prob, states, s_idx, b_idx, u,
-                                            temp)
+                                            temps, active)
             accepted += applied
-            viol, soft = chain_scores(states)
+            viol, soft = scores(active)
             # lexicographic (violations, soft): feasibility dominates and
             # soft stays a full-precision tie-break
             better = (viol < best_viol) | ((viol == best_viol)
                                            & (soft < best_soft))
             best_viol = torch.where(better, viol, best_viol)
             best_soft = torch.where(better, soft, best_soft)
-            best_assign = torch.where(better[:, None], states.assignment,
+            best_assign = torch.where(better[..., None], states.assignment,
                                       best_assign)
-            seen = seen | (viol.min() == 0)
+            seen = seen | (viol.min(1).values == 0)
         if b < trace_blocks:
             # host numbers stay on the host; the device half of the row is
             # read once, after the loop (no extra sync, no upload)
             end = (b + 1) * block
-            rows.append((float(end), temperature(t0, t1, max_steps, end - 1),
-                         torch.stack([best_viol.min(),
-                                      lead_soft(best_viol, best_soft),
-                                      viol.min(),
-                                      accepted.sum().to(torch.float32)])))
+            dev_rows = torch.stack([best_viol.min(1).values,
+                                    _lead_soft(best_viol, best_soft),
+                                    viol.min(1).values,
+                                    accepted.sum(1).to(torch.float32)], 1)
+            for i in range(L):
+                if active[i]:
+                    rows[i].append((float(end), temperature(
+                        t0s[i], t1s[i], max_steps, end - 1), dev_rows[i]))
         b += 1
-        done = bool(seen)
-    telemetry = {
+        seen_h = seen.tolist()
+        for i in range(L):
+            if active[i]:
+                ran[i] += 1
+                active[i] = not seen_h[i]
+    init_v = viol0.min(1).values
+    init_s = _lead_soft(viol0, soft0)
+    telemetry = [{
         # [(sweep, temperature, device (best_violations, best_soft,
         #   live_violations, accepted))] per recorded block
-        "blocks": rows,
-        "init_violations": viol0.min(),
-        "init_soft": lead_soft(viol0, soft0),
-    }
-    return best_assign, best_viol, best_soft, b * block, accepted, telemetry
+        "blocks": rows[i],
+        "init_violations": init_v[i],
+        "init_soft": init_s[i],
+    } for i in range(L)]
+    return (best_assign, best_viol, best_soft, [r * block for r in ran],
+            accepted, telemetry)

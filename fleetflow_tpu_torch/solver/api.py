@@ -14,9 +14,11 @@ problem padded onto its tier ladder (phantom rows, solver/buckets.py) and
 reports the real rows only. A resident warm solve first tries the
 churn-localized sub-solve (solver/subsolve.py: K5 gather, K3/K2/K1 over the
 mini tier, K5 commit, K3 gate on the full problem) and falls back to the
-full path above when there is no plan or the gate rejects its result. The
-multiplexer and the mesh are not ported; the seed is always the batched
-greedy (K4).
+full path above when there is no plan or the gate rejects its result.
+``_refine_lanes`` runs the full path's refine over a lane axis of same-tier
+stages at once (the tenant multiplexer, solver/multiplex.py); a solo solve
+is its one-lane case. The mesh is not ported; the seed is always the
+batched greedy (K4).
 """
 
 from __future__ import annotations
@@ -32,14 +34,16 @@ import torch
 from ..device import resolve_device
 from ..lower.tensors import ProblemTensors
 from . import subsolve as _sub
-from .anneal import (TRACE_COLS, anneal_adaptive_states, anneal_states,
-                     backend_proposals_per_step, chain_states_from_assignment,
-                     prerepair_state_counted, solve_trace_blocks,
-                     state_soft_score, state_violation_stats)
+from .anneal import (TRACE_COLS, anneal_adaptive_lanes,
+                     anneal_states, backend_proposals_per_step,
+                     chain_states_from_assignment, prerepair_state_counted,
+                     solve_trace_blocks, state_soft_score,
+                     state_violation_stats)
 from .buckets import (_env_flag, bucket_config, pad_assignment,
                       pad_problem_tiers, stage_problem_tiers)
 from .greedy import greedy_place_batched, placement_order
-from .kernels import STAT_KEYS, exact_stats_and_soft, soft_score
+from .kernels import (STAT_KEYS, exact_stats_and_soft, k3_rebuild,
+                      soft_from_planes, soft_score)
 from .problem import TorchProblem, prepare_problem, unify_conflict_ids
 from .repair import RepairResult, repair, soft_score_host, verify
 from .resident import ResidentProblem
@@ -116,60 +120,133 @@ def _refine(prob: TorchProblem, seed_assignment: torch.Tensor,
     """Everything after the seed, on the device: stickiness, fused
     pre-repair, chain fan-out, anneal, chain pick and the exact gate.
     Returns (winner (S,) i32, stats dict of 0-dim tensors, soft 0-dim,
-    sweeps_run int, accepted 0-dim, telemetry dict)."""
-    if warm:
-        # staying on the previous still-eligible node earns
-        # migration_weight; churn-forced moves stay free
-        prob_a = dataclasses.replace(prob, sticky_prev=seed_assignment,
-                                     sticky_w=float(migration_weight))
-    else:
-        prob_a = prob
+    sweeps_run int, accepted 0-dim, telemetry dict). The adaptive anneal
+    is one lane of :func:`_refine_lanes`."""
+    if adaptive:
+        winners, stats, soft, sweeps, accepted, telem = _refine_lanes(
+            prob.as_lanes(), seed_assignment[None], [gen], [t0], [t1],
+            [migration_weight], chains=chains, steps=steps, warm=warm,
+            anneal_block=anneal_block,
+            proposals_per_step=proposals_per_step,
+            fused_prerepair=fused_prerepair,
+            prerepair_moves=prerepair_moves,
+            skip_feasible_polish=skip_feasible_polish,
+            trace_blocks=trace_blocks)
+        return (winners[0], {k: v[0] for k, v in stats.items()}, soft[0],
+                sweeps[0], accepted[0], telem[0])
+    # the fixed-budget anneal: `steps` sweeps, each chain's final state
+    prob_a = (dataclasses.replace(prob, sticky_prev=seed_assignment,
+                                  sticky_w=float(migration_weight))
+              if warm else prob)
     dev = seed_assignment.device
-    init_states = None
     prerepair_applied = torch.zeros(1, dtype=torch.int32, device=dev)
     if fused_prerepair:
         st0 = chain_states_from_assignment(prob_a, seed_assignment)
         st0, prerepair_applied = prerepair_state_counted(
             prob_a, st0, prerepair_moves)
         seed_assignment = st0.assignment[0]
-        # warm chains start from the repaired state itself
-        init_states = st0.expand(chains)
     inits = make_chain_inits(prob_a, seed_assignment, chains, gen,
                              perturb_frac=0.0 if warm else 0.08)
-    telem: dict = {}
-    if adaptive:
-        (best_c, viol_c, soft_c, sweeps_run, accepted_c,
-         telem) = anneal_adaptive_states(
-            prob_a, inits, gen, max_steps=steps, block=anneal_block,
-            t0=t0, t1=t1, proposals_per_step=proposals_per_step,
-            init_states=init_states,
-            exit_on_feasible_init=skip_feasible_polish,
-            trace_blocks=trace_blocks)
-        accepted = accepted_c.sum()
-    else:
-        states = anneal_states(prob_a, inits, gen, steps=steps, t0=t0, t1=t1,
-                               proposals_per_step=proposals_per_step)
-        sweeps_run = steps
-        accepted = torch.full((), -1, dtype=torch.int32, device=dev)
-        best_c = states.assignment
-        viol_c = state_violation_stats(prob_a, states)["total"]
-        soft_c = state_soft_score(prob_a, states)
-    # lexicographic (violations, soft): among the least-violating chains
-    # the best soft wins
+    states = anneal_states(prob_a, inits, gen, steps=steps, t0=t0, t1=t1,
+                           proposals_per_step=proposals_per_step)
+    viol_c = state_violation_stats(prob_a, states)["total"]
+    soft_c = state_soft_score(prob_a, states)
     best = torch.argmin(torch.where(viol_c == viol_c.min(), soft_c,
                                     torch.full_like(soft_c, float("inf"))))
-    winner = best_c[best]
-    # a warm exit before any sweep applied nothing: the carried state IS the
-    # prologue's scratch-built state, so a feasible count there is exact
-    if (adaptive and skip_feasible_polish and sweeps_run == 0
-            and bool(viol_c[best] == 0)):
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
-        stats = {k: zero for k in STAT_KEYS}
-        soft = soft_c[best]
+    winner = states.assignment[best]
+    stats, soft = exact_stats_and_soft(prob, winner)
+    accepted = torch.full((), -1, dtype=torch.int32, device=dev)
+    return winner, stats, soft, steps, accepted, {
+        "prerepair_moves": prerepair_applied[0], "best_chain": best}
+
+
+def _refine_lanes(prob: TorchProblem, seeds: torch.Tensor, gens: list,
+                  t0s: list, t1s: list, mws: list, *, chains: int,
+                  steps: int, warm: bool, anneal_block: int,
+                  proposals_per_step: int, fused_prerepair: bool,
+                  prerepair_moves: int, skip_feasible_polish: bool,
+                  trace_blocks: int, live: Optional[list] = None):
+    """The adaptive :func:`_refine` over a leading lane axis: the
+    multiplexer's dispatch (the reference vmaps ``_refine`` over K
+    same-tier lanes, ``multiplex._mux_refine``). `prob` is lane-stacked
+    (L lanes), `seeds` (L, S); `gens`, `t0s`, `t1s` and `mws` (the
+    migration weights) hold one entry per lane. Each step runs for every
+    lane at once: the K3 rebuild, K2, the chain fan-out, the adaptive
+    anneal with per-lane exit (K1), the chain pick and the K3 gate; each
+    lane's result equals the solo refine of its stage with its generator.
+    Lanes not in `live` (the ladder's padding) never sweep and are not
+    gated. Returns (winners (L, S), stats dict of (L,) tensors, soft (L,),
+    sweeps [L ints], accepted (L,), [L telemetry dicts])."""
+    L, S = seeds.shape
+    live = [True] * L if live is None else [bool(x) for x in live]
+    if warm:
+        # staying on the previous still-eligible node earns the lane's
+        # migration weight; churn-forced moves stay free
+        prob_a = dataclasses.replace(
+            prob, sticky_prev=seeds, sticky_w=tuple(float(w) for w in mws))
     else:
-        stats, soft = exact_stats_and_soft(prob, winner)
-    telem = dict(telem, prerepair_moves=prerepair_applied[0], best_chain=best)
-    return winner, stats, soft, sweeps_run, accepted, telem
+        prob_a = prob
+    dev = seeds.device
+    init_states = None
+    prerepair_applied = torch.zeros(L, dtype=torch.int32, device=dev)
+    if fused_prerepair:
+        st0 = chain_states_from_assignment(prob_a, seeds)
+        st0, prerepair_applied = prerepair_state_counted(
+            prob_a, st0, prerepair_moves)
+        seeds = st0.assignment[:, 0]
+        # warm chains start from the repaired state itself
+        init_states = st0.expand_lanes(chains)
+    # each lane draws its chain starts from its own generator, first, as
+    # the solo refine does (a fused prologue's chains start from the
+    # repaired state, but the draws still advance the generator)
+    inits = [make_chain_inits(prob_a.lane(i), seeds[i], chains, gens[i],
+                              perturb_frac=0.0 if warm else 0.08)
+             if live[i] else seeds[i].expand(chains, S) for i in range(L)]
+    if init_states is None:
+        init_states = chain_states_from_assignment(
+            prob_a, torch.stack(inits) if L > 1 else inits[0][None])
+    best_c, viol_c, soft_c, sweeps, accepted_c, telems = \
+        anneal_adaptive_lanes(
+            prob_a, init_states, gens, t0s, t1s, max_steps=steps,
+            block=anneal_block, proposals_per_step=proposals_per_step,
+            exit_on_feasible_init=skip_feasible_polish,
+            trace_blocks=trace_blocks, live=live)
+    # lexicographic (violations, soft): among each lane's least-violating
+    # chains the best soft wins
+    least = viol_c == viol_c.min(1, keepdim=True).values
+    best = torch.argmin(torch.where(least, soft_c,
+                                    torch.full_like(soft_c, float("inf"))),
+                        dim=1)
+    winners = torch.gather(best_c, 1,
+                           best[:, None, None].expand(L, 1, S))[:, 0]
+    soft_pick = torch.gather(soft_c, 1, best[:, None])[:, 0]
+    # a warm exit before any sweep applied nothing: the carried state IS
+    # the prologue's scratch-built state, so a feasible count there is
+    # exact (the trusted 0-sweep exit, lane by lane)
+    exited = [skip_feasible_polish and live[i] and sweeps[i] == 0
+              for i in range(L)]
+    trusted = exited
+    if any(exited):
+        picked = torch.gather(viol_c, 1, best[:, None])[:, 0] == 0
+        trusted = [e and f for e, f in zip(exited, picked.tolist())]
+    gated = [live[i] and not trusted[i] for i in range(L)]
+    zero = torch.zeros(len(STAT_KEYS), dtype=torch.float32, device=dev)
+    stat_rows = [zero] * L
+    softs = [soft_pick[i] for i in range(L)]
+    if any(gated):
+        # the exact gate of every lane in one K3 launch (no stickiness)
+        load, _used, coloc, _topo, gstats = k3_rebuild(prob, winners,
+                                                       with_stats=True)
+        for i in range(L):
+            if gated[i]:
+                stat_rows[i] = gstats[i, 0]
+                softs[i] = soft_from_planes(prob.lane(i), winners[i],
+                                            load[i], coloc[i])[0]
+    stats = torch.stack(stat_rows)
+    telems = [dict(t, prerepair_moves=prerepair_applied[i],
+                   best_chain=best[i]) for i, t in enumerate(telems)]
+    return (winners, {k: stats[:, j] for j, k in enumerate(STAT_KEYS)},
+            torch.stack(softs), sweeps, accepted_c.sum(1), telems)
 
 
 def solve(pt: ProblemTensors, *, device=None,
@@ -365,7 +442,8 @@ def solve(pt: ProblemTensors, *, device=None,
             rr: RepairResult = repair(pt, assignment)
             assignment, stats, moves = rr.assignment, rr.stats, rr.moves
             if resident is not None and moves:
-                resident.adopt_host(assignment, pt.node_valid)
+                resident.adopt_host(assignment, pt.node_valid,
+                                    warm=resident_warm)
             if not bucketed:
                 soft = float(soft_score(prob, torch.tensor(assignment,
                                                            device=dev)))

@@ -77,9 +77,21 @@ def _batched(assignment: torch.Tensor) -> torch.Tensor:
     return assignment[None] if assignment.dim() == 1 else assignment
 
 
+def _lane_batched(assignment: torch.Tensor) -> torch.Tensor:
+    """(L, C, S) from a lane-stacked (L, S) or (L, C, S) assignment."""
+    return assignment[:, None] if assignment.dim() == 2 else assignment
+
+
 def k3_rebuild_plain(prob: TorchProblem, assignment: torch.Tensor,
                      base: Optional[tuple] = None, with_stats: bool = False):
-    """Plain PyTorch version of K3; see :func:`k3_rebuild`."""
+    """Plain PyTorch version of K3; see :func:`k3_rebuild`. A lane-stacked
+    problem runs the solo version lane by lane."""
+    if prob.lanes:
+        a = _lane_batched(assignment)
+        outs = [k3_rebuild_plain(prob.lane(i), a[i], base, with_stats)
+                for i in range(prob.lanes)]
+        return tuple(None if parts[0] is None else torch.stack(parts)
+                     for parts in zip(*outs))
     a = _batched(assignment).long()
     C, S = a.shape
     N, R, T = prob.N, prob.demand.shape[1], prob.T
@@ -148,45 +160,57 @@ def k3_rebuild(prob: TorchProblem, assignment: torch.Tensor,
     or (S,) i32. `base` = (load0 (N,R), used0 (N,G), coloc0 (N,Gc),
     topo0 (T,)) is a frozen remainder the rows accumulate onto. Returns
     (load (C,N,R) f32, used (C,N,G) i32, coloc (C,N,max(Gc,1)) i32,
-    topo (C,T) i32, stats (C,5) f32 or None)."""
+    topo (C,T) i32, stats (C,5) f32 or None).
+
+    A lane-stacked problem (L lanes) takes (L, C, S) or (L, S) and returns
+    every output with a leading (L,) axis, one launch for all lanes; the
+    base, if any, is shared by every lane."""
     if assignment.device.type == "cpu":
         return k3_rebuild_plain(prob, assignment, base, with_stats)
-    a = _batched(assignment).contiguous()
+    if prob.lanes:
+        a = _lane_batched(assignment).contiguous()
+        lead = (prob.lanes,)
+    else:
+        a = _batched(assignment).contiguous()[None]
+        lead = ()
     if a.dtype != torch.int32:
         raise ValueError("k3_rebuild: assignment must be int32")
-    C, S = a.shape
-    if S != prob.S or prob.demand.shape[1] != 3:
+    L, C, S = a.shape
+    if S != prob.S or prob.demand.shape[-1] != 3:
         raise ValueError(f"k3_rebuild: assignment {tuple(a.shape)} does not "
                          f"match S={prob.S}, R=3")
     N, T, G, Gc1 = prob.N, prob.T, prob.G, max(prob.Gc, 1)
     dev = a.device
-    load = torch.empty((C, N, 3), dtype=torch.float32, device=dev)
-    used = torch.empty((C, N, G), dtype=torch.int32, device=dev)
-    coloc = torch.empty((C, N, Gc1), dtype=torch.int32, device=dev)
-    topo = torch.empty((C, T), dtype=torch.int32, device=dev)
-    stats = (torch.empty((C, 5), dtype=torch.float32, device=dev)
+    load = torch.empty(lead + (C, N, 3), dtype=torch.float32, device=dev)
+    used = torch.empty(lead + (C, N, G), dtype=torch.int32, device=dev)
+    coloc = torch.empty(lead + (C, N, Gc1), dtype=torch.int32, device=dev)
+    topo = torch.empty(lead + (C, T), dtype=torch.int32, device=dev)
+    stats = (torch.empty(lead + (C, 5), dtype=torch.float32, device=dev)
              if with_stats else None)
-    # 8 acc + counts (C,N) + offsets (C,N+1) + perm (C,S) + per-chunk node
-    # counts (C, ceil(S/256), N) of the stable counting sort
+    # per row of the L·C rows: 8 acc + counts (N) + offsets (N+1) + perm
+    # (S) + per-chunk node counts (ceil(S/256), N) of the stable counting
+    # sort
+    R = L * C
     chunks = -(-S // 256)
-    scratch = torch.empty(8 * C + C * (2 * N + 1 + S) + C * chunks * N,
+    scratch = torch.empty(8 * R + R * (2 * N + 1 + S) + R * chunks * N,
                           dtype=torch.int32, device=dev)
     load0, used0, coloc0, topo0 = base if base is not None else (None,) * 4
-    tensors = [a, prob.demand, prob.conflict_ids, prob.coloc_ids,
-               prob.node_topology, prob.capacity, prob.eligible,
-               prob.node_valid]
-    tensors += [t for t in (load0, used0, coloc0, topo0) if t is not None]
-    _ext.check_inputs("k3_rebuild", *tensors)
+    n_real, _sticky = prob.lane_scalars()
+    _ext.check_inputs("k3_rebuild", a, prob.demand, prob.conflict_ids,
+                      prob.coloc_ids, prob.node_topology, prob.capacity,
+                      prob.eligible, prob.node_valid,
+                      lanes=prob.lanes or None)
+    _ext.check_inputs("k3_rebuild", a, load0, used0, coloc0, topo0)
     _ext.launch(
         "k3_rebuild", "ff_k3_rebuild", dev,
-        a, C, S, N, G, Gc1, T,
-        prob.demand, prob.conflict_ids, prob.conflict_ids.shape[1],
-        prob.coloc_ids, prob.coloc_ids.shape[1], prob.node_topology,
-        prob.real_rows,
+        a, L, C, S, N, G, Gc1, T,
+        prob.demand, prob.conflict_ids, prob.conflict_ids.shape[-1],
+        prob.coloc_ids, prob.coloc_ids.shape[-1], prob.node_topology,
+        _ext.lanes_arg(n_real),
         load0, used0, coloc0, topo0,
         load, used, coloc, topo,
         prob.capacity, prob.eligible, int(prob.eligible_packed),
-        prob.eligible.shape[1], prob.node_valid, prob.max_skew,
+        prob.eligible.shape[-1], prob.node_valid, prob.max_skew,
         stats, scratch)
     return load, used, coloc, topo, stats
 

@@ -18,6 +18,7 @@ dense (S, N) bool layout.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -28,10 +29,10 @@ import torch
 from ..core.model import PlacementStrategy
 from ..lower.tensors import ProblemTensors
 
-__all__ = ["TorchProblem", "STRATEGY_CODES", "PLANE_PACK", "packed_width",
-           "packed_enabled", "pack_bool_rows", "eligible_lookup",
-           "eligible_row", "eligible_rows", "prepare_problem",
-           "unify_conflict_ids"]
+__all__ = ["TorchProblem", "TENSOR_FIELDS", "STRATEGY_CODES", "PLANE_PACK",
+           "packed_width", "packed_enabled", "pack_bool_rows",
+           "eligible_lookup", "eligible_row", "eligible_rows",
+           "prepare_problem", "unify_conflict_ids"]
 
 STRATEGY_CODES = {
     PlacementStrategy.SPREAD_ACROSS_POOL: 0,
@@ -103,6 +104,12 @@ def eligible_rows(eligible: torch.Tensor, svc: torch.Tensor,
     return eligible_lookup(eligible, svc[:, None], cols[None, :])
 
 
+# the tensor fields of a TorchProblem (the optional ones may be None)
+TENSOR_FIELDS = ("demand", "capacity", "conflict_ids", "coloc_ids",
+                 "eligible", "node_valid", "node_topology", "preferred",
+                 "sticky_prev")
+
+
 @dataclass
 class TorchProblem:
     """The staged problem: tensors on one device plus host statics (the
@@ -134,10 +141,47 @@ class TorchProblem:
     # kernel as a launch argument, so it never needs a device copy.
     sticky_prev: Optional[torch.Tensor] = None
     sticky_w: Optional[float] = None
+    # lane-stacked problem (the tenant multiplexer, solver/multiplex.py):
+    # 0 for one problem; L when every tensor above carries a leading (L,)
+    # lane axis. The statics are then shared (lanes of one tier) and
+    # n_real / sticky_w are per-lane tuples (every n_real set).
+    lanes: int = 0
 
     @property
     def device(self) -> torch.device:
         return self.demand.device
+
+    def tensors(self) -> list[Optional[torch.Tensor]]:
+        """The problem's tensors, in a fixed order (None where absent)."""
+        return [getattr(self, name) for name in TENSOR_FIELDS]
+
+    def lane(self, i: int) -> "TorchProblem":
+        """Lane i of a lane-stacked problem, as one problem of views."""
+        if not self.lanes:
+            raise ValueError("lane() of a problem that is not lane-stacked")
+        views = {name: None if t is None else t[i]
+                 for name, t in zip(TENSOR_FIELDS, self.tensors())}
+        return dataclasses.replace(
+            self, **views, lanes=0, n_real=self.n_real[i],
+            sticky_w=None if self.sticky_w is None else self.sticky_w[i])
+
+    def as_lanes(self) -> "TorchProblem":
+        """One problem as a lane-stacked problem of one lane (views)."""
+        if self.lanes:
+            return self
+        views = {name: None if t is None else t.unsqueeze(0)
+                 for name, t in zip(TENSOR_FIELDS, self.tensors())}
+        return dataclasses.replace(
+            self, **views, lanes=1, n_real=(self.real_rows,),
+            sticky_w=None if self.sticky_w is None else (self.sticky_w,))
+
+    def lane_scalars(self) -> tuple[list[int], Optional[list[float]]]:
+        """(n_real, sticky_w) of each lane; one lane for one problem."""
+        if self.lanes:
+            return (list(self.n_real),
+                    None if self.sticky_w is None else list(self.sticky_w))
+        return ([self.real_rows],
+                None if self.sticky_w is None else [self.sticky_w])
 
     @property
     def eligible_packed(self) -> bool:

@@ -42,7 +42,14 @@ from .buckets import (BucketConfig, bucket_config, bucket_size,
                       pad_assignment, stage_problem_tiers)
 from .problem import TorchProblem, pack_bool_rows, prepare_problem
 
-__all__ = ["ProblemDelta", "ResidentProblem"]
+__all__ = ["ProblemDelta", "ResidentProblem", "HOST_TRANSFERS"]
+
+# warm solves whose problem or seed had to cross the host boundary where
+# the reference's disallow transfer guard would have fired: a host-repaired
+# winner re-uploaded on the warm path, or a warm request that had to
+# cold-stage (the reference's fleet_solver_host_transfers_total; the
+# metrics registry is not ported yet)
+HOST_TRANSFERS = {"count": 0}
 
 
 @dataclass
@@ -309,14 +316,60 @@ class ResidentProblem:
         seed."""
         self.assignment = assignment
 
-    def adopt_host(self, assignment: np.ndarray, node_valid) -> None:
+    def adopt_host(self, assignment: np.ndarray, node_valid, *,
+                   warm: bool = True) -> None:
         """Host repair rewrote the winner: upload it, phantoms parked on the
         first valid node, as the warm seed (a counted host-to-device copy)
-        and as the sub-solve mirror."""
+        and as the sub-solve mirror. On the warm path that upload is a
+        host transfer (``HOST_TRANSFERS``); a re-admission after eviction
+        (`warm=False`) is staging."""
         padded = pad_assignment(np.asarray(assignment, dtype=np.int32),
                                 self.prob.S, np.asarray(node_valid))
         self.assignment = self.upload(padded, torch.int32)
         self._mirror = padded.copy()
+        if warm:
+            HOST_TRANSFERS["count"] += 1
+
+    def record_warm_fallback(self) -> None:
+        """A warm attempt had to cold-stage: problem tensors crossed the
+        host boundary."""
+        HOST_TRANSFERS["count"] += 1
+
+    # -- slot manager hooks (sched/gpu.py) -----------------------------------
+
+    def eviction_snapshot(self) -> Optional[tuple[np.ndarray, bool]]:
+        """The host snapshot the slot manager keeps when it evicts this
+        staging: a copy of the committed PADDED assignment mirror and its
+        feasibility (padded, so a re-admission's ``adopt_host`` restores
+        the exact device seed, phantom parking included). No device read:
+        the mirror rode the last solve's fetch. None before the first
+        committed solve."""
+        if self._mirror is None:
+            return None
+        return np.array(self._mirror, copy=True), bool(self._mirror_feasible)
+
+    def device_nbytes(self) -> int:
+        """The staging's device footprint: numel x element size of every
+        staged problem tensor (packed eligibility words at their int32
+        width) plus the (S,) int32 committed assignment, counted from the
+        staging on (before the first solve adopts one), so a slot is
+        budgeted at its full size when it is admitted. The slot manager's
+        byte budget counts this. A walk of tensor shapes, no device
+        sync."""
+        if self.prob is None:
+            return 0
+        return int(sum(t.numel() * t.element_size()
+                       for t in self.prob.tensors() if t is not None)
+                   + 4 * self.prob.S)
+
+    def release(self) -> None:
+        """Drop every device tensor of the staging (the slot manager's
+        eviction), so the card's memory is freed even while a caller still
+        holds this object. It cannot solve again."""
+        self.prob = None
+        self.assignment = None
+        self.pt = None
+        self._index = None
 
     # -- active-set sub-solve hooks (solver/subsolve.py) -------------------
 

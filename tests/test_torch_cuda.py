@@ -2,8 +2,10 @@
 the card, at small sizes, over the branches chip_smoke.py's headline
 instance does not reach: pack and fill_lowest strategies, a preference
 plane, the dense eligibility layout, a spread constraint, phantom rows,
-stickiness, a frozen base; and K5, the sub-solve's gather and commit, at
-the 10k x 1k headline size with mini tiers of 256 and 4096 rows.
+stickiness, a frozen base, the lane axis of K1-K3 (1, 3 and 16 lanes, an
+inactive lane) and a place_many batch; and K5, the sub-solve's gather and
+commit, at the 10k x 1k headline size with mini tiers of 256 and 4096
+rows.
 
 Every test needs a CUDA card and skips without one. On the card (which has
 no JAX, so the repository's conftest cannot load):
@@ -67,10 +69,19 @@ def _problem(dev, S=600, N=80, seed=0, strategy="spread_across_pool",
     return pt, prob
 
 
-def _equal_states(a, b):
+def _equal_states(a, b, scale_atol: bool = False):
+    """Equal integer planes; loads within LOAD_RTOL of each value or, with
+    `scale_atol`, of the plane's largest load (the lane tests: over many
+    chains a node loses most of its services in one sweep, and the two
+    float orders leave different residues of the cancelled sum)."""
     for name in ("assignment", "used", "coloc", "topo"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
-    assert torch.allclose(a.load, b.load, rtol=LOAD_RTOL, atol=0)
+    atol = LOAD_RTOL * float(b.load.abs().max()) if scale_atol else 0.0
+    close = torch.isclose(a.load, b.load, rtol=LOAD_RTOL, atol=atol)
+    assert bool(close.all()), (
+        f"{int((~close).sum())} loads differ: "
+        f"{a.load[~close][:4].tolist()} vs {b.load[~close][:4].tolist()}, "
+        f"plane max {float(b.load.abs().max())}")
 
 
 @pytest.mark.parametrize("packed", [True, False])
@@ -301,3 +312,154 @@ def test_k5_wrappers_raise_on_bad_input(dev, headline):
                            torch.zeros(2, device=dev),
                            torch.zeros(2, device=dev),
                            torch.zeros(16, dtype=torch.int32, device=dev), a)
+
+
+# -- the lane axis of K1-K3 (the tenant multiplexer) ------------------------
+
+def _lanes(dev, L, S=500, N=64, seed=0):
+    """A lane-stacked problem of L lanes of one tier: one fleet with each
+    lane's own node losses, demand scale, phantom count (n_real) and
+    stickiness bonus, and each lane's solo problem."""
+    from fleetflow_tpu_torch.solver.multiplex import stack_problems
+    _pt, base = _problem(dev, S=S, N=N, seed=seed, skew=2)
+    rng = np.random.default_rng(seed)
+    solo = []
+    for i in range(L):
+        valid = base.node_valid.clone()
+        valid[torch.tensor(rng.choice(N, 1 + i % 4, replace=False),
+                           device=dev)] = False
+        solo.append(dataclasses.replace(
+            base, node_valid=valid, demand=base.demand * (1.0 + 0.05 * i),
+            n_real=S - 7 * i,
+            sticky_prev=torch.tensor(rng.integers(0, N, S), dtype=torch.int32,
+                                     device=dev),
+            sticky_w=0.25 + 0.125 * i))
+    return stack_problems(solo), solo
+
+
+def _lane_assignments(dev, prob, C, seed):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.integers(0, prob.N, (prob.lanes, C, prob.S)),
+                        dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("L", [3, 16])
+def test_lane_k3_matches_plain(dev, L):
+    prob, _solo = _lanes(dev, L)
+    a = _lane_assignments(dev, prob, 2, 5)
+    a[0, 1, : prob.S // 3] = 0
+    before = _ext.LAUNCHES["k3_rebuild"]
+    out = kernels.k3_rebuild(prob, a, with_stats=True)
+    ref = kernels.k3_rebuild_plain(prob, a, with_stats=True)
+    assert _ext.LAUNCHES["k3_rebuild"] == before + 1
+    assert out[0].shape == (L, 2, prob.N, 3) and out[4].shape == (L, 2, 5)
+    for x, y in zip(out[1:], ref[1:]):
+        assert torch.equal(x, y)
+    assert torch.allclose(out[0], ref[0], rtol=LOAD_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("L", [3, 16])
+def test_lane_k2_matches_plain(dev, L):
+    prob, _solo = _lanes(dev, L)
+    a = _lane_assignments(dev, prob, 1, 6)[:, 0]
+    st = anneal.chain_states_from_assignment(prob, a)
+    st_k, st_p = st.clone(), st.clone()
+    _, mv_k = anneal.prerepair_state_counted(prob, st_k, 256)
+    _, mv_p = anneal.prerepair_plain(prob, st_p, 256)
+    assert mv_k.shape == (L,) and torch.equal(mv_k, mv_p)
+    assert int(mv_k.min()) > 0
+    _equal_states(st_k, st_p)
+    assert torch.equal(st_k.load, st_p.load)
+
+
+@pytest.mark.parametrize("L", [3, 16])
+def test_lane_k1_matches_plain(dev, L):
+    """Lanes of different n_real, stickiness and temperature; lane 1 is
+    inactive and must stay untouched."""
+    prob, solo = _lanes(dev, L)
+    st = anneal.chain_states_from_assignment(
+        prob, _lane_assignments(dev, prob, 2, 7))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    active = [i != 1 for i in range(L)]
+    temps = [1.0 / (1 + i) for i in range(L)]
+    st_k, st_p = st.clone(), st.clone()
+    applied = 0
+    for _ in range(4):
+        draws = [anneal.draw_proposals(solo[i], st_k.lane(i), gen, 96)
+                 for i in range(L)]
+        s_idx, b_idx, u = (torch.stack([d[k] for d in draws])
+                           for k in range(3))
+        _, acc_k = anneal.batched_step_apply(prob, st_k, s_idx, b_idx, u,
+                                             temps, active)
+        _, acc_p = anneal.batched_step_plain(prob, st_p, s_idx, b_idx, u,
+                                             temps, active)
+        assert acc_k.shape == (L, 2) and torch.equal(acc_k, acc_p)
+        assert int(acc_k[1].abs().sum()) == 0
+        applied += int(acc_k.sum())
+    _equal_states(st_k, st_p, scale_atol=True)
+    assert applied > 0
+    for name in ("assignment", "load", "used", "coloc", "topo"):
+        assert torch.equal(getattr(st_k, name)[1], getattr(st, name)[1])
+
+
+def test_one_lane_equals_the_solo_kernels(dev):
+    """L = 1 through the lane entry points equals the solo call."""
+    _pt, prob = _problem(dev, skew=2, n_real=570)
+    prob = dataclasses.replace(
+        prob, sticky_prev=torch.zeros(prob.S, dtype=torch.int32, device=dev),
+        sticky_w=0.5)
+    one = prob.as_lanes()
+    rng = np.random.default_rng(9)
+    a = torch.tensor(rng.integers(0, prob.N, (2, prob.S)), dtype=torch.int32,
+                     device=dev)
+    solo = kernels.k3_rebuild(prob, a, with_stats=True)
+    lane = kernels.k3_rebuild(one, a[None], with_stats=True)
+    for x, y in zip(solo, lane):
+        assert torch.equal(x, y[0])
+    st = anneal.chain_states_from_assignment(prob, a)
+    st1 = st.clone()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    s_idx, b_idx, u = anneal.draw_proposals(prob, st, gen, 96)
+    _, acc = anneal.batched_step_apply(prob, st, s_idx, b_idx, u, 0.5)
+    _, acc1 = anneal.batched_step_apply(one, st1.as_lanes(), s_idx[None],
+                                        b_idx[None], u[None], [0.5])
+    assert torch.equal(acc, acc1[0])
+    for x, y in zip(st, st1):
+        assert torch.equal(x, y)
+    valid = prob.node_valid.clone()
+    valid[:5] = False
+    dead = dataclasses.replace(prob, node_valid=valid)
+    st2 = anneal.chain_states_from_assignment(dead, a[0])
+    st3 = st2.clone()
+    _, mv = anneal.prerepair_state_counted(dead, st2, 64)
+    _, mv1 = anneal.prerepair_state_counted(dead.as_lanes(), st3.as_lanes(),
+                                            64)
+    assert torch.equal(mv, mv1) and int(mv[0]) > 0
+    for x, y in zip(st2, st3):
+        assert torch.equal(x, y)
+
+
+def test_place_many_on_the_card(dev, monkeypatch):
+    """One batch of three same-tier stages through place_many equals the
+    solo warm reschedules of a control scheduler."""
+    from fleetflow_tpu_torch.sched import GpuSolverScheduler
+    from fleetflow_tpu_torch.solver import multiplex
+    monkeypatch.setenv("FLEET_SUBSOLVE", "0")
+    pts = {k: synthetic_problem(300, 30, seed=i, port_fraction=0.3,
+                                volume_fraction=0.2)
+           for i, k in enumerate("ABC")}
+    solo_sched = GpuSolverScheduler(steps=32, device=dev)
+    many = GpuSolverScheduler(steps=32, device=dev)
+    for k in "ABC":
+        solo_sched.place(pts[k], stage=k)
+        many.place(pts[k], stage=k)
+    solo = {k: solo_sched.reschedule(pts[k], stage=k) for k in "ABC"}
+    stages = multiplex.MUX_LANES["stage"]
+    batch = many.place_many([{"pt": pts[k], "warm_start": True, "stage": k}
+                             for k in "ABC"])
+    assert multiplex.MUX_LANES["stage"] == stages + 3
+    for k, res in zip("ABC", batch):
+        assert np.array_equal(solo[k].raw, res.raw), k
+        assert res.feasible == solo[k].feasible

@@ -300,6 +300,12 @@ class TestBoundaries:
             GpuSolverScheduler()
         with pytest.raises(SolverError):
             solve(synthetic_problem(10, 3, seed=0))
+        from fleetflow_tpu_torch.solver.multiplex import solve_multiplexed
+        with pytest.raises(SolverError):
+            solve_multiplexed([])
+        with pytest.raises(SolverError):
+            GpuSolverScheduler().place_many(
+                [{"pt": synthetic_problem(10, 3, seed=0)}])
         assert GpuSolverScheduler(device="cpu").device == CPU
 
     def test_convert_raises_without_cuda(self, monkeypatch):
