@@ -7,14 +7,19 @@ Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It imports nothing of JAX or of ``fleetflow_tpu``. Phases,
 each of which fails the run:
 
-  1. print the card (nvidia-smi name and power limit) and build the five
-     CUDA kernels from ``fleetflow_tpu_torch/csrc`` (nvcc, in parallel);
-  2. hold K1-K4 against their plain PyTorch versions on the same inputs
-     at the headline size, synthetic_problem(10000, 1000, seed=0,
+  1. print the card (nvidia-smi name and power limit) and build the six
+     CUDA kernels from ``fleetflow_tpu_torch/csrc`` (nvcc) and the host
+     placer (g++), all in parallel;
+  2. hold K1-K4 and K6 against their plain PyTorch versions on the same
+     inputs at the headline size, synthetic_problem(10000, 1000, seed=0,
      n_tenants=8, port_fraction=0.2, volume_fraction=0.1), and time both
-     with CUDA events; then K1-K3 with a lane axis, at 8 lanes of 2000x200
-     and 2 lanes of the padded phase-4 fleet, against their plain versions
-     and against the solo kernel launched lane by lane;
+     with CUDA events (``[k6_scan]``: K6 also at 2000x200 with pack,
+     fill_lowest and a best-effort instance); then K1-K3 with a lane axis,
+     at 8 lanes of 2000x200 and 2 lanes of the padded phase-4 fleet,
+     against their plain versions and against the solo kernel launched
+     lane by lane; ``[rows]``: the CUDA-event ms and the bound of the rows
+     without a kernel (pad_problem_tiers, the carried-state reductions,
+     and the summed lane bounds of ``_mux_refine``);
   3. ``[main]``: the unbucketed path without the active-set sub-solve
      (``GpuSolverScheduler(bucket=False)`` with FLEET_SUBSOLVE=0): a cold
      place of the fleet, then warm reschedules after one node down, 5% of
@@ -49,10 +54,24 @@ each of which fails the run:
      under 8 slots (the 8 newest resident, 4 evicted with snapshots, their
      card memory freed), a warm re-admission after churn bit-identical to
      a never-evicted control, a 1-byte budget, the byte accounting;
-  8. print the per-kernel JSON line, the card line, and last
+  8. ``[seeds]``: a cold ``solve()`` of the headline fleet with each
+     ``seed_impl`` (scan = K6, batched = K4, native, partitioned), then one
+     node down and 5% of the nodes down with the legacy host pre-repair
+     (``prerepair=True``), through ``init_assignment`` and through a
+     resident-warm staging (K2 and K5 must not launch);
+  9. ``[fallback]``: ``place_with_fallback(GpuSolverScheduler(), pt,
+     place_kwargs={"stage": ...})`` on a 2000x200 stage made infeasible by
+     eligibility (every 8th service may use only 10 nodes, all down;
+     relax_order ["tier"]): feasible after relaxing "tier", in one slot;
+     ``pick_scheduler`` at three sizes;
+ 10. ``[entry]``: ``fn(*args)`` of ``fleetflow_tpu_torch.entry.entry()``,
+     K1 launched 32 times, the cost finite and no worse than the
+     all-on-node-0 start;
+ 11. print the per-kernel JSON line, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
-Every solve of phases 3 to 7 must have 0 violations (checked again by
+Every solve of phases 3 to 8, and phase 9's relaxed re-solve, must have
+0 violations (checked again by
 the host numpy verifier), 0 violations before the host repair backstop, no
 host repair move and no service on a dead node; a localized solve may move
 no row outside the churn's constraint closure. Every kernel of a phase's
@@ -69,8 +88,10 @@ package is not beside it.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -86,7 +107,7 @@ ARRIVALS = 64              # id-free services arriving into phantom rows
 ROLLING_KILLS = 8
 BURSTS = ("kill1", "arrive", "kill3", "depart", "arrive", "kill3")
 KERNEL_NAMES = ("k1_sweep", "k2_prerepair", "k3_rebuild", "k4_greedy",
-                "k5_subsolve")
+                "k5_subsolve", "k6_greedy_scan")
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, and the
 # float32 rate outside the tensor cores (the kernels do float32/int32 work)
 PEAK_BYTES_S = 3.35e12
@@ -424,7 +445,7 @@ def run_main_path(torch, np, pkg_main, pt, dev_name):
         record = make_record(sched, verify, _ext, dev_name, "main")
         pt = drive_main_path(np, pt, sched, ProblemDelta, record)
         launches = read_launches(torch, _ext, "main", KERNEL_NAMES[:4],
-                                 off=("k5_subsolve",))
+                                 off=("k5_subsolve", "k6_greedy_scan"))
         warm_h2d_check(torch, np, sched, pt, ProblemDelta, record)
     return launches
 
@@ -664,7 +685,8 @@ def run_default_phase(torch, np, pkg_main, lower, dev_name, S=N_SERVICES,
     record = make_record(sched, verify, _ext, dev_name, "default")
     rows, pt, valid, masks = drive_default(np, pt, sched, ProblemDelta,
                                            record, index, S, tenant)
-    launches = read_launches(torch, _ext, "default", KERNEL_NAMES)
+    launches = read_launches(torch, _ext, "default", KERNEL_NAMES[:5],
+                             off=("k6_greedy_scan",))
     outcomes = {k: v - outcomes0[k]
                 for k, v in subsolve.OUTCOME_COUNTS.items()}
     subs = [r["subsolve"] for r in rows if r.get("subsolve")]
@@ -1296,7 +1318,7 @@ def run_mux_phase(torch, np, mods, fleet, dev_name, tenant_fleet):
             rows.append(row)
             print(f"[mux] {json.dumps(row)}", flush=True)
         launches = read_launches(torch, _ext, "mux", KERNEL_NAMES[:4],
-                                 off=("k5_subsolve",))
+                                 off=("k5_subsolve", "k6_greedy_scan"))
         if not any(any(r["sweeps"]) for r in rows):
             raise AssertionError("[mux] no lane swept: K1 ran no lane")
 
@@ -1474,7 +1496,7 @@ def run_slots_phase(torch, np, mods, fleet, dev_name):
               f"{st['resident_bytes']} bytes), every stage placed",
               flush=True)
         return read_launches(torch, _ext, "slots", KERNEL_NAMES[:4],
-                             off=("k5_subsolve",))
+                             off=("k5_subsolve", "k6_greedy_scan"))
 
 
 def profile_mux(torch, mods, fleet, dev_name) -> None:
@@ -1528,6 +1550,302 @@ def profile_mux(torch, mods, fleet, dev_name) -> None:
                   f"operations", flush=True)
 
 
+def scan_order(torch, np, greedy, problem, pt, prob, dev):
+    """The placement order of `pt` on the card, the phantom rows of a padded
+    staging appended last."""
+    order = greedy.placement_order(pt.demand, pt.dep_depth,
+                                   problem.unify_conflict_ids(pt))
+    if prob.S > pt.S:
+        order = np.concatenate([order, np.arange(pt.S, prob.S,
+                                                 dtype=np.int32)])
+    return torch.tensor(order, dtype=torch.int32, device=dev)
+
+
+def check_k6(torch, np, pkg, dev):
+    """[k6_scan]: K6 against its plain version, equal assignments, at the
+    headline size (spread, both timed with CUDA events) and at 2000x200
+    with pack, fill_lowest and a best-effort instance (nodes at 45% of
+    their capacity: the later services fit nowhere). Returns K6's record."""
+    greedy, problem, lower = pkg
+
+    def case(label, pt):
+        """Check K6 against its plain version; the plain run's CUDA-event
+        ms (one run: ~10,000 steps of small launches at the headline
+        size)."""
+        prob = problem.prepare_problem(pt, dev)
+        order = scan_order(torch, np, greedy, problem, pt, prob, dev)
+        got = greedy.greedy_place(prob, order)
+        out = []
+        plain = cuda_ms(torch, lambda: out.append(
+            greedy.greedy_place_plain(prob, order)), reps=1, warmup=0)
+        if not torch.equal(got, out[0]):
+            raise AssertionError(f"K6 {label}: assignment differs in "
+                                 f"{int((got != out[0]).sum())} services")
+        return prob, order, plain
+
+    pt = lower.synthetic_problem(N_SERVICES, N_NODES, seed=0, n_tenants=8,
+                                 port_fraction=0.2, volume_fraction=0.1)
+    prob, order, plain = case("10k x 1k spread", pt)
+    ms = cuda_ms(torch, lambda: greedy.greedy_place(prob, order))
+    small = {}
+    for strategy in ("pack_into_dedicated", "fill_lowest", "best_effort"):
+        pt2 = lower.synthetic_problem(
+            2000, 200, seed=1, n_tenants=3,
+            strategy=lower.PlacementStrategy(
+                "spread_across_pool" if strategy == "best_effort"
+                else strategy))
+        if strategy == "best_effort":
+            pt2 = dataclasses.replace(pt2, capacity=(
+                pt2.capacity * np.float32(0.45)).astype(np.float32))
+        prob2, order2, _plain = case(f"2000 x 200 {strategy}", pt2)
+        small[strategy] = round(cuda_ms(
+            torch, lambda: greedy.greedy_place(prob2, order2)), 3)
+    S, N = prob.S, prob.N
+    ids = int((prob.conflict_ids >= 0).sum())
+    print(f"[k6_scan] equal assignments at 10k x 1k spread and 2000 x 200 "
+          f"{sorted(small)}; kernel {ms:.3f} ms, plain {plain:.3f} ms at "
+          f"10k x 1k; kernel ms at 2000 x 200 {json.dumps(small)}",
+          flush=True)
+    return dict(
+        name="k6_greedy_scan", route="cuda",
+        source="fleetflow_tpu_torch/csrc/k6_greedy_scan.cu",
+        replaces="fleetflow_tpu/solver/greedy.py:58",
+        max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None,
+        small_ms=small,
+        # per step: ~30 float32 operations a node (as K4's count) plus one
+        # add per valid conflict id a node
+        ops=S * N * 30.0 + ids * N,
+        # what the function needs: each input read once (demand, ids,
+        # order, the eligibility and preference planes, node_valid,
+        # capacity) and the assignment written once. The running load and
+        # occupancy are state the scan may keep on chip, not traffic.
+        bytes=tensor_bytes(torch, prob.demand, prob.conflict_ids, order,
+                           prob.eligible, prob.node_valid, prob.capacity,
+                           prob.preferred) + 4.0 * S)
+
+
+def tensor_bytes(torch, *objs) -> float:
+    """Bytes of every tensor among `objs` (problems, states, tensors)."""
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif hasattr(o, "tensors"):           # a TorchProblem
+            total += tensor_bytes(torch, *o.tensors())
+        elif isinstance(o, tuple):            # a ChainState
+            total += tensor_bytes(torch, *o)
+    return float(total)
+
+
+def bound_of(t_bytes: float, t_ops: float):
+    b_ms, o_ms = t_bytes / PEAK_BYTES_S * 1e3, t_ops / PEAK_OPS_S * 1e3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+
+def measure_rows(torch, np, pkg, dev, recs) -> dict:
+    """[rows]: the kernel table's rows that have no kernel of their own,
+    at the headline size: pad_problem_tiers of the exact staging onto its
+    tier ladder, and the carried-state reductions (state_violation_stats +
+    state_soft_score of 2 chains), each timed with CUDA events beside its
+    bound (bytes read once and written once); and the bound of
+    ``_mux_refine``, the sum of the lane K1-K3 bounds of each lane
+    check."""
+    anneal, greedy, problem, lower, buckets = pkg
+    pt = lower.synthetic_problem(N_SERVICES, N_NODES, seed=0, n_tenants=8,
+                                 port_fraction=0.2, volume_fraction=0.1)
+    prob = problem.prepare_problem(pt, dev)
+    padded, _info = buckets.pad_problem_tiers(prob)
+    pad_ms = cuda_ms(torch, lambda: buckets.pad_problem_tiers(prob))
+    # a staging already on its tiers comes back as itself: nothing moves
+    pad_bound = bound_of(tensor_bytes(torch, prob, padded)
+                         if padded is not prob else 0.0, 0.0)
+    order = scan_order(torch, np, greedy, problem, pt, prob, dev)
+    seed = greedy.greedy_place_batched(prob, order)
+    st = anneal.chain_states_from_assignment(
+        prob, torch.stack([seed, torch.roll(seed, 1)]))
+
+    def reduce():
+        anneal.state_violation_stats(prob, st)
+        anneal.state_soft_score(prob, st)
+
+    red_ms = cuda_ms(torch, reduce)
+    # read: the state, capacity, node_valid, one eligibility word and one
+    # preference per (chain, service) when the plane is present; ~3
+    # operations per state element
+    C, S = st.assignment.shape
+    red_bytes = (tensor_bytes(torch, st, prob.capacity, prob.node_valid)
+                 + 4.0 * C * S * (1 + (prob.preferred is not None)))
+    red_bound = bound_of(red_bytes, 3.0 * tensor_bytes(torch, st) / 4)
+    mux = {}
+    for lane in recs["k1_sweep"].get("lanes", []):
+        key = (lane["L"], lane["size"])
+        mux[f"L={key[0]} {key[1]}"] = sum(
+            r["bound_ms"] for name in ("k1_sweep", "k2_prerepair",
+                                       "k3_rebuild")
+            for r in recs[name].get("lanes", [])
+            if (r["L"], r["size"]) == key)
+    rows = {"pad_problem_tiers": dict(ms=pad_ms, bound_ms=pad_bound[0],
+                                      bound_by=pad_bound[1],
+                                      padded_S=padded.S),
+            "carried_reductions": dict(ms=red_ms, bound_ms=red_bound[0],
+                                       bound_by=red_bound[1], chains=C),
+            "mux_refine_bound_ms": mux}
+    print(f"[rows] {json.dumps(rows)}", flush=True)
+    return rows
+
+
+def check_solve(res, pt_now, verify, dev_name: str, label: str) -> None:
+    """A solve of [seeds]: feasible (host verify agrees), no violation
+    before the host backstop, no repair move, nothing on a dead node, on
+    the card."""
+    host = verify(pt_now, res.assignment)
+    on_dead = int((~pt_now.node_valid[res.assignment]).sum())
+    if res.violations or host["total"] or on_dead:
+        raise AssertionError(f"{label}: violations {res.violations}, host "
+                             f"{host}, on dead nodes {on_dead}")
+    if res.pre_repair_violations or res.moves_repaired:
+        raise AssertionError(f"{label}: the device solve left "
+                             f"{res.pre_repair_violations} violations, "
+                             f"{res.moves_repaired} host repair moves")
+    if res.device != dev_name:
+        raise AssertionError(f"{label} solved on {res.device}")
+
+
+def run_seeds_phase(torch, np, mods, pt, dev_name):
+    """[seeds]: a cold solve of the headline fleet with each seed_impl,
+    then one node down and 5% of the nodes down with the legacy host
+    pre-repair (prerepair=True), through init_assignment and through a
+    resident-warm staging. Returns the launch counts of the phase (K2 and
+    K5 must not launch: prerepair=True turns off the fused prologue)."""
+    _ext, solve, verify, ResidentProblem, ProblemDelta = mods
+    from fleetflow_tpu_torch.solver.api import SEED_IMPLS
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    colds = {}
+    for impl in SEED_IMPLS:
+        t_solve = time.perf_counter()
+        res = solve(pt, seed_impl=impl, seed=0)
+        wall = (time.perf_counter() - t_solve) * 1e3
+        check_solve(res, pt, verify, dev_name, f"cold {impl}")
+        colds[impl] = res
+        print(f"[seeds] {json.dumps(dict(seed_impl=impl, wall_ms=round(wall, 3), seed_ms=round(res.timings_ms['seed_ms'], 3), sweeps=res.steps, soft=round(res.soft, 6)))}",
+              flush=True)
+    rng = np.random.default_rng(4)
+    cold = colds["batched"].assignment
+    valid = pt.node_valid.copy()
+    valid[int(np.bincount(cold, minlength=pt.N).argmax())] = False
+    pt1 = dataclasses.replace(pt, node_valid=valid.copy())
+    alive = np.flatnonzero(valid)
+    valid[rng.choice(alive, int(0.05 * pt.N), replace=False)] = False
+    pt2 = dataclasses.replace(pt, node_valid=valid.copy())
+    rp = ResidentProblem(pt, torch.device(dev_name))
+    res = solve(pt, prob=rp.prob, resident=rp, seed=0, bucket=rp.bucket)
+    check_solve(res, pt, verify, dev_name, "resident cold")
+    prev = {"init_assignment": cold, "resident": res.assignment}
+    for label, cur in (("one_node_down", pt1), ("5pct_nodes_down", pt2)):
+        for route in ("init_assignment", "resident"):
+            t_solve = time.perf_counter()
+            if route == "resident":
+                rp.apply_delta(cur, ProblemDelta(
+                    node_valid=cur.node_valid.copy()))
+                res = solve(cur, prob=rp.prob, resident=rp,
+                            resident_warm=True, prerepair=True, seed=1,
+                            bucket=rp.bucket)
+            else:
+                res = solve(cur, init_assignment=prev[route],
+                            prerepair=True, seed=1)
+            wall = (time.perf_counter() - t_solve) * 1e3
+            check_solve(res, cur, verify, dev_name, f"{label} {route}")
+            if res.fused_prerepair or res.subsolve is not None:
+                raise AssertionError(f"{label} {route}: prerepair=True ran "
+                                     f"the fused prologue or the sub-solve")
+            moved = float((res.assignment != prev[route]).mean())
+            prev[route] = res.assignment
+            print(f"[seeds] {json.dumps(dict(solve=label, route=route, wall_ms=round(wall, 3), prerepair_ms=round(res.timings_ms['prerepair_ms'], 3), sweeps=res.steps, moved=round(moved, 6), soft=round(res.soft, 6)))}",
+                  flush=True)
+    return read_launches(torch, _ext, "seeds",
+                         ("k1_sweep", "k3_rebuild", "k4_greedy",
+                          "k6_greedy_scan"),
+                         off=("k2_prerepair", "k5_subsolve"))
+
+
+def run_fallback_phase(torch, np, mods, lower, dev_name):
+    """[fallback]: place_with_fallback over GpuSolverScheduler() with a
+    stage key, on a 2000x200 stage whose every 8th service may use only 10
+    nodes that are all down (relax_order ["tier"]): the first solve is
+    infeasible, the relaxed re-solve in the stage's slot is feasible. Then
+    pick_scheduler at three sizes. Returns the launch counts."""
+    (_ext, GpuSolverScheduler, place_with_fallback, relax_problem,
+     pick_scheduler, verify) = mods
+    pt = lower.synthetic_problem(2000, 200, seed=11, n_tenants=1)
+    elig, valid = pt.eligible.copy(), pt.node_valid.copy()
+    elig[::8] = False
+    elig[::8, :10] = True
+    valid[:10] = False
+    pt = dataclasses.replace(pt, eligible=elig, node_valid=valid,
+                             relax_order=["tier"])
+    sched = GpuSolverScheduler()
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    t_place = time.perf_counter()
+    placement, relaxed = place_with_fallback(sched, pt,
+                                             place_kwargs={"stage": "tier"})
+    wall = (time.perf_counter() - t_place) * 1e3
+    res = sched.last_result
+    relaxed_pt = relax_problem(pt, "tier")
+    if (relaxed != ["tier"] or not placement.feasible
+            or not placement.source.endswith("+relaxed:tier")):
+        raise AssertionError(f"[fallback] relaxed {relaxed}, feasible "
+                             f"{placement.feasible}, {placement.source}")
+    check_solve(res, relaxed_pt, verify, dev_name, "relaxed re-solve")
+    keys = [s.key for s in sched._slots]
+    if keys.count("tier") != 1:
+        raise AssertionError(f"[fallback] slots {keys}: one for the stage")
+    print(f"[fallback] {json.dumps(dict(relaxed=relaxed, source=placement.source, wall_ms=round(wall, 3), sweeps=res.steps, soft=round(res.soft, 6), slots=keys))}",
+          flush=True)
+    launches = read_launches(torch, _ext, "fallback",
+                             ("k1_sweep", "k3_rebuild", "k4_greedy"),
+                             off=("k2_prerepair", "k5_subsolve",
+                                  "k6_greedy_scan"))
+    picks = {f"{S}x{N}": type(pick_scheduler(S, N)).__name__
+             for S, N in ((4, 4), (2000, 200), (N_SERVICES, N_NODES))}
+    picks[f"{N_SERVICES}x{N_NODES} prefer_gpu=False"] = type(pick_scheduler(
+        N_SERVICES, N_NODES, prefer_gpu=False)).__name__
+    print(f"[fallback] pick_scheduler {json.dumps(picks)}", flush=True)
+    return launches
+
+
+def run_entry_phase(torch, mods, lower, dev):
+    """[entry]: fn(*args) of entry() on the card: a 32-sweep anneal of 8
+    chains of 256x16 (K1 launched 32 times) and the argmin of the chains'
+    total cost, finite and no worse than the all-on-node-0 start."""
+    _ext, entry, total_cost, problem = mods
+    fn, args = entry()
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    t_fn = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t_fn) * 1e3
+    launches = read_launches(torch, _ext, "entry", ("k1_sweep", "k3_rebuild"),
+                             off=("k2_prerepair", "k4_greedy", "k5_subsolve",
+                                  "k6_greedy_scan"))
+    if launches["k1_sweep"] != 32:
+        raise AssertionError(f"[entry] K1 launched {launches['k1_sweep']} "
+                             f"times, expected 32")
+    prob = problem.prepare_problem(lower.synthetic_problem(256, 16, seed=0),
+                                   dev)
+    cost = float(total_cost(prob, out))
+    zero = float(total_cost(prob, torch.zeros(256, dtype=torch.int32,
+                                              device=dev)))
+    if out.shape != (256,) or not math.isfinite(cost) or cost > zero:
+        raise AssertionError(f"[entry] {tuple(out.shape)}, cost {cost}, "
+                             f"zero start {zero}")
+    print(f"[entry] 8 chains x 32 sweeps of 256x16: {wall:.3f} ms, best "
+          f"total cost {cost:.6f} (zero start {zero:.6f})", flush=True)
+    return launches
+
+
 def small_agreement(torch, lower, solve):
     """A small instance solved on the card and with the plain versions on
     the CPU: both feasible, soft scores close."""
@@ -1550,8 +1868,12 @@ def main() -> int:
         return fail("CUDA is not available")
     try:
         from fleetflow_tpu_torch import _ext
+        from fleetflow_tpu_torch.entry import entry
         from fleetflow_tpu_torch.lower import tensors as lower
-        from fleetflow_tpu_torch.sched import GpuSolverScheduler
+        from fleetflow_tpu_torch.sched import (GpuSolverScheduler,
+                                               pick_scheduler,
+                                               place_with_fallback,
+                                               relax_problem)
         from fleetflow_tpu_torch.solver import (anneal, buckets, greedy,
                                                 kernels, multiplex, problem,
                                                 subsolve)
@@ -1570,12 +1892,19 @@ def main() -> int:
     print(f"[card] {kind}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    build_s = _ext.build(verbose=True)
-    print(f"[build] {len(_ext.KERNELS)} kernels built in {build_s:.1f} s",
-          flush=True)
+    # the host placer (g++) builds into its own directory beside the
+    # kernels' nvcc builds, all at once
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(_ext.host_library, "ffplacer")
+        build_s = _ext.build(verbose=True)
+        host.result()
+    print(f"[build] {len(_ext.KERNELS)} kernels built in {build_s:.1f} s, "
+          f"{len(_ext.HOST_LIBS)} host library with them", flush=True)
 
     recs = check_kernels(torch, np, (anneal, kernels, greedy, problem, lower),
                          dev)
+    recs["k6_greedy_scan"] = check_k6(torch, np, (greedy, problem, lower),
+                                      dev)
     fleet = mux_fleets(lower)
     tenant_fleet = default_fleet(np, lower)[0]
     lane_pkg = (anneal, kernels, greedy, problem, lower, buckets)
@@ -1583,6 +1912,8 @@ def main() -> int:
                        [fleet(*MUX_TIERS[1], i) for i in range(8)])
     check_lane_kernels(torch, np, lane_pkg, dev, recs, "lanes",
                        [tenant_fleet, tenant_fleet])
+    measure_rows(torch, np, (anneal, greedy, problem, lower, buckets), dev,
+                 recs)
     small_agreement(torch, lower, solve)
     pkg_main = (GpuSolverScheduler, ProblemDelta, verify, _ext, subsolve)
     pt = lower.synthetic_problem(N_SERVICES, N_NODES, seed=0, n_tenants=8,
@@ -1597,6 +1928,14 @@ def main() -> int:
     by_phase["slots"] = run_slots_phase(
         torch, np, (_ext, GpuSolverScheduler, ProblemDelta, verify), fleet,
         str(dev))
+    by_phase["seeds"] = run_seeds_phase(
+        torch, np, (_ext, solve, verify, ResidentProblem, ProblemDelta), pt,
+        str(dev))
+    by_phase["fallback"] = run_fallback_phase(
+        torch, np, (_ext, GpuSolverScheduler, place_with_fallback,
+                    relax_problem, pick_scheduler, verify), lower, str(dev))
+    by_phase["entry"] = run_entry_phase(
+        torch, (_ext, entry, kernels.total_cost, problem), lower, dev)
     if "--profile" in sys.argv[1:]:
         profile_phases(torch, np, pkg_main, lower, pt)
         profile_mux(torch, (_ext, solve, ResidentProblem, ProblemDelta,
@@ -1613,7 +1952,7 @@ def main() -> int:
         out.append({k: r[k] for k in (
             "name", "route", "source", "replaces", "launches",
             "launches_by_phase", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "lanes") if k in r})
+            "bound_by", "library_ms", "lanes", "small_ms") if k in r})
     print(f"[done] {time.perf_counter() - t0:.1f} s after the build started",
           flush=True)
     print(json.dumps({"kernels": out}), flush=True)

@@ -1,4 +1,4 @@
-"""Build, load and count the hand-written CUDA kernels.
+"""Build, load and count the hand-written CUDA kernels and the host library.
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 into its own shared library for ``sm_90a``; the libraries are loaded with
@@ -7,6 +7,13 @@ the first wrapper call on a CUDA tensor builds every source at once (one
 ``nvcc`` process per file, all started together) into ``_ext_build/``, a
 directory named after a hash of the sources and flags so a changed source
 never loads a stale library.
+
+The host placer (``csrc/host/placer.cpp``, the native first-fit-decreasing
+seed) is plain C++: ``g++`` builds it at its first use (:func:`host_library`,
+which needs no card and no ``nvcc``) into a hashed directory of its own, so
+an edit to it rebuilds none of the kernels and a failed host build stops no
+kernel from loading. A failed build raises with the compiler's output, as
+for the CUDA sources.
 
 K1-K3 take a lane axis (the tenant multiplexer): L same-tier problems
 stacked on a leading axis, with the per-lane scalars in one by-value
@@ -34,8 +41,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["KERNELS", "LAUNCHES", "MAX_LANES", "Lanes", "lanes_arg",
-           "build", "library", "launch", "reset_launches", "check_inputs"]
+__all__ = ["KERNELS", "HOST_LIBS", "LAUNCHES", "MAX_LANES", "Lanes",
+           "lanes_arg", "build", "library", "host_library", "launch",
+           "reset_launches", "check_inputs"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent / "_ext_build"
@@ -47,8 +55,14 @@ KERNELS = {
     "k3_rebuild": "k3_rebuild.cu",
     "k4_greedy": "k4_greedy.cu",
     "k5_subsolve": "k5_subsolve.cu",
+    "k6_greedy_scan": "k6_greedy_scan.cu",
 }
 _HEADERS = ("common.cuh",)
+# host library name -> C++ source (plain C ABI, built with g++)
+HOST_LIBS = {
+    "ffplacer": "host/placer.cpp",
+}
+CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -87,7 +101,9 @@ def lanes_arg(n_real, sticky_w=None, temp=None, active=None) -> Lanes:
 
 
 _lock = threading.Lock()
+_host_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_host_libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
@@ -125,12 +141,55 @@ def _nvcc() -> str:
     return found
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(set(KERNELS.values()) | set(_HEADERS)):
+def _cxx() -> str:
+    found = shutil.which(os.environ.get("CXX") or "g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the host placer needs a C++ "
+                           "compiler (set CXX)")
+    return found
+
+
+def _digest(sources, flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in sorted(set(sources)):
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return h.hexdigest()[:16]
+
+
+def _kernel_dir() -> Path:
+    return _BUILD_ROOT / _digest([*KERNELS.values(), *_HEADERS], NVCC_FLAGS)
+
+
+def _host_dir() -> Path:
+    return _BUILD_ROOT / ("host-" + _digest(HOST_LIBS.values(), CXX_FLAGS))
+
+
+def _compile(jobs: dict, out_dir: Path, verbose: bool) -> None:
+    """Run every job's compiler at once; `jobs` maps a library name to
+    its command without the output path. Each builds to a temporary file
+    that is renamed into place, so concurrent builders never load half a
+    library. Raises with the compilers' output when any fails."""
+    procs = {}
+    for name, cmd in jobs.items():
+        target = out_dir / f"lib{name}.so"
+        if target.exists():
+            continue
+        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+        procs[name] = (subprocess.Popen(
+            [*cmd, "-o", str(tmp)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), tmp, target)
+    errors = []
+    for name, (proc, tmp, target) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"--- {name} ---\n{log}")
+            continue
+        if verbose and log:
+            print(f"[build {name}]\n{log}", flush=True)
+        os.replace(tmp, target)
+    if errors:
+        raise RuntimeError("build failed:\n" + "\n".join(errors))
 
 
 def build(verbose: bool = False) -> float:
@@ -141,39 +200,44 @@ def build(verbose: bool = False) -> float:
         if len(_libs) == len(KERNELS):
             return 0.0
         t0 = time.perf_counter()
-        out_dir = _BUILD_ROOT / _digest()
+        out_dir = _kernel_dir()
         out_dir.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
-        procs = {}
+        jobs = {}
         for name, src in KERNELS.items():
-            target = out_dir / f"lib{name}.so"
-            if target.exists():
-                continue
-            tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-                   str(_CSRC / src)]
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), str(_CSRC / src)]
             if verbose:
                 cmd.insert(1, "-Xptxas=-v")
-            procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, target)
-        errors = []
-        for name, (proc, tmp, target) in procs.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                errors.append(f"--- {name} ---\n{log}")
-                continue
-            if verbose and log:
-                print(f"[nvcc {name}]\n{log}", flush=True)
-            os.replace(tmp, target)
-        if errors:
-            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+            jobs[name] = cmd
+        _compile(jobs, out_dir, verbose)
         for name in KERNELS:
             lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
             lib.ff_error_string.argtypes = [ctypes.c_int]
             lib.ff_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return time.perf_counter() - t0
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded host library `name`, built with g++ at its first use (no
+    card, no nvcc). Raises RuntimeError when it cannot be built or
+    loaded."""
+    lib = _host_libs.get(name)
+    if lib is not None:
+        return lib
+    with _host_lock:
+        if name not in _host_libs:
+            out_dir = _host_dir()
+            out_dir.mkdir(parents=True, exist_ok=True)
+            if not (out_dir / f"lib{name}.so").exists():
+                _compile({name: [_cxx(), *CXX_FLAGS,
+                                 str(_CSRC / HOST_LIBS[name])]},
+                         out_dir, verbose=False)
+            try:
+                _host_libs[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+            except OSError as e:
+                raise RuntimeError(f"host library {name}: {e}") from e
+        return _host_libs[name]
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -108,7 +108,9 @@ def state_from_reference(assignment: np.ndarray, load: np.ndarray,
 def tensors_from_reference(fields: Mapping[str, object],
                            strategy: Optional[str] = None) -> ProblemTensors:
     """The port's ProblemTensors from the reference's fields (arrays as
-    numpy, names as lists, `strategy` as its string value)."""
+    numpy, names as lists, `strategy` as its string value), every array
+    and list copied: the preference plane, the spread constraint and the
+    relax order come across with the rest."""
     kw = dict(fields)
     for name in ("demand", "capacity", "preferred"):
         if kw.get(name) is not None:
@@ -118,6 +120,9 @@ def tensors_from_reference(fields: Mapping[str, object],
         kw[name] = np.array(kw[name], dtype=np.int32, copy=True)
     for name in ("dep_adj", "eligible", "node_valid"):
         kw[name] = np.array(kw[name], dtype=bool, copy=True)
+    for name in ("service_names", "node_names", "replica_of", "relax_order"):
+        if name in kw:
+            kw[name] = list(kw[name])
     if strategy is not None:
         kw["strategy"] = PlacementStrategy(strategy)
     elif "strategy" in kw:

@@ -30,8 +30,16 @@ from ..core.errors import SolverError
 from ..core.model import RESOURCE_AXES, PlacementStrategy
 
 __all__ = ["ProblemTensors", "dependency_depths", "synthetic_problem",
-           "SYNTH_CPU_RANGE", "SYNTH_MEM_RANGE", "SYNTH_DISK_RANGE"]
+           "SYNTH_CPU_RANGE", "SYNTH_MEM_RANGE", "SYNTH_DISK_RANGE",
+           "ELIGIBILITY_RELAX_CLASSES", "SPREAD_RELAX_CLASSES",
+           "PREF_RELAX_CLASSES"]
 
+# fallback-policy constraint-class aliases (sched/fallback.py): the ones
+# that relax the eligibility mask, the spread constraint, the preferences
+ELIGIBILITY_RELAX_CLASSES = ("tier", "required_labels", "labels",
+                             "eligibility")
+SPREAD_RELAX_CLASSES = ("spread", "spread_constraint")
+PREF_RELAX_CLASSES = ("preferred_labels", "preferred")
 _R = len(RESOURCE_AXES)  # cpu, memory, disk
 
 

@@ -42,7 +42,8 @@ from .kernels import CAP_TOL, k3_rebuild
 from .problem import TorchProblem, eligible_lookup, eligible_row
 
 __all__ = ["ChainState", "TRACE_COLS", "W_CAP", "W_CONF", "W_ELIG", "W_SKEW",
-           "chain_states_from_assignment", "prerepair_state_counted",
+           "chain_states_from_assignment", "prerepair_state",
+           "prerepair_state_counted", "anneal", "anneal_adaptive",
            "prerepair_plain", "state_violation_stats",
            "violation_total_from_parts", "state_soft_score",
            "draw_proposals", "batched_step_apply", "batched_step_plain",
@@ -208,6 +209,14 @@ def prerepair_state_counted(prob: TorchProblem, st: ChainState,
         st.assignment, st.load, st.used, st.coloc, st.topo,
         int(max_moves), moves, scratch)
     return st, moves
+
+
+def prerepair_state(prob: TorchProblem, st: ChainState,
+                    max_moves: int) -> ChainState:
+    """K2 (see :func:`prerepair_state_counted`), returning only the
+    repaired state."""
+    st, _moves = prerepair_state_counted(prob, st, max_moves)
+    return st
 
 
 # -- carried-state stats and soft score (plain PyTorch reductions) ---------
@@ -578,6 +587,30 @@ def anneal_states(prob: TorchProblem, init_assignments: torch.Tensor,
         s_idx, b_idx, u = draw_proposals(prob, states, gen, M)
         batched_step_apply(prob, states, s_idx, b_idx, u, temp)
     return states
+
+
+def anneal(prob: TorchProblem, init_assignments: torch.Tensor,
+           gen: torch.Generator, steps: int = 2000, t0: float = 1.0,
+           t1: float = 1e-3,
+           proposals_per_step: Optional[int] = None) -> torch.Tensor:
+    """Fixed-budget anneal; returns the refined (C, S) assignments (each
+    chain's final state)."""
+    return anneal_states(prob, init_assignments, gen, steps=steps, t0=t0,
+                         t1=t1,
+                         proposals_per_step=proposals_per_step).assignment
+
+
+def anneal_adaptive(prob: TorchProblem, init_assignments: torch.Tensor,
+                    gen: torch.Generator, max_steps: int = 128,
+                    block: int = 32, t0: float = 1.0, t1: float = 1e-3,
+                    proposals_per_step: Optional[int] = None):
+    """Adaptive anneal; returns (assignments (C, S), sweeps_run, accepted
+    (C,)): each chain's best-ever state, see
+    :func:`anneal_adaptive_states`."""
+    best, _viol, _soft, sweeps, accepted, _telem = anneal_adaptive_states(
+        prob, init_assignments, gen, max_steps=max_steps, block=block,
+        t0=t0, t1=t1, proposals_per_step=proposals_per_step)
+    return best, sweeps, accepted
 
 
 def anneal_adaptive_states(prob: TorchProblem, init_assignments: torch.Tensor,

@@ -1,8 +1,9 @@
 """Top-level solve pipeline (port of ``solver/api.py``).
 
     ProblemTensors ──prepare──▶ TorchProblem (staged once)
-        ──batched greedy seed (K4)──▶ assignment
-        ──[warm: rebuild (K3) + fused pre-repair (K2)]──▶ seed state
+        ──greedy seed (K4 batched, K6 scan, or a host FFD)──▶ assignment
+        ──[warm: rebuild (K3) + fused pre-repair (K2), or the legacy
+           host pre-repair]──▶ seed state
         ──chain fan-out──▶ (C, S)
         ──adaptive anneal (K1 per sweep)──▶ best (C, S)
         ──lexicographic chain pick + exact gate (K3)──▶ assignment
@@ -17,8 +18,7 @@ mini tier, K5 commit, K3 gate on the full problem) and falls back to the
 full path above when there is no plan or the gate rejects its result.
 ``_refine_lanes`` runs the full path's refine over a lane axis of same-tier
 stages at once (the tenant multiplexer, solver/multiplex.py); a solo solve
-is its one-lane case. The mesh is not ported; the seed is always the
-batched greedy (K4).
+is its one-lane case. The mesh is not ported.
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ from .anneal import (TRACE_COLS, anneal_adaptive_lanes,
                      state_violation_stats)
 from .buckets import (_env_flag, bucket_config, pad_assignment,
                       pad_problem_tiers, stage_problem_tiers)
-from .greedy import greedy_place_batched, placement_order
+from .greedy import (greedy_place, greedy_place_batched,
+                     partitioned_seed, placement_order)
 from .kernels import (STAT_KEYS, exact_stats_and_soft, k3_rebuild,
                       soft_from_planes, soft_score)
 from .problem import TorchProblem, prepare_problem, unify_conflict_ids
@@ -49,7 +50,8 @@ from .repair import RepairResult, repair, soft_score_host, verify
 from .resident import ResidentProblem
 
 __all__ = ["solve", "SolveResult", "make_chain_inits", "DEFAULT_STEPS",
-           "REFINE_RANGE", "SUBSOLVE_RANGE"]
+           "REFINE_RANGE", "SUBSOLVE_RANGE", "SEED_IMPLS",
+           "legacy_host_prepass"]
 
 DEFAULT_STEPS = 128   # max sweeps of the adaptive anneal
 # torch.profiler ranges around the device work of a solve: on a warm solve
@@ -94,6 +96,25 @@ class SolveResult:
     @property
     def violations(self) -> int:
         return int(self.stats["total"])
+
+
+# the greedy seeds of a cold solve: K6's per-service scan, K4's batched
+# placement, the host placer's FFD, and the host FFD over 4 service slices
+# × disjoint node subsets
+SEED_IMPLS = ("scan", "batched", "native", "partitioned")
+
+
+def legacy_host_prepass(pt: ProblemTensors, seed_np: np.ndarray,
+                        seed: int) -> np.ndarray:
+    """The legacy host pre-repair of a warm seed (``prerepair=True``):
+    services stranded on dead or ineligible nodes are relocated by the host
+    repair. The result is kept even when it cannot reach 0 violations: it
+    is never worse than its input."""
+    rows = np.arange(pt.S)
+    stranded = (~pt.node_valid[seed_np]) | (~pt.eligible[rows, seed_np])
+    if stranded.any():
+        seed_np = repair(pt, seed_np, seed=seed).assignment
+    return seed_np
 
 
 def make_chain_inits(prob: TorchProblem, seed_assignment: torch.Tensor,
@@ -261,7 +282,9 @@ def solve(pt: ProblemTensors, *, device=None,
           proposals_per_step: Optional[int] = None,
           bucket: Optional[bool] = None,
           resident: Optional[ResidentProblem] = None,
-          resident_warm: bool = False) -> SolveResult:
+          resident_warm: bool = False,
+          seed_impl: Optional[str] = None,
+          prerepair: Optional[bool] = None) -> SolveResult:
     """Solve a placement instance end to end.
 
     `device` defaults to the card (raises without CUDA); a `resident` or a
@@ -269,17 +292,32 @@ def solve(pt: ProblemTensors, *, device=None,
     warm-starts from a previous placement on the host; `resident` with
     `resident_warm=True` warm-starts from the resident device assignment
     with no problem tensor crossing the host boundary, and tries the
-    churn-localized sub-solve first. Warm starts run the fused pre-repair
-    (K2) and are sticky: each service pays `migration_weight` of soft score
-    for leaving its previous node. `chains=None` is 2 on the card and 1 on
-    the CPU; the proposal width is 256 on the card and 64 on the CPU (both
-    capped at S/2).
+    churn-localized sub-solve first. Warm starts are sticky: each service
+    pays `migration_weight` of soft score for leaving its previous node.
+    `chains=None` is 2 on the card and 1 on the CPU; the proposal width is
+    256 on the card and 64 on the CPU (both capped at S/2).
+
+    `seed_impl` picks the cold seed: "scan" (K6, one step per service),
+    "batched" (K4), "native" (the host placer's FFD), "partitioned" (the
+    host FFD over 4 service slices × disjoint node subsets), or None,
+    which is "batched" on either device. "native" and "partitioned" raise
+    SolverError when the host placer cannot be built.
+
+    `prerepair` picks the warm pre-repair: None runs the fused K2 prologue
+    (and lets a resident warm solve try the sub-solve); True runs the
+    legacy host pre-pass (:func:`legacy_host_prepass`, timed as
+    ``prerepair_ms``) instead; False runs neither. Either non-None value
+    turns off the fused prologue and the sub-solve.
 
     `bucket` pads the problem onto its tier ladder with phantom rows
     (solver/buckets.py). None defers to FLEET_BUCKET (default off for a
     direct solve), and a pre-padded `prob` (a bucketed resident staging)
     is used as it is. The returned assignment, violations and soft score
     are those of the real rows."""
+    if seed_impl is not None and seed_impl not in SEED_IMPLS:
+        raise ValueError(f"seed_impl must be 'scan', 'batched', "
+                         f"'native', 'partitioned' or None, "
+                         f"got {seed_impl!r}")
     timings: dict[str, float] = {}
     t = time.perf_counter
     if resident is not None:
@@ -321,16 +359,52 @@ def solve(pt: ProblemTensors, *, device=None,
 
     t_seed = t()
     warm = init_assignment is not None or resident_warm
+    # the warm pre-repair: None fuses K2 into the refine; True is the
+    # legacy host pre-pass; False is neither
+    fused = warm and prerepair is None
+
+    def host_prepass(seed_np: np.ndarray) -> np.ndarray:
+        t_pre = t()
+        seed_np = legacy_host_prepass(pt, seed_np, seed)
+        timings["prerepair_ms"] = (t() - t_pre) * 1e3
+        return seed_np
+
     if resident_warm:
         # the previous padded winner, phantoms re-parked at delta time
         seed_assignment = resident.assignment
         t0 = min(t0, 0.1)      # warm start: refine, don't re-scramble
+        if prerepair is True:
+            # the legacy pre-pass round-trips the seed through the host:
+            # the real rows come back, are repaired, and adopt_host
+            # uploads them (a counted host transfer)
+            seed_np = host_prepass(np.array(
+                seed_assignment.cpu().numpy(), dtype=np.int32,
+                copy=True)[:pt.S])
+            resident.adopt_host(seed_np, pt.node_valid, warm=True)
+            seed_assignment = resident.assignment
     elif warm:
         seed_np = np.asarray(init_assignment, dtype=np.int32)
+        if prerepair is True:
+            seed_np = host_prepass(seed_np)
         if bucketed:
             seed_np = pad_assignment(seed_np, prob.S, pt.node_valid)
         seed_assignment = torch.tensor(seed_np, device=dev)
         t0 = min(t0, 0.1)
+    elif seed_impl in ("native", "partitioned"):
+        # the host placer's FFD, whole-instance or over 4 slices; raises
+        # SolverError when the library cannot be built (no fallback)
+        if seed_impl == "partitioned":
+            host_seed = partitioned_seed(pt, 4)
+        else:
+            from ..native.lib import native_place
+            host_seed, _viol = native_place(
+                pt.demand, pt.capacity, pt.eligible, pt.node_valid,
+                pt.dep_depth, pt.port_ids, pt.volume_ids, pt.anti_ids,
+                strategy=pt.strategy.value)
+        if bucketed:
+            host_seed = pad_assignment(host_seed, prob.S, pt.node_valid)
+        seed_assignment = torch.tensor(host_seed, dtype=torch.int32,
+                                       device=dev)
     else:
         order_np = placement_order(pt.demand, pt.dep_depth,
                                    unify_conflict_ids(pt))
@@ -340,22 +414,27 @@ def solve(pt: ProblemTensors, *, device=None,
             order_np = np.concatenate(
                 [order_np, np.arange(pt.S, prob.S, dtype=np.int32)])
         order = torch.tensor(order_np, dtype=torch.int32, device=dev)
-        seed_assignment = greedy_place_batched(prob, order, batch=seed_batch,
-                                               rounds=seed_rounds)
-    timings["seed_ms"] = (t() - t_seed) * 1e3
+        if seed_impl == "scan":
+            seed_assignment = greedy_place(prob, order)
+        else:
+            seed_assignment = greedy_place_batched(
+                prob, order, batch=seed_batch, rounds=seed_rounds)
+    # disjoint phases: the host pre-repair is reported under prerepair_ms
+    timings["seed_ms"] = ((t() - t_seed) * 1e3
+                          - timings.get("prerepair_ms", 0.0))
 
     # the widths and budgets follow the PADDED row count, as the
     # reference's static arguments do
     M = (proposals_per_step if proposals_per_step is not None
          else backend_proposals_per_step(prob.S, dev))
     trace_blocks = solve_trace_blocks()
-    prerepair_moves = max(16, min(prob.S, 256)) if warm else 0
+    prerepair_moves = max(16, min(prob.S, 256)) if fused else 0
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
 
     t_anneal = t()
     sub_plan = None
-    if resident_warm and adaptive:
+    if resident_warm and fused and adaptive:
         # the host planner: closure, compact ids and the frozen base
         t_plan = t()
         sub_plan = resident.take_active_plan()
@@ -397,9 +476,10 @@ def solve(pt: ProblemTensors, *, device=None,
                 chains=chains, steps=steps,
                 warm=bool(warm and migration_weight > 0), adaptive=adaptive,
                 anneal_block=anneal_block,
-                proposals_per_step=M, fused_prerepair=warm,
+                proposals_per_step=M, fused_prerepair=fused,
                 prerepair_moves=prerepair_moves,
-                skip_feasible_polish=bool(resident_warm and adaptive),
+                skip_feasible_polish=bool(resident_warm and adaptive
+                                          and fused),
                 trace_blocks=trace_blocks)
         if resident is not None:
             uploads += resident.h2d_copies - h2d0
@@ -484,7 +564,7 @@ def solve(pt: ProblemTensors, *, device=None,
         pre_repair_violations=pre_repair, timings_ms=timings,
         chains=chains, steps=int(sweeps_run), proposals_per_step=M,
         accepted_moves=accepted_h if adaptive else -1,
-        fused_prerepair=warm, telemetry=telemetry,
+        fused_prerepair=fused, telemetry=telemetry,
         warm_h2d_copies=uploads if resident_warm else 0, device=str(dev),
         bucket=binfo.to_dict() if binfo is not None else None,
         subsolve=sub_info)

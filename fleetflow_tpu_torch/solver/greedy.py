@@ -1,6 +1,17 @@
-"""Batched greedy seed (port of ``solver/greedy.py``).
+"""Greedy seeds (port of ``solver/greedy.py``).
 
-Kernel K4 lives here: :func:`greedy_place_batched` places services in
+Two kernels live here, each beside its plain PyTorch version.
+
+Kernel K6, :func:`greedy_place`, is the per-service first-fit-decreasing
+scan: one step per service in `order`, each scoring all N nodes against
+the running state (conflicts, capacity fit, eligibility, validity, the
+strategy score and the optional preference), taking the first argmax among
+the feasible nodes, or the best-effort argmax when none is feasible, and
+committing it. It replaces ``fleetflow_tpu/solver/greedy.py::greedy_place``.
+On a CUDA tensor it launches ``csrc/k6_greedy_scan.cu``; on a CPU tensor it
+runs :func:`greedy_place_plain`.
+
+Kernel K4 :func:`greedy_place_batched` places services in
 `order`, M at a time. For each batch it scores all M×N (service, node)
 pairs against the shared state, lets each service pick a node by an
 anti-herding rank over its feasible list, resolves within-batch collisions
@@ -15,7 +26,10 @@ On a CUDA tensor it launches ``csrc/k4_greedy.cu``; on a CPU tensor it runs
 :func:`greedy_place_batched_plain`. The reference's ``lax.top_k`` puts the
 lower index first among equal scores, which spread instances hit often
 (empty nodes tie); both versions select by a stable descending order.
-``greedy_place`` (the per-service scan seed) is not ported yet.
+
+:func:`partitioned_seed` is the host seed of the reference's mega-scale
+path: service slices × disjoint round-robin node subsets, one host FFD
+(``csrc/host/placer.cpp``) per slice on a thread pool.
 """
 
 from __future__ import annotations
@@ -24,10 +38,11 @@ import numpy as np
 import torch
 
 from .. import _ext
-from .problem import TorchProblem, eligible_rows
+from .problem import TorchProblem, eligible_row, eligible_rows
 
-__all__ = ["placement_order", "greedy_place_batched",
-           "greedy_place_batched_plain"]
+__all__ = ["placement_order", "greedy_place", "greedy_place_plain",
+           "greedy_place_batched", "greedy_place_batched_plain",
+           "partitioned_seed"]
 
 _NEG = -1e30
 
@@ -42,6 +57,88 @@ def placement_order(demand: np.ndarray, dep_depth: np.ndarray,
         n_constraints = (conflict_ids >= 0).sum(axis=1)
         weight = weight + n_constraints * (weight.max() + 1.0)
     return np.lexsort((dep_depth, -weight)).astype(np.int32)
+
+
+def greedy_place_plain(prob: TorchProblem,
+                       order: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K6; see :func:`greedy_place`. The
+    reference's scan step by step, in its float32 expressions."""
+    N, G = prob.N, prob.G
+    dev = order.device
+    cap = prob.capacity
+    load = torch.zeros((N, prob.demand.shape[1]), dtype=torch.float32,
+                       device=dev)
+    used = torch.zeros((N, G), dtype=torch.int32, device=dev)
+    assignment = torch.full((prob.S,), -1, dtype=torch.int32, device=dev)
+    cap_eps = cap + 1e-6
+    cap_div = torch.clamp(cap, min=1e-6)
+    neg = torch.full((N,), _NEG, dtype=torch.float32, device=dev)
+    if prob.strategy == 2:
+        lowest = -torch.arange(N, dtype=torch.float32, device=dev)
+    for s in order.tolist():
+        d = prob.demand[s]
+        ids = prob.conflict_ids[s]
+        valid_ids = ids >= 0
+        safe = torch.where(valid_ids, ids, 0).long()
+        n_conf = (used[:, safe] * valid_ids[None, :]).sum(-1)
+        new_load = load + d[None, :]
+        fits = (new_load <= cap_eps).all(-1)
+        elig_s = eligible_row(prob.eligible, s, N)
+        ok = fits & elig_s & prob.node_valid & (n_conf == 0)
+        u = new_load / cap_div
+        usq = (u[:, 0] * u[:, 0] + u[:, 1] * u[:, 1]) + u[:, 2] * u[:, 2]
+        if prob.strategy == 0:
+            score = -usq
+        elif prob.strategy == 1:
+            score = usq
+        else:
+            score = lowest
+        if prob.preferred is not None:
+            score = score + prob.preferred[s] * 0.5
+        best_ok = torch.argmax(torch.where(ok, score, neg))
+        over = torch.clamp(new_load - cap, min=0.0)
+        overflow = (over[:, 0] + over[:, 1]) + over[:, 2]
+        fb = -(overflow * 1e3 + n_conf.to(torch.float32) * 1e3) + score
+        fb_ok = elig_s & prob.node_valid
+        best_fb = torch.argmax(torch.where(fb_ok, fb, fb - 1e15))
+        node = torch.where(ok.any(), best_ok, best_fb)
+        load.index_add_(0, node.view(1), d[None, :])
+        used.view(-1).index_add_(0, node * G + safe,
+                                 valid_ids.to(torch.int32))
+        assignment[s] = node.to(torch.int32)
+    return assignment
+
+
+def greedy_place(prob: TorchProblem, order: torch.Tensor) -> torch.Tensor:
+    """K6: place services one at a time in `order` ((S,) i32), each on the
+    first best feasible node of its strategy score, or best-effort (least
+    overflow, fewest conflicts) when no node is feasible; returns the (S,)
+    int32 assignment."""
+    if order.dim() != 1 or order.shape[0] > prob.S:
+        raise ValueError(f"order has shape {tuple(order.shape)}, expected "
+                         f"at most ({prob.S},)")
+    if order.device.type == "cpu":
+        return greedy_place_plain(prob, order)
+    if order.dtype != torch.int32 or prob.demand.shape[1] != 3:
+        raise ValueError("greedy_place: order must be int32, R=3")
+    if prob.lanes:
+        raise ValueError("greedy_place takes one problem, not lanes")
+    S, N, G = prob.S, prob.N, prob.G
+    dev = order.device
+    assignment = torch.empty(S, dtype=torch.int32, device=dev)
+    load = torch.empty((N, 3), dtype=torch.float32, device=dev)
+    used = torch.empty((N, G), dtype=torch.int32, device=dev)
+    _ext.check_inputs("greedy_place", order, prob.demand, prob.capacity,
+                      prob.conflict_ids, prob.eligible, prob.node_valid,
+                      prob.preferred)
+    _ext.launch(
+        "k6_greedy_scan", "ff_k6_greedy_scan", dev,
+        S, N, G, prob.demand, prob.capacity,
+        prob.conflict_ids, prob.conflict_ids.shape[1],
+        prob.eligible, int(prob.eligible_packed), prob.eligible.shape[1],
+        prob.node_valid, prob.preferred, prob.strategy,
+        order, order.shape[0], assignment, load, used)
+    return assignment
 
 
 def _median_midpoint(x: torch.Tensor) -> torch.Tensor:
@@ -193,3 +290,61 @@ def greedy_place_batched(prob: TorchProblem, order: torch.Tensor,
         prob.node_valid, prob.preferred, prob.strategy,
         order, M, rounds, assignment, load, used, scratch)
     return assignment
+
+
+def partitioned_seed(pt, parts: int) -> np.ndarray:
+    """Host seed for mega-scale solves: service slices × disjoint
+    round-robin node subsets, one full-capacity host FFD per slice.
+
+    Slice g owns every `parts`-th node and a contiguous 1/parts of the
+    services, and FFDs them onto its own nodes at full capacity: the work
+    drops from O(S·N) to O(S·N/parts), and the union is feasible by
+    construction for capacity and conflicts (slices use disjoint nodes).
+    What is left for the anneal: services whose eligible nodes all lie in
+    other slices (best-effort in-slice, an eligibility violation each) and
+    packing fragmented across node subsets. Returns (S,) int32. The host
+    placer is required: without it this raises SolverError (the reference
+    falls back to the whole-instance host greedy)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..native.lib import load, native_place
+
+    load()
+    S, N = pt.demand.shape[0], pt.capacity.shape[0]
+    parts = max(1, min(parts, S, N))
+    if parts == 1:
+        seg, _viol = native_place(
+            pt.demand, pt.capacity, pt.eligible, pt.node_valid,
+            pt.dep_depth, pt.port_ids, pt.volume_ids, pt.anti_ids,
+            strategy=pt.strategy.value)
+        return seg
+    out = np.empty(S, dtype=np.int32)
+    bounds = np.linspace(0, S, parts + 1, dtype=int)
+
+    def one_slice(g: int) -> None:
+        lo, hi = int(bounds[g]), int(bounds[g + 1])
+        if hi <= lo:
+            return
+        nodes_g = np.arange(g, N, parts)
+        seg, _viol = native_place(
+            pt.demand[lo:hi],
+            np.ascontiguousarray(pt.capacity[nodes_g]),
+            np.ascontiguousarray(pt.eligible[lo:hi][:, nodes_g]),
+            np.ascontiguousarray(pt.node_valid[nodes_g]),
+            pt.dep_depth[lo:hi], pt.port_ids[lo:hi],
+            pt.volume_ids[lo:hi], pt.anti_ids[lo:hi],
+            strategy=pt.strategy.value)
+        out[lo:hi] = nodes_g[seg]
+
+    # the slices are independent (disjoint services and nodes) and ctypes
+    # releases the GIL for the C call, so a thread pool runs them at once;
+    # each worker writes a disjoint out[lo:hi]
+    workers = min(parts, os.cpu_count() or 1)
+    if workers > 1:
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            list(ex.map(one_slice, range(parts)))
+    else:
+        for g in range(parts):
+            one_slice(g)
+    return out

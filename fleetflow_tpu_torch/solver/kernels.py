@@ -38,7 +38,8 @@ from .problem import TorchProblem, eligible_lookup
 __all__ = ["W_HARD", "STAT_KEYS", "node_loads", "group_counts",
            "real_row_weights", "k3_rebuild", "k3_rebuild_plain",
            "stats_from_planes", "violation_stats", "soft_from_planes",
-           "soft_score", "exact_stats_and_soft"]
+           "soft_score", "exact_stats_and_soft", "total_violations",
+           "total_cost"]
 
 # no TF32 anywhere in the plain versions (the float32 products must stay
 # float32 on the card, as on the CPU)
@@ -265,3 +266,23 @@ def exact_stats_and_soft(prob: TorchProblem,
                                                   with_stats=True)
     return (_stats_dict(stats[0]),
             soft_from_planes(prob, assignment, load, coloc)[0])
+
+
+def total_violations(prob: TorchProblem,
+                     assignment: torch.Tensor) -> torch.Tensor:
+    """Exact hard-violation total of an (S,) assignment (0-dim f32) or of
+    (C, S) assignments ((C,) f32), from one K3 launch."""
+    *_planes, stats = k3_rebuild(prob, assignment, with_stats=True)
+    total = stats[:, STAT_KEYS.index("total")]
+    return total[0] if assignment.dim() == 1 else total
+
+
+def total_cost(prob: TorchProblem, assignment: torch.Tensor) -> torch.Tensor:
+    """The annealing objective, W_HARD · violations + soft score, of an
+    (S,) assignment (0-dim f32) or of (C, S) assignments ((C,) f32), from
+    one K3 launch."""
+    load, _used, coloc, _topo, stats = k3_rebuild(prob, assignment,
+                                                  with_stats=True)
+    cost = (W_HARD * stats[:, STAT_KEYS.index("total")]
+            + soft_from_planes(prob, assignment, load, coloc))
+    return cost[0] if assignment.dim() == 1 else cost

@@ -26,6 +26,7 @@ from fleetflow_tpu_torch.solver.anneal import ChainState
 from test_torch_problem import STRATEGIES, staged_pair, to_np
 
 ref_anneal = importlib.import_module("fleetflow_tpu.solver.anneal")
+ref_kernels = importlib.import_module("fleetflow_tpu.solver.kernels")
 _ref_step = jax.jit(ref_anneal._batched_step, static_argnums=(4,))
 _ref_prerepair = jax.jit(ref_anneal.prerepair_state_counted,
                          static_argnums=(2,))
@@ -154,6 +155,26 @@ class TestPrerepair:
         if max_moves > 100:
             assert not np.isin(to_np(st.assignment[0]), dead).any()
 
+    @pytest.mark.parametrize("seed", [0, 3])
+    def test_uncounted_form_matches_reference(self, seed):
+        """prerepair_state (the uncounted face) equals the reference's
+        namesake on the same stranded state."""
+        dp, tp, _, _ = staged_pair(240, 32, seed, coloc=True)
+        rng = np.random.default_rng(seed)
+        a = rng.integers(0, 32, 240).astype(np.int32)
+        valid = np.ones(32, dtype=bool)
+        valid[rng.choice(32, 3, replace=False)] = False
+        dp = dataclasses.replace(dp, node_valid=jnp.asarray(valid))
+        tp = dataclasses.replace(tp, node_valid=torch.tensor(valid))
+        rs = jax.jit(ref_anneal.prerepair_state, static_argnums=(2,))(
+            dp, ref_anneal.chain_states_from_assignment(dp, jnp.asarray(a)),
+            256)
+        st = port_anneal.prerepair_state(
+            tp, port_anneal.chain_states_from_assignment(tp, torch.tensor(a)),
+            256)
+        assert isinstance(st, ChainState)
+        check_state([rs], st, atol=0.0)
+
     def test_unplaceable_service_is_not_a_move(self):
         dp, tp, _, _ = staged_pair(50, 8, 2, n_tenants=1)
         valid = np.zeros(8, dtype=bool)
@@ -229,6 +250,39 @@ class TestAdaptive:
         again = port_anneal.state_violation_stats(tp, st)["total"]
         assert torch.equal(again, viol)
         assert int(acc.sum()) > 0
+
+    @pytest.mark.parametrize("feasible_init", [False, True])
+    def test_anneal_adaptive_matches_reference_contract(self, feasible_init):
+        """anneal_adaptive and the reference's namesake, from the same
+        (C, S) starts: the draws differ (torch's generator is not
+        threefry), so each is held to the reference's results where they
+        do not depend on the draws: the shapes, the block-multiple sweep
+        count, one block from a feasible start, and a feasible best."""
+        dp, tp, _, _ = staged_pair(200, 30, 8)
+        rng = np.random.default_rng(8)
+        inits = rng.integers(0, 30, (2, 200)).astype(np.int32)
+        if feasible_init:
+            best, *_ = port_anneal.anneal_adaptive_states(
+                tp, torch.tensor(inits), torch.Generator().manual_seed(1),
+                max_steps=128, block=4)
+            inits = np.repeat(to_np(best[:1]), 2, axis=0)
+            assert float(ref_kernels.total_violations(dp, inits[0])) == 0
+        ref_best, ref_sweeps, ref_acc = ref_anneal.anneal_adaptive(
+            dp, jnp.asarray(inits), jax.random.PRNGKey(0), max_steps=64,
+            block=8)
+        best, sweeps, acc = port_anneal.anneal_adaptive(
+            tp, torch.tensor(inits), torch.Generator().manual_seed(0),
+            max_steps=64, block=8)
+        assert best.shape == ref_best.shape and best.dtype == torch.int32
+        assert acc.shape == ref_acc.shape
+        assert sweeps % 8 == 0 and int(ref_sweeps) % 8 == 0
+        if feasible_init:
+            assert sweeps == int(ref_sweeps) == 8
+        ref_viol = min(float(ref_kernels.total_violations(dp, b))
+                       for b in np.asarray(ref_best))
+        port_viol = min(float(ref_kernels.total_violations(dp, b))
+                        for b in to_np(best))
+        assert ref_viol == port_viol == 0
 
     def test_exit_on_feasible_init_runs_no_sweep(self):
         _, tp, _, _ = staged_pair(120, 24, 9)

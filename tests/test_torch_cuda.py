@@ -3,9 +3,11 @@ the card, at small sizes, over the branches chip_smoke.py's headline
 instance does not reach: pack and fill_lowest strategies, a preference
 plane, the dense eligibility layout, a spread constraint, phantom rows,
 stickiness, a frozen base, the lane axis of K1-K3 (1, 3 and 16 lanes, an
-inactive lane) and a place_many batch; and K5, the sub-solve's gather and
+inactive lane) and a place_many batch; K5, the sub-solve's gather and
 commit, at the 10k x 1k headline size with mini tiers of 256 and 4096
-rows.
+rows; K6, the per-service scan seed, at 2000 x 200 for each strategy and
+on best-effort instances; the host placer's build and the host seeds of
+solve() on the card.
 
 Every test needs a CUDA card and skips without one. On the card (which has
 no JAX, so the repository's conftest cannot load):
@@ -206,7 +208,11 @@ def test_main_path_on_the_card(dev):
         assert sched.last_result.warm_h2d_copies == 0
         if len(dead) == 1:
             assert sched.last_result.subsolve["outcome"] == "localized"
-    assert all(v > 0 for v in _ext.LAUNCHES.values()), _ext.LAUNCHES
+    # every kernel of the path launched (K6 seeds only solve(seed_impl=
+    # "scan"), which the scheduler does not take)
+    assert all(v > 0 for k, v in _ext.LAUNCHES.items()
+               if k != "k6_greedy_scan"), _ext.LAUNCHES
+    assert _ext.LAUNCHES["k6_greedy_scan"] == 0
 
 
 @pytest.fixture(scope="module")
@@ -463,3 +469,72 @@ def test_place_many_on_the_card(dev, monkeypatch):
     for k, res in zip("ABC", batch):
         assert np.array_equal(solo[k].raw, res.raw), k
         assert res.feasible == solo[k].feasible
+
+
+def _scan_order(pt, prob, dev):
+    order = greedy.placement_order(pt.demand, pt.dep_depth,
+                                   unify_conflict_ids(pt))
+    if prob.S > pt.S:
+        order = np.concatenate([order, np.arange(pt.S, prob.S,
+                                                 dtype=np.int32)])
+    return torch.tensor(order, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_k6_matches_plain(dev, strategy):
+    pt, prob = _problem(dev, S=2000, N=200, strategy=strategy,
+                        packed=strategy != "pack_into_dedicated",
+                        preferred=strategy == "fill_lowest")
+    order = _scan_order(pt, prob, dev)
+    out = greedy.greedy_place(prob, order)
+    assert out.dtype == torch.int32
+    assert torch.equal(out, greedy.greedy_place_plain(prob, order))
+
+
+@pytest.mark.parametrize("case", ["overfull", "no_eligible_node", "padded"])
+def test_k6_best_effort_matches_plain(dev, case):
+    """Services that fit nowhere (the best-effort argmax), services with no
+    eligible valid node (the - 1e15 mask), phantom rows parked last."""
+    pt = synthetic_problem(2000, 200, seed=7, n_tenants=1)
+    if case == "overfull":
+        pt = dataclasses.replace(
+            pt, capacity=(pt.capacity * np.float32(0.45)).astype(np.float32))
+    elif case == "no_eligible_node":
+        elig, valid = pt.eligible.copy(), pt.node_valid.copy()
+        elig[::7] = False
+        elig[::7, :6] = True
+        valid[:6] = False
+        pt = dataclasses.replace(pt, eligible=elig, node_valid=valid)
+    if case == "padded":
+        prob, _ = stage_problem_tiers(pt, device=dev)
+        assert prob.S > pt.S
+    else:
+        prob = prepare_problem(pt, dev)
+    order = _scan_order(pt, prob, dev)
+    _ext.reset_launches()
+    out = greedy.greedy_place(prob, order)
+    assert _ext.LAUNCHES["k6_greedy_scan"] == 1
+    assert torch.equal(out, greedy.greedy_place_plain(prob, order))
+
+
+def test_k6_raises_on_bad_input(dev):
+    _, prob = _problem(dev)
+    with pytest.raises(ValueError):
+        greedy.greedy_place(prob, torch.arange(prob.S, device=dev))
+    with pytest.raises(ValueError):
+        greedy.greedy_place(prob, torch.zeros(prob.S + 1, dtype=torch.int32,
+                                              device=dev))
+
+
+@pytest.mark.parametrize("impl", ["native", "partitioned", "scan"])
+def test_seed_impls_solve_on_the_card(dev, impl):
+    from fleetflow_tpu_torch.solver import solve
+    from fleetflow_tpu_torch.solver.repair import verify
+    pt = synthetic_problem(2000, 200, seed=3, n_tenants=3)
+    _ext.host_library("ffplacer")
+    _ext.reset_launches()
+    res = solve(pt, seed_impl=impl, seed=3)
+    assert res.device.startswith("cuda") and res.violations == 0
+    assert verify(pt, res.assignment)["total"] == 0
+    assert (_ext.LAUNCHES["k6_greedy_scan"] > 0) == (impl == "scan")
+    assert _ext.LAUNCHES["k4_greedy"] == 0
