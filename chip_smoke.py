@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. It imports nothing of JAX or of ``fleetflow_tpu``. Phases,
 each of which fails the run:
 
-  1. print the card (nvidia-smi name and power limit) and build the six
+  1. print the card (nvidia-smi name and power limit) and build the seven
      CUDA kernels from ``fleetflow_tpu_torch/csrc`` (nvcc) and the host
      placer (g++), all in parallel;
   2. hold K1-K4 and K6 against their plain PyTorch versions on the same
@@ -17,7 +17,10 @@ each of which fails the run:
      fill_lowest and a best-effort instance); then K1-K3 with a lane axis,
      at 8 lanes of 2000x200 and 2 lanes of the padded phase-4 fleet,
      against their plain versions and against the solo kernel launched
-     lane by lane; ``[rows]``: the CUDA-event ms and the bound of the rows
+     lane by lane; ``[k7]``: K7, the sharded sweep, against its plain
+     version on one-card meshes of 1x8 and 2x4 positions at the sharded
+     fleet (SHARDED_SHAPE, the partitioned seed with 5% of the nodes
+     down, 8 sweeps); ``[rows]``: the CUDA-event ms and the bound of the rows
      without a kernel (pad_problem_tiers, the carried-state reductions,
      and the summed lane bounds of ``_mux_refine``);
   3. ``[main]``: the unbucketed path without the active-set sub-solve
@@ -67,16 +70,31 @@ each of which fails the run:
  10. ``[entry]``: ``fn(*args)`` of ``fleetflow_tpu_torch.entry.entry()``,
      K1 launched 32 times, the cost finite and no worse than the
      all-on-node-0 start;
- 11. print the per-kernel JSON line, the card line, and last
+ 11. ``[sharded]``: the pod path on one card (every mesh position names
+     the card): a cold ``solve_sharded`` of the reference bench's sharded
+     child fleet (synthetic_problem(9997, 1000, seed=0, n_tenants=8,
+     port_fraction=0.2, volume_fraction=0.1)) over a 1x8 mesh; the bench's
+     resident leg over a 2x4 tempering mesh (a cold solve, a warm-up
+     burst, 6 bursts each killing the busiest node and reviving the one
+     killed two bursts before, through ``ShardedResident.apply_delta``
+     and a resident-warm solve; one more under torch.profiler must make no
+     host-to-device copy in its ``fleet.sharded`` range); the XL fleet
+     (29997x3000) cold over a 1x8 mesh, with ``per_device_bytes`` and the
+     card's peak allocation. K7 and K3 launch, no other kernel;
+ 12. ``[dryrun]``: ``entry.dryrun_multichip(8)`` on 8 positions of the
+     card (K1 and K3 for the chain layout, K7 for the two sharded ones);
+ 13. print the per-kernel JSON line, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
-Every solve of phases 3 to 8, and phase 9's relaxed re-solve, must have
+Every solve of phases 3 to 8 and 11, and phase 9's relaxed re-solve, must have
 0 violations (checked again by
 the host numpy verifier), 0 violations before the host repair backstop, no
 host repair move and no service on a dead node; a localized solve may move
 no row outside the churn's constraint closure. Every kernel of a phase's
 path must have been launched by that phase, the launch counts set to 0
-just before it and read just after.
+just before it and read just after. A warm dispatch traced for its
+host-to-device copies is traced after a probe upload; a trace that missed
+the probe proves nothing, and another burst is traced (at most 3).
 
 ``--profile`` drives phases 3 and 4 once more under torch.profiler and
 prints the device time by kernel and the device busy share of the solves,
@@ -107,7 +125,12 @@ ARRIVALS = 64              # id-free services arriving into phantom rows
 ROLLING_KILLS = 8
 BURSTS = ("kill1", "arrive", "kill3", "depart", "arrive", "kill3")
 KERNEL_NAMES = ("k1_sweep", "k2_prerepair", "k3_rebuild", "k4_greedy",
-                "k5_subsolve", "k6_greedy_scan")
+                "k5_subsolve", "k6_greedy_scan", "k7_sharded_sweep")
+# the sharded phases' fleets: the reference bench's sharded child (ragged,
+# so it pads) and its XL record (docs/profiles/r5-xl-sharded.md)
+SHARDED_SHAPE = (9_997, 1_000)
+XL_SHAPE = (29_997, 3_000)
+SHARDED_BURSTS = 6
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, and the
 # float32 rate outside the tensor cores (the kernels do float32/int32 work)
 PEAK_BYTES_S = 3.35e12
@@ -115,6 +138,8 @@ PEAK_OPS_S = 67e12
 # float planes: the plain versions sum with atomics on the card (another
 # order than the kernels' index order), so loads agree to float32 rounding
 LOAD_RTOL = 1e-5
+# warm dispatches traced until one trace sees the probe's upload
+H2D_TRIES = 3
 
 
 def fail(msg: str) -> int:
@@ -152,6 +177,31 @@ def max_err(torch, a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
+def sweep_prop_bytes(K: int, Kc: int, pref: bool = False) -> float:
+    """Bytes one proposal of a sweep (K1, K7) must move: its service's
+    demand, id rows and assignment, two eligibility words (and two
+    preferences), the two node rows' load, capacity, occupancy, validity
+    and domain read once, the moved rows written once. A sweep does ~120
+    float32 operations a proposal."""
+    return (12 + 4 + 12 + 4 * K + 4.0 * Kc + 2 * 4 + 2 + 2 * 12 + 2 * 12
+            + 2 * 4 * K + 2 * 4.0 * Kc + (8 if pref else 0))
+
+
+def k3_bytes(prob, C: int, stats: bool = True) -> float:
+    """Bytes a K3 rebuild of C chains must move: the assignments, demand,
+    conflict and coloc ids and the node domains read, each chain's planes
+    written; with `stats`, also the capacity, the validity and one
+    eligibility word per (chain, service) read and the stats written."""
+    S, N = prob.S, prob.N
+    K, Kc = prob.conflict_ids.shape[1], prob.coloc_ids.shape[1]
+    planes = N * 3 + N * prob.G + N * max(prob.Gc, 1) + prob.T
+    out = (4.0 * (C * S + S * 3 + S * K + S * Kc + N)
+           + 4.0 * C * planes)
+    if stats:
+        out += 4.0 * (N * 3 + C * S) + N + 4.0 * C * 5
+    return out
+
+
 def check_kernels(torch, np, pkg, dev):
     """Phase 2: every kernel against its plain version at the slice size.
     Returns {kernel: record} with the measured times and errors."""
@@ -159,7 +209,7 @@ def check_kernels(torch, np, pkg, dev):
     pt = lower.synthetic_problem(N_SERVICES, N_NODES, seed=0, n_tenants=8,
                                  port_fraction=0.2, volume_fraction=0.1)
     prob = problem.prepare_problem(pt, dev)
-    S, N, G = prob.S, prob.N, prob.G
+    S, N = prob.S, prob.N
     K = prob.conflict_ids.shape[1]
     recs = {}
     # the plain versions' index_add_ sums in index order under the
@@ -224,19 +274,12 @@ def check_kernels(torch, np, pkg, dev):
     lib = cuda_ms(torch, lambda: torch.zeros(
         (N, 3), device=dev).index_add_(0, flat, dem2))
     Kc = prob.coloc_ids.shape[1]
-    Gc1 = max(prob.Gc, 1)
     recs["k3_rebuild"] = dict(
         name="k3_rebuild", route="cuda",
         source="fleetflow_tpu_torch/csrc/k3_rebuild.cu",
         replaces="fleetflow_tpu/solver/anneal.py:88",
         max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-        # reads: the C=2 assignments, demand, conflict and coloc ids, the
-        # node planes, and one eligibility word per (chain, service) (the
-        # stats look up a service's own node only); writes: each chain's
-        # planes and stats
-        ops=0.0,
-        bytes=4.0 * (2 * S + S * 3 + S * K + S * Kc + N + N * 3 + 2 * S)
-        + N + 4.0 * 2 * (N * 3 + N * G + N * Gc1 + prob.T + 5))
+        ops=0.0, bytes=k3_bytes(prob, 2))
     print(f"[k3_rebuild] equal integer planes and stats (seed "
           f"{out_k[4][0].tolist()}, perturbed {out_k[4][1].tolist()}), "
           f"load max |err| {err:.3g}; kernel {ms:.3f} ms, plain "
@@ -278,9 +321,7 @@ def check_kernels(torch, np, pkg, dev):
         reps=20)
     plain = cuda_ms(torch, lambda st: anneal.batched_step_plain(
         prob, st, s_idx, b_idx, u, 1.0), setup=lambda: (base.clone(),))
-    Kc_b = 4.0 * Kc
-    per_prop = (12 + 4 + 12 + 4 * K + Kc_b + 2 * 4 + 2 + 2 * 12 + 2 * 12
-                + 2 * 4 * K + 2 * Kc_b)
+    per_prop = sweep_prop_bytes(K, Kc)
     recs["k1_sweep"] = dict(
         name="k1_sweep", route="cuda",
         source="fleetflow_tpu_torch/csrc/k1_sweep.cu",
@@ -424,8 +465,10 @@ def make_record(sched, verify, _ext, dev_name: str, tag: str,
 
 def read_launches(torch, _ext, tag: str, path: tuple, off: tuple = ()):
     """The phase's launch counts: every kernel of its path launched, none
-    of `off`."""
+    of `off` (nor K7, the sharded sweep, unless the path has it)."""
     torch.cuda.synchronize()
+    if "k7_sharded_sweep" not in path:
+        off = tuple(off) + ("k7_sharded_sweep",)
     launches = dict(_ext.LAUNCHES)
     if any(launches[k] == 0 for k in path) or any(launches[k] for k in off):
         raise AssertionError(f"[{tag}] launches {launches}: expected all of "
@@ -507,19 +550,48 @@ def check_no_h2d(prof, range_name: str, tag: str) -> None:
           f"upload showed {len(probe[2])}: {probe[2]}", flush=True)
 
 
+def no_h2d_in_dispatch(attempt, range_name: str, tag: str,
+                       tries: int = H2D_TRIES) -> None:
+    """check_no_h2d on a warm dispatch traced by `attempt(i)` (a fresh
+    dispatch under profiled() each call, its contract checked by the
+    caller; returns the profiler). A trace that missed the probe's upload
+    cannot show that the dispatch made no copy: the profiler lost a copy's
+    device record. Then the next attempt (another burst) is traced, up to
+    `tries`; the run fails if none saw the probe."""
+    for i in range(tries):
+        prof = attempt(i)
+        probe = h2d_in_range(prof, "chip_smoke.h2d_probe")
+        if probe[0] == 1 and probe[2]:
+            check_no_h2d(prof, range_name, tag)
+            return
+        warm = h2d_in_range(prof, range_name)
+        print(f"[{tag}] trace {i + 1} of {tries} missed the probe's upload "
+              f"(probe {probe}; {range_name}: {warm[0]} ranges, {warm[1]} "
+              f"device operations, {len(warm[2])} copies); another "
+              f"dispatch", flush=True)
+    raise AssertionError(f"[{tag}] the host-to-device count missed the "
+                         f"probe's upload in {tries} traces")
+
+
 def warm_h2d_check(torch, np, sched, pt, ProblemDelta, record) -> None:
     """One more warm reschedule (the busiest live node down) under
     torch.profiler: the card must make no host-to-device copy inside the
     warm dispatch, the solve's refine range."""
     from fleetflow_tpu_torch.solver.api import REFINE_RANGE
-    valid = pt.node_valid.copy()
-    load = np.bincount(sched.last_result.assignment, minlength=pt.N)
-    valid[int(np.argmax(np.where(valid, load, -1)))] = False
-    pt = dataclasses.replace(pt, node_valid=valid.copy())
-    placed, prof = profiled(torch, lambda: sched.reschedule(
-        pt, delta=ProblemDelta(node_valid=valid.copy())))
-    record("warm_one_more_node_down_profiled", placed, pt)
-    check_no_h2d(prof, REFINE_RANGE, "h2d")
+
+    def attempt(i):
+        nonlocal pt
+        valid = pt.node_valid.copy()
+        load = np.bincount(sched.last_result.assignment, minlength=pt.N)
+        valid[int(np.argmax(np.where(valid, load, -1)))] = False
+        pt = dataclasses.replace(pt, node_valid=valid.copy())
+        placed, prof = profiled(torch, lambda: sched.reschedule(
+            pt, delta=ProblemDelta(node_valid=valid.copy())))
+        record("warm_one_more_node_down_profiled" + (f":{i}" if i else ""),
+               placed, pt)
+        return prof
+
+    no_h2d_in_dispatch(attempt, REFINE_RANGE, "h2d")
 
 
 def deactivate_rows(pt, start: int):
@@ -705,17 +777,23 @@ def run_default_phase(torch, np, pkg_main, lower, dev_name, S=N_SERVICES,
     # one more localized reschedule under torch.profiler (the busiest live
     # node down): no host-to-device copy in the sub-solve's range
     from fleetflow_tpu_torch.solver.api import SUBSOLVE_RANGE
-    prev = sched.last_result.assignment
-    valid = valid.copy()
-    valid[busiest(np, prev, valid, 1)] = False
-    pt = dataclasses.replace(pt, node_valid=valid)
-    placed, prof = profiled(torch, lambda: sched.reschedule(
-        pt, delta=ProblemDelta(node_valid=valid)))
-    row = record("kill1_profiled", placed, pt,
-                 subsolve=sched.last_result.subsolve)
-    if (row["subsolve"] or {}).get("outcome") != "localized":
-        raise AssertionError(f"the profiled burst did not localize: {row}")
-    check_no_h2d(prof, SUBSOLVE_RANGE, "h2d")
+
+    def attempt(i):
+        nonlocal pt, valid
+        prev = sched.last_result.assignment
+        valid = valid.copy()
+        valid[busiest(np, prev, valid, 1)] = False
+        pt = dataclasses.replace(pt, node_valid=valid)
+        placed, prof = profiled(torch, lambda: sched.reschedule(
+            pt, delta=ProblemDelta(node_valid=valid)))
+        row = record("kill1_profiled" + (f":{i}" if i else ""), placed, pt,
+                     subsolve=sched.last_result.subsolve)
+        if (row["subsolve"] or {}).get("outcome") != "localized":
+            raise AssertionError(f"the profiled burst did not localize: "
+                                 f"{row}")
+        return prof
+
+    no_h2d_in_dispatch(attempt, SUBSOLVE_RANGE, "h2d")
     return launches, check_k5(torch, np, sched, pt, valid, ProblemDelta,
                               subsolve), masks
 
@@ -1107,9 +1185,7 @@ def check_lane_kernels(torch, np, pkg, dev, recs, tag, pts):
     plain = cuda_ms(torch, lambda st: anneal.batched_step_plain(
         prob, st, s_idx, b_idx, u, temps), setup=lambda: (base.clone(),),
         reps=3)
-    Kc_b = 4.0 * Kc
-    per_prop = (12 + 4 + 12 + 4 * K + Kc_b + 2 * 4 + 2 + 2 * 12 + 2 * 12
-                + 2 * 4 * K + 2 * Kc_b)
+    per_prop = sweep_prop_bytes(K, Kc)
     lane_rec("k1_sweep", ms, plain, k1_err, R * M * per_prop + R * 4.0,
              R * M * 120.0)
     print(f"[{tag}] K1 {L} lanes x 2 chains x {M} proposals, 8 sweeps "
@@ -1325,14 +1401,19 @@ def run_mux_phase(torch, np, mods, fleet, dev_name, tenant_fleet):
         # one more batch under torch.profiler: the card makes no
         # host-to-device copy inside the batched dispatch
         S, N = MUX_TIERS[1]
-        built = [small_stage(S, N, i, MUX_STEPS) for i in range(8)]
-        entries = [multiplex.MuxEntry(pt=cur, resident=rp, seed=300 + i)
-                   for i, (cur, rp) in enumerate(built)]
-        res, prof = profiled(torch, lambda: multiplex.solve_multiplexed(
-            entries, steps=MUX_STEPS, device=dev))
-        for i, (got, (cur, _rp)) in enumerate(zip(res, built)):
-            lane_contract(cur, got, dev_name, f"profiled lane {i}")
-        check_no_h2d(prof, multiplex.MUX_RANGE, "h2d")
+
+        def attempt(k):
+            built = [small_stage(S, N, i, MUX_STEPS) for i in range(8)]
+            entries = [multiplex.MuxEntry(pt=cur, resident=rp,
+                                          seed=300 + 8 * k + i)
+                       for i, (cur, rp) in enumerate(built)]
+            res, prof = profiled(torch, lambda: multiplex.solve_multiplexed(
+                entries, steps=MUX_STEPS, device=dev))
+            for i, (got, (cur, _rp)) in enumerate(zip(res, built)):
+                lane_contract(cur, got, dev_name, f"profiled lane {i}")
+            return prof
+
+        no_h2d_in_dispatch(attempt, multiplex.MUX_RANGE, "h2d")
     return launches, rows
 
 
@@ -1841,9 +1922,301 @@ def run_entry_phase(torch, mods, lower, dev):
     if out.shape != (256,) or not math.isfinite(cost) or cost > zero:
         raise AssertionError(f"[entry] {tuple(out.shape)}, cost {cost}, "
                              f"zero start {zero}")
+    # the bound of the step: the anneal's K3 build, 32 K1 sweeps and
+    # total_cost's K3 with stats (anneal.anneal + kernels.total_cost), then
+    # the argmin over the chains' costs (entry)
+    from fleetflow_tpu_torch.entry import ENTRY_CHAINS, ENTRY_STEPS
+    from fleetflow_tpu_torch.solver.anneal import default_proposals_per_step
+    C, M = ENTRY_CHAINS, default_proposals_per_step(prob.S)
+    k1 = bound_of(C * M * sweep_prop_bytes(prob.conflict_ids.shape[1],
+                                           prob.coloc_ids.shape[1])
+                  + C * 4.0, C * M * 120.0)[0]
+    k3 = (bound_of(k3_bytes(prob, C, stats=False), 0.0)[0]
+          + bound_of(k3_bytes(prob, C), 0.0)[0])
+    step = k3 + ENTRY_STEPS * k1
+    argmin = bound_of(4.0 * C + 4.0, float(C))[0]
     print(f"[entry] 8 chains x 32 sweeps of 256x16: {wall:.3f} ms, best "
-          f"total cost {cost:.6f} (zero start {zero:.6f})", flush=True)
+          f"total cost {cost:.6f} (zero start {zero:.6f}); bound: 2 K3 "
+          f"{k3:.3g} + {ENTRY_STEPS} K1 of {k1:.3g} = {step:.3g} ms "
+          f"(anneal + total_cost), + argmin {argmin:.3g} = "
+          f"{step + argmin:.3g} ms (entry)", flush=True)
     return launches
+
+
+def sharded_fleet(lower, shape):
+    """The sharded phases' fleet at `shape`, the bench child's generator
+    arguments."""
+    return lower.synthetic_problem(*shape, seed=0, n_tenants=8,
+                                   port_fraction=0.2, volume_fraction=0.1)
+
+
+LAYOUT_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "S",
+               "N", "applied")
+
+
+def k7_against_plain(torch, mods, prob, seed, R: int, D: int,
+                     label: str) -> dict:
+    """K7 against sharded_step_plain on the staging `prob` over an RxD
+    one-card mesh, from the (S,) assignment `seed` on the card: 8 sweeps
+    of the warm schedule (t0 0.1) with the same draws, equal applied
+    counts, assignments and integer planes, loads within LOAD_RTOL, at
+    least one move applied; CUDA-event ms of both and the bound. Returns
+    the layout's record."""
+    sharded, anneal = mods
+    dev = prob.device
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    base = anneal.chain_states_from_assignment(
+        prob, seed.to(torch.int32).reshape(1, prob.S).expand(R, prob.S))
+    M = max(8, min(256, (prob.S // D) // 2))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    draws_src = sharded.TorchDraws(gen)
+    sched = sharded._Schedule(0.1, 1e-3, 64, 1.3, R, True)
+    scratch = sharded._scratch(R, D, M, prob.N, dev)
+    st_k, st_p = base.clone(), base.clone()
+    draws, applied = [], 0
+    for i in range(8):
+        d = draws_src.proposals(i, sharded._hot(prob, st_k, D), prob.N, M)
+        draws.append(d)
+        _, acc_k = sharded.sharded_step_apply(prob, st_k, *d,
+                                              sched.temps(i), scratch)
+        _, acc_p = sharded.sharded_step_plain(prob, st_p, *d,
+                                              sched.temps(i))
+        if not torch.equal(acc_k, acc_p):
+            raise AssertionError(f"K7 {label} applied counts differ at "
+                                 f"sweep {i}")
+        applied += int(acc_k.sum())
+    torch.cuda.synchronize()
+    for name in ("assignment", "used", "coloc", "topo"):
+        if not torch.equal(getattr(st_k, name), getattr(st_p, name)):
+            raise AssertionError(f"K7 {label} {name} differs")
+    err = max_err(torch, st_k.load, st_p.load)
+    if not torch.allclose(st_k.load, st_p.load, rtol=LOAD_RTOL, atol=0):
+        raise AssertionError(f"K7 {label} load differs by {err}")
+    if applied == 0:
+        raise AssertionError(f"K7 {label} applied no move in 8 sweeps")
+    s_loc, b_idx, u = draws[0]
+    temps = sched.temps(0)
+    ms = cuda_ms(torch, lambda st: sharded.sharded_step_apply(
+        prob, st, s_loc, b_idx, u, temps, scratch),
+        setup=lambda: (base.clone(),), reps=20)
+    plain = cuda_ms(torch, lambda st: sharded.sharded_step_plain(
+        prob, st, s_loc, b_idx, u, temps), setup=lambda: (base.clone(),))
+    torch.use_deterministic_algorithms(False)
+    # each proposal's rows (as K1's) and the replicas' topology counts
+    per_prop = sweep_prop_bytes(prob.conflict_ids.shape[1],
+                                prob.coloc_ids.shape[1],
+                                prob.preferred is not None)
+    props = R * D * M
+    t_bytes = props * per_prop + 4.0 * R * prob.T
+    t_ops = props * 120.0
+    bound, by = bound_of(t_bytes, t_ops)
+    print(f"[k7] {label}: S {prob.S} (n_real {prob.real_rows}), N {prob.N}, "
+          f"{props} proposals a sweep: 8 sweeps equal ({applied} moves), "
+          f"load max |err| {err:.3g}; kernel {ms:.3f} ms, plain "
+          f"{plain:.3f} ms, bound {bound:.3g} ms ({by})", flush=True)
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                max_abs_err=err, S=prob.S, N=prob.N, applied=applied,
+                bytes=t_bytes, ops=t_ops)
+
+
+def check_k7(torch, np, mods, lower, dev):
+    """[k7]: K7 against sharded_step_plain on one-card meshes of 1x8 and
+    2x4 positions at the sharded fleet, staged by pad_problem: the
+    partitioned seed with 5% of the nodes killed (k7_against_plain).
+    Returns the kernel record (the 1x8 layout's numbers, both layouts
+    under "layouts"; [sharded] adds the stagings of its solves)."""
+    sharded, problem, buckets, greedy, anneal = mods
+    pt = sharded_fleet(lower, SHARDED_SHAPE)
+    rng = np.random.default_rng(7)
+    valid = pt.node_valid.copy()
+    valid[rng.choice(pt.N, int(0.05 * pt.N), replace=False)] = False
+    layouts = {}
+    for R, D in ((1, 8), (2, 4)):
+        prob = problem.prepare_problem(pt, dev)
+        prob, orig = buckets.pad_problem(prob, D)
+        prob = dataclasses.replace(
+            prob, n_real=orig,
+            node_valid=torch.tensor(valid, device=dev))
+        seed = buckets.pad_assignment(greedy.partitioned_seed(pt, D),
+                                      prob.S, valid)
+        layouts[f"{R}x{D}"] = k7_against_plain(
+            torch, (sharded, anneal), prob, torch.tensor(seed, device=dev),
+            R, D, f"{R}x{D} on one card")
+    head = layouts["1x8"]
+    return dict(
+        name="k7_sharded_sweep", route="cuda",
+        source="fleetflow_tpu_torch/csrc/k7_sharded_sweep.cu",
+        replaces="fleetflow_tpu/solver/sharded.py:443",
+        max_abs_err=max(v["max_abs_err"] for v in layouts.values()),
+        ms=head["ms"], plain_ms=head["plain_ms"], library_ms=None,
+        ops=head["ops"], bytes=head["bytes"],
+        layouts={k: {f: v[f] for f in LAYOUT_KEYS}
+                 for k, v in layouts.items()})
+
+
+def sharded_solve_row(res, pt_now, verify, dev_name: str, label: str,
+                      wall_ms: float, **extra) -> dict:
+    """A [sharded] solve checked as every phase's are (feasible, the host
+    verify agrees, no host repair, nothing on a dead node, on the card),
+    and its report line."""
+    check_solve(res, pt_now, verify, dev_name, label)
+    t = res.timings_ms
+    row = dict(solve=label, wall_ms=round(wall_ms, 3), sweeps=res.steps,
+               soft=round(res.soft, 6),
+               swaps=f"{res.tempering['swap_accepts']}/"
+                     f"{res.tempering['swap_attempts']}",
+               mesh=res.telemetry["mesh"] if res.telemetry else None,
+               padded_S=res.bucket["padded_S"],
+               warm_h2d_copies=res.warm_h2d_copies, **extra,
+               timings_ms={k: round(v, 3) for k, v in t.items()})
+    print(f"[sharded] {json.dumps(row)}", flush=True)
+    return row
+
+
+def run_sharded_phase(torch, np, mods, lower, dev):
+    """[sharded]: the pod path on one card. (a) a cold solve_sharded of the
+    sharded fleet over a 1x8 mesh (steps 64, block 4, the bench child's
+    settings); (b) the bench's resident leg on a 2x4 tempering mesh: a
+    cold solve, an untimed warm-up burst, then SHARDED_BURSTS bursts (the
+    busiest node killed, the node killed two bursts before revived)
+    through apply_delta + a resident-warm solve_sharded, and one more
+    burst under torch.profiler with no host-to-device copy in its
+    fleet.sharded range; (c) the XL fleet cold over a 1x8 mesh. K7 and K3
+    must launch, no other kernel. Then, once the counts are read, K7 is
+    held against its plain version on each of these stagings, from its
+    resident winner (k7_against_plain). Returns the launch counts and
+    those layouts' records."""
+    _ext, sharded, anneal, verify, ProblemDelta = mods
+    dev_name = str(dev)
+    positions = [dev] * 8
+    pt = sharded_fleet(lower, SHARDED_SHAPE)
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+
+    def cold(pt_now, mesh, label, seed=0):
+        rp = sharded.ShardedResident(pt_now, mesh=mesh)
+        t_solve = time.perf_counter()
+        res = sharded.solve_sharded(pt_now, resident=rp, steps=64, block=4,
+                                    seed=seed)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t_solve) * 1e3
+        return rp, res, sharded_solve_row(res, pt_now, verify, dev_name,
+                                          label, wall)
+
+    rp_cold, _res, _row = cold(
+        pt, sharded.Mesh(positions, (sharded.SVC_AXIS,)), "cold_1x8")
+
+    rp, prev, _row = cold(pt, sharded.tempering_mesh(2, 4, devices=positions),
+                          "resident_cold_2x4", seed=70)
+    dead: deque = deque()
+    valid = pt.node_valid.copy()
+
+    def burst(label, seed, run=None):
+        nonlocal valid, pt, prev
+        victim = int(busiest(np, prev.assignment, valid, 1)[0])
+        valid = valid.copy()
+        valid[victim] = False
+        if len(dead) >= 2:
+            valid[dead.popleft()] = True
+        dead.append(victim)
+        cur = dataclasses.replace(pt, node_valid=valid.copy())
+
+        def solve_burst():
+            delta_ms = rp.apply_delta(cur, ProblemDelta(
+                node_valid=valid.copy()))
+            res = sharded.solve_sharded(cur, resident=rp,
+                                        resident_warm=True, steps=64,
+                                        block=4, seed=seed)
+            torch.cuda.synchronize()
+            return delta_ms, res
+
+        t_burst = time.perf_counter()
+        delta_ms, res = solve_burst() if run is None else run(solve_burst)
+        wall = (time.perf_counter() - t_burst) * 1e3
+        if res.warm_h2d_copies:
+            raise AssertionError(f"{label}: {res.warm_h2d_copies} uploads "
+                                 f"in the warm dispatch")
+        pt, prev = cur, res
+        return sharded_solve_row(res, cur, verify, dev_name, label, wall,
+                                 delta_stage_ms=round(delta_ms, 3),
+                                 killed=victim)
+
+    burst("warmup_burst", 71)
+    rows = [burst(f"burst:{i}", 80 + i) for i in range(SHARDED_BURSTS)]
+    walls = sorted(r["wall_ms"] for r in rows)
+    print(f"[sharded] resident leg 2x4: {SHARDED_BURSTS} bursts, wall ms "
+          f"min {walls[0]:.3f} median {statistics.median(walls):.3f} max "
+          f"{walls[-1]:.3f}", flush=True)
+    def attempt(i):
+        box = {}
+
+        def under_profiler(solve_burst):
+            out, box["prof"] = profiled(torch, solve_burst)
+            return out
+
+        burst("burst_profiled" + (f":{i}" if i else ""), 90 + i,
+              run=under_profiler)
+        return box["prof"]
+
+    no_h2d_in_dispatch(attempt, sharded.SHARDED_RANGE, "sharded")
+    # the sharded merge alone, on the last burst's uploads (a repeat of
+    # the same merge changes nothing): the node planes copied, the
+    # phantom rows re-parked
+    up = rp.merge_inputs(pt, ProblemDelta(node_valid=valid.copy()))
+    first_valid = int(np.argmax(up["valid_np"]))
+    m_ms = cuda_ms(torch, lambda: sharded.merge_sharded(
+        rp.prob, rp.assignment, up["node_valid"], up["capacity"],
+        first_valid=first_valid))
+    N, phantoms = rp.prob.N, rp.prob.S - rp.prob.real_rows
+    m_bound = bound_of(2.0 * (N + 12 * N) + 4.0 * phantoms, 0.0)
+    print(f"[sharded] merge_sharded (node planes, {phantoms} phantom rows "
+          f"re-parked): {m_ms:.3f} ms, bound {m_bound[0]:.3g} ms "
+          f"({m_bound[1]})", flush=True)
+
+    pt_xl = sharded_fleet(lower, XL_SHAPE)
+    torch.cuda.reset_peak_memory_stats()
+    rp_xl, res, row = cold(pt_xl, sharded.Mesh(positions, (sharded.SVC_AXIS,)),
+                           "xl_cold_1x8")
+    per_dev = sharded.per_device_bytes(rp_xl.prob, rp_xl.mesh, state=True)
+    print(f"[sharded] xl {XL_SHAPE[0]}x{XL_SHAPE[1]}: per_device_bytes "
+          f"{json.dumps(per_dev)} (sum {sum(per_dev.values())}); "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()}",
+          flush=True)
+    launches = read_launches(torch, _ext, "sharded",
+                             ("k7_sharded_sweep", "k3_rebuild"),
+                             off=("k1_sweep", "k2_prerepair", "k4_greedy",
+                                  "k5_subsolve", "k6_greedy_scan"))
+    # K7 at the shapes this path gave it: the bucketed stagings with their
+    # phantom rows (the resident one after its bursts, dead nodes and all)
+    # and the XL occupancy plane; these launches are not the path's
+    layouts = {}
+    for label, r in (("sharded cold_1x8", rp_cold),
+                     ("sharded resident_2x4", rp),
+                     ("sharded xl_cold_1x8", rp_xl)):
+        layouts[label] = k7_against_plain(
+            torch, (sharded, anneal), r.prob, r.assignment,
+            r.mesh.shape.get(sharded.REPLICA_AXIS, 1),
+            r.mesh.shape[sharded.SVC_AXIS], label)
+    return launches, layouts
+
+
+def run_dryrun_phase(torch, _ext, dryrun_multichip):
+    """[dryrun]: entry.dryrun_multichip(8) on 8 positions of the card:
+    the chain layout (K1, K3), S=64 over 8 shards and the ragged 61x8
+    fleet over 8 shards (K7) reaching 0 violations."""
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    t_run = time.perf_counter()
+    out = dryrun_multichip(8)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t_run) * 1e3
+    print(f"[dryrun] {json.dumps(dict(out, wall_ms=round(wall, 3)))}",
+          flush=True)
+    return read_launches(torch, _ext, "dryrun",
+                         ("k1_sweep", "k3_rebuild", "k7_sharded_sweep"),
+                         off=("k2_prerepair", "k4_greedy", "k5_subsolve",
+                              "k6_greedy_scan"))
 
 
 def small_agreement(torch, lower, solve):
@@ -1868,7 +2241,7 @@ def main() -> int:
         return fail("CUDA is not available")
     try:
         from fleetflow_tpu_torch import _ext
-        from fleetflow_tpu_torch.entry import entry
+        from fleetflow_tpu_torch.entry import dryrun_multichip, entry
         from fleetflow_tpu_torch.lower import tensors as lower
         from fleetflow_tpu_torch.sched import (GpuSolverScheduler,
                                                pick_scheduler,
@@ -1876,7 +2249,7 @@ def main() -> int:
                                                relax_problem)
         from fleetflow_tpu_torch.solver import (anneal, buckets, greedy,
                                                 kernels, multiplex, problem,
-                                                subsolve)
+                                                sharded, subsolve)
         from fleetflow_tpu_torch.solver.api import solve
         from fleetflow_tpu_torch.solver.repair import verify
         from fleetflow_tpu_torch.solver.resident import (ProblemDelta,
@@ -1905,6 +2278,8 @@ def main() -> int:
                          dev)
     recs["k6_greedy_scan"] = check_k6(torch, np, (greedy, problem, lower),
                                       dev)
+    recs["k7_sharded_sweep"] = check_k7(
+        torch, np, (sharded, problem, buckets, greedy, anneal), lower, dev)
     fleet = mux_fleets(lower)
     tenant_fleet = default_fleet(np, lower)[0]
     lane_pkg = (anneal, kernels, greedy, problem, lower, buckets)
@@ -1936,6 +2311,13 @@ def main() -> int:
                     relax_problem, pick_scheduler, verify), lower, str(dev))
     by_phase["entry"] = run_entry_phase(
         torch, (_ext, entry, kernels.total_cost, problem), lower, dev)
+    by_phase["sharded"], k7_layouts = run_sharded_phase(
+        torch, np, (_ext, sharded, anneal, verify, ProblemDelta), lower, dev)
+    k7 = recs["k7_sharded_sweep"]
+    k7["layouts"].update({k: {f: v[f] for f in LAYOUT_KEYS}
+                          for k, v in k7_layouts.items()})
+    k7["max_abs_err"] = max(v["max_abs_err"] for v in k7["layouts"].values())
+    by_phase["dryrun"] = run_dryrun_phase(torch, _ext, dryrun_multichip)
     if "--profile" in sys.argv[1:]:
         profile_phases(torch, np, pkg_main, lower, pt)
         profile_mux(torch, (_ext, solve, ResidentProblem, ProblemDelta,
@@ -1952,7 +2334,8 @@ def main() -> int:
         out.append({k: r[k] for k in (
             "name", "route", "source", "replaces", "launches",
             "launches_by_phase", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "lanes", "small_ms") if k in r})
+            "bound_by", "library_ms", "lanes", "small_ms", "layouts")
+            if k in r})
     print(f"[done] {time.perf_counter() - t0:.1f} s after the build started",
           flush=True)
     print(json.dumps({"kernels": out}), flush=True)

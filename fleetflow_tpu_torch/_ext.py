@@ -18,7 +18,8 @@ for the CUDA sources.
 K1-K3 take a lane axis (the tenant multiplexer): L same-tier problems
 stacked on a leading axis, with the per-lane scalars in one by-value
 :class:`Lanes` struct (``FFLanes`` in ``csrc/common.cuh``); a solo call is
-L = 1.
+L = 1. K7 (the sharded sweep) takes its per-replica temperatures in the
+same struct. K1 and K7 share the move delta (``csrc/sweep_delta.cuh``).
 
 Every C entry point returns a ``cudaError_t`` (0 = success) taken from
 ``cudaGetLastError()`` right after its launches; :func:`check` raises on
@@ -56,8 +57,9 @@ KERNELS = {
     "k4_greedy": "k4_greedy.cu",
     "k5_subsolve": "k5_subsolve.cu",
     "k6_greedy_scan": "k6_greedy_scan.cu",
+    "k7_sharded_sweep": "k7_sharded_sweep.cu",
 }
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "sweep_delta.cuh")
 # host library name -> C++ source (plain C ABI, built with g++)
 HOST_LIBS = {
     "ffplacer": "host/placer.cpp",

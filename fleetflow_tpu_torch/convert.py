@@ -1,10 +1,11 @@
 """Carry state across from the JAX package, as plain numpy arrays.
 
 The reference's ``DeviceProblem`` (padded or not, or K of them stacked on a
-lane axis), ``ChainState``, ``ProblemTensors``, ``ActivePlan`` and resident
-sub-solve mirror, read out with ``np.asarray``, become the port's
-``TorchProblem``, ``ChainState``, ``ProblemTensors``, ``ActivePlan`` and
-``ResidentProblem``, so both packages compute on the same data. This
+lane axis), ``ChainState``, ``ProblemTensors``, ``ActivePlan``, resident
+sub-solve mirror and sharded anneal state, read out with ``np.asarray``,
+become the port's ``TorchProblem``, ``ChainState``, ``ProblemTensors``,
+``ActivePlan``, ``ResidentProblem`` and replica state, so both packages
+compute on the same data. This
 module imports nothing of the reference: the caller hands over arrays and
 statics. The reference's uint32 eligibility words become int32 words with
 the same bits. Device tensors land on the card unless the caller names the
@@ -31,7 +32,8 @@ from .solver.subsolve import ActivePlan
 __all__ = ["problem_from_reference", "padded_problem_from_reference",
            "stacked_problem_from_reference",
            "state_from_reference", "tensors_from_reference",
-           "plan_from_reference", "resident_from_reference"]
+           "plan_from_reference", "resident_from_reference",
+           "sharded_from_reference"]
 
 PROBLEM_ARRAYS = ("demand", "capacity", "conflict_ids", "coloc_ids",
                   "eligible", "node_valid", "node_topology")
@@ -190,3 +192,34 @@ def resident_from_reference(pt: ProblemTensors, mirror: np.ndarray,
         rp._pending_rows = np.asarray(pending_rows, dtype=np.int64)
         rp._pending_churn = True
     return rp
+
+
+def sharded_from_reference(arrays: Mapping[str, np.ndarray],
+                           statics: Mapping[str, int],
+                           assignment: np.ndarray, load: np.ndarray,
+                           used: np.ndarray, coloc: np.ndarray,
+                           topo: np.ndarray, device=None
+                           ) -> tuple[TorchProblem, ChainState]:
+    """The reference's sharded anneal state as the port's: `arrays` and
+    `statics` the padded (S, ·) problem (as for
+    :func:`problem_from_reference`), `assignment` the per-shard assignment
+    of each replica ((D, S/D), or (R, D, S/D) on a mesh with a replica
+    axis: the shard_map's P(SVC_AXIS) blocks in shard order), and the
+    replicated node state of each replica ((N, R) load, (N, G), (N, Gc),
+    (T,), or the same with a leading (R,) axis). Returns the problem and
+    the (R, ...) replica state that ``anneal_sharded(init_state=...)`` and
+    the K7 wrappers take; on the card unless `device` names the CPU."""
+    prob = problem_from_reference(arrays, statics, device=device)
+    a = np.asarray(assignment, dtype=np.int32)
+    if a.ndim == 2:
+        a = a[None]
+    if a.ndim != 3 or a.shape[1] * a.shape[2] != prob.S:
+        raise ValueError(f"per-shard assignment of shape {a.shape} for "
+                         f"S={prob.S}")
+    planes = [np.asarray(x) for x in (load, used, coloc, topo)]
+    if planes[0].ndim == 2:
+        planes = [x[None] for x in planes]
+    if any(x.shape[0] != a.shape[0] for x in planes):
+        raise ValueError("one node state per replica")
+    return prob, state_from_reference(a.reshape(a.shape[0], prob.S),
+                                      *planes, device=device)

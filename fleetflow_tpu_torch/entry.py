@@ -1,25 +1,31 @@
-"""The flagship entry point (the counterpart of ``__graft_entry__.entry``).
+"""The flagship entry points (counterparts of ``__graft_entry__``).
 
 ``entry()`` returns ``(fn, example_args)``: one fixed-budget solve step on
 the flagship compute path, a 32-sweep anneal of 8 chains of a 256×16
 problem (K3 builds the chains' state, K1 runs each sweep), then the exact
 total cost of every chain (K3) and the argmin chain. ``fn(*example_args)``
-runs it on the device the problem was staged on. The multi-chip dry run
-(``__graft_entry__.dryrun_multichip``) waits for the sharded path.
+runs it on the device the problem was staged on.
+
+``dryrun_multichip(n_devices)`` runs the reference's multi-device dry run
+on a mesh of `n_devices` positions that all name one device.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .device import resolve_device
 from .lower.tensors import synthetic_problem
 from .solver.anneal import anneal
 from .solver.api import make_chain_inits
+from .solver.buckets import pad_problem
 from .solver.kernels import total_cost
 from .solver.problem import prepare_problem
+from .solver.repair import verify
+from .solver.sharded import SVC_AXIS, Mesh, anneal_sharded
 
-__all__ = ["entry", "ENTRY_STEPS", "ENTRY_CHAINS"]
+__all__ = ["entry", "dryrun_multichip", "ENTRY_STEPS", "ENTRY_CHAINS"]
 
 ENTRY_STEPS = 32
 ENTRY_CHAINS = 8
@@ -46,3 +52,57 @@ def entry(device=None):
         return refined[torch.argmin(costs)]
 
     return fwd, (inits, 0)
+
+
+def dryrun_multichip(n_devices: int, device=None) -> dict:
+    """The reference's multi-device dry run on one device, its three
+    layouts on tiny shapes:
+
+    1. chain-sharded: the reference's `chains` mesh is the chain axis that
+       solve() already runs on one card (the port has no chain mesh), so
+       `n_devices` chains of 64×8 anneal together for 16 sweeps (K1) and
+       the argmin of their total cost (K3) is taken;
+    2. service-axis sharded: S = 64 over the largest shard count <=
+       `n_devices` that divides it, 48 sweeps from everything on node 0,
+       which must leave fewer violations (K7);
+    3. a ragged 61×8 fleet padded with phantom rows over all `n_devices`
+       shards, adaptive, which must reach 0 violations on its real rows.
+
+    Every mesh position names the one device (the card unless `device`
+    names the CPU). Raises AssertionError when a layout fails; returns
+    what each layout reached."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    pt = synthetic_problem(64, 8, seed=0)
+    prob = prepare_problem(pt, dev)
+    zeros = torch.zeros(pt.S, dtype=torch.int32, device=dev)
+    inits = make_chain_inits(prob, zeros, n_devices, gen)
+    refined = anneal(prob, inits, gen, steps=16)
+    costs = total_cost(prob, refined)
+    best = refined[torch.argmin(costs)]
+    cost = float(costs.min())
+    if best.shape != (pt.S,) or not np.isfinite(cost):
+        raise AssertionError(f"chain layout: {tuple(best.shape)}, {cost}")
+
+    d2 = max(d for d in range(1, n_devices + 1) if pt.S % d == 0)
+    out = anneal_sharded(prob, zeros, gen, steps=48,
+                         mesh=Mesh([dev] * d2, (SVC_AXIS,)))
+    before = verify(pt, np.zeros(pt.S, dtype=np.int64))["total"]
+    after = verify(pt, out.cpu().numpy())["total"]
+    if not after < before:
+        raise AssertionError(f"sharded layout: {after} violations, "
+                             f"{before} before")
+
+    pt_r = synthetic_problem(61, 8, seed=3)
+    padded, orig_s = pad_problem(prepare_problem(pt_r, dev), n_devices)
+    ragged = anneal_sharded(
+        padded, torch.zeros(padded.S, dtype=torch.int32, device=dev), gen,
+        steps=400, mesh=Mesh([dev] * n_devices, (SVC_AXIS,)), adaptive=True,
+        block=16, n_real=orig_s)
+    stats = verify(pt_r, ragged.cpu().numpy()[:orig_s])
+    if stats["total"] != 0:
+        raise AssertionError(f"ragged sharded layout infeasible: {stats}")
+    return {"chains": n_devices, "best_cost": cost, "svc_shards": d2,
+            "violations_before": int(before), "violations_after": int(after),
+            "ragged_padded_S": padded.S, "ragged_violations": 0}

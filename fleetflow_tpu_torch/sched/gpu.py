@@ -32,6 +32,11 @@ that was never evicted.
 same-tier resident-warm stages batch into ONE dispatch, the rest solve
 serially, with the same results.
 
+Above the sharded route's threshold (solver/sharded.sharded_route) a
+stage's slot holds a ``ShardedResident`` and solves through
+``solve_sharded``; slot matching keys on the mesh, so a routing flip
+never hands a sharded staging to the single-device solve or back.
+
 The scheduler runs on the card: ``GpuSolverScheduler()`` raises when CUDA
 is absent, and the CPU is used only when the caller passes device="cpu".
 """
@@ -50,6 +55,7 @@ from ..lower.tensors import ProblemTensors
 from ..solver.api import SolveResult, solve
 from ..solver.multiplex import MuxEntry, solve_multiplexed
 from ..solver.resident import ProblemDelta, ResidentProblem
+from ..solver.sharded import ShardedResident, sharded_route, solve_sharded
 from .base import Placement, level_schedule
 
 __all__ = ["GpuSolverScheduler", "SLOT_EVENTS"]
@@ -207,17 +213,20 @@ class GpuSolverScheduler:
         }
 
     def _stage(self, pt: ProblemTensors, delta: Optional[ProblemDelta],
-               warm: bool, stage: Optional[str] = None):
+               warm: bool, stage: Optional[str] = None, mesh=None):
         """DELTA (in-place merge into the resident state) when a resident
-        slot is compatible with `pt`, else COLD (full staging), re-admitted
-        warm from an eviction snapshot when this stage has one. Returns
-        (slot, resident_warm)."""
+        slot on `mesh` (None: no mesh) is compatible with `pt`, else COLD
+        (full staging, a ShardedResident on a mesh), re-admitted warm from
+        an eviction snapshot when this stage has one. Returns (slot,
+        resident_warm)."""
         # warm delta reuse: the slot whose staging matches this pt
         # (compatible() pins the untouched tensors by identity, so only
         # this stage's own slot can match)
         if warm:
             for i, slot in enumerate(self._slots):
                 rp = slot.resident
+                if rp.mesh != mesh:
+                    continue
                 if rp.assignment is not None and rp.compatible(pt, delta):
                     self._slots.insert(0, self._slots.pop(i))
                     slot.last_used = time.monotonic()
@@ -254,8 +263,12 @@ class GpuSolverScheduler:
                 slot.resident.record_warm_fallback()
             # the old staging's card memory goes before the new one's comes
             slot.resident.release()
-        resident = ResidentProblem(pt, self.device,
-                                   bucket=self.bucket is not False)
+        if mesh is not None:
+            resident = ShardedResident(pt, mesh=mesh,
+                                       bucket=self.bucket is not False)
+        else:
+            resident = ResidentProblem(pt, self.device,
+                                       bucket=self.bucket is not False)
         if slot is None:
             slot = _StageSlot(resident=resident, key=stage)
         else:
@@ -287,9 +300,14 @@ class GpuSolverScheduler:
 
     def _solve_one(self, pt: ProblemTensors, slot: _StageSlot,
                    resident_warm: bool, init: Optional[np.ndarray]):
-        # the slot's own staging decides whether the solve is padded, not a
-        # fresh read of FLEET_BUCKET
+        # the slot's own staging decides the path (sharded or not) and
+        # whether the solve is padded, not a fresh read of the environment
         rp = slot.resident
+        if rp.mesh is not None:
+            return solve_sharded(pt, resident=rp,
+                                 resident_warm=resident_warm,
+                                 init_assignment=init, steps=self.steps,
+                                 seed=self.seed)
         return solve(pt, prob=rp.prob, chains=self.chains, steps=self.steps,
                      seed=self.seed, init_assignment=init, bucket=rp.bucket,
                      resident=rp, resident_warm=resident_warm)
@@ -327,7 +345,8 @@ class GpuSolverScheduler:
         """Solve `pt` on the scheduler's device. `delta` is the structured
         churn of a warm reschedule; `stage` keys the resident slot."""
         t0 = time.perf_counter()
-        slot, resident_warm = self._stage(pt, delta, warm_start, stage)
+        slot, resident_warm = self._stage(pt, delta, warm_start, stage,
+                                          mesh=sharded_route(pt))
         res = self._solve_one(pt, slot, resident_warm,
                               self._host_seed(pt, slot, warm_start,
                                               resident_warm))
@@ -348,8 +367,9 @@ class GpuSolverScheduler:
         try:
             for req in requests:
                 warm = bool(req.get("warm_start"))
-                slot, resident_warm = self._stage(req["pt"], req.get("delta"),
-                                                  warm, req.get("stage"))
+                slot, resident_warm = self._stage(
+                    req["pt"], req.get("delta"), warm, req.get("stage"),
+                    mesh=sharded_route(req["pt"]))
                 staged.append((req["pt"], slot, resident_warm, warm))
             placements = self._solve_staged(requests, staged, t0)
         finally:
@@ -362,7 +382,10 @@ class GpuSolverScheduler:
     def _solve_staged(self, requests: list[dict], staged: list,
                       t0: float) -> list[Placement]:
         results: list = [None] * len(staged)
-        mux_idx = [i for i, (_pt, _s, rw, _w) in enumerate(staged) if rw]
+        # the resident-warm stages without a mesh batch; sharded ones solve
+        # alone
+        mux_idx = [i for i, (_pt, s, rw, _w) in enumerate(staged)
+                   if rw and s.resident.mesh is None]
         if len(mux_idx) >= 2:
             entries = [MuxEntry(pt=staged[i][0],
                                 resident=staged[i][1].resident,

@@ -18,12 +18,15 @@ mini tier, K5 commit, K3 gate on the full problem) and falls back to the
 full path above when there is no plan or the gate rejects its result.
 ``_refine_lanes`` runs the full path's refine over a lane axis of same-tier
 stages at once (the tenant multiplexer, solver/multiplex.py); a solo solve
-is its one-lane case. The mesh is not ported.
+is its one-lane case. :func:`solve` first asks the sharded route
+(solver/sharded.py) whether the instance takes the service-axis sharded
+path; the chain-sharded mesh of the reference is the chain axis here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -92,6 +95,9 @@ class SolveResult:
     # when one ran ("localized" = committed by the exact gate,
     # "fallback_infeasible" = the full path re-ran), None otherwise
     subsolve: Optional[dict] = None
+    # the sharded path's replicas and exchanges: {replicas, ladder,
+    # exchange_every, swap_attempts, swap_accepts}; None off that path
+    tempering: Optional[dict] = None
 
     @property
     def violations(self) -> int:
@@ -270,6 +276,19 @@ def _refine_lanes(prob: TorchProblem, seeds: torch.Tensor, gens: list,
             torch.stack(softs), sweeps, accepted_c.sum(1), telems)
 
 
+def _set_kwargs(fn, values: dict) -> dict:
+    """The keyword-only arguments of `fn` that a call set away from their
+    defaults, read from the call's `values` (its locals())."""
+    out = {}
+    for name, p in inspect.signature(fn).parameters.items():
+        v = values[name]
+        if p.kind is p.KEYWORD_ONLY and not (
+                v is p.default or (type(v) is type(p.default)
+                                   and v == p.default)):
+            out[name] = v
+    return out
+
+
 def solve(pt: ProblemTensors, *, device=None,
           chains: Optional[int] = None, steps: int = DEFAULT_STEPS,
           seed: int = 0,
@@ -313,7 +332,17 @@ def solve(pt: ProblemTensors, *, device=None,
     (solver/buckets.py). None defers to FLEET_BUCKET (default off for a
     direct solve), and a pre-padded `prob` (a bucketed resident staging)
     is used as it is. The returned assignment, violations and soft score
-    are those of the real rows."""
+    are those of the real rows.
+
+    Sharded routing: an instance above FLEET_SHARDED_MIN_CELLS (or any,
+    under FLEET_SHARDED=1) with a mesh of >= 2 positions available solves
+    through the mesh-resident sharded path (solver/sharded.solve_sharded)
+    instead; explicit staging kwargs (prob, resident), and any knob that
+    path does not speak set away from its default, keep the call here."""
+    from .sharded import maybe_solve_sharded
+    routed = maybe_solve_sharded(pt, **_set_kwargs(solve, locals()))
+    if routed is not None:
+        return routed
     if seed_impl is not None and seed_impl not in SEED_IMPLS:
         raise ValueError(f"seed_impl must be 'scan', 'batched', "
                          f"'native', 'partitioned' or None, "

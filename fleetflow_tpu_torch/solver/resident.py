@@ -42,7 +42,8 @@ from .buckets import (BucketConfig, bucket_config, bucket_size,
                       pad_assignment, stage_problem_tiers)
 from .problem import TorchProblem, pack_bool_rows, prepare_problem
 
-__all__ = ["ProblemDelta", "ResidentProblem", "HOST_TRANSFERS"]
+__all__ = ["ProblemDelta", "ResidentProblem", "HOST_TRANSFERS",
+           "merge_delta"]
 
 # warm solves whose problem or seed had to cross the host boundary where
 # the reference's disallow transfer guard would have fired: a host-repaired
@@ -72,6 +73,31 @@ class ProblemDelta:
     n_real: Optional[int] = None
 
 
+def merge_delta(prob: TorchProblem, assignment: Optional[torch.Tensor],
+                node_valid: torch.Tensor, capacity: torch.Tensor,
+                demand_rows: Optional[tuple] = None,
+                eligible_rows: Optional[tuple] = None,
+                n_real: Optional[int] = None, *, first_valid: int) -> None:
+    """The churn merge, in place (the reference's ``_merge_fn`` and, on a
+    mesh whose shards are views of the planes, ``_merge_fn_sharded``): the
+    node planes copied, the changed demand and eligibility rows ((idx,
+    rows) device tensors) written, `n_real` set, and the phantom rows of
+    `assignment` re-parked on `first_valid`, the first valid node of the
+    host mask (its argmax, 0 when none is valid): the last winner may have
+    left them on a node the delta killed. A fill with a host scalar:
+    nothing is uploaded or read back."""
+    prob.node_valid.copy_(node_valid)
+    prob.capacity.copy_(capacity)
+    if demand_rows is not None:
+        prob.demand.index_copy_(0, *demand_rows)
+    if eligible_rows is not None:
+        prob.eligible.index_copy_(0, *eligible_rows)
+    if n_real is not None:
+        prob.n_real = int(n_real)
+    if assignment is not None:
+        assignment[prob.real_rows:].fill_(first_valid)
+
+
 class ResidentProblem:
     """The device-resident placement state a GpuSolverScheduler owns.
 
@@ -82,6 +108,10 @@ class ResidentProblem:
     winner and `note_host_assignment()` with its host copy.
     `compatible()` decides delta reuse vs a cold restage."""
 
+    # the mesh this staging is placed on (None: one device, no mesh); the
+    # scheduler's slot matching keys on it, so a routing flip can never
+    # hand a sharded staging to the single-device solve or back
+    mesh = None
     # the single-device staging supports churn-localized sub-solves
     supports_subsolve = True
 
@@ -271,24 +301,17 @@ class ResidentProblem:
         t0 = time.perf_counter()
         self._note_churn(pt, delta)
         up = self.merge_inputs(pt, delta)
-        prob = self.prob
-        prob.node_valid.copy_(up["node_valid"])
-        prob.capacity.copy_(up["capacity"])
-        if "dem_idx" in up:
-            prob.demand.index_copy_(0, up["dem_idx"], up["dem_val"])
-        if "elig_idx" in up:
-            prob.eligible.index_copy_(0, up["elig_idx"], up["elig_rows"])
-        if delta is not None and delta.n_real is not None:
-            prob.n_real = int(delta.n_real)
-        # re-park the phantom rows on the first valid node (argmax of the
-        # mask, 0 when none is valid): the last winner may have left them on
-        # a node this delta killed. A fill with a host scalar: no upload.
         first_valid = int(np.argmax(up["valid_np"]))
-        if self.assignment is not None:
-            self.assignment[prob.real_rows:].fill_(first_valid)
+        merge_delta(self.prob, self.assignment, up["node_valid"],
+                    up["capacity"],
+                    (up["dem_idx"], up["dem_val"]) if "dem_idx" in up else None,
+                    (up["elig_idx"], up["elig_rows"]) if "elig_idx" in up
+                    else None,
+                    delta.n_real if delta is not None else None,
+                    first_valid=first_valid)
         if self._mirror is not None:
             # the same re-park on the host mirror keeps it an exact copy
-            self._mirror[prob.real_rows:] = first_valid
+            self._mirror[self.prob.real_rows:] = first_valid
         self.pt = pt
         self._valid_fp = up["valid_np"].copy()
         self._cap_fp = up["cap_np"].copy()

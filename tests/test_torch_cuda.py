@@ -7,7 +7,8 @@ inactive lane) and a place_many batch; K5, the sub-solve's gather and
 commit, at the 10k x 1k headline size with mini tiers of 256 and 4096
 rows; K6, the per-service scan seed, at 2000 x 200 for each strategy and
 on best-effort instances; the host placer's build and the host seeds of
-solve() on the card.
+solve() on the card; K7, the sharded sweep, at 2000 x 200 on one-card
+meshes of 1 x 8 and 2 x 4 positions, and a cold and a warm solve_sharded.
 
 Every test needs a CUDA card and skips without one. On the card (which has
 no JAX, so the repository's conftest cannot load):
@@ -209,10 +210,11 @@ def test_main_path_on_the_card(dev):
         if len(dead) == 1:
             assert sched.last_result.subsolve["outcome"] == "localized"
     # every kernel of the path launched (K6 seeds only solve(seed_impl=
-    # "scan"), which the scheduler does not take)
+    # "scan"), which the scheduler does not take; K7 is the sharded path)
+    off = ("k6_greedy_scan", "k7_sharded_sweep")
     assert all(v > 0 for k, v in _ext.LAUNCHES.items()
-               if k != "k6_greedy_scan"), _ext.LAUNCHES
-    assert _ext.LAUNCHES["k6_greedy_scan"] == 0
+               if k not in off), _ext.LAUNCHES
+    assert all(_ext.LAUNCHES[k] == 0 for k in off)
 
 
 @pytest.fixture(scope="module")
@@ -538,3 +540,94 @@ def test_seed_impls_solve_on_the_card(dev, impl):
     assert verify(pt, res.assignment)["total"] == 0
     assert (_ext.LAUNCHES["k6_greedy_scan"] > 0) == (impl == "scan")
     assert _ext.LAUNCHES["k4_greedy"] == 0
+
+
+def _sharded_state(dev, prob, R, seed):
+    rng = np.random.default_rng(seed)
+    init = torch.tensor(rng.integers(0, prob.N, (R, prob.S)),
+                        dtype=torch.int32, device=dev)
+    return anneal.chain_states_from_assignment(prob, init)
+
+
+@pytest.mark.parametrize("layout", ["1x8", "2x4"])
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_k7_matches_plain(dev, layout, strategy):
+    """K7 against sharded_step_plain at 2000 x 200 on one-card meshes,
+    from random replica states, hot and cold: equal assignments, integer
+    planes and applied counts; loads within LOAD_RTOL (the plain version's
+    index_add_ groups the contributions to one row on the card)."""
+    from fleetflow_tpu_torch.solver import sharded
+    R, D = (1, 8) if layout == "1x8" else (2, 4)
+    pt, prob = _problem(dev, S=2000, N=200, strategy=strategy,
+                        packed=strategy != "fill_lowest",
+                        preferred=strategy == "pack_into_dedicated",
+                        skew=3 if strategy == "fill_lowest" else 0,
+                        n_real=1990)
+    st = _sharded_state(dev, prob, R, 4)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    draws = sharded.TorchDraws(gen)
+    M = max(8, min(256, (prob.S // D) // 2))
+    scratch = sharded._scratch(R, D, M, prob.N, dev)
+    for temps in ([1.0] * R, [0.01 * (1.3 ** r) for r in range(R)]):
+        st_k, st_p = st.clone(), st.clone()
+        applied = 0
+        for i in range(4):
+            hot = sharded._hot(prob, st_k, D)
+            s_loc, b_idx, u = draws.proposals(i, hot, prob.N, M)
+            before = _ext.LAUNCHES["k7_sharded_sweep"]
+            _, acc_k = sharded.sharded_step_apply(prob, st_k, s_loc, b_idx,
+                                                  u, temps, scratch)
+            assert _ext.LAUNCHES["k7_sharded_sweep"] == before + 1
+            _, acc_p = sharded.sharded_step_plain(prob, st_p, s_loc, b_idx,
+                                                  u, temps)
+            assert torch.equal(acc_k, acc_p)
+            applied += int(acc_k.sum())
+        _equal_states(st_k, st_p)
+        assert applied > 0
+    # the scratch is back at its resting values after every sweep
+    assert bool((scratch.ints[-R * prob.N:] == 2**31 - 1).all())
+    assert bool((scratch.partial == 0).all())
+
+
+def test_k7_raises_on_bad_input(dev):
+    from fleetflow_tpu_torch.solver import sharded
+    _pt, prob = _problem(dev, S=600, N=80)
+    st = _sharded_state(dev, prob, 1, 0)
+    s = torch.zeros((1, 8, 16), dtype=torch.int32, device=dev)
+    u = torch.zeros((1, 8, 16), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError):          # one temperature per replica
+        sharded.sharded_step_apply(prob, st, s, s, u, [1.0, 1.0])
+    with pytest.raises(ValueError):          # S = 600 over 7 shards
+        sharded.sharded_step_apply(prob, st, s[:, :7], s[:, :7], u[:, :7],
+                                   [1.0])
+
+
+@pytest.mark.parametrize("layout", ["1x8", "2x4"])
+def test_solve_sharded_on_the_card(dev, layout):
+    """A cold and a warm solve_sharded over a one-card mesh: feasible,
+    nothing on the dead node, K7 and K3 launched, K1 not, and no upload
+    inside the warm dispatch."""
+    from fleetflow_tpu_torch.solver.repair import verify
+    from fleetflow_tpu_torch.solver.resident import ProblemDelta
+    from fleetflow_tpu_torch.solver.sharded import (ShardedResident,
+                                                    solve_sharded,
+                                                    tempering_mesh)
+    R, D = (1, 8) if layout == "1x8" else (2, 4)
+    pt = synthetic_problem(997, 100, seed=0, n_tenants=8,
+                           port_fraction=0.2, volume_fraction=0.1)
+    rp = ShardedResident(pt, mesh=tempering_mesh(R, D, devices=[dev] * 8))
+    _ext.reset_launches()
+    cold = solve_sharded(pt, resident=rp, steps=64, block=4)
+    assert cold.feasible and verify(pt, cold.assignment)["total"] == 0
+    valid = pt.node_valid.copy()
+    valid[int(np.bincount(cold.assignment, minlength=pt.N).argmax())] = False
+    pt2 = dataclasses.replace(pt, node_valid=valid)
+    rp.apply_delta(pt2, ProblemDelta(node_valid=valid))
+    warm = solve_sharded(pt2, resident=rp, resident_warm=True, steps=64,
+                         block=4)
+    assert warm.feasible and valid[warm.assignment].all()
+    assert warm.warm_h2d_copies == 0 and warm.tempering["replicas"] == R
+    assert _ext.LAUNCHES["k7_sharded_sweep"] > 0
+    assert _ext.LAUNCHES["k3_rebuild"] > 0
+    assert _ext.LAUNCHES["k1_sweep"] == 0
