@@ -13,7 +13,8 @@ each of which fails the run:
   2. hold K1-K4 and K6 against their plain PyTorch versions on the same
      inputs at the headline size, synthetic_problem(10000, 1000, seed=0,
      n_tenants=8, port_fraction=0.2, volume_fraction=0.1), and time both
-     with CUDA events (``[k6_scan]``: K6 also at 2000x200 with pack,
+     with CUDA events (K4 and K3 also on the 2000x200 mux tier's
+     staging; ``[k6_scan]``: K6 also at 2000x200 with pack,
      fill_lowest and a best-effort instance); then K1-K3 with a lane axis,
      at 8 lanes of 2000x200 and 2 lanes of the padded phase-4 fleet,
      against their plain versions and against the solo kernel launched
@@ -80,10 +81,16 @@ each of which fails the run:
      and a resident-warm solve; one more under torch.profiler must make no
      host-to-device copy in its ``fleet.sharded`` range); the XL fleet
      (29997x3000) cold over a 1x8 mesh, with ``per_device_bytes`` and the
-     card's peak allocation. K7 and K3 launch, no other kernel;
+     card's peak allocation. K7 and K3 launch, no other kernel; then K3
+     (cold 1x8 and XL) and K7 (all three) against their plain versions
+     on these stagings, from each one's winner;
  12. ``[dryrun]``: ``entry.dryrun_multichip(8)`` on 8 positions of the
      card (K1 and K3 for the chain layout, K7 for the two sharded ones);
- 13. print the per-kernel JSON line, the card line, and last
+     ``[device]``: K4's and K3's device-only ms and device launches a
+     call at both sizes (K3 also at 8 lanes), from the kernel cases of
+     ``fleetflow_tpu_torch/tools/k34_profile.py`` in a fresh interpreter;
+ 13. print the per-kernel JSON line (launches also by fleet size), the
+     card line, and last
      ``{"ok": true, "device": {...}}``.
 
 Every solve of phases 3 to 8 and 11, and phase 9's relaxed re-solve, must have
@@ -156,8 +163,26 @@ def card_line() -> str:
         "nvidia-smi: no output"
 
 
+@contextmanager
+def as_deployed(torch):
+    """Timing as the solver runs: without the deterministic algorithms the
+    plain-version checks turn on (under them every torch.empty launches a
+    fill of its memory, which no solve pays)."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=True)
+
+
 def cuda_ms(torch, fn, setup=None, reps: int = 5, warmup: int = 1) -> float:
     """Median CUDA-event time of fn(*setup()) over `reps` runs."""
+    with as_deployed(torch):
+        return _cuda_ms(torch, fn, setup, reps, warmup)
+
+
+def _cuda_ms(torch, fn, setup, reps: int, warmup: int) -> float:
     times = []
     for i in range(warmup + reps):
         args = setup() if setup is not None else ()
@@ -202,10 +227,119 @@ def k3_bytes(prob, C: int, stats: bool = True) -> float:
     return out
 
 
+def size_rec(recs: dict, name: str, head: dict, rec: dict) -> None:
+    """Record a kernel measured at one size: the first size fills the
+    kernel line's own fields, and every size goes under its `sizes`, with
+    its bound."""
+    bound, by = bound_of(rec["bytes"], rec["ops"])
+    if name not in recs:
+        recs[name] = dict(head, **rec)
+        recs[name].pop("size")
+    recs[name].setdefault("sizes", []).append(dict(
+        {k: v for k, v in rec.items() if k not in ("bytes", "ops")},
+        bound_ms=bound, bound_by=by))
+
+
+def k3_against_plain(torch, kernels, prob, a, size: str, recs: dict,
+                     rows: str):
+    """K3 with the stats against k3_rebuild_plain on the (C, S)
+    assignments `a` (`rows` names them) of the staging `prob`: integer
+    planes and stats equal, the load within LOAD_RTOL with its max |err|
+    printed; the CUDA-event ms of both and of index_add_ (the load alone)
+    recorded under the kernel line's `sizes` as `size`. Returns the
+    kernel's outputs."""
+    was = torch.are_deterministic_algorithms_enabled()
+    # the plain version's index_add_ sums in index order under the
+    # deterministic algorithms, which is the kernel's order
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out_k = kernels.k3_rebuild(prob, a, with_stats=True)
+        out_p = kernels.k3_rebuild_plain(prob, a, with_stats=True)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=True)
+    for name, x, y in zip(("used", "coloc", "topo", "stats"), out_k[1:],
+                          out_p[1:]):
+        if not torch.equal(x, y):
+            raise AssertionError(f"K3 at {size}: {name} differs")
+    err = max_err(torch, out_k[0], out_p[0])
+    if not torch.allclose(out_k[0], out_p[0], rtol=LOAD_RTOL, atol=0):
+        raise AssertionError(f"K3 at {size}: load differs by {err}")
+    ms = cuda_ms(torch, lambda: kernels.k3_rebuild(prob, a, with_stats=True),
+                 reps=10)
+    plain = cuda_ms(torch, lambda: kernels.k3_rebuild_plain(
+        prob, a, with_stats=True))
+    C = a.shape[0]
+    flat = a.long().reshape(-1)
+    dem = prob.demand.repeat(C, 1)
+    lib = cuda_ms(torch, lambda: torch.zeros(
+        (prob.N, 3), device=a.device).index_add_(0, flat, dem))
+    size_rec(recs, "k3_rebuild", dict(
+        name="k3_rebuild", route="cuda",
+        source="fleetflow_tpu_torch/csrc/k3_rebuild.cu",
+        replaces="fleetflow_tpu/solver/anneal.py:88"),
+        dict(size=size, padded_S=prob.S, max_abs_err=err, ms=ms,
+             plain_ms=plain, library_ms=lib, ops=0.0,
+             bytes=k3_bytes(prob, C)))
+    print(f"[k3_rebuild] {size}: equal integer planes and stats ({rows} "
+          f"{out_k[4].tolist()}), load max |err| {err:.3g}; kernel "
+          f"{ms:.3f} ms, plain {plain:.3f} ms, index_add_ {lib:.3f} ms",
+          flush=True)
+    return out_k
+
+
+# k34_profile.py's cases: (kernel, size record) each fills
+K34_CASES = {"k4 10000x1000": ("k4_greedy", "10000x1000"),
+             "k4 2000x200": ("k4_greedy", "2000x200"),
+             "k3 10000x1000 C=2": ("k3_rebuild", "10000x1000"),
+             "k3 2000x200 C=2": ("k3_rebuild", "2000x200")}
+
+
+def measure_device(recs: dict) -> None:
+    """[device]: the device-only ms and device launches a call of K4 and
+    K3 at 10k x 1k and 2000x200 (and K3's 8 lanes), from the kernel cases
+    of fleetflow_tpu_torch/tools/k34_profile.py run on this checkout in a
+    fresh interpreter (torch.profiler late in this process has lost
+    kernel records). Each kernel's size records get device_ms and
+    device_launches (each kernel's count a call, rounded: the profiler
+    can drop a record); every case goes under the kernel's `device`."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    tool = os.path.join(root, "fleetflow_tpu_torch", "tools",
+                        "k34_profile.py")
+    run = subprocess.run([sys.executable, tool, "--cases", "k4,k3,k3-lanes",
+                          "--child", root],
+                         capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"[device] k34_profile failed:\n"
+                             f"{run.stderr[-3000:]}")
+    for line in run.stdout.splitlines():
+        if not line.startswith("{"):
+            continue
+        row = json.loads(line)
+        launches = sum(round(n) for _ms, n in row["by_name"].values())
+        case = dict(case=row["case"], ms=row["event_ms_median"],
+                    device_ms=row["device_ms"], device_launches=launches)
+        name = "k4_greedy" if row["case"].startswith("k4") else "k3_rebuild"
+        recs[name].setdefault("device", []).append(case)
+        if row["case"] in K34_CASES:
+            size = K34_CASES[row["case"]][1]
+            for rec in recs[name]["sizes"]:
+                if rec["size"] == size:
+                    rec["device_ms"] = case["device_ms"]
+                    rec["device_launches"] = launches
+            if size == recs[name]["sizes"][0]["size"]:
+                recs[name]["device_ms"] = case["device_ms"]
+                recs[name]["device_launches"] = launches
+        print(f"[device] {row['case']}: {case['device_ms']:.4f} ms of "
+              f"device time, {launches} device launches a call; event "
+              f"{case['ms']:.4f} ms", flush=True)
+
+
 def check_kernels(torch, np, pkg, dev):
-    """Phase 2: every kernel against its plain version at the slice size.
-    Returns {kernel: record} with the measured times and errors."""
-    anneal, kernels, greedy, problem, lower = pkg
+    """Phase 2: every kernel against its plain version at the slice size
+    (K4 and K3 also on the 2000x200 mux tier). Returns {kernel: record}
+    with the measured times and errors."""
+    anneal, kernels, greedy, problem, lower, buckets = pkg
     pt = lower.synthetic_problem(N_SERVICES, N_NODES, seed=0, n_tenants=8,
                                  port_fraction=0.2, volume_fraction=0.1)
     prob = problem.prepare_problem(pt, dev)
@@ -216,74 +350,70 @@ def check_kernels(torch, np, pkg, dev):
     # deterministic algorithms, which is the kernels' order
     torch.use_deterministic_algorithms(True, warn_only=True)
 
-    # K4: the batched greedy seed on the placement order
-    order = torch.tensor(greedy.placement_order(
-        pt.demand, pt.dep_depth, problem.unify_conflict_ids(pt)),
-        dtype=torch.int32, device=dev)
-    seed_k = greedy.greedy_place_batched(prob, order)
-    seed_p = greedy.greedy_place_batched_plain(prob, order)
-    torch.cuda.synchronize()
-    if not torch.equal(seed_k, seed_p):
-        raise AssertionError(f"K4 assignment differs in "
-                             f"{int((seed_k != seed_p).sum())} services")
-    ms = cuda_ms(torch, lambda: greedy.greedy_place_batched(prob, order))
-    plain = cuda_ms(torch, lambda: greedy.greedy_place_batched_plain(
-        prob, order), reps=3)
-    W = (N + 31) // 32
-    recs["k4_greedy"] = dict(
-        name="k4_greedy", route="cuda",
-        source="fleetflow_tpu_torch/csrc/k4_greedy.cu",
-        replaces="fleetflow_tpu/solver/greedy.py:193",
-        max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None,
+    # K4 and K3 at the headline size (exact shapes) and on the 2000x200
+    # mux tier (bucketed staging, phantom rows last in the order)
+    stage2, _ = buckets.stage_problem_tiers(mux_fleets(lower)(2000, 200, 0),
+                                            device=dev)
+    pt2 = mux_fleets(lower)(2000, 200, 0)
+    sizes = ((f"{S}x{N}", pt, prob), ("2000x200", pt2, stage2))
+    seeds = {}
+    for size, pt_s, prob_s in sizes:
+        order = torch.tensor(np.concatenate([
+            greedy.placement_order(pt_s.demand, pt_s.dep_depth,
+                                   problem.unify_conflict_ids(pt_s)),
+            np.arange(pt_s.S, prob_s.S, dtype=np.int32)]),
+            dtype=torch.int32, device=dev)
+        seed_k = greedy.greedy_place_batched(prob_s, order)
+        seed_p = greedy.greedy_place_batched_plain(prob_s, order)
+        torch.cuda.synchronize()
+        if not torch.equal(seed_k, seed_p):
+            raise AssertionError(f"K4 at {size}: assignment differs in "
+                                 f"{int((seed_k != seed_p).sum())} services")
+        seeds[size] = seed_k
+        ms = cuda_ms(torch, lambda: greedy.greedy_place_batched(prob_s,
+                                                               order))
+        plain = cuda_ms(torch, lambda: greedy.greedy_place_batched_plain(
+            prob_s, order), reps=3)
+        Ss, Ns = prob_s.S, prob_s.N
+        Ws = prob_s.eligible.shape[1]
+        Ks = prob_s.conflict_ids.shape[1]
         # the least work: one scoring pass over every (service, node) pair,
         # ~30 float32 operations each (3 adds, 3 compares, 3 divides, 3
         # squares, 2 adds, 3 overflow terms, the fallback score)
-        ops=S * N * 30.0,
-        bytes=4.0 * (S + S * 3 + N * 3 + S * K + S * W + S) + N)
-    print(f"[k4_greedy] equal assignments; kernel {ms:.3f} ms, plain "
-          f"{plain:.3f} ms", flush=True)
+        rec = dict(size=size, padded_S=Ss, max_abs_err=0.0, ms=ms,
+                   plain_ms=plain, ops=Ss * Ns * 30.0,
+                   bytes=4.0 * (Ss + Ss * 3 + Ns * 3 + Ss * Ks + Ss * Ws
+                                + Ss) + Ns)
+        size_rec(recs, "k4_greedy", dict(
+            name="k4_greedy", route="cuda",
+            source="fleetflow_tpu_torch/csrc/k4_greedy.cu",
+            replaces="fleetflow_tpu/solver/greedy.py:193", library_ms=None),
+            rec)
+        print(f"[k4_greedy] {size}: equal assignments; kernel {ms:.3f} ms, "
+              f"plain {plain:.3f} ms", flush=True)
 
     # K3: rebuild + exact stats on the seed and on a perturbed assignment
     rng = np.random.default_rng(0)
-    pert = seed_k.clone()
-    heavy = torch.tensor(rng.choice(S, S // 3, replace=False), device=dev)
-    pert[heavy] = torch.tensor(rng.integers(0, 10, heavy.numel()),
-                               dtype=torch.int32, device=dev)
-    ports = torch.tensor(np.flatnonzero((pt.port_ids >= 0).any(1)),
-                         device=dev)
-    pert[ports] = 0
-    both = torch.stack([seed_k, pert])
-    out_k = kernels.k3_rebuild(prob, both, with_stats=True)
-    out_p = kernels.k3_rebuild_plain(prob, both, with_stats=True)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("used", "coloc", "topo", "stats"), out_k[1:],
-                          out_p[1:]):
-        if not torch.equal(a, b):
-            raise AssertionError(f"K3 {name} differs")
-    err = max_err(torch, out_k[0], out_p[0])
-    if not torch.allclose(out_k[0], out_p[0], rtol=LOAD_RTOL, atol=0):
-        raise AssertionError(f"K3 load differs by {err}")
-    if float(out_k[4][1, 4]) == 0:
-        raise AssertionError("K3 perturbed assignment shows no violation")
-    ms = cuda_ms(torch, lambda: kernels.k3_rebuild(prob, both,
-                                                   with_stats=True))
-    plain = cuda_ms(torch, lambda: kernels.k3_rebuild_plain(
-        prob, both, with_stats=True))
-    flat = both.long().reshape(-1)
-    dem2 = prob.demand.repeat(2, 1)
-    lib = cuda_ms(torch, lambda: torch.zeros(
-        (N, 3), device=dev).index_add_(0, flat, dem2))
+    boths = {}
+    for size, pt_s, prob_s in sizes:
+        Ss = prob_s.S
+        pert = seeds[size].clone()
+        heavy = torch.tensor(rng.choice(Ss, Ss // 3, replace=False),
+                             device=dev)
+        pert[heavy] = torch.tensor(rng.integers(0, 10, heavy.numel()),
+                                   dtype=torch.int32, device=dev)
+        ports = torch.tensor(np.flatnonzero((pt_s.port_ids >= 0).any(1)),
+                             device=dev)
+        pert[ports] = 0
+        both = boths[size] = torch.stack([seeds[size], pert])
+        out_k = k3_against_plain(torch, kernels, prob_s, both, size, recs,
+                                 "seed, perturbed")
+        if float(out_k[4][1, 4]) == 0:
+            raise AssertionError(f"K3 at {size}: the perturbed assignment "
+                                 f"shows no violation")
+    both, seed_k = boths[f"{S}x{N}"], seeds[f"{S}x{N}"]
     Kc = prob.coloc_ids.shape[1]
-    recs["k3_rebuild"] = dict(
-        name="k3_rebuild", route="cuda",
-        source="fleetflow_tpu_torch/csrc/k3_rebuild.cu",
-        replaces="fleetflow_tpu/solver/anneal.py:88",
-        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-        ops=0.0, bytes=k3_bytes(prob, 2))
-    print(f"[k3_rebuild] equal integer planes and stats (seed "
-          f"{out_k[4][0].tolist()}, perturbed {out_k[4][1].tolist()}), "
-          f"load max |err| {err:.3g}; kernel {ms:.3f} ms, plain "
-          f"{plain:.3f} ms, index_add_ {lib:.3f} ms", flush=True)
+    W = (N + 31) // 32
 
     # K1: 8 sweeps from fixed proposals, hot and cold, and cold again with
     # the warm path's stickiness to the seed (what a reschedule runs)
@@ -450,7 +580,6 @@ def make_record(sched, verify, _ext, dev_name: str, tag: str,
         row = dict(solve=label, ms=round(placement.solve_ms, 3),
                    sweeps=res.steps,
                    prerepair_moves=tel.get("prerepair_moves"),
-                   chain=tel.get("best_chain"),
                    pre_repair_violations=res.pre_repair_violations,
                    warm_h2d_copies=res.warm_h2d_copies,
                    soft=round(res.soft, 6), **extra, launches=launched,
@@ -463,9 +592,31 @@ def make_record(sched, verify, _ext, dev_name: str, tag: str,
     return record
 
 
-def read_launches(torch, _ext, tag: str, path: tuple, off: tuple = ()):
+# main-path launches by the fleet size they ran at: each phase tallies
+# its counts under the size of the fleet it solved
+BY_SIZE: dict = {}
+
+
+def size_label(S: int, N: int) -> str:
+    return "10k" if 9_000 <= S < 12_000 else f"{S}x{N}"
+
+
+def tally_size(_ext, S: int, N: int, since: Optional[dict] = None) -> dict:
+    """Add the launches since the counts `since` (since they were zeroed
+    when None) to the tally of the S x N fleet. Returns the counts now."""
+    now = dict(_ext.LAUNCHES)
+    tally = BY_SIZE.setdefault(size_label(S, N), {})
+    for k in KERNEL_NAMES:
+        tally[k] = tally.get(k, 0) + now[k] - (since or {}).get(k, 0)
+    return now
+
+
+def read_launches(torch, _ext, tag: str, path: tuple, off: tuple = (),
+                  size: Optional[tuple] = None):
     """The phase's launch counts: every kernel of its path launched, none
-    of `off` (nor K7, the sharded sweep, unless the path has it)."""
+    of `off` (nor K7, the sharded sweep, unless the path has it). With
+    `size` (S, N), the phase ran at that fleet size alone, and its counts
+    are tallied there."""
     torch.cuda.synchronize()
     if "k7_sharded_sweep" not in path:
         off = tuple(off) + ("k7_sharded_sweep",)
@@ -474,6 +625,8 @@ def read_launches(torch, _ext, tag: str, path: tuple, off: tuple = ()):
         raise AssertionError(f"[{tag}] launches {launches}: expected all of "
                              f"{path}, none of {off}")
     print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
+    if size is not None:
+        tally_size(_ext, *size)
     return launches
 
 
@@ -488,7 +641,8 @@ def run_main_path(torch, np, pkg_main, pt, dev_name):
         record = make_record(sched, verify, _ext, dev_name, "main")
         pt = drive_main_path(np, pt, sched, ProblemDelta, record)
         launches = read_launches(torch, _ext, "main", KERNEL_NAMES[:4],
-                                 off=("k5_subsolve", "k6_greedy_scan"))
+                                 off=("k5_subsolve", "k6_greedy_scan"),
+                                 size=(pt.S, pt.N))
         warm_h2d_check(torch, np, sched, pt, ProblemDelta, record)
     return launches
 
@@ -758,7 +912,7 @@ def run_default_phase(torch, np, pkg_main, lower, dev_name, S=N_SERVICES,
     rows, pt, valid, masks = drive_default(np, pt, sched, ProblemDelta,
                                            record, index, S, tenant)
     launches = read_launches(torch, _ext, "default", KERNEL_NAMES[:5],
-                             off=("k6_greedy_scan",))
+                             off=("k6_greedy_scan",), size=(pt.S, pt.N))
     outcomes = {k: v - outcomes0[k]
                 for k, v in subsolve.OUTCOME_COUNTS.items()}
     subs = [r["subsolve"] for r in rows if r.get("subsolve")]
@@ -1244,7 +1398,7 @@ def same_lane(np, ref, got, label: str) -> None:
         diffs.append(f"stats {ref.stats} != {got.stats}")
     if ref.steps != got.steps:
         diffs.append(f"sweeps {ref.steps} != {got.steps}")
-    for key in ("blocks", "prerepair_moves", "exit_sweep", "best_chain",
+    for key in ("blocks", "prerepair_moves", "exit_sweep", "trace_blocks",
                 "init"):
         if rt.get(key) != gt.get(key):
             diffs.append(f"telemetry {key} differs")
@@ -1346,6 +1500,7 @@ def run_mux_phase(torch, np, mods, fleet, dev_name, tenant_fleet):
         torch.cuda.synchronize()
         _ext.reset_launches()
         for S, N, K, build, steps in grid:
+            at_start = dict(_ext.LAUNCHES)
             serial, serial_ms = [], []
             for i in range(K):
                 cur, rp = build(S, N, i, steps)
@@ -1393,6 +1548,7 @@ def run_mux_phase(torch, np, mods, fleet, dev_name, tenant_fleet):
                        launches=launched)
             rows.append(row)
             print(f"[mux] {json.dumps(row)}", flush=True)
+            tally_size(_ext, S, N, since=at_start)
         launches = read_launches(torch, _ext, "mux", KERNEL_NAMES[:4],
                                  off=("k5_subsolve", "k6_greedy_scan"))
         if not any(any(r["sweeps"]) for r in rows):
@@ -1577,7 +1733,8 @@ def run_slots_phase(torch, np, mods, fleet, dev_name):
               f"{st['resident_bytes']} bytes), every stage placed",
               flush=True)
         return read_launches(torch, _ext, "slots", KERNEL_NAMES[:4],
-                             off=("k5_subsolve", "k6_greedy_scan"))
+                             off=("k5_subsolve", "k6_greedy_scan"),
+                             size=(S, N))
 
 
 def profile_mux(torch, mods, fleet, dev_name) -> None:
@@ -1847,7 +2004,8 @@ def run_seeds_phase(torch, np, mods, pt, dev_name):
     return read_launches(torch, _ext, "seeds",
                          ("k1_sweep", "k3_rebuild", "k4_greedy",
                           "k6_greedy_scan"),
-                         off=("k2_prerepair", "k5_subsolve"))
+                         off=("k2_prerepair", "k5_subsolve"),
+                         size=(pt.S, pt.N))
 
 
 def run_fallback_phase(torch, np, mods, lower, dev_name):
@@ -1887,7 +2045,7 @@ def run_fallback_phase(torch, np, mods, lower, dev_name):
     launches = read_launches(torch, _ext, "fallback",
                              ("k1_sweep", "k3_rebuild", "k4_greedy"),
                              off=("k2_prerepair", "k5_subsolve",
-                                  "k6_greedy_scan"))
+                                  "k6_greedy_scan"), size=(pt.S, pt.N))
     picks = {f"{S}x{N}": type(pick_scheduler(S, N)).__name__
              for S, N in ((4, 4), (2000, 200), (N_SERVICES, N_NODES))}
     picks[f"{N_SERVICES}x{N_NODES} prefer_gpu=False"] = type(pick_scheduler(
@@ -1908,14 +2066,15 @@ def run_entry_phase(torch, mods, lower, dev):
     out = fn(*args)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t_fn) * 1e3
+    # entry()'s fleet (prepare_problem makes no kernel launch)
+    prob = problem.prepare_problem(lower.synthetic_problem(256, 16, seed=0),
+                                   dev)
     launches = read_launches(torch, _ext, "entry", ("k1_sweep", "k3_rebuild"),
                              off=("k2_prerepair", "k4_greedy", "k5_subsolve",
-                                  "k6_greedy_scan"))
+                                  "k6_greedy_scan"), size=(prob.S, prob.N))
     if launches["k1_sweep"] != 32:
         raise AssertionError(f"[entry] K1 launched {launches['k1_sweep']} "
                              f"times, expected 32")
-    prob = problem.prepare_problem(lower.synthetic_problem(256, 16, seed=0),
-                                   dev)
     cost = float(total_cost(prob, out))
     zero = float(total_cost(prob, torch.zeros(256, dtype=torch.int32,
                                               device=dev)))
@@ -2074,7 +2233,7 @@ def sharded_solve_row(res, pt_now, verify, dev_name: str, label: str,
     return row
 
 
-def run_sharded_phase(torch, np, mods, lower, dev):
+def run_sharded_phase(torch, np, mods, lower, dev, recs):
     """[sharded]: the pod path on one card. (a) a cold solve_sharded of the
     sharded fleet over a 1x8 mesh (steps 64, block 4, the bench child's
     settings); (b) the bench's resident leg on a 2x4 tempering mesh: a
@@ -2083,11 +2242,13 @@ def run_sharded_phase(torch, np, mods, lower, dev):
     through apply_delta + a resident-warm solve_sharded, and one more
     burst under torch.profiler with no host-to-device copy in its
     fleet.sharded range; (c) the XL fleet cold over a 1x8 mesh. K7 and K3
-    must launch, no other kernel. Then, once the counts are read, K7 is
-    held against its plain version on each of these stagings, from its
-    resident winner (k7_against_plain). Returns the launch counts and
-    those layouts' records."""
-    _ext, sharded, anneal, verify, ProblemDelta = mods
+    must launch, no other kernel. Then, once the counts are read, K3 is
+    held against its plain version on the cold 1x8 and XL stagings from
+    their winners (k3_against_plain, a `sizes` entry each in `recs`), and
+    K7 on each of these stagings from its resident winner
+    (k7_against_plain). Returns the launch counts and K7's layouts'
+    records."""
+    _ext, sharded, anneal, kernels, verify, ProblemDelta = mods
     dev_name = str(dev)
     positions = [dev] * 8
     pt = sharded_fleet(lower, SHARDED_SHAPE)
@@ -2174,6 +2335,7 @@ def run_sharded_phase(torch, np, mods, lower, dev):
           f"re-parked): {m_ms:.3f} ms, bound {m_bound[0]:.3g} ms "
           f"({m_bound[1]})", flush=True)
 
+    since = tally_size(_ext, pt.S, pt.N)
     pt_xl = sharded_fleet(lower, XL_SHAPE)
     torch.cuda.reset_peak_memory_stats()
     rp_xl, res, row = cold(pt_xl, sharded.Mesh(positions, (sharded.SVC_AXIS,)),
@@ -2183,13 +2345,19 @@ def run_sharded_phase(torch, np, mods, lower, dev):
           f"{json.dumps(per_dev)} (sum {sum(per_dev.values())}); "
           f"max_memory_allocated {torch.cuda.max_memory_allocated()}",
           flush=True)
+    tally_size(_ext, pt_xl.S, pt_xl.N, since=since)
     launches = read_launches(torch, _ext, "sharded",
                              ("k7_sharded_sweep", "k3_rebuild"),
                              off=("k1_sweep", "k2_prerepair", "k4_greedy",
                                   "k5_subsolve", "k6_greedy_scan"))
-    # K7 at the shapes this path gave it: the bucketed stagings with their
-    # phantom rows (the resident one after its bursts, dead nodes and all)
-    # and the XL occupancy plane; these launches are not the path's
+    # K3 and K7 at the shapes this path gave them: the bucketed stagings
+    # with their phantom rows (the resident one after its bursts, dead
+    # nodes and all) and the XL occupancy plane; these launches are not
+    # the path's
+    for label, r in (("cold_1x8", rp_cold), ("xl_cold_1x8", rp_xl)):
+        k3_against_plain(torch, kernels, r.prob, r.assignment[None],
+                         f"{r.prob.S}x{r.prob.N} sharded {label}", recs,
+                         "winner")
     layouts = {}
     for label, r in (("sharded cold_1x8", rp_cold),
                      ("sharded resident_2x4", rp),
@@ -2213,10 +2381,11 @@ def run_dryrun_phase(torch, _ext, dryrun_multichip):
     wall = (time.perf_counter() - t_run) * 1e3
     print(f"[dryrun] {json.dumps(dict(out, wall_ms=round(wall, 3)))}",
           flush=True)
+    # tallied under the chain layout's fleet, synthetic_problem(64, 8)
     return read_launches(torch, _ext, "dryrun",
                          ("k1_sweep", "k3_rebuild", "k7_sharded_sweep"),
                          off=("k2_prerepair", "k4_greedy", "k5_subsolve",
-                              "k6_greedy_scan"))
+                              "k6_greedy_scan"), size=(64, 8))
 
 
 def small_agreement(torch, lower, solve):
@@ -2232,6 +2401,15 @@ def small_agreement(torch, lower, solve):
         raise AssertionError(f"small soft {gpu.soft} vs cpu {cpu.soft}")
     print(f"[small] 400x48 feasible on both; soft gpu {gpu.soft:.6f} "
           f"cpu {cpu.soft:.6f}", flush=True)
+
+
+def launches_by_size(name: str, total: int) -> dict:
+    """A kernel's main-path launches by the fleet size they ran at; every
+    phase's launches must have been tallied."""
+    out = {size: t[name] for size, t in BY_SIZE.items() if t.get(name)}
+    if sum(out.values()) != total:
+        raise AssertionError(f"{name}: {total} launches, {out} by size")
+    return out
 
 
 def main() -> int:
@@ -2274,8 +2452,8 @@ def main() -> int:
     print(f"[build] {len(_ext.KERNELS)} kernels built in {build_s:.1f} s, "
           f"{len(_ext.HOST_LIBS)} host library with them", flush=True)
 
-    recs = check_kernels(torch, np, (anneal, kernels, greedy, problem, lower),
-                         dev)
+    recs = check_kernels(torch, np, (anneal, kernels, greedy, problem, lower,
+                                     buckets), dev)
     recs["k6_greedy_scan"] = check_k6(torch, np, (greedy, problem, lower),
                                       dev)
     recs["k7_sharded_sweep"] = check_k7(
@@ -2312,12 +2490,14 @@ def main() -> int:
     by_phase["entry"] = run_entry_phase(
         torch, (_ext, entry, kernels.total_cost, problem), lower, dev)
     by_phase["sharded"], k7_layouts = run_sharded_phase(
-        torch, np, (_ext, sharded, anneal, verify, ProblemDelta), lower, dev)
+        torch, np, (_ext, sharded, anneal, kernels, verify, ProblemDelta),
+        lower, dev, recs)
     k7 = recs["k7_sharded_sweep"]
     k7["layouts"].update({k: {f: v[f] for f in LAYOUT_KEYS}
                           for k, v in k7_layouts.items()})
     k7["max_abs_err"] = max(v["max_abs_err"] for v in k7["layouts"].values())
     by_phase["dryrun"] = run_dryrun_phase(torch, _ext, dryrun_multichip)
+    measure_device(recs)
     if "--profile" in sys.argv[1:]:
         profile_phases(torch, np, pkg_main, lower, pt)
         profile_mux(torch, (_ext, solve, ResidentProblem, ProblemDelta,
@@ -2329,12 +2509,15 @@ def main() -> int:
         t_ops = r.pop("ops") / PEAK_OPS_S * 1e3
         r["launches"] = sum(counts[name] for counts in by_phase.values())
         r["launches_by_phase"] = {p: c[name] for p, c in by_phase.items()}
+        r["launches_by_size"] = launches_by_size(name, r["launches"])
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         out.append({k: r[k] for k in (
             "name", "route", "source", "replaces", "launches",
-            "launches_by_phase", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "lanes", "small_ms", "layouts")
+            "launches_by_phase", "launches_by_size", "max_abs_err", "ms",
+            "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "device_ms", "device_launches",
+            "sizes", "device", "lanes", "small_ms", "layouts")
             if k in r})
     print(f"[done] {time.perf_counter() - t0:.1f} s after the build started",
           flush=True)

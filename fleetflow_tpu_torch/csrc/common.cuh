@@ -107,45 +107,6 @@ __device__ __forceinline__ void block_arg(float& v, int& i, float* sv, int* si) 
   __syncthreads();
 }
 
-// ascending bitonic sort of `n` (a power of two) 64-bit keys in shared memory
-__device__ __forceinline__ void bitonic_sort_u64(unsigned long long* keys, int n) {
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const bool up = (i & k) == 0;
-          const unsigned long long a = keys[i], b = keys[ixj];
-          if ((a > b) == up) {
-            keys[i] = b;
-            keys[ixj] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-__device__ __forceinline__ void bitonic_sort_f32(float* keys, int n) {
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const bool up = (i & k) == 0;
-          const float a = keys[i], b = keys[ixj];
-          if ((a > b) == up) {
-            keys[i] = b;
-            keys[ixj] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
 static inline int ff_blocks(long long work, int threads, int cap = 132 * 16) {
   long long b = (work + threads - 1) / threads;
   if (b < 1) b = 1;

@@ -12,172 +12,190 @@
 // ineligible or invalid nodes, relu(max - min - max_skew), total.
 //
 // Determinism: a float atomicAdd sums a node's rows in a run-dependent
-// order, which can flip a cell at the 1e-6 edge. The load is therefore a
-// STABLE counting sort of services by node (CSR: per-chunk node counts,
-// their prefix over chunks and nodes, and each service's rank among the
-// same-node services before it in its chunk), then one thread per node
-// sums its segment, which is in service-index order: the order of the
-// reference's CPU scatter, so the result is bit-equal to it. The integer
-// planes use atomics (exact in any order).
+// order, which can flip a cell at the 1e-6 edge. Each node's load is
+// therefore its base plus its services' demand added one at a time in
+// service-index order: the order of the reference's CPU scatter, so the
+// result is bit-equal to it. The integer planes use atomics (exact in any
+// order). Out-of-range assignments are dropped, as XLA drops them.
 //
 // Lanes (the tenant multiplexer): L same-tier problems stacked on a
 // leading axis and C chains each fold into L·C rows; row r reads the planes
 // of lane r / C at that lane's stride (every stacked plane is a contiguous
-// (L, ...) tensor) and its n_real from the by-value lane scalars. Each row
-// keeps the stable, service-order load sum, so a lane's planes and stats
-// equal a solo rebuild's bit for bit; a solo call is L = 1. A frozen base
-// is one remainder shared by every row.
+// (L, ...) tensor) and its n_real from the by-value lane scalars. A solo
+// call is L = 1. A frozen base is one remainder shared by every row.
 //
 // Bound: bytes. The rebuild reads the assignment, demand and id tables
 // once and writes the planes; at S=10000, N=1000, G≈830 the (C, N, G) used
-// plane (zeroed, then scattered) dominates. Design: simple passes (init,
-// scatter + chunk counts, prefix over chunks, prefix over nodes, stable
-// fill, per-node sum, stats).
+// plane (zeroed, then scattered) dominates.
+//
+// Design: at most 3 launches (2 without the stats):
+//   1. init: the integer planes zeroed or copied from the base, the row
+//      accumulators zeroed; the base's own conflict pairs counted once;
+//   2. build, two roles of one grid: scatter blocks add each service's
+//      conflict, colocation and topology counts with atomics (with the
+//      stats, the value an increment finds is the number of pairs it
+//      adds, so the pairs are summed here and the stats never read the
+//      (C, N, G) plane); load blocks give one warp to each node: the block
+//      stages the row's assignment in shared-memory tiles with
+//      asynchronous copies (cp.async, double-buffered), and the warp walks
+//      each tile with __ballot_sync(a == n), listing its node's services
+//      in lane (= index) order, then gathers their demand 32 at a time
+//      and adds it in list order, tile after tile: service order, with no
+//      counting sort;
+//   3. stats: capacity cells and eligibility per row, block sums by
+//      atomics; the last block of a row (a __threadfence + atomicAdd
+//      counter) takes the skew from the topology counts and writes the
+//      five stats.
+#include <cuda_pipeline.h>
+
 #include "common.cuh"
+
+#define K3_THREADS 256
+#define K3_TILE 1024       // assignments staged per tile (4 KB)
+#define K3_INIT_BLOCKS 1024  // init blocks a row at most (base pair slots)
 
 namespace {
 
-__global__ void k3_init(int C, int N, int G, int Gc1, int T, int n_chunks,
-                        const float* __restrict__ load0,
-                        const int* __restrict__ used0,
-                        const int* __restrict__ coloc0,
-                        const int* __restrict__ topo0, float* load, int* used,
-                        int* coloc, int* topo, int* ccount,
-                        unsigned long long* acc) {
-  const size_t tid = grid_tid(), step = grid_stride();
-  const size_t nl = (size_t)N * 3, nu = (size_t)N * G, nc = (size_t)N * Gc1;
-  for (size_t i = tid; i < C * nl; i += step) load[i] = load0 ? load0[i % nl] : 0.f;
-  for (size_t i = tid; i < C * nu; i += step) used[i] = used0 ? used0[i % nu] : 0;
-  for (size_t i = tid; i < C * nc; i += step) coloc[i] = coloc0 ? coloc0[i % nc] : 0;
-  for (size_t i = tid; i < (size_t)C * T; i += step) topo[i] = topo0 ? topo0[i % T] : 0;
-  for (size_t i = tid; i < (size_t)C * n_chunks * N; i += step) ccount[i] = 0;
-  for (size_t i = tid; i < (size_t)C * 4; i += step) acc[i] = 0ull;
+constexpr int kWarps = K3_THREADS / 32;  // nodes per load block
+
+// grid (blocks, L·C): zero or copy the integer planes of row y; zero its
+// accumulators; count the base's conflict pairs once (row 0's blocks)
+__global__ void __launch_bounds__(K3_THREADS)
+k3_init(int N, int G, int Gc1, int T, const int* __restrict__ used0,
+        const int* __restrict__ coloc0, const int* __restrict__ topo0,
+        int* used, int* coloc, int* topo, unsigned long long* acc,
+        unsigned long long* base_pairs, int* done) {
+  __shared__ long long sm[32];
+  const int c = blockIdx.y;
+  const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t step = (size_t)gridDim.x * blockDim.x;
+  const size_t nu = (size_t)N * G, nc = (size_t)N * Gc1;
+  long long pairs = 0;
+  for (size_t i = tid; i < nu; i += step) {
+    const int u = used0 ? used0[i] : 0;
+    used[c * nu + i] = u;
+    pairs += (long long)u * (u - 1) / 2;
+  }
+  for (size_t i = tid; i < nc; i += step)
+    coloc[c * nc + i] = coloc0 ? coloc0[i] : 0;
+  for (size_t i = tid; i < (size_t)T; i += step)
+    topo[(size_t)c * T + i] = topo0 ? topo0[i] : 0;
+  if (tid < 4) acc[(size_t)c * 4 + tid] = 0ull;
+  if (tid == 0) done[c] = 0;
+  if (c == 0 && base_pairs != nullptr) {
+    pairs = block_sum_ll(pairs, sm);
+    if (threadIdx.x == 0) base_pairs[blockIdx.x] = (unsigned long long)pairs;
+  }
 }
 
-constexpr int kChunk = 256;  // services per block of the stable fill
-
-// grid (chunks, L·C), kChunk threads: integer scatters and per-chunk counts
-__global__ void k3_scatter(int C, int S, int N, int G, int Gc1, int T,
-                           const int* __restrict__ assign,
-                           const int* __restrict__ cids, int K,
-                           const int* __restrict__ colids, int Kc,
-                           const int* __restrict__ ntopo, FFLanes ls,
-                           int* used, int* coloc, int* topo, int* ccount) {
-  const int c = blockIdx.y, chunk = blockIdx.x;
-  const int s = chunk * kChunk + threadIdx.x;
-  if (s >= S) return;
+// grid (scatter blocks + load blocks, L·C), K3_THREADS threads
+__global__ void __launch_bounds__(K3_THREADS)
+k3_build(int C, int S, int N, int G, int Gc1, int T, int n_scatter,
+         const int* __restrict__ assign, const float* __restrict__ demand,
+         const int* __restrict__ cids, int K,
+         const int* __restrict__ colids, int Kc,
+         const int* __restrict__ ntopo, FFLanes ls,
+         const float* __restrict__ load0, float* load, int* used, int* coloc,
+         int* topo, unsigned long long* acc) {
+  __shared__ int tile[2][K3_TILE];
+  __shared__ short hits[kWarps][K3_TILE];
+  __shared__ long long sm[32];
+  const int c = blockIdx.y;
   const size_t lane = c / C;
-  cids += lane * S * K;
-  colids += lane * S * Kc;
-  ntopo += lane * N;
-  const int n_real = ls.n_real[lane];
-  const int a = assign[(size_t)c * S + s];
-  if (a < 0 || a >= N) return;  // out of range: dropped, as XLA drops it
-  atomicAdd(&ccount[((size_t)c * gridDim.x + chunk) * N + a], 1);
-  const size_t row = (size_t)c * N + a;
-  for (int k = 0; k < K; ++k) {
-    const int id = cids[(size_t)s * K + k];
-    if (id >= 0) atomicAdd(&used[row * G + id], 1);
-  }
-  for (int k = 0; k < Kc; ++k) {
-    const int id = colids[(size_t)s * Kc + k];
-    if (id >= 0) atomicAdd(&coloc[row * Gc1 + id], 1);
-  }
-  if (s < n_real) atomicAdd(&topo[(size_t)c * T + ntopo[a]], 1);
-}
-
-// one thread per (row, node): exclusive prefix of the chunk counts over
-// chunks, leaving the node's total in counts
-__global__ void k3_chunk_scan(int C, int N, int n_chunks, int* ccount,
-                              int* counts) {
-  const size_t step = grid_stride();
-  for (size_t i = grid_tid(); i < (size_t)C * N; i += step) {
-    const int c = (int)(i / N), n = (int)(i % N);
-    int run = 0;
-    for (int j = 0; j < n_chunks; ++j) {
-      int* p = &ccount[((size_t)c * n_chunks + j) * N + n];
-      const int v = *p;
-      *p = run;
-      run += v;
+  const int* as = assign + (size_t)c * S;
+  if ((int)blockIdx.x < n_scatter) {
+    // scatter role: one thread a service
+    const int s = blockIdx.x * blockDim.x + threadIdx.x;
+    long long pairs = 0;
+    if (s < S) {
+      cids += lane * S * K;
+      colids += lane * S * Kc;
+      ntopo += lane * N;
+      const int a = as[s];
+      if (a >= 0 && a < N) {
+        const size_t row = (size_t)c * N + a;
+        for (int k = 0; k < K; ++k) {
+          const int id = cids[(size_t)s * K + k];
+          if (id >= 0) pairs += atomicAdd(&used[row * G + id], 1);
+        }
+        for (int k = 0; k < Kc; ++k) {
+          const int id = colids[(size_t)s * Kc + k];
+          if (id >= 0) atomicAdd(&coloc[row * Gc1 + id], 1);
+        }
+        if (s < ls.n_real[lane]) atomicAdd(&topo[(size_t)c * T + ntopo[a]], 1);
+      }
     }
-    counts[i] = run;
-  }
-}
-
-// one block per row: exclusive scan of the per-node counts
-__global__ void k3_scan(int N, const int* __restrict__ counts, int* offsets) {
-  __shared__ int part[1024];
-  const int c = blockIdx.x;
-  const int chunk = (N + blockDim.x - 1) / blockDim.x;
-  const int lo = min(N, (int)threadIdx.x * chunk), hi = min(N, lo + chunk);
-  const int* cnt = counts + (size_t)c * N;
-  int sum = 0;
-  for (int n = lo; n < hi; ++n) sum += cnt[n];
-  part[threadIdx.x] = sum;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int run = 0;
-    for (int t = 0; t < (int)blockDim.x; ++t) {
-      const int v = part[t];
-      part[t] = run;
-      run += v;
+    if (acc != nullptr) {
+      pairs = block_sum_ll(pairs, sm);
+      if (threadIdx.x == 0 && pairs)
+        atomicAdd(&acc[(size_t)c * 4 + 1], (unsigned long long)pairs);
     }
-    offsets[(size_t)c * (N + 1) + N] = run;
+    return;
   }
-  __syncthreads();
-  int run = part[threadIdx.x];
-  for (int n = lo; n < hi; ++n) {
-    offsets[(size_t)c * (N + 1) + n] = run;
-    run += cnt[n];
+  // load role: warp w of the block sums node n's services in index order.
+  // Per tile it lists its node's services (tile offsets, in order) and then
+  // gathers their demand 32 at a time, one per lane, adding them in list
+  // order: a node holding thousands of services pays one gather per 32,
+  // and the adds never wait on a load they do not need.
+  const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned lower = (1u << wl) - 1u;
+  const int n = ((int)blockIdx.x - n_scatter) * kWarps + warp;
+  const float* dem = demand + lane * S * 3;
+  short* list = hits[warp];
+  float l0 = 0.f, l1 = 0.f, l2 = 0.f;
+  if (load0 != nullptr && n < N) {
+    l0 = load0[n * 3 + 0];
+    l1 = load0[n * 3 + 1];
+    l2 = load0[n * 3 + 2];
   }
-}
-
-// grid (chunks, L·C), kChunk threads: service s goes to its node's offset +
-// the same-node count of earlier chunks + its rank within its own chunk
-__global__ void k3_fill(int S, int N, const int* __restrict__ assign,
-                        const int* __restrict__ offsets,
-                        const int* __restrict__ ccount, int* perm) {
-  __shared__ int node[kChunk];
-  const int c = blockIdx.y, chunk = blockIdx.x;
-  const int s = chunk * kChunk + threadIdx.x;
-  int a = -1;
-  if (s < S) {
-    a = assign[(size_t)c * S + s];
-    if (a >= N) a = -1;
-  }
-  node[threadIdx.x] = a;
-  __syncthreads();
-  if (a < 0) return;
-  int rank = 0;
-  for (int t = 0; t < (int)threadIdx.x; ++t) rank += node[t] == a;
-  const int pos = offsets[(size_t)c * (N + 1) + a] +
-                  ccount[((size_t)c * gridDim.x + chunk) * N + a] + rank;
-  perm[(size_t)c * S + pos] = s;
-}
-
-// one thread per (row, node): sum the node's services, already in index
-// order, onto the base row
-__global__ void k3_load(int rows, int C, int S, int N,
-                        const int* __restrict__ offsets,
-                        const int* __restrict__ perm,
-                        const float* __restrict__ demand,
-                        const float* __restrict__ load0, float* load) {
-  const size_t step = grid_stride();
-  for (size_t i = grid_tid(); i < (size_t)rows * N; i += step) {
-    const int c = (int)(i / N), n = (int)(i % N);
-    const int lo = offsets[(size_t)c * (N + 1) + n];
-    const int hi = offsets[(size_t)c * (N + 1) + n + 1];
-    const int* seg = perm + (size_t)c * S;
-    const float* dem = demand + (size_t)(c / C) * S * 3;  // the row's lane
-    float l0 = load0 ? load0[n * 3 + 0] : 0.f;
-    float l1 = load0 ? load0[n * 3 + 1] : 0.f;
-    float l2 = load0 ? load0[n * 3 + 2] : 0.f;
-    for (int x = lo; x < hi; ++x) {
-      const int s = seg[x];
-      l0 = l0 + dem[(size_t)s * 3 + 0];
-      l1 = l1 + dem[(size_t)s * 3 + 1];
-      l2 = l2 + dem[(size_t)s * 3 + 2];
+  const int n_tiles = (S + K3_TILE - 1) / K3_TILE;
+  auto stage = [&](int t) {
+    const int base = t * K3_TILE;
+    const int len = min(K3_TILE, S - base);
+    for (int i = threadIdx.x; i < len; i += blockDim.x)
+      __pipeline_memcpy_async(&tile[t & 1][i], &as[base + i], sizeof(int));
+    __pipeline_commit();
+  };
+  stage(0);
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      stage(t + 1);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
     }
+    __syncthreads();
+    const int base = t * K3_TILE;
+    const int len = min(K3_TILE, S - base);
+    const int* buf = tile[t & 1];
+    int cnt = 0;
+    for (int j = 0; j < len; j += 32) {
+      const int i = j + wl;
+      const bool hit = n < N && i < len && buf[i] == n;
+      const unsigned bal = __ballot_sync(0xffffffffu, hit);
+      if (hit) list[cnt + __popc(bal & lower)] = (short)i;
+      cnt += __popc(bal);
+    }
+    __syncwarp();
+    for (int k0 = 0; k0 < cnt; k0 += 32) {
+      float e0 = 0.f, e1 = 0.f, e2 = 0.f;
+      if (k0 + wl < cnt) {
+        const float* d = dem + (size_t)(base + list[k0 + wl]) * 3;
+        e0 = d[0];
+        e1 = d[1];
+        e2 = d[2];
+      }
+      const int m = min(32, cnt - k0);
+#pragma unroll 4
+      for (int q = 0; q < m; ++q) {  // the listed services, in order
+        l0 = l0 + __shfl_sync(0xffffffffu, e0, q);
+        l1 = l1 + __shfl_sync(0xffffffffu, e1, q);
+        l2 = l2 + __shfl_sync(0xffffffffu, e2, q);
+      }
+    }
+    __syncthreads();  // the buffers are restaged on
+  }
+  if (n < N && wl == 0) {
     float* out = load + ((size_t)c * N + n) * 3;
     out[0] = l0;
     out[1] = l1;
@@ -185,16 +203,20 @@ __global__ void k3_load(int rows, int C, int S, int N,
   }
 }
 
-// grid (blocks, L·C): per-row counts of the three integer stats
-__global__ void k3_stats(int C, int S, int N, int G,
-                         const float* __restrict__ load,
-                         const float* __restrict__ cap,
-                         const int* __restrict__ used,
-                         const int* __restrict__ assign, const void* elig,
-                         int packed, int stride,
-                         const unsigned char* __restrict__ valid,
-                         unsigned long long* acc) {
+// grid (blocks, L·C): per-row capacity cells and eligibility counts; the
+// last block of a row adds the skew and writes the five stats
+__global__ void __launch_bounds__(K3_THREADS)
+k3_stats(int C, int S, int N, int T, const float* __restrict__ load,
+         const float* __restrict__ cap, const int* __restrict__ assign,
+         const void* elig, int packed, int stride,
+         const unsigned char* __restrict__ valid,
+         const int* __restrict__ topo, int max_skew,
+         const unsigned long long* __restrict__ base_pairs, int n_base,
+         unsigned long long* acc, int* done, float* stats) {
   __shared__ long long sm[32];
+  __shared__ float sv[32];
+  __shared__ int si[32];
+  __shared__ int last;
   const int c = blockIdx.y;
   const size_t lane = c / C;
   cap += lane * N * 3;
@@ -202,15 +224,10 @@ __global__ void k3_stats(int C, int S, int N, int G,
   valid += lane * N;
   const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t step = (size_t)gridDim.x * blockDim.x;
-  long long cells = 0, pairs = 0, bad = 0;
+  long long cells = 0, bad = 0;
   const float* ld = load + (size_t)c * N * 3;
   for (size_t i = tid; i < (size_t)N * 3; i += step)
     cells += ld[i] > cap[i] * FF_CAP_TOL;
-  const int* us = used + (size_t)c * N * G;
-  for (size_t i = tid; i < (size_t)N * G; i += step) {
-    const long long u = us[i];
-    pairs += u * (u - 1) / 2;
-  }
   const int* as = assign + (size_t)c * S;
   for (size_t s = tid; s < (size_t)S; s += step) {
     const int a = as[s];
@@ -221,46 +238,45 @@ __global__ void k3_stats(int C, int S, int N, int G,
     bad += (!ff_elig(elig, packed, stride, (int)s, a)) + (valid[a] == 0);
   }
   cells = block_sum_ll(cells, sm);
-  pairs = block_sum_ll(pairs, sm);
   bad = block_sum_ll(bad, sm);
   if (threadIdx.x == 0) {
     atomicAdd(&acc[c * 4 + 0], (unsigned long long)cells);
-    atomicAdd(&acc[c * 4 + 1], (unsigned long long)pairs);
     atomicAdd(&acc[c * 4 + 2], (unsigned long long)bad);
+    __threadfence();
+    last = atomicAdd(&done[c], 1) == (int)gridDim.x - 1;
   }
-}
-
-// one block per row: skew from the topology counts, then the five stats
-__global__ void k3_finalize(int T, const int* __restrict__ topo, int max_skew,
-                            const unsigned long long* __restrict__ acc,
-                            float* stats) {
-  __shared__ float sv[32];
-  __shared__ int si[32];
-  const int c = blockIdx.x;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the row's last block: skew from the topology counts, then the stats
   float hi = -CUDART_INF_F, lo = CUDART_INF_F;
   int dummy = 0;
   for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    const float v = (float)topo[(size_t)c * T + t];
+    const float v = (float)__ldcg(&topo[(size_t)c * T + t]);
     hi = fmaxf(hi, v);
     lo = fminf(lo, v);
   }
   block_arg<false>(hi, dummy, sv, si);
   block_arg<true>(lo, dummy, sv, si);
+  long long bp = 0;
+  for (int b = threadIdx.x; b < n_base; b += blockDim.x)
+    bp += (long long)__ldcg(&base_pairs[b]);
+  bp = block_sum_ll(bp, sm);
   if (threadIdx.x == 0) {
     long long skew = 0;
     if (max_skew > 0) {
       const long long spread = (long long)hi - (long long)lo;
       skew = spread - max_skew > 0 ? spread - max_skew : 0;
     }
-    const long long cells = (long long)acc[c * 4 + 0];
-    const long long pairs = (long long)acc[c * 4 + 1];
-    const long long bad = (long long)acc[c * 4 + 2];
+    const long long cells_t = (long long)__ldcg(&acc[c * 4 + 0]);
+    const long long pairs_t = (long long)__ldcg(&acc[c * 4 + 1]) + bp;
+    const long long bad_t = (long long)__ldcg(&acc[c * 4 + 2]);
     float* out = stats + (size_t)c * 5;
-    out[0] = (float)cells;
-    out[1] = (float)pairs;
-    out[2] = (float)bad;
+    out[0] = (float)cells_t;
+    out[1] = (float)pairs_t;
+    out[2] = (float)bad_t;
     out[3] = (float)skew;
-    out[4] = (float)(cells + pairs + bad + skew);
+    out[4] = (float)(cells_t + pairs_t + bad_t + skew);
   }
 }
 
@@ -274,37 +290,32 @@ FF_EXPORT int ff_k3_rebuild(
     int* topo, const float* cap, const void* elig, int packed, int stride,
     const unsigned char* valid, int max_skew, float* stats, int* scratch,
     cudaStream_t stream) {
-  // the L·C rows of (lane, chain); scratch: acc (4 u64 per row) | counts
-  // (rows,N) | offsets (rows,N+1) | perm (rows,S) | chunk counts
-  // (rows,chunks,N)
+  // the L·C rows of (lane, chain); scratch: acc (4 u64 a row) | base pairs
+  // (K3_INIT_BLOCKS u64) | done (an int a row)
   if (L < 1 || L > FF_MAX_LANES) return static_cast<int>(cudaErrorInvalidValue);
   const int R = L * C;
-  const int n_chunks = (S + kChunk - 1) / kChunk;
   unsigned long long* acc = reinterpret_cast<unsigned long long*>(scratch);
-  int* counts = scratch + 8 * R;
-  int* offsets = counts + (size_t)R * N;
-  int* perm = offsets + (size_t)R * (N + 1);
-  int* ccount = perm + (size_t)R * S;
-  const int th = 256;
-  const long long big = (long long)R * N * (G > 3 ? G : 3);
-  k3_init<<<ff_blocks(big, th), th, 0, stream>>>(
-      R, N, G, Gc1, T, n_chunks, load0, used0, coloc0, topo0, load, used,
-      coloc, topo, ccount, acc);
-  const dim3 chunks(n_chunks, R);
-  k3_scatter<<<chunks, kChunk, 0, stream>>>(C, S, N, G, Gc1, T, assign, cids,
-                                           K, colids, Kc, ntopo, lanes, used,
-                                           coloc, topo, ccount);
-  k3_chunk_scan<<<ff_blocks((long long)R * N, 128), 128, 0, stream>>>(
-      R, N, n_chunks, ccount, counts);
-  k3_scan<<<R, 1024, 0, stream>>>(N, counts, offsets);
-  k3_fill<<<chunks, kChunk, 0, stream>>>(S, N, assign, offsets, ccount, perm);
-  k3_load<<<ff_blocks((long long)R * N, 128), 128, 0, stream>>>(
-      R, C, S, N, offsets, perm, demand, load0, load);
-  if (stats != nullptr) {
-    dim3 grid(ff_blocks((long long)N * (G > 3 ? G : 3), th, 64), R);
-    k3_stats<<<grid, th, 0, stream>>>(C, S, N, G, load, cap, used, assign,
-                                      elig, packed, stride, valid, acc);
-    k3_finalize<<<R, 256, 0, stream>>>(T, topo, max_skew, acc, stats);
+  unsigned long long* base_pairs = acc + (size_t)4 * R;
+  int* done = reinterpret_cast<int*>(base_pairs + K3_INIT_BLOCKS);
+  const bool with_stats = stats != nullptr;
+  const int Gmax = G > Gc1 ? G : Gc1;
+  const int n_init = ff_blocks((long long)N * (Gmax > T ? Gmax : T),
+                               K3_THREADS * 4, K3_INIT_BLOCKS);
+  unsigned long long* bp = with_stats && used0 != nullptr ? base_pairs : nullptr;
+  k3_init<<<dim3(n_init, R), K3_THREADS, 0, stream>>>(
+      N, G, Gc1, T, used0, coloc0, topo0, used, coloc, topo, acc, bp, done);
+  const int n_scatter = (S + K3_THREADS - 1) / K3_THREADS;
+  const int n_load = (N + kWarps - 1) / kWarps;
+  k3_build<<<dim3(n_scatter + n_load, R), K3_THREADS, 0, stream>>>(
+      C, S, N, G, Gc1, T, n_scatter, assign, demand, cids, K, colids, Kc,
+      ntopo, lanes, load0, load, used, coloc, topo,
+      with_stats ? acc : nullptr);
+  if (with_stats) {
+    const int nb = ff_blocks((long long)(S > N * 3 ? S : N * 3), K3_THREADS * 2,
+                             256);
+    k3_stats<<<dim3(nb, R), K3_THREADS, 0, stream>>>(
+        C, S, N, T, load, cap, assign, elig, packed, stride, valid, topo,
+        max_skew, bp, bp != nullptr ? n_init : 0, acc, done, stats);
   }
   return static_cast<int>(cudaGetLastError());
 }

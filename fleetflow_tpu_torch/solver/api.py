@@ -80,8 +80,9 @@ class SolveResult:
     proposals_per_step: int = 0
     accepted_moves: int = -1        # -1 on the fixed-budget path
     fused_prerepair: bool = False
-    # {"schema", "blocks", "init", "prerepair_moves", "exit_sweep",
-    #  "best_chain"}; None on the fixed-budget path or with
+    # {"schema", "blocks", "trace_blocks", "init", "prerepair_moves",
+    #  "exit_sweep", "path"} and "subsolve" when one ran, the reference's
+    # schema; None on the fixed-budget path or with
     # FLEET_SOLVE_TRACE_BLOCKS=0
     telemetry: Optional[dict] = None
     # ResidentProblem.upload calls made during the warm dispatch (the
@@ -184,7 +185,7 @@ def _refine(prob: TorchProblem, seed_assignment: torch.Tensor,
     stats, soft = exact_stats_and_soft(prob, winner)
     accepted = torch.full((), -1, dtype=torch.int32, device=dev)
     return winner, stats, soft, steps, accepted, {
-        "prerepair_moves": prerepair_applied[0], "best_chain": best}
+        "prerepair_moves": prerepair_applied[0]}
 
 
 def _refine_lanes(prob: TorchProblem, seeds: torch.Tensor, gens: list,
@@ -270,8 +271,8 @@ def _refine_lanes(prob: TorchProblem, seeds: torch.Tensor, gens: list,
                 softs[i] = soft_from_planes(prob.lane(i), winners[i],
                                             load[i], coloc[i])[0]
     stats = torch.stack(stat_rows)
-    telems = [dict(t, prerepair_moves=prerepair_applied[i],
-                   best_chain=best[i]) for i, t in enumerate(telems)]
+    telems = [dict(t, prerepair_moves=prerepair_applied[i])
+              for i, t in enumerate(telems)]
     return (winners, {k: stats[:, j] for j, k in enumerate(STAT_KEYS)},
             torch.stack(softs), sweeps, accepted_c.sum(1), telems)
 
@@ -298,6 +299,7 @@ def solve(pt: ProblemTensors, *, device=None,
           migration_weight: float = 0.5,
           seed_batch: int = 256, seed_rounds: int = 2,
           adaptive: bool = True, anneal_block: int = 1,
+          warm_block: int = 1,
           proposals_per_step: Optional[int] = None,
           bucket: Optional[bool] = None,
           resident: Optional[ResidentProblem] = None,
@@ -321,6 +323,11 @@ def solve(pt: ProblemTensors, *, device=None,
     host FFD over 4 service slices × disjoint node subsets), or None,
     which is "batched" on either device. "native" and "partitioned" raise
     SolverError when the host placer cannot be built.
+
+    `anneal_block` is the adaptive exit's check granularity; a warm start
+    (the full path, the sub-solve and the multiplexer's lanes) checks every
+    min(`warm_block`, `anneal_block`) sweeps, as the reference does: a
+    churn reschedule starts one node event away from feasible.
 
     `prerepair` picks the warm pre-repair: None runs the fused K2 prologue
     (and lets a resident warm solve try the sub-solve); True runs the
@@ -480,7 +487,7 @@ def solve(pt: ProblemTensors, *, device=None,
              dtelem) = _sub.subsolve_dispatch(
                 prob, resident.assignment, staged, sub_plan, gen, t0, t1,
                 migration_weight, chains=chains, steps=steps,
-                block=anneal_block,
+                block=min(warm_block, anneal_block),
                 proposals_per_step=(
                     proposals_per_step if proposals_per_step is not None
                     else backend_proposals_per_step(sub_plan.tier, dev)),
@@ -504,7 +511,8 @@ def solve(pt: ProblemTensors, *, device=None,
                 prob, seed_assignment, gen, t0, t1, migration_weight,
                 chains=chains, steps=steps,
                 warm=bool(warm and migration_weight > 0), adaptive=adaptive,
-                anneal_block=anneal_block,
+                anneal_block=(min(warm_block, anneal_block) if warm
+                              else anneal_block),
                 proposals_per_step=M, fused_prerepair=fused,
                 prerepair_moves=prerepair_moves,
                 skip_feasible_polish=bool(resident_warm and adaptive
@@ -523,7 +531,6 @@ def solve(pt: ProblemTensors, *, device=None,
         [dstats[k].to(torch.float32) for k in STAT_KEYS]
         + [dsoft.to(torch.float32), accepted.to(torch.float32).reshape(()),
            dtelem["prerepair_moves"].to(torch.float32),
-           dtelem["best_chain"].to(torch.float32),
            dtelem.get("init_violations", zero).to(torch.float32),
            dtelem.get("init_soft", zero).to(torch.float32)]
         + [row for _e, _t, dev_row in blocks for row in dev_row]
@@ -535,7 +542,6 @@ def solve(pt: ProblemTensors, *, device=None,
     soft = float(scalars[5])
     accepted_h = int(scalars[6])
     prerepair_h = int(scalars[7])
-    best_chain = int(scalars[8])
     timings["anneal_ms"] = (t() - t_anneal) * 1e3
 
     t_verify = t()
@@ -573,20 +579,21 @@ def solve(pt: ProblemTensors, *, device=None,
 
     telemetry = None
     if trace_blocks > 0 and adaptive:
-        rows = scalars[11:].reshape(-1, 4) if blocks else np.zeros((0, 4))
+        rows = scalars[10:].reshape(-1, 4) if blocks else np.zeros((0, 4))
         telemetry = {
             "schema": list(TRACE_COLS),
-            "blocks": [[end, temp, *(float(x) for x in row)]
+            "blocks": [[round(float(x), 6) for x in (end, temp, *row)]
                        for (end, temp, _), row in zip(blocks, rows)],
             "trace_blocks": trace_blocks,
-            "init": {"violations": float(scalars[9]),
-                     "soft": float(scalars[10])},
+            "init": {"violations": float(scalars[8]),
+                     "soft": round(float(scalars[9]), 6)},
             "prerepair_moves": prerepair_h,
             "exit_sweep": int(sweeps_run),
-            "best_chain": best_chain,
             "path": ("subsolve" if sub_info is not None
                      and sub_info["outcome"] == "localized" else "full"),
         }
+        if sub_info is not None:
+            telemetry["subsolve"] = dict(sub_info)
     return SolveResult(
         assignment=assignment, stats=stats, soft=soft,
         feasible=stats["total"] == 0, moves_repaired=moves,

@@ -22,10 +22,13 @@ anneal repairs them). It replaces
 ``fleetflow_tpu/solver/greedy.py::greedy_place_batched`` with
 ``_node_scores``, ``_conflict_rows``, ``_pairwise_ok`` and ``_commit``.
 
-On a CUDA tensor it launches ``csrc/k4_greedy.cu``; on a CPU tensor it runs
+On a CUDA tensor it launches ``csrc/k4_greedy.cu`` once: one cooperative
+grid walks every batch and round itself (and raises when the card cannot
+co-schedule it); on a CPU tensor it runs
 :func:`greedy_place_batched_plain`. The reference's ``lax.top_k`` puts the
 lower index first among equal scores, which spread instances hit often
-(empty nodes tie); both versions select by a stable descending order.
+(empty nodes tie); both versions select by a stable descending order, and
+both add a batch's demand to a node one service at a time in batch order.
 
 :func:`partitioned_seed` is the host seed of the reference's mega-scale
 path: service slices × disjoint round-robin node subsets, one host FFD
@@ -45,6 +48,10 @@ __all__ = ["placement_order", "greedy_place", "greedy_place_plain",
            "partitioned_seed"]
 
 _NEG = -1e30
+# K4's limits (csrc/k4_greedy.cu): the batch's (choice, m) sort keys hold m
+# in 10 bits, and every node's selection key sits in shared memory
+K4_MAX_BATCH = 1024
+K4_MAX_NODES = 49152
 
 
 def placement_order(demand: np.ndarray, dep_depth: np.ndarray,
@@ -150,6 +157,25 @@ def _median_midpoint(x: torch.Tensor) -> torch.Tensor:
     return (lo + hi) * 0.5
 
 
+def _in_order(acc: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+              mask: torch.Tensor, rank: torch.Tensor,
+              before: bool = False) -> torch.Tensor:
+    """acc[idx[m]] += vals[m] for the masked m, one m at a time in index
+    order, whatever the device: `rank` is each m's count of earlier masked
+    m with its idx, so each round adds to distinct rows (index_add_ then
+    adds once a row, exactly). Returns acc, or with `before` the (M, R)
+    value each masked m found in its row before its own add (0 elsewhere)."""
+    out = torch.zeros_like(vals) if before else None
+    rounds = int(rank[mask].max()) + 1 if bool(mask.any()) else 0
+    for t in range(rounds):
+        sel = mask & (rank == t)
+        rows = idx[sel]
+        if before:
+            out[sel] = acc[rows]
+        acc.index_add_(0, rows, vals[sel])
+    return out if before else acc
+
+
 def greedy_place_batched_plain(prob: TorchProblem, order: torch.Tensor,
                                batch: int = 256, rounds: int = 2) -> torch.Tensor:
     """Plain PyTorch version of K4; see :func:`greedy_place_batched`."""
@@ -222,21 +248,24 @@ def greedy_place_batched_plain(prob: TorchProblem, order: torch.Tensor,
                                                fb_score - 1e15), dim=-1)
             has_ok = hard_ok.any(-1)
             choice = torch.where(has_ok, best_ok, best_fb)
-            # within-batch gate against the EARLIER live same-node mates
-            d = d_svc * live[:, None].to(torch.float32)
+            # within-batch gate against the EARLIER live same-node mates,
+            # their demand summed in index order
             same = ((choice[:, None] == choice[None, :])
                     & live[:, None] & live[None, :])
             mates = same & earlier
-            prefix = mates.to(torch.float32) @ d
+            prefix = _in_order(torch.zeros_like(load), choice, d_svc, live,
+                               mates.sum(1), before=True)
             cap_ok = ((load[choice] + prefix) + d_svc
                       <= cap[choice] + 1e-6).all(-1)
             conf_ok = ~(mates & share).any(-1)
             return choice, live & cap_ok & conf_ok & has_ok
 
         def commit(choice, mask):
-            nonlocal load
-            w = mask.to(torch.float32)
-            load.index_add_(0, choice, d_svc * w[:, None])
+            # each node adds its committed services one at a time, in
+            # batch order
+            rank = ((choice[:, None] == choice[None, :]) & mask[:, None]
+                    & mask[None, :] & earlier).sum(1)
+            _in_order(load, choice, d_svc, mask, rank)
             wi = (v.to(torch.int32) * mask.to(torch.int32)[:, None])
             flat = choice[:, None] * prob.G + safe
             used.view(-1).index_add_(0, flat.reshape(-1), wi.reshape(-1))
@@ -270,15 +299,20 @@ def greedy_place_batched(prob: TorchProblem, order: torch.Tensor,
         raise ValueError("greedy_place_batched: order must be int32, R=3")
     S, N, G = prob.S, prob.N, prob.G
     M = min(batch, S)
-    if M > 1024 or N > 16384:
-        raise ValueError("greedy_place_batched: the kernel takes batches up "
-                         "to 1024 and up to 16384 nodes (shared-memory sort)")
+    if M > K4_MAX_BATCH or N > K4_MAX_NODES:
+        raise ValueError(f"greedy_place_batched: the kernel takes batches up "
+                         f"to {K4_MAX_BATCH} and up to {K4_MAX_NODES} nodes "
+                         f"(one key a node in shared memory)")
     dev = order.device
     assignment = torch.empty(S, dtype=torch.int32, device=dev)
-    load = torch.empty((N, 3), dtype=torch.float32, device=dev)
-    used = torch.empty((N, G), dtype=torch.int32, device=dev)
-    # per batch: live, choice, has_ok (M ints each) + median cap (3 floats)
-    scratch = torch.empty(3 * M + 4, dtype=torch.int32, device=dev)
+    # the running load, a node's 3 resources padded to one 16-byte word
+    load = torch.empty((N, 4), dtype=torch.float32, device=dev)
+    # a bit a node for each conflict id: the node holds a service with it
+    taken = torch.empty((G, -(-N // 32)), dtype=torch.int32, device=dev)
+    # live, choice, has_ok (M ints each), a live flag, the median capacity
+    # (3 floats) and each batch's mean demand (3 floats a batch)
+    scratch = torch.empty(3 * M + 4 + 3 * -(-S // M), dtype=torch.int32,
+                          device=dev)
     _ext.check_inputs("greedy_place_batched", order, prob.demand,
                       prob.capacity, prob.conflict_ids, prob.eligible,
                       prob.node_valid)
@@ -288,7 +322,7 @@ def greedy_place_batched(prob: TorchProblem, order: torch.Tensor,
         prob.conflict_ids, prob.conflict_ids.shape[1],
         prob.eligible, int(prob.eligible_packed), prob.eligible.shape[1],
         prob.node_valid, prob.preferred, prob.strategy,
-        order, M, rounds, assignment, load, used, scratch)
+        order, M, rounds, assignment, load, taken, scratch)
     return assignment
 
 

@@ -7,8 +7,13 @@ and can also return the exact hard-violation stats. It replaces
 ``fleetflow_tpu/solver/anneal.py::chain_states_from_assignment`` and
 ``fleetflow_tpu/solver/kernels.py::violation_stats`` (with ``node_loads``,
 ``group_counts`` and ``_skew_excess``). On a CUDA tensor it launches
-``csrc/k3_rebuild.cu``; on a CPU tensor it runs :func:`k3_rebuild_plain`,
-the plain PyTorch version the tests hold against the JAX functions.
+``csrc/k3_rebuild.cu`` (3 device launches, 2 without the stats); on a CPU
+tensor it runs :func:`k3_rebuild_plain`, the plain PyTorch version the
+tests hold against the JAX functions. An assignment past the last node
+adds to no plane (the reference's scatter drops it) and counts as off
+every node: ineligible and invalid, in no topology domain (the
+reference's clamped gathers read node N-1 there: a deliberate difference,
+ROADMAP.md).
 
 Violation semantics (the "zero constraint violations" contract):
   - capacity:    count of (node, resource) cells with load > cap·(1+1e-6)
@@ -49,6 +54,7 @@ torch.backends.cudnn.allow_tf32 = False
 W_HARD = 1e4  # weight of one hard violation vs the soft score range
 STAT_KEYS = ("capacity", "conflicts", "eligibility", "skew", "total")
 CAP_TOL = 1 + 1e-6
+K3_INIT_BLOCKS = 1024  # csrc/k3_rebuild.cu: init blocks a row at most
 
 
 def node_loads(prob: TorchProblem, assignment: torch.Tensor) -> torch.Tensor:
@@ -98,7 +104,11 @@ def k3_rebuild_plain(prob: TorchProblem, assignment: torch.Tensor,
     N, R, T = prob.N, prob.demand.shape[1], prob.T
     G, Gc1 = prob.G, max(prob.Gc, 1)
     dev = a.device
-    chain_node = a + (torch.arange(C, device=dev) * N)[:, None]    # (C, S)
+    # an out-of-range assignment adds to no plane, as XLA's scatter drops it
+    inr = (a >= 0) & (a < N)
+    a_safe = torch.where(inr, a, 0)
+    chain_node = a_safe + (torch.arange(C, device=dev) * N)[:, None]
+    keep = inr.reshape(-1)
 
     def start(b, shape, dtype):
         if b is None:
@@ -108,25 +118,24 @@ def k3_rebuild_plain(prob: TorchProblem, assignment: torch.Tensor,
     load0, used0, coloc0, topo0 = base if base is not None else (None,) * 4
     load = start(load0, (C, N, R), torch.float32)
     load.view(C * N, R).index_add_(
-        0, chain_node.reshape(-1), prob.demand.repeat(C, 1))
+        0, chain_node.reshape(-1)[keep], prob.demand.repeat(C, 1)[keep])
 
     def occupancy(ids, width, b):
         out = start(b, (C, N, width), torch.int32)
-        valid = ids >= 0
+        valid = (ids >= 0)[None] & inr[:, :, None]
         flat = (chain_node[:, :, None] * width
-                + torch.where(valid, ids, 0).long()[None])
-        out.view(-1).index_add_(
-            0, flat.reshape(-1),
-            valid.to(torch.int32).expand(C, -1, -1).reshape(-1))
+                + torch.where(ids >= 0, ids, 0).long()[None])
+        out.view(-1).index_add_(0, flat.reshape(-1),
+                                valid.to(torch.int32).reshape(-1))
         return out
 
     used = occupancy(prob.conflict_ids, G, used0)
     coloc = occupancy(prob.coloc_ids, Gc1, coloc0)
     topo = start(topo0, (C, T), torch.int32)
-    tnode = prob.node_topology.long()[a] + (torch.arange(C, device=dev)
-                                            * T)[:, None]
+    tnode = prob.node_topology.long()[a_safe] + (torch.arange(C, device=dev)
+                                                 * T)[:, None]
     topo.view(-1).index_add_(0, tnode.reshape(-1),
-                             real_row_weights(prob).repeat(C))
+                             (real_row_weights(prob) * inr).reshape(-1))
     stats = (stats_from_planes(prob, a, load, used, topo)
              if with_stats else None)
     return load, used, coloc, topo, stats
@@ -142,9 +151,12 @@ def stats_from_planes(prob: TorchProblem, assignment: torch.Tensor,
     u = used.long()
     conflicts = (u * (u - 1) // 2).sum((1, 2))
     rows = torch.arange(prob.S, device=a.device)[None]
-    inelig = (~eligible_lookup(prob.eligible, rows, a)).sum(1)
-    invalid = (~prob.node_valid[a]).sum(1)
-    elig = inelig + invalid
+    # an out-of-range assignment is off every node: ineligible and invalid
+    inr = (a >= 0) & (a < prob.N)
+    a_safe = torch.where(inr, a, 0)
+    bad = ((~eligible_lookup(prob.eligible, rows, a_safe)).long()
+           + (~prob.node_valid[a_safe]).long())
+    elig = torch.where(inr, bad, 2).sum(1)
     if prob.max_skew > 0:
         spread = topo.max(1).values - topo.min(1).values
         skew = torch.clamp(spread.long() - prob.max_skew, min=0)
@@ -188,13 +200,11 @@ def k3_rebuild(prob: TorchProblem, assignment: torch.Tensor,
     topo = torch.empty(lead + (C, T), dtype=torch.int32, device=dev)
     stats = (torch.empty(lead + (C, 5), dtype=torch.float32, device=dev)
              if with_stats else None)
-    # per row of the L·C rows: 8 acc + counts (N) + offsets (N+1) + perm
-    # (S) + per-chunk node counts (ceil(S/256), N) of the stable counting
-    # sort
+    # 4 u64 accumulators and a done counter a row of the L·C rows, and the
+    # base's conflict pairs (K3_INIT_BLOCKS u64 slots)
     R = L * C
-    chunks = -(-S // 256)
-    scratch = torch.empty(8 * R + R * (2 * N + 1 + S) + R * chunks * N,
-                          dtype=torch.int32, device=dev)
+    scratch = torch.empty(9 * R + 2 * K3_INIT_BLOCKS, dtype=torch.int32,
+                          device=dev)
     load0, used0, coloc0, topo0 = base if base is not None else (None,) * 4
     n_real, _sticky = prob.lane_scalars()
     _ext.check_inputs("k3_rebuild", a, prob.demand, prob.conflict_ids,

@@ -155,11 +155,14 @@ def _tier_key(e: MuxEntry) -> tuple:
 def solve_multiplexed(entries: list[MuxEntry], *,
                       chains: Optional[int] = None,
                       steps: int = DEFAULT_STEPS, anneal_block: int = 1,
+                      warm_block: int = 1,
                       device=None) -> list[SolveResult]:
     """Solve a set of resident-warm stages, batching same-tier groups into
     single dispatches of at most FLEET_MUX_MAX lanes. Returns one
     SolveResult per entry, in entry order. Entries that cannot batch run
     the serial resident-warm ``solve`` path, with the same results.
+    Every solve here is warm, so the adaptive exit is checked every
+    min(`warm_block`, `anneal_block`) sweeps, batched or serial.
     `device` is the card unless the caller names the CPU (raises without
     CUDA); every entry's staging must lie on it."""
     dev = resolve_device(device)
@@ -186,7 +189,7 @@ def solve_multiplexed(entries: list[MuxEntry], *,
             continue
         for at in range(0, len(idxs), cap):
             _solve_batch(entries, idxs[at:at + cap], results, chains=chains,
-                         steps=steps, anneal_block=anneal_block)
+                         steps=steps, block=min(warm_block, anneal_block))
 
     for i in serial:
         e = entries[i]
@@ -195,13 +198,13 @@ def solve_multiplexed(entries: list[MuxEntry], *,
             e.pt, prob=e.resident.prob, chains=chains, steps=steps,
             seed=e.seed, t0=e.t0, t1=e.t1,
             migration_weight=e.migration_weight, anneal_block=anneal_block,
-            bucket=e.resident.bucket, resident=e.resident,
-            resident_warm=_eligible(e))
+            warm_block=warm_block, bucket=e.resident.bucket,
+            resident=e.resident, resident_warm=_eligible(e))
     return results  # type: ignore[return-value]
 
 
 def _solve_batch(entries: list[MuxEntry], idxs: list[int], results: list,
-                 *, chains: int, steps: int, anneal_block: int) -> None:
+                 *, chains: int, steps: int, block: int) -> None:
     t = time.perf_counter
     t_start = t()
     lanes = [entries[i] for i in idxs]
@@ -238,7 +241,7 @@ def _solve_batch(entries: list[MuxEntry], idxs: list[int], results: list,
         winners, dstats, dsoft, sweeps, accepted, telems = _refine_lanes(
             stacked, seeds, gens, [s[0] for s in scal], [s[1] for s in scal],
             [s[2] for s in scal], chains=chains, steps=steps, warm=warm,
-            anneal_block=anneal_block, proposals_per_step=M,
+            anneal_block=block, proposals_per_step=M,
             fused_prerepair=True, prerepair_moves=max(16, min(prob0.S, 256)),
             skip_feasible_polish=True, trace_blocks=trace_blocks,
             live=[j < K for j in range(Kp)])
@@ -250,8 +253,8 @@ def _solve_batch(entries: list[MuxEntry], idxs: list[int], results: list,
     # ONE fetch of every lane's scalars and telemetry, one of the winners
     per_lane = [[dstats[k][j] for k in STAT_KEYS]
                 + [dsoft[j], accepted[j], telems[j]["prerepair_moves"],
-                   telems[j]["best_chain"], telems[j]["init_violations"],
-                   telems[j]["init_soft"]] for j in range(K)]
+                   telems[j]["init_violations"], telems[j]["init_soft"]]
+                for j in range(K)]
     n_scalars = len(per_lane[0])
     rows = [row for j in range(K) for _e, _t, dev_row in telems[j]["blocks"]
             for row in dev_row]
@@ -308,14 +311,14 @@ def _solve_batch(entries: list[MuxEntry], idxs: list[int], results: list,
             at += 4 * n_rows
             telemetry = {
                 "schema": list(TRACE_COLS),
-                "blocks": [[end, temp, *(float(x) for x in row)]
+                "blocks": [[round(float(x), 6) for x in (end, temp, *row)]
                            for (end, temp, _), row
                            in zip(telems[j]["blocks"], blk)],
                 "trace_blocks": trace_blocks,
-                "init": {"violations": float(sc[9]), "soft": float(sc[10])},
+                "init": {"violations": float(sc[8]),
+                         "soft": round(float(sc[9]), 6)},
                 "prerepair_moves": int(sc[7]),
                 "exit_sweep": int(sweeps[j]),
-                "best_chain": int(sc[8]),
                 "path": "mux",
                 "mux": {"k": Kp, "lane": j},
             }

@@ -463,12 +463,11 @@ def subsolve(prob: TorchProblem, assignment: torch.Tensor, staged: tuple,
         proposals_per_step=proposals_per_step,
         init_states=st0.expand(chains), exit_on_feasible_init=True,
         trace_blocks=trace_blocks)
-    new_assignment, best = k5_commit(best_c, viol_c, soft_c, rows,
-                                     assignment)
+    new_assignment, _best = k5_commit(best_c, viol_c, soft_c, rows,
+                                      assignment)
     # the gate: whatever the mini anneal believed, THIS decides
     stats, soft = exact_stats_and_soft(prob, new_assignment)
-    telem = dict(telem, prerepair_moves=prerepair_applied[0],
-                 best_chain=best[0])
+    telem = dict(telem, prerepair_moves=prerepair_applied[0])
     return (new_assignment, stats, soft, sweeps_run, accepted_c.sum(),
             telem)
 

@@ -8,7 +8,13 @@ commit, at the 10k x 1k headline size with mini tiers of 256 and 4096
 rows; K6, the per-service scan seed, at 2000 x 200 for each strategy and
 on best-effort instances; the host placer's build and the host seeds of
 solve() on the card; K7, the sharded sweep, at 2000 x 200 on one-card
-meshes of 1 x 8 and 2 x 4 positions, and a cold and a warm solve_sharded.
+meshes of 1 x 8 and 2 x 4 positions, and a cold and a warm solve_sharded;
+K4's selection where it is hardest (scores tied across nodes, fewer
+feasible nodes than the batch width, no feasible node, N = 1500 and
+20000, the bucketed 2000 x 200 tier) and its single device launch; K3
+with several assignment tiles, a node holding half the services, and
+lanes with a frozen base, phantom rows and out-of-range rows, its loads
+bit-equal to the plain version on the CPU (which adds in service order).
 
 Every test needs a CUDA card and skips without one. On the card (which has
 no JAX, so the repository's conftest cannot load):
@@ -177,6 +183,143 @@ def test_k4_matches_plain(dev, strategy, rounds):
     ref = greedy.greedy_place_batched_plain(prob, order, batch=64,
                                             rounds=rounds)
     assert torch.equal(out, ref)
+
+
+def _ties(dev, S=400, N=80):
+    """Identical nodes and identical services: every empty node ties."""
+    pt, prob = _problem(dev, S=S, N=N, coloc=False)
+    return pt, dataclasses.replace(
+        prob, capacity=torch.full_like(prob.capacity, 8.0),
+        demand=torch.full_like(prob.demand, 0.5))
+
+
+def _few_eligible(dev, S=400, N=80, k=3):
+    """Each service eligible on k nodes of its own: count_ok < W = 64."""
+    pt = synthetic_problem(S, N, seed=6, n_tenants=1)
+    rng = np.random.default_rng(6)
+    elig = np.zeros((S, N), bool)
+    for s_ in range(S):
+        elig[s_, rng.choice(N, k, replace=False)] = True
+    pt = dataclasses.replace(pt, eligible=elig)
+    return pt, prepare_problem(pt, dev)
+
+
+def _infeasible(dev, S=300, N=80):
+    """Every service too big for every node: all best-effort, with the
+    -1e15 mask on a third of the (service, node) pairs."""
+    pt, prob = _problem(dev, S=S, N=N)
+    rng = np.random.default_rng(7)
+    elig = rng.random((S, N)) > 0.33
+    pt = dataclasses.replace(pt, eligible=elig)
+    prob = prepare_problem(pt, dev)
+    big = prob.capacity.max(0).values * 2.0 + 1.0
+    return pt, dataclasses.replace(prob, demand=big.repeat(S, 1))
+
+
+def _wide(dev, S, N, strategy="spread_across_pool"):
+    """N neither a power of two nor below 1024 (or past the old 16384)."""
+    pt = synthetic_problem(S, N, seed=8, n_tenants=4,
+                           strategy=PlacementStrategy(strategy))
+    return pt, prepare_problem(pt, dev)
+
+
+@pytest.mark.parametrize("rounds", [1, 2])
+@pytest.mark.parametrize("strategy", [0, 1, 2])
+@pytest.mark.parametrize("case", ["ties", "few_eligible", "infeasible",
+                                  "wide_1500", "wide_20000"])
+def test_k4_edge_cases_match_plain(dev, case, strategy, rounds):
+    """K4 bit-equal to its plain version where the selection is hardest:
+    scores tied across nodes, fewer feasible nodes than the batch width,
+    no feasible node at all, N = 1500 and N = 20000 (past the shared-memory
+    sort's old 16384 limit); one launch per seed."""
+    if case == "ties":
+        pt, prob = _ties(dev)
+    elif case == "few_eligible":
+        pt, prob = _few_eligible(dev)
+    elif case == "infeasible":
+        pt, prob = _infeasible(dev)
+    elif case == "wide_1500":
+        pt, prob = _wide(dev, 2000, 1500)
+    else:
+        pt, prob = _wide(dev, 1200, 20000)
+    prob = dataclasses.replace(prob, strategy=strategy)
+    order = torch.tensor(greedy.placement_order(
+        pt.demand, pt.dep_depth, unify_conflict_ids(pt)), dtype=torch.int32,
+        device=dev)
+    before = _ext.LAUNCHES["k4_greedy"]
+    out = greedy.greedy_place_batched(prob, order, batch=64, rounds=rounds)
+    assert _ext.LAUNCHES["k4_greedy"] == before + 1
+    ref = greedy.greedy_place_batched_plain(prob, order, batch=64,
+                                            rounds=rounds)
+    assert torch.equal(out, ref)
+    if case == "ties":
+        assert len(set(out.tolist())) > 1
+
+
+@pytest.mark.parametrize("batch", [1024, 256, 64])
+def test_k4_on_a_bucketed_tier(dev, batch):
+    """The 2000x200 mux tier, staged with phantom rows and placed phantoms
+    last: more batch services than nodes, so several commit to one node in
+    a round (1024: the largest batch, more services than the block has
+    threads). Bit-equal to the plain version on the card and on the CPU."""
+    pt = synthetic_problem(2000, 200, seed=0, port_fraction=0.3,
+                           volume_fraction=0.2)
+    prob, _ = stage_problem_tiers(pt, device=dev)
+    order = torch.tensor(np.concatenate([
+        greedy.placement_order(pt.demand, pt.dep_depth,
+                               unify_conflict_ids(pt)),
+        np.arange(pt.S, prob.S, dtype=np.int32)]), dtype=torch.int32,
+        device=dev)
+    out = greedy.greedy_place_batched(prob, order, batch=batch)
+    ref = greedy.greedy_place_batched_plain(prob, order, batch=batch)
+    cpu = greedy.greedy_place_batched_plain(_on_cpu(prob), order.cpu(),
+                                            batch=batch)
+    assert torch.equal(ref.cpu(), cpu)
+    assert torch.equal(out.cpu(), cpu)
+
+
+def test_k4_is_one_device_launch(dev):
+    """The seed is one cooperative launch, whatever the batch count (the
+    deterministic algorithms are off, as in a solve: under them each
+    torch.empty of the wrapper fills its memory)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.use_deterministic_algorithms(False)
+    pt, prob = _problem(dev, S=700)
+    order = torch.tensor(greedy.placement_order(
+        pt.demand, pt.dep_depth, unify_conflict_ids(pt)), dtype=torch.int32,
+        device=dev)
+    greedy.greedy_place_batched(prob, order, batch=64)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        greedy.greedy_place_batched(prob, order, batch=64)
+        torch.cuda.synchronize()
+    ops = {e.key: e.count for e in prof.key_averages()
+           if str(getattr(e, "device_type", "")).endswith("CUDA")}
+    assert list(ops.values()) == [1] and "k4_seed" in next(iter(ops)), ops
+
+
+def _on_cpu(prob):
+    from fleetflow_tpu_torch.solver.problem import TENSOR_FIELDS
+    return dataclasses.replace(prob, **{
+        name: t.cpu() for name, t in zip(TENSOR_FIELDS, prob.tensors())
+        if t is not None})
+
+
+@pytest.mark.parametrize("S,N", [(6000, 700), (9000, 64)])
+def test_k3_load_in_service_order(dev, S, N):
+    """Several assignment tiles, a partial last warp block, a node holding
+    half of the services: K3's load is bit-equal to the plain version on
+    the CPU, whose scatter adds in service order."""
+    pt, prob = _problem(dev, S=S, N=N, seed=9)
+    rng = np.random.default_rng(9)
+    a = torch.tensor(rng.integers(0, N, (2, S)), dtype=torch.int32,
+                     device=dev)
+    a[1, : S // 2] = N - 1
+    out = kernels.k3_rebuild(prob, a, with_stats=True)
+    ref = kernels.k3_rebuild_plain(_on_cpu(prob), a.cpu(), with_stats=True)
+    for x, y in zip(out, ref):
+        assert torch.equal(x.cpu(), y)
 
 
 def test_wrappers_raise_on_bad_input(dev):
@@ -364,6 +507,36 @@ def test_lane_k3_matches_plain(dev, L):
     for x, y in zip(out[1:], ref[1:]):
         assert torch.equal(x, y)
     assert torch.allclose(out[0], ref[0], rtol=LOAD_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("L", [1, 3, 8])
+def test_lane_k3_base_phantoms_out_of_range(dev, L):
+    """Lanes with a frozen base (the sub-solve's), phantom rows (each
+    lane's own n_real) and out-of-range assignments (dropped from every
+    plane, off every node in the stats): equal to the plain version, and
+    the load bit-equal to the plain version on the CPU."""
+    prob, _solo = _lanes(dev, L)
+    rng = np.random.default_rng(11)
+    a = _lane_assignments(dev, prob, 2, 12)
+    a[:, 0, :7] = prob.N
+    a[:, 1, 3:9] = prob.N + 5
+    base = (torch.rand((prob.N, 3), device=dev) * 3,
+            torch.randint(0, 3, (prob.N, prob.G), device=dev,
+                          dtype=torch.int32),
+            torch.randint(0, 2, (prob.N, max(prob.Gc, 1)), device=dev,
+                          dtype=torch.int32),
+            torch.tensor(rng.integers(0, 4, prob.T), dtype=torch.int32,
+                         device=dev))
+    out = kernels.k3_rebuild(prob, a, base, with_stats=True)
+    ref = kernels.k3_rebuild_plain(prob, a, base, with_stats=True)
+    for x, y in zip(out[1:], ref[1:]):
+        assert torch.equal(x, y)
+    assert torch.allclose(out[0], ref[0], rtol=LOAD_RTOL, atol=0)
+    cpu = kernels.k3_rebuild_plain(_on_cpu(prob), a.cpu(),
+                                   tuple(t.cpu() for t in base),
+                                   with_stats=True)
+    assert torch.equal(out[0].cpu(), cpu[0])
+    assert float(out[4][..., 2].min()) >= 12   # the out-of-range services
 
 
 @pytest.mark.parametrize("L", [3, 16])

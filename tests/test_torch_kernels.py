@@ -65,6 +65,51 @@ class TestRebuild:
         if kind != "random":
             assert float(ref_stats["total"]) > 0
 
+    def test_out_of_range_rows_dropped_like_xla(self):
+        """An assignment past the last node adds to no load or occupancy
+        plane, as the reference's ``.at[].add`` drops it. The stats differ
+        on purpose (ROADMAP, deliberate differences): the port counts such
+        a service off every node (2 eligibility violations, no topology
+        domain); the reference's clamped gathers read node N-1's validity
+        and topology domain and a bit of the last packed word. Both rules
+        are asserted, the capacity and conflict stats equal."""
+        N, T = 40, 5
+        dp, tp, ref_pt, _ = staged_pair(300, N, 3, coloc=True,
+                                        max_skew=2, domains=T)
+        a = _assignments("random", 300, N, 3, ref_pt)
+        a[:11] = N
+        a[50:53] = N + 7
+        ref_st = ref_anneal.chain_states_from_assignment(dp, jnp.asarray(a))
+        load, used, coloc, topo, stats = port_kernels.k3_rebuild(
+            tp, torch.tensor(a), with_stats=True)
+        np.testing.assert_allclose(to_np(load[0]), np.asarray(ref_st.load),
+                                   rtol=1e-6, atol=0)
+        assert np.array_equal(to_np(used[0]), np.asarray(ref_st.used))
+        assert np.array_equal(to_np(coloc[0]), np.asarray(ref_st.coloc))
+        inr = a < N
+        rows = np.flatnonzero(inr)
+        n_out = int((~inr).sum())
+        topo_port = np.bincount(ref_pt.node_topology[a[rows]], minlength=T)
+        topo_ref = topo_port.copy()
+        topo_ref[ref_pt.node_topology[N - 1]] += n_out
+        assert np.array_equal(to_np(topo[0]), topo_port)
+        assert np.array_equal(np.asarray(ref_st.topo), topo_ref)
+        in_bad = ((~ref_pt.eligible[rows, a[rows]]).sum()
+                  + (~ref_pt.node_valid[a[rows]]).sum())
+        ref_stats = ref_kernels.violation_stats(dp, jnp.asarray(a))
+        assert float(stats[0, 2]) == float(in_bad + 2 * n_out)
+        # the reference: the packed word's index clamps, its bit does not
+        words = np.asarray(dp.eligible)
+        out = np.flatnonzero(~inr)
+        word = words[out, np.minimum(a[out] >> 5, words.shape[1] - 1)]
+        ref_inelig = int(((word >> (a[out] & 31)) & 1 == 0).sum())
+        assert float(ref_stats["eligibility"]) == float(
+            in_bad + ref_inelig + n_out * (not ref_pt.node_valid[N - 1]))
+        assert float(ref_stats["eligibility"]) < float(stats[0, 2])
+        for i in (0, 1):
+            key = port_kernels.STAT_KEYS[i]
+            assert float(stats[0, i]) == float(ref_stats[key]), key
+
     def test_phantom_rows_carry_no_topology(self):
         """n_real < S: rows past n_real add load and occupancy but no
         topology weight, in the rebuild and in the skew stat."""

@@ -87,7 +87,7 @@ def _same(ref, got, lane):
     assert ref.steps == got.steps, lane
     assert ref.feasible == got.feasible, lane
     for key in ("blocks", "init", "prerepair_moves", "exit_sweep",
-                "best_chain"):
+                "trace_blocks"):
         assert ref.telemetry[key] == got.telemetry[key], (lane, key)
     assert got.telemetry["path"] == "mux"
     assert got.telemetry["mux"]["lane"] == lane
