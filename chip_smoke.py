@@ -15,10 +15,14 @@ each of which fails the run:
      n_tenants=8, port_fraction=0.2, volume_fraction=0.1), and time both
      with CUDA events (K4 and K3 also on the 2000x200 mux tier's
      staging; ``[k6_scan]``: K6 also at 2000x200 with pack,
-     fill_lowest and a best-effort instance); then K1-K3 with a lane axis,
+     fill_lowest and a best-effort instance; K1 timed at T = 1 and
+     T = 1e-3); then K1-K3 with a lane axis,
      at 8 lanes of 2000x200 and 2 lanes of the padded phase-4 fleet,
      against their plain versions and against the solo kernel launched
-     lane by lane; ``[k7]``: K7, the sharded sweep, against its plain
+     lane by lane; K2 on the mux leg's 2000x200 and 900x100 stagings with
+     one node and 15% of the nodes down, stage 0 alone and 8 stages as
+     lanes, against its plain version, each size timed with its
+     iterations; ``[k7]``: K7, the sharded sweep, against its plain
      version on one-card meshes of 1x8 and 2x4 positions at the sharded
      fleet (SHARDED_SHAPE, the partitioned seed with 5% of the nodes
      down, 8 sweeps); ``[rows]``: the CUDA-event ms and the bound of the rows
@@ -89,7 +93,11 @@ each of which fails the run:
      ``[device]``: K4's and K3's device-only ms and device launches a
      call at both sizes (K3 also at 8 lanes), from the kernel cases of
      ``fleetflow_tpu_torch/tools/k34_profile.py`` in a fresh interpreter;
- 13. print the per-kernel JSON line (launches also by fleet size), the
+     ``[phases]``: K1's and K2's phase split from their cycle stamps (the
+     phases case of ``fleetflow_tpu_torch/tools/k12_profile.py``, its own
+     -DK1_PHASES -DK2_PHASES build, in a fresh interpreter);
+ 13. print the per-kernel JSON line (launches also by fleet size; K1 and
+     K2 with each size's ms and their phases), the
      card line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -138,6 +146,11 @@ KERNEL_NAMES = ("k1_sweep", "k2_prerepair", "k3_rebuild", "k4_greedy",
 SHARDED_SHAPE = (9_997, 1_000)
 XL_SHAPE = (29_997, 3_000)
 SHARDED_BURSTS = 6
+# K1 is timed at the anneal's hot start and at its floor temperature
+K1_TEMPS = (1.0, 1e-3)
+K2_HEAD = dict(name="k2_prerepair", route="cuda",
+               source="fleetflow_tpu_torch/csrc/k2_prerepair.cu",
+               replaces="fleetflow_tpu/solver/anneal.py:133", library_ms=None)
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, and the
 # float32 rate outside the tensor cores (the kernels do float32/int32 work)
 PEAK_BYTES_S = 3.35e12
@@ -210,6 +223,21 @@ def sweep_prop_bytes(K: int, Kc: int, pref: bool = False) -> float:
     float32 operations a proposal."""
     return (12 + 4 + 12 + 4 * K + 4.0 * Kc + 2 * 4 + 2 + 2 * 12 + 2 * 12
             + 2 * 4 * K + 2 * 4.0 * Kc + (8 if pref else 0))
+
+
+def k2_cost(prob, moves: int, lanes: int = 1) -> dict:
+    """The bytes and operations K2 must spend on `lanes` lanes of `prob`
+    making `moves` moves in all: each lane's assignment read and written,
+    its load and capacity read; per move, all N nodes scored (fit,
+    conflicts, utilization: ~12 operations and a conflict column read a
+    node) against the service's eligibility row and demand, and the two
+    touched rows written."""
+    S, N = prob.S, prob.N
+    W = (N + 31) // 32
+    Ks = float((prob.conflict_ids >= 0).sum(-1).float().mean())
+    return dict(ops=moves * N * (12.0 + Ks),
+                bytes=lanes * (4.0 * (2 * S) + 4.0 * 2 * N * 3 + N)
+                + moves * (4.0 * (W + 3 + N * Ks) + 2 * 12 + 8.0 * Ks))
 
 
 def k3_bytes(prob, C: int, stats: bool = True) -> float:
@@ -335,6 +363,34 @@ def measure_device(recs: dict) -> None:
               f"{case['ms']:.4f} ms", flush=True)
 
 
+def measure_phases(recs: dict) -> None:
+    """[phases]: K1's and K2's phase split from their own cycle stamps:
+    the phases case of fleetflow_tpu_torch/tools/k12_profile.py on this
+    checkout (its kernels built with -DK1_PHASES -DK2_PHASES) in a fresh
+    interpreter, each row under its kernel's `phases`."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    tool = os.path.join(root, "fleetflow_tpu_torch", "tools",
+                        "k12_profile.py")
+    run = subprocess.run([sys.executable, tool, "--cases", "phases",
+                          "--phases", root],
+                         capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"[phases] k12_profile failed:\n"
+                             f"{run.stderr[-3000:]}")
+    rows = [json.loads(x) for x in run.stdout.splitlines()
+            if x.startswith("{")]
+    for row in rows:
+        if row.get("stamps") is False:
+            raise AssertionError("[phases] the kernels have no stamps")
+        name = "k1_sweep" if row["case"].startswith("phases k1") else \
+            "k2_prerepair"
+        row.pop("tree")
+        recs[name].setdefault("phases", []).append(row)
+        print(f"[phases] {json.dumps(row)}", flush=True)
+    if not all(recs[k].get("phases") for k in ("k1_sweep", "k2_prerepair")):
+        raise AssertionError(f"[phases] rows missing: {run.stdout[-2000:]}")
+
+
 def check_kernels(torch, np, pkg, dev):
     """Phase 2: every kernel against its plain version at the slice size
     (K4 and K3 also on the 2000x200 mux tier). Returns {kernel: record}
@@ -413,7 +469,6 @@ def check_kernels(torch, np, pkg, dev):
                                  f"shows no violation")
     both, seed_k = boths[f"{S}x{N}"], seeds[f"{S}x{N}"]
     Kc = prob.coloc_ids.shape[1]
-    W = (N + 31) // 32
 
     # K1: 8 sweeps from fixed proposals, hot and cold, and cold again with
     # the warm path's stickiness to the seed (what a reschedule runs)
@@ -446,21 +501,25 @@ def check_kernels(torch, np, pkg, dev):
     if applied_total == 0:
         raise AssertionError("K1 applied no move in 24 sweeps")
     s_idx, b_idx, u = draws[0]
-    ms = cuda_ms(torch, lambda st: anneal.batched_step_apply(
-        prob, st, s_idx, b_idx, u, 1.0), setup=lambda: (base.clone(),),
-        reps=20)
-    plain = cuda_ms(torch, lambda st: anneal.batched_step_plain(
-        prob, st, s_idx, b_idx, u, 1.0), setup=lambda: (base.clone(),))
     per_prop = sweep_prop_bytes(K, Kc)
-    recs["k1_sweep"] = dict(
-        name="k1_sweep", route="cuda",
-        source="fleetflow_tpu_torch/csrc/k1_sweep.cu",
-        replaces="fleetflow_tpu/solver/anneal.py:417",
-        max_abs_err=k1_err, ms=ms, plain_ms=plain, library_ms=None,
-        ops=2 * M * 120.0, bytes=2 * M * per_prop + 2 * 4.0)
-    print(f"[k1_sweep] 3x8 sweeps x {M} proposals equal ({applied_total} "
-          f"moves applied), load max |err| {k1_err:.3g}; kernel {ms:.3f} ms, "
-          f"plain {plain:.3f} ms", flush=True)
+    for temp in K1_TEMPS:
+        # a sweep as the anneal loop launches it: K1 bound once a call
+        ms = cuda_ms(torch, lambda sweep: sweep(s_idx, b_idx, u, [temp]),
+                     setup=lambda: (anneal.sweep_launcher(
+                         prob, base.clone(), M),), reps=20)
+        plain = cuda_ms(torch, lambda st: anneal.batched_step_plain(
+            prob, st, s_idx, b_idx, u, temp), setup=lambda: (base.clone(),))
+        size_rec(recs, "k1_sweep", dict(
+            name="k1_sweep", route="cuda",
+            source="fleetflow_tpu_torch/csrc/k1_sweep.cu",
+            replaces="fleetflow_tpu/solver/anneal.py:417", library_ms=None),
+            dict(size=f"{S}x{N} T={temp:g}", max_abs_err=k1_err, ms=ms,
+                 plain_ms=plain, ops=2 * M * 120.0,
+                 bytes=2 * M * per_prop + 2 * 4.0))
+        print(f"[k1_sweep] 3x8 sweeps x {M} proposals equal "
+              f"({applied_total} moves applied), load max |err| "
+              f"{k1_err:.3g}; at T={temp:g} kernel {ms:.3f} ms, plain "
+              f"{plain:.3f} ms", flush=True)
 
     # K2: the fused pre-repair after 20 nodes are invalidated
     busiest = torch.bincount(seed_k.long(), minlength=N).argsort(
@@ -493,19 +552,15 @@ def check_kernels(torch, np, pkg, dev):
         dead_prob, st, 256), setup=lambda: (st0.clone(),))
     plain = cuda_ms(torch, lambda st: anneal.prerepair_plain(
         dead_prob, st, 256), setup=lambda: (st0.clone(),), reps=3)
-    Ks = float((prob.conflict_ids[:, :] >= 0).sum(1).float().mean())
-    recs["k2_prerepair"] = dict(
-        name="k2_prerepair", route="cuda",
-        source="fleetflow_tpu_torch/csrc/k2_prerepair.cu",
-        replaces="fleetflow_tpu/solver/anneal.py:133",
-        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
-        # per move: all N nodes scored (fit, conflicts, util)
-        ops=moves * N * (12.0 + Ks),
-        bytes=4.0 * (2 * S) + 4.0 * 2 * N * 3 + N
-        + moves * (4.0 * (W + 3 + N * Ks) + 2 * 12 + 8.0 * Ks))
+    iters = min(stranded, 256)
+    size_rec(recs, "k2_prerepair", K2_HEAD, dict(
+        size=f"{S}x{N}", max_abs_err=err, ms=ms, plain_ms=plain,
+        moves=moves, iterations=iters, us_per_iteration=ms * 1e3 / iters,
+        **k2_cost(prob, moves)))
     print(f"[k2_prerepair] {stranded} services stranded on 20 dead nodes, "
-          f"{moves} moves, {left} left, equal state; kernel {ms:.3f} ms, plain "
-          f"{plain:.3f} ms", flush=True)
+          f"{moves} moves, {left} left, equal state; kernel {ms:.3f} ms "
+          f"({ms * 1e3 / iters:.2f} us an iteration), plain {plain:.3f} ms",
+          flush=True)
     torch.use_deterministic_algorithms(False)
     return recs
 
@@ -1235,15 +1290,15 @@ def check_lane_kernels(torch, np, pkg, dev, recs, tag, pts):
     prob, solo, seeds = lane_problems(np, torch, problem, buckets, pts, dev)
     L, S, N, G = prob.lanes, prob.S, prob.N, prob.G
     K, Kc = prob.conflict_ids.shape[-1], prob.coloc_ids.shape[-1]
-    W, Gc1 = prob.eligible.shape[-1], max(prob.Gc, 1)
+    Gc1 = max(prob.Gc, 1)
     size = f"{pts[0].S}x{pts[0].N}"
 
-    def lane_rec(name, ms, plain, err, t_bytes, t_ops):
+    def lane_rec(name, ms, plain, err, t_bytes, t_ops, **extra):
         b_ms, o_ms = t_bytes / PEAK_BYTES_S * 1e3, t_ops / PEAK_OPS_S * 1e3
         recs[name].setdefault("lanes", []).append(dict(
             L=L, size=size, padded_S=S, max_abs_err=err, ms=ms,
             plain_ms=plain, bound_ms=max(b_ms, o_ms),
-            bound_by="bytes" if b_ms >= o_ms else "operations"))
+            bound_by="bytes" if b_ms >= o_ms else "operations", **extra))
 
     # K3: two chains a lane, the seed and a perturbed copy
     rng = np.random.default_rng(0)
@@ -1333,19 +1388,22 @@ def check_lane_kernels(torch, np, pkg, dev, recs, tag, pts):
     if applied == 0:
         raise AssertionError(f"[{tag}] K1 lanes applied no move")
     s_idx, b_idx, u = draws[0]
-    ms = cuda_ms(torch, lambda st: anneal.batched_step_apply(
-        prob, st, s_idx, b_idx, u, temps), setup=lambda: (base.clone(),),
-        reps=20)
-    plain = cuda_ms(torch, lambda st: anneal.batched_step_plain(
-        prob, st, s_idx, b_idx, u, temps), setup=lambda: (base.clone(),),
-        reps=3)
     per_prop = sweep_prop_bytes(K, Kc)
-    lane_rec("k1_sweep", ms, plain, k1_err, R * M * per_prop + R * 4.0,
-             R * M * 120.0)
+    times = []
+    for temp in K1_TEMPS:
+        ms = cuda_ms(torch, lambda sweep: sweep(s_idx, b_idx, u, [temp] * L),
+                     setup=lambda: (anneal.sweep_launcher(
+                         prob, base.clone(), M),), reps=20)
+        plain = cuda_ms(torch, lambda st: anneal.batched_step_plain(
+            prob, st, s_idx, b_idx, u, [temp] * L),
+            setup=lambda: (base.clone(),), reps=3)
+        lane_rec("k1_sweep", ms, plain, k1_err, R * M * per_prop + R * 4.0,
+                 R * M * 120.0, T=temp)
+        times.append(f"T={temp:g} kernel {ms:.3f} ms, plain {plain:.3f} ms")
     print(f"[{tag}] K1 {L} lanes x 2 chains x {M} proposals, 8 sweeps "
           f"({applied} moves; lane 1 frozen for 4): equal to the solo kernel "
-          f"and to the plain version (load max |err| {k1_err:.3g}); kernel "
-          f"{ms:.3f} ms, plain {plain:.3f} ms", flush=True)
+          f"and to the plain version (load max |err| {k1_err:.3g}); "
+          f"{'; '.join(times)}", flush=True)
 
     # K2: each lane's seed, with its own nodes down
     st0 = anneal.chain_states_from_assignment(prob, seeds)
@@ -1374,14 +1432,87 @@ def check_lane_kernels(torch, np, pkg, dev, recs, tag, pts):
         prob, st, 256), setup=lambda: (st0.clone(),))
     plain = cuda_ms(torch, lambda st: anneal.prerepair_plain(prob, st, 256),
                     setup=lambda: (st0.clone(),), reps=2)
-    Ks = float((prob.conflict_ids >= 0).sum(-1).float().mean())
-    lane_rec("k2_prerepair", ms, plain, 0.0,
-             L * (4.0 * (2 * S) + 4.0 * 2 * N * 3 + N)
-             + moves * (4.0 * (W + 3 + N * Ks) + 2 * 12 + 8.0 * Ks),
-             moves * N * (12.0 + Ks))
+    cost = k2_cost(prob, moves, L)
+    lane_rec("k2_prerepair", ms, plain, 0.0, cost["bytes"], cost["ops"])
     print(f"[{tag}] K2 {L} lanes: moves {mv_k.tolist()}, equal to the solo "
           f"kernel and to the plain version; kernel {ms:.3f} ms, plain "
           f"{plain:.3f} ms", flush=True)
+    torch.use_deterministic_algorithms(False)
+
+
+def check_k2_tiers(torch, np, pkg, dev, recs) -> None:
+    """K2 where ``[mux]`` launches it: the mux leg's 2000x200 and 900x100
+    stagings (bucketed), each stage from its K4 seed with one node down
+    and with 15% of the nodes down, stage 0 alone and 8 stages as 8
+    lanes. Moves, assignment and integer planes equal to prerepair_plain,
+    load max |err| 0; the kernel's CUDA-event ms (and that of the plain
+    version's checking call), its iterations (the longest lane's stranded
+    services, at most 256) and the bound, under the K2 line's `sizes`."""
+    anneal, _kernels, greedy, problem, lower, buckets = pkg
+    from fleetflow_tpu_torch.solver import multiplex
+    fleet = mux_fleets(lower)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for S, N in reversed(MUX_TIERS):
+        for churn in ("1 node down", "15% down"):
+            solos, seeds, stranded = [], [], []
+            for i in range(8):
+                pt = fleet(S, N, i)
+                prob, _ = buckets.stage_problem_tiers(pt, device=dev)
+                order = np.concatenate([
+                    greedy.placement_order(pt.demand, pt.dep_depth,
+                                           problem.unify_conflict_ids(pt)),
+                    np.arange(pt.S, prob.S, dtype=np.int32)])
+                seed = greedy.greedy_place_batched(prob, torch.tensor(
+                    order, dtype=torch.int32, device=dev))
+                dead = ([i % N] if churn == "1 node down" else
+                        np.random.default_rng(10 + i).choice(
+                            N, 3 * N // 20, replace=False))
+                valid = prob.node_valid.clone()
+                valid[torch.as_tensor(np.asarray(dead), device=dev)] = False
+                prob = dataclasses.replace(prob, node_valid=valid)
+                rows = torch.arange(prob.S, device=dev)
+                stranded.append(int((~problem.eligible_lookup(
+                    prob.eligible, rows, seed.long())
+                    | ~valid[seed.long()]).sum()))
+                solos.append(prob)
+                seeds.append(seed)
+            for label, prob, seed, L in (
+                    (f"{S}x{N} {churn}", solos[0], seeds[0], 1),
+                    (f"{S}x{N} {churn} L=8",
+                     multiplex.stack_problems(solos), torch.stack(seeds), 8)):
+                st0 = anneal.chain_states_from_assignment(prob, seed)
+                st_k, st_p = st0.clone(), st0.clone()
+                _, mv_k = anneal.prerepair_state_counted(prob, st_k, 256)
+                with as_deployed(torch):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    _, mv_p = anneal.prerepair_plain(prob, st_p, 256)
+                    end.record()
+                    end.synchronize()
+                plain = start.elapsed_time(end)
+                if not torch.equal(mv_k, mv_p):
+                    raise AssertionError(f"K2 at {label}: moves "
+                                         f"{mv_k.tolist()} != {mv_p.tolist()}")
+                for x, y in zip(st_k, st_p):
+                    if not torch.equal(x, y):
+                        raise AssertionError(f"K2 at {label}: state differs")
+                moves = int(mv_k.sum())
+                if moves == 0:
+                    raise AssertionError(f"K2 at {label}: no move")
+                ms = cuda_ms(torch, lambda st, prob=prob: (
+                    anneal.prerepair_state_counted(prob, st, 256)),
+                    setup=lambda st0=st0: (st0.clone(),), reps=10)
+                iters = min(max(stranded[:L]), 256)
+                size_rec(recs, "k2_prerepair", K2_HEAD, dict(
+                    size=label, L=L, padded_S=prob.S, max_abs_err=0.0,
+                    ms=ms, plain_ms=plain, moves=mv_k.tolist(),
+                    iterations=iters, us_per_iteration=ms * 1e3 / iters,
+                    **k2_cost(prob, moves, L)))
+                print(f"[k2_prerepair] {label} (padded {prob.S}): moves "
+                      f"{mv_k.tolist()}, equal state; kernel {ms:.3f} ms "
+                      f"({ms * 1e3 / iters:.2f} us an iteration of {iters}),"
+                      f" plain {plain:.3f} ms", flush=True)
     torch.use_deterministic_algorithms(False)
 
 
@@ -2465,6 +2596,7 @@ def main() -> int:
                        [fleet(*MUX_TIERS[1], i) for i in range(8)])
     check_lane_kernels(torch, np, lane_pkg, dev, recs, "lanes",
                        [tenant_fleet, tenant_fleet])
+    check_k2_tiers(torch, np, lane_pkg, dev, recs)
     measure_rows(torch, np, (anneal, greedy, problem, lower, buckets), dev,
                  recs)
     small_agreement(torch, lower, solve)
@@ -2498,6 +2630,7 @@ def main() -> int:
     k7["max_abs_err"] = max(v["max_abs_err"] for v in k7["layouts"].values())
     by_phase["dryrun"] = run_dryrun_phase(torch, _ext, dryrun_multichip)
     measure_device(recs)
+    measure_phases(recs)
     if "--profile" in sys.argv[1:]:
         profile_phases(torch, np, pkg_main, lower, pt)
         profile_mux(torch, (_ext, solve, ResidentProblem, ProblemDelta,
@@ -2517,7 +2650,7 @@ def main() -> int:
             "launches_by_phase", "launches_by_size", "max_abs_err", "ms",
             "plain_ms", "bound_ms",
             "bound_by", "library_ms", "device_ms", "device_launches",
-            "sizes", "device", "lanes", "small_ms", "layouts")
+            "sizes", "device", "lanes", "phases", "small_ms", "layouts")
             if k in r})
     print(f"[done] {time.perf_counter() - t0:.1f} s after the build started",
           flush=True)

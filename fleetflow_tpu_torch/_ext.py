@@ -43,8 +43,9 @@ from typing import Optional
 import torch
 
 __all__ = ["KERNELS", "HOST_LIBS", "LAUNCHES", "MAX_LANES", "Lanes",
-           "lanes_arg", "build", "library", "host_library", "launch",
-           "reset_launches", "check_inputs"]
+           "ProblemArgs", "SweepArgs", "lanes_arg", "build", "library",
+           "host_library", "launch", "raise_on", "reset_launches",
+           "check_inputs"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent / "_ext_build"
@@ -85,6 +86,34 @@ class Lanes(ctypes.Structure):
                 ("sticky_w", ctypes.c_float * MAX_LANES),
                 ("n_real", ctypes.c_int * MAX_LANES),
                 ("active", ctypes.c_int * MAX_LANES)]
+
+
+class ProblemArgs(ctypes.Structure):
+    """``Problem`` of ``csrc/sweep_delta.cuh``: one staged problem's sizes,
+    planes (device pointers; 0 for an absent optional plane) and
+    statics."""
+    _fields_ = [("S", ctypes.c_int), ("N", ctypes.c_int),
+                ("G", ctypes.c_int), ("Gc1", ctypes.c_int),
+                ("T", ctypes.c_int), ("K", ctypes.c_int),
+                ("Kc", ctypes.c_int), ("demand", ctypes.c_void_p),
+                ("cap", ctypes.c_void_p), ("cids", ctypes.c_void_p),
+                ("colids", ctypes.c_void_p), ("elig", ctypes.c_void_p),
+                ("packed", ctypes.c_int), ("stride", ctypes.c_int),
+                ("valid", ctypes.c_void_p), ("ntopo", ctypes.c_void_p),
+                ("pref", ctypes.c_void_p), ("sticky_prev", ctypes.c_void_p),
+                ("sticky_w", ctypes.c_float), ("strategy", ctypes.c_int),
+                ("max_skew", ctypes.c_int), ("n_real", ctypes.c_int)]
+
+
+class SweepArgs(ctypes.Structure):
+    """``K1Static`` of ``csrc/k1_sweep.cu``: what stays fixed over an
+    anneal call's sweeps (the problem, the lane and chain counts, the
+    proposals a chain and the state planes), passed by pointer."""
+    _fields_ = [("p", ProblemArgs), ("L", ctypes.c_int),
+                ("C", ctypes.c_int), ("M", ctypes.c_int),
+                ("assignment", ctypes.c_void_p), ("load", ctypes.c_void_p),
+                ("used", ctypes.c_void_p), ("coloc", ctypes.c_void_p),
+                ("topo", ctypes.c_void_p)]
 
 
 def lanes_arg(n_real, sticky_w=None, temp=None, active=None) -> Lanes:
@@ -275,7 +304,12 @@ def launch(name: str, fn: str, device: torch.device, *args) -> None:
     appended last."""
     c_args = [_c_arg(a) for a in args]
     c_args.append(ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
-    err = getattr(library(name), fn)(*c_args)
+    raise_on(name, getattr(library(name), fn)(*c_args))
+
+
+def raise_on(name: str, err: int) -> None:
+    """Raise on the CUDA error a C entry point of kernel `name` returned;
+    else count its launch."""
     if err != 0:
         msg = library(name).ff_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")

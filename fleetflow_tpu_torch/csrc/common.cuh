@@ -37,6 +37,36 @@ FF_EXPORT const char* ff_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Compile-time phase stamps (a kernel file defines FF_PHASES when built
+// with its -DK1_PHASES / -DK2_PHASES; fleetflow_tpu_torch/tools/
+// k12_profile.py builds and reads them). Thread 0 of each block writes
+// FF_PHASE_SLOTS u64 into row blockIdx.y * gridDim.x + blockIdx.x of the
+// buffer set by ff_set_phases: the global timer (ns) at the block's start
+// and end, the SM cycles between them, four phase cycle counts, two counts
+// of the kernel's own, then up to three cycle counts that split the last
+// phase (see each kernel). The tool turns cycles into time with the
+// ns-per-cycle ratio of the blocks it read.
+#define FF_PHASE_SLOTS 12
+#ifdef FF_PHASES
+__device__ unsigned long long* g_ff_phases = nullptr;
+
+FF_EXPORT int ff_set_phases(void* buf) {
+  return static_cast<int>(cudaMemcpyToSymbol(g_ff_phases, &buf, sizeof(buf)));
+}
+
+__device__ __forceinline__ unsigned long long ff_globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// this block's stamp row, or null when no buffer is set or not thread 0
+__device__ __forceinline__ unsigned long long* ff_phase_row() {
+  if (g_ff_phases == nullptr || threadIdx.x != 0) return nullptr;
+  return g_ff_phases + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * FF_PHASE_SLOTS;
+}
+#endif
+
 // eligible[s, n] for either layout: packed int32 words (bit n % 32 of word
 // n / 32, `stride` words a row) or dense bytes (`stride` = N)
 __device__ __forceinline__ bool ff_elig(const void* elig, int packed,

@@ -12,7 +12,8 @@ Two kernels live in this module, each beside its plain PyTorch version:
         drawn proposals (replaces ``_batched_step``, ``_proposal_delta`` and
         ``_move_delta_core``). Drawing stays outside the kernel, in
         :func:`draw_proposals`, so the tests can hand both packages the same
-        proposals. Plain version: :func:`batched_step_plain`.
+        proposals. Plain version: :func:`batched_step_plain`. The anneal
+        loops bind it once a call (:func:`sweep_launcher`).
   K2 :func:`prerepair_state_counted`  the fused churn pre-repair loop.
         Plain version: :func:`prerepair_plain`.
 
@@ -31,6 +32,7 @@ one-lane case.
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import NamedTuple, Optional
 
@@ -47,6 +49,7 @@ __all__ = ["ChainState", "TRACE_COLS", "W_CAP", "W_CONF", "W_ELIG", "W_SKEW",
            "prerepair_plain", "state_violation_stats",
            "violation_total_from_parts", "state_soft_score",
            "draw_proposals", "batched_step_apply", "batched_step_plain",
+           "SweepLauncher", "sweep_launcher",
            "default_proposals_per_step",
            "backend_proposals_per_step", "anneal_states",
            "anneal_adaptive_states", "anneal_adaptive_lanes",
@@ -191,8 +194,12 @@ def prerepair_state_counted(prob: TorchProblem, st: ChainState,
         return prerepair_plain(prob, st, max_moves)
     dev = st.assignment.device
     L = prob.lanes or 1
+    K, Kc = prob.conflict_ids.shape[-1], prob.coloc_ids.shape[-1]
+    size = _ext.library("k2_prerepair").ff_k2_scratch_ints
+    size.restype = ctypes.c_longlong
     moves = torch.empty(L, dtype=torch.int32, device=dev)
-    scratch = torch.empty(L * (prob.S + 1), dtype=torch.int32, device=dev)
+    scratch = torch.empty(L * size(prob.S, prob.N, K, Kc, int(max_moves)),
+                          dtype=torch.int32, device=dev)
     n_real, _sticky = prob.lane_scalars()
     _ext.check_inputs("prerepair_state_counted", *st, prob.demand,
                       prob.capacity, prob.conflict_ids, prob.coloc_ids,
@@ -201,9 +208,7 @@ def prerepair_state_counted(prob: TorchProblem, st: ChainState,
     _ext.launch(
         "k2_prerepair", "ff_k2_prerepair", dev,
         L, prob.S, prob.N, prob.G, st.coloc.shape[-1], prob.T,
-        prob.demand, prob.capacity,
-        prob.conflict_ids, prob.conflict_ids.shape[-1],
-        prob.coloc_ids, prob.coloc_ids.shape[-1],
+        prob.demand, prob.capacity, prob.conflict_ids, K, prob.coloc_ids, Kc,
         prob.eligible, int(prob.eligible_packed), prob.eligible.shape[-1],
         prob.node_valid, prob.node_topology, _ext.lanes_arg(n_real),
         st.assignment, st.load, st.used, st.coloc, st.topo,
@@ -492,6 +497,104 @@ def batched_step_plain(prob: TorchProblem, st: ChainState,
     return st, wi.sum(1).to(torch.int32)
 
 
+class SweepLauncher:
+    """K1 bound to one problem and one state for the sweeps of one anneal
+    call: the inputs are checked, the C arguments built and the library
+    looked up once, and each sweep passes only its draws, temperatures and
+    active lanes. It launches on the stream current when it was built,
+    into one `applied` buffer it returns from every call (read it before
+    the next sweep; stream order makes that safe). Build one per call and
+    drop it with the call: a replaced or merged problem must never be
+    launched through its pointers. `st` is (C, ...), or (L, C, ...) with a
+    lane-stacked problem; every sweep draws M proposals a chain."""
+
+    def __init__(self, prob: TorchProblem, st: ChainState, M: int):
+        lead = st.assignment.shape[:-1]
+        self.L = prob.lanes or 1
+        if len(lead) != (2 if prob.lanes else 1):
+            raise ValueError("SweepLauncher: the state must be (C, ...), or "
+                             "(L, C, ...) with a lane-stacked problem")
+        _ext.check_inputs("batched_step_apply", *st, prob.demand,
+                          prob.capacity, prob.conflict_ids, prob.coloc_ids,
+                          prob.eligible, prob.node_valid, prob.node_topology,
+                          prob.preferred, prob.sticky_prev,
+                          lanes=prob.lanes or None)
+        self.dev = st.assignment.device
+        self.shape = (*lead, M)
+        n_real, sticky_w = prob.lane_scalars()
+        if prob.sticky_prev is None:
+            sticky_w = None
+        self.lanes = _ext.lanes_arg(n_real, sticky_w)
+        lib = _ext.library("k1_sweep")
+        if lib.ff_k1_static_size() != ctypes.sizeof(_ext.SweepArgs):
+            raise RuntimeError("k1_sweep: the C argument struct does not "
+                               "match _ext.SweepArgs")
+        self.args = _ext.SweepArgs(
+            _ext.ProblemArgs(
+                prob.S, prob.N, prob.G, st.coloc.shape[-1],
+                st.topo.shape[-1], prob.conflict_ids.shape[-1],
+                prob.coloc_ids.shape[-1], prob.demand.data_ptr(),
+                prob.capacity.data_ptr(), prob.conflict_ids.data_ptr(),
+                prob.coloc_ids.data_ptr(), prob.eligible.data_ptr(),
+                int(prob.eligible_packed), prob.eligible.shape[-1],
+                prob.node_valid.data_ptr(), prob.node_topology.data_ptr(),
+                _ptr(prob.preferred), _ptr(prob.sticky_prev), 0.0,
+                prob.strategy, prob.max_skew, 0),
+            self.L, lead[-1], M, st.assignment.data_ptr(),
+            st.load.data_ptr(), st.used.data_ptr(), st.coloc.data_ptr(),
+            st.topo.data_ptr())
+        self.fn = lib.ff_k1_sweep
+        self.fn.argtypes = [ctypes.c_void_p, _ext.Lanes, ctypes.c_void_p,
+                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_void_p]
+        self.stream = torch.cuda.current_stream(self.dev).cuda_stream
+        self.applied = torch.empty(lead, dtype=torch.int32, device=self.dev)
+        # the prob/state tensors stay alive while the pointers are in use
+        self._keep = (prob, st)
+
+    def __call__(self, s_idx: torch.Tensor, b_idx: torch.Tensor,
+                 u: torch.Tensor, temps, active=None) -> torch.Tensor:
+        """One sweep with `temps` (one temperature a lane) and `active`
+        (None: every lane sweeps); returns the applied moves, (C,) or
+        (L, C)."""
+        for x, dt in ((s_idx, torch.int32), (b_idx, torch.int32),
+                      (u, torch.float32)):
+            if (x.shape != self.shape or x.dtype != dt
+                    or x.device != self.dev or not x.is_contiguous()):
+                raise ValueError(
+                    "batched_step_apply: proposals must be contiguous "
+                    f"{self.shape} i32, i32, f32 on {self.dev}")
+        if len(temps) != self.L:
+            raise ValueError("batched_step_apply: one temperature per lane")
+        lanes = self.lanes
+        for i in range(self.L):
+            lanes.temp[i] = temps[i]
+            lanes.active[i] = 1 if active is None or active[i] else 0
+        _ext.raise_on("k1_sweep", self.fn(
+            ctypes.addressof(self.args), lanes, s_idx.data_ptr(),
+            b_idx.data_ptr(), u.data_ptr(), self.applied.data_ptr(),
+            self.stream))
+        return self.applied
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def sweep_launcher(prob: TorchProblem, st: ChainState, M: int):
+    """The per-sweep K1 call of an anneal loop: a :class:`SweepLauncher`
+    on the card, on the CPU the plain version. Called as fn(s_idx, b_idx,
+    u, temps, active) with one temperature a lane (one for a solo
+    problem); returns the applied moves."""
+    if st.assignment.device.type == "cpu":
+        def plain(s_idx, b_idx, u, temps, active=None):
+            temp = temps if prob.lanes else temps[0]
+            return batched_step_plain(prob, st, s_idx, b_idx, u, temp,
+                                      active)[1]
+        return plain
+    return SweepLauncher(prob, st, M)
+
+
 def batched_step_apply(prob: TorchProblem, st: ChainState,
                        s_idx: torch.Tensor, b_idx: torch.Tensor,
                        u: torch.Tensor, temp, active=None):
@@ -507,47 +610,13 @@ def batched_step_apply(prob: TorchProblem, st: ChainState,
     proposals (L, C, M), one temperature per lane in `temp` and, in
     `active`, which lanes sweep (None: all); an inactive lane is left
     untouched and applies 0 moves. One launch for all lanes; returns (st,
-    applied (L, C))."""
+    applied (L, C)). An anneal loop binds K1 once with
+    :func:`sweep_launcher` instead."""
     if s_idx.device.type == "cpu":
         return batched_step_plain(prob, st, s_idx, b_idx, u, temp, active)
-    if prob.lanes:
-        L, C, M = s_idx.shape
-        temps = list(temp)
-    else:
-        (C, M), L, temps = s_idx.shape, 1, [temp]
-    lead = s_idx.shape[:-1]
-    if (s_idx.dtype != torch.int32 or b_idx.dtype != torch.int32
-            or u.dtype != torch.float32 or b_idx.shape != s_idx.shape
-            or u.shape != s_idx.shape or st.assignment.shape[:-1] != lead
-            or len(temps) != L):
-        raise ValueError("batched_step_apply: proposals must be (C, M) "
-                         "i32, i32, f32 ((L, C, M) with lanes) matching the "
-                         "chain count, with one temperature per lane")
-    dev = s_idx.device
-    # an inactive lane's blocks return before writing their count
-    alloc = torch.empty if active is None or all(active) else torch.zeros
-    applied = alloc(lead, dtype=torch.int32, device=dev)
-    n_real, sticky_w = prob.lane_scalars()
-    if prob.sticky_prev is None:
-        sticky_w = None
-    _ext.check_inputs("batched_step_apply", *st, s_idx, b_idx, u,
-                      prob.demand, prob.capacity, prob.conflict_ids,
-                      prob.coloc_ids, prob.eligible, prob.node_valid,
-                      prob.node_topology, prob.preferred, prob.sticky_prev,
-                      lanes=prob.lanes or None)
-    _ext.launch(
-        "k1_sweep", "ff_k1_sweep", dev,
-        L, C, prob.S, prob.N, prob.G, st.coloc.shape[-1], st.topo.shape[-1],
-        prob.demand, prob.capacity,
-        prob.conflict_ids, prob.conflict_ids.shape[-1],
-        prob.coloc_ids, prob.coloc_ids.shape[-1],
-        prob.eligible, int(prob.eligible_packed), prob.eligible.shape[-1],
-        prob.node_valid, prob.node_topology, prob.preferred,
-        prob.sticky_prev, prob.strategy, prob.max_skew,
-        _ext.lanes_arg(n_real, sticky_w, temps, active),
-        st.assignment, st.load, st.used, st.coloc, st.topo,
-        s_idx, b_idx, u, M, applied)
-    return st, applied
+    temps = list(temp) if prob.lanes else [temp]
+    launcher = SweepLauncher(prob, st, s_idx.shape[-1])
+    return st, launcher(s_idx, b_idx, u, temps, active)
 
 
 def default_proposals_per_step(S: int) -> int:
@@ -582,10 +651,10 @@ def anneal_states(prob: TorchProblem, init_assignments: torch.Tensor,
     M = (proposals_per_step if proposals_per_step is not None
          else default_proposals_per_step(S))
     states = chain_states_from_assignment(prob, init_assignments)
+    sweep = sweep_launcher(prob, states, M)
     for i in range(steps):
-        temp = temperature(t0, t1, steps, i)
         s_idx, b_idx, u = draw_proposals(prob, states, gen, M)
-        batched_step_apply(prob, states, s_idx, b_idx, u, temp)
+        sweep(s_idx, b_idx, u, [temperature(t0, t1, steps, i)])
     return states
 
 
@@ -715,6 +784,7 @@ def anneal_adaptive_lanes(prob: TorchProblem, states: ChainState,
     ran = [0] * L
     done = seen.tolist() if exit_on_feasible_init else [False] * L
     active = [live[i] and not done[i] for i in range(L)]
+    step = None           # K1 bound at the first sweep (many solves run none)
     b = 0
     while any(active) and b < n_blocks:
         for j in range(block):
@@ -725,9 +795,9 @@ def anneal_adaptive_lanes(prob: TorchProblem, states: ChainState,
                      if active[i] else idle for i in range(L)]
             s_idx, b_idx, u = (_stack([d[k] for d in draws])
                                for k in range(3))
-            _, applied = batched_step_apply(prob, states, s_idx, b_idx, u,
-                                            temps, active)
-            accepted += applied
+            if step is None:
+                step = sweep_launcher(prob, states, M)
+            accepted += step(s_idx, b_idx, u, temps, active)
             viol, soft = scores(active)
             # lexicographic (violations, soft): feasibility dominates and
             # soft stays a full-precision tie-break

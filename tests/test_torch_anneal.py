@@ -195,6 +195,45 @@ class TestPrerepair:
         check_state([rs], st, atol=0.0)
 
 
+    @pytest.mark.parametrize("max_moves", [1, 256])
+    @pytest.mark.parametrize("packed", [True, False])
+    def test_ties_and_budget_match_reference(self, packed, max_moves):
+        """Identical nodes and demands, every service eligible everywhere,
+        the crowded nodes 0-3 down: the empty nodes tie on utilization
+        (the first index wins); service 0 may use only dead nodes, so a
+        budget of 1 attempts it and moves nothing."""
+        S, N = 120, 24
+        dp, tp, _, _ = staged_pair(S, N, 5, packed=packed, n_tenants=1)
+        valid = np.ones(N, dtype=bool)
+        valid[:4] = False
+        cap = np.full((N, 3), 8.0, dtype=np.float32)
+        dem = np.full((S, 3), 0.5, dtype=np.float32)
+        elig = np.ones((S, N), dtype=bool)
+        elig[0, 4:] = False
+        a = (np.arange(S) % 8).astype(np.int32)
+        t_elig = torch.tensor(elig)
+        d_elig = jnp.asarray(elig)
+        if packed:
+            words = np.packbits(np.pad(elig, ((0, 0), (0, (-N) % 32))),
+                                axis=1, bitorder="little").view(np.uint32)
+            t_elig = torch.tensor(words.view(np.int32))
+            d_elig = jnp.asarray(words)
+        tp = dataclasses.replace(tp, node_valid=torch.tensor(valid),
+                                 capacity=torch.tensor(cap),
+                                 demand=torch.tensor(dem), eligible=t_elig)
+        dp = dataclasses.replace(dp, node_valid=jnp.asarray(valid),
+                                 capacity=jnp.asarray(cap),
+                                 demand=jnp.asarray(dem), eligible=d_elig)
+        rs, ref_moves = _ref_prerepair(
+            dp, ref_anneal.chain_states_from_assignment(dp, jnp.asarray(a)),
+            max_moves)
+        st = port_anneal.chain_states_from_assignment(tp, torch.tensor(a))
+        st, moves = port_anneal.prerepair_state_counted(tp, st, max_moves)
+        assert int(moves[0]) == int(ref_moves)
+        assert int(moves[0]) == (0 if max_moves == 1 else 59)
+        check_state([rs], st, atol=0.0)
+
+
 class TestCarriedScores:
     @pytest.mark.parametrize("strategy", STRATEGIES)
     def test_state_stats_and_soft_match(self, strategy):

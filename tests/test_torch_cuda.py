@@ -14,7 +14,12 @@ feasible nodes than the batch width, no feasible node, N = 1500 and
 20000, the bucketed 2000 x 200 tier) and its single device launch; K3
 with several assignment tiles, a node holding half the services, and
 lanes with a frozen base, phantom rows and out-of-range rows, its loads
-bit-equal to the plain version on the CPU (which adds in service order).
+bit-equal to the plain version on the CPU (which adds in service order);
+K2 with utilization ties, a budget of 1 and of 256 moves around a service
+no live node can take, and 500, 2,000 and 10,000 nodes (the last one's
+planes in global memory); K1 with many winners leaving each crowded node at T = 1, and
+with duplicate services and targets over 16 sticky, skewed lanes, its
+loads bit-equal to the plain version on the CPU.
 
 Every test needs a CUDA card and skips without one. On the card (which has
 no JAX, so the repository's conftest cannot load):
@@ -168,6 +173,142 @@ def test_k2_matches_plain(dev, packed):
         assert torch.equal(mv_k, mv_p) and int(mv_k[0]) > 0
         _equal_states(st_k, st_p)
         assert torch.equal(st_k.load, st_p.load)
+
+
+def _k2_both(prob, st, max_moves):
+    """K2 on the card against its plain version on the card and on the
+    CPU: moves, assignment and integer planes equal, loads bit-equal (both
+    plain versions add one move at a time, in the kernel's order)."""
+    st_k, st_p = st.clone(), st.clone()
+    before = _ext.LAUNCHES["k2_prerepair"]
+    _, mv_k = anneal.prerepair_state_counted(prob, st_k, max_moves)
+    assert _ext.LAUNCHES["k2_prerepair"] == before + 1
+    _, mv_p = anneal.prerepair_plain(prob, st_p, max_moves)
+    st_c = anneal.ChainState(*(t.to("cpu", copy=True) for t in st))
+    _, mv_c = anneal.prerepair_plain(_on_cpu(prob), st_c, max_moves)
+    assert torch.equal(mv_k, mv_p) and torch.equal(mv_k.cpu(), mv_c)
+    for x, y, z in zip(st_k, st_p, st_c):
+        assert torch.equal(x, y) and torch.equal(x.cpu(), z)
+    return st_k, mv_k
+
+
+def _down(prob, nodes):
+    valid = prob.node_valid.clone()
+    valid[torch.as_tensor(nodes, device=valid.device)] = False
+    return dataclasses.replace(prob, node_valid=valid)
+
+
+def test_k2_ties_take_the_first_node(dev):
+    """Identical nodes, every service eligible everywhere, four of the
+    eight crowded nodes down: the empty nodes tie on utilization, and the
+    first stranded service lands on the first of them."""
+    _pt, prob = _ties(dev)
+    prob = dataclasses.replace(
+        prob, eligible=torch.full_like(prob.eligible, -1))
+    prob = _down(prob, [0, 1, 2, 3])
+    a = torch.arange(prob.S, dtype=torch.int32, device=dev) % 8
+    st_k, mv = _k2_both(prob, anneal.chain_states_from_assignment(prob, a),
+                        256)
+    assert int(mv[0]) == 200
+    assert int(st_k.assignment[0, 0]) == 8
+
+
+@pytest.mark.parametrize("max_moves", [1, 256])
+def test_k2_budget_and_an_unplaceable_service(dev, max_moves):
+    """Services 0-2 are eligible only on dead nodes: each is attempted and
+    is not a move, so a budget of 1 moves nothing; 256 moves every other
+    stranded service."""
+    pt, _ = _problem(dev, S=600, N=80, seed=11)
+    dead = [0, 1, 2, 3, 4, 5]
+    elig = pt.eligible.copy()
+    elig[:3] = False
+    elig[:3, :2] = True
+    prob = _down(prepare_problem(dataclasses.replace(pt, eligible=elig), dev),
+                 dead)
+    rng = np.random.default_rng(11)
+    a = torch.tensor(rng.integers(0, prob.N, prob.S), dtype=torch.int32,
+                     device=dev)
+    a[:3] = 0
+    st_k, mv = _k2_both(prob, anneal.chain_states_from_assignment(prob, a),
+                        max_moves)
+    assert int(mv[0]) == 0 if max_moves == 1 else int(mv[0]) > 100
+    assert torch.equal(st_k.assignment[0, :3], a[:3])
+
+
+@pytest.mark.parametrize("N", [500, 2000, 10000])
+def test_k2_many_nodes(dev, N):
+    """2 and 8 nodes a loop thread (N = 500, 2000), and past what shared
+    memory holds (N = 10000): 1,024 threads walk their nodes, the node
+    state and the eligibility rows in the global scratch."""
+    _pt, prob = _problem(dev, S=900, N=N, seed=12)
+    rng = np.random.default_rng(12)
+    a = torch.tensor(rng.integers(0, 300, prob.S), dtype=torch.int32,
+                     device=dev)
+    prob = _down(prob, rng.choice(300, 40, replace=False))
+    st_k, mv = _k2_both(prob, anneal.chain_states_from_assignment(prob, a),
+                        256)
+    assert int(mv[0]) > 50
+
+
+def _k1_against_cpu(prob, st_k, s_idx, b_idx, u, temp, active=None):
+    """One K1 sweep on the card and the plain version on the CPU copies:
+    applied counts, assignment and integer planes equal, loads bit-equal
+    (the CPU's index_add_ adds in proposal order, the kernel's order)."""
+    st_c = anneal.ChainState(*(t.to("cpu", copy=True) for t in st_k))
+    _, acc_k = anneal.batched_step_apply(prob, st_k, s_idx, b_idx, u, temp,
+                                         active)
+    _, acc_c = anneal.batched_step_plain(_on_cpu(prob), st_c, s_idx.cpu(),
+                                         b_idx.cpu(), u.cpu(), temp, active)
+    assert torch.equal(acc_k.cpu(), acc_c)
+    for x, y in zip(st_k, st_c):
+        assert torch.equal(x.cpu(), y)
+    return int(acc_k.sum())
+
+
+def test_k1_departures_keep_their_order(dev):
+    """T = 1, most services crowded on three nodes, each proposal moving
+    one of them to its own target: many winners leave each crowded node,
+    and their departures keep proposal order per node."""
+    _pt, prob = _problem(dev, S=600, N=200, seed=13, coloc=True)
+    rng = np.random.default_rng(13)
+    a = torch.tensor(rng.integers(0, 3, (2, prob.S)), dtype=torch.int32,
+                     device=dev)
+    st = anneal.chain_states_from_assignment(prob, a)
+    M = 192
+    s_idx = torch.tensor(np.stack([rng.permutation(prob.S)[:M]
+                                   for _ in range(2)]), dtype=torch.int32,
+                         device=dev)
+    b_idx = torch.tensor(np.stack([3 + rng.permutation(prob.N - 3)[:M]
+                                   for _ in range(2)]), dtype=torch.int32,
+                         device=dev)
+    u = torch.zeros((2, M), dtype=torch.float32, device=dev)
+    applied = _k1_against_cpu(prob, st, s_idx, b_idx, u, 1.0)
+    assert applied > M
+    left = torch.bincount(a[0].long(), minlength=prob.N)[:3] - torch.bincount(
+        st.assignment[0].long(), minlength=prob.N)[:3]
+    assert int(left.max()) >= 20
+
+
+def test_k1_duplicates_sticky_skew_16_lanes(dev):
+    """16 lanes with stickiness and a spread constraint, proposals drawn
+    from 12 services and 6 target nodes (many per service and per target),
+    lane 1 inactive: equal to the plain version on the CPU bit for bit."""
+    prob, _solo = _lanes(dev, 16)
+    st = anneal.chain_states_from_assignment(
+        prob, _lane_assignments(dev, prob, 2, 14))
+    rng = np.random.default_rng(14)
+    active = [i != 1 for i in range(16)]
+    temps = [2.0 / (1 + i) for i in range(16)]
+    applied = 0
+    for _ in range(4):
+        s_idx = torch.tensor(rng.integers(0, 12, (16, 2, 128)),
+                             dtype=torch.int32, device=dev)
+        b_idx = torch.tensor(rng.integers(0, 6, (16, 2, 128)),
+                             dtype=torch.int32, device=dev)
+        u = torch.tensor(rng.random((16, 2, 128)), dtype=torch.float32,
+                         device=dev)
+        applied += _k1_against_cpu(prob, st, s_idx, b_idx, u, temps, active)
+    assert applied > 0
 
 
 @pytest.mark.parametrize("rounds", [1, 2])
