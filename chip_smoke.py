@@ -15,8 +15,10 @@ each of which fails the run:
      n_tenants=8, port_fraction=0.2, volume_fraction=0.1), and time both
      with CUDA events (K4 and K3 also on the 2000x200 mux tier's
      staging; ``[k6_scan]``: K6 also at 2000x200 with pack,
-     fill_lowest and a best-effort instance; K1 timed at T = 1 and
-     T = 1e-3); then K1-K3 with a lane axis,
+     fill_lowest and a best-effort instance, and at 512 x 3,000 with a
+     preference plane (more nodes than a block has threads), each size
+     with its microseconds a step; K1 timed at T = 1 and T = 1e-3); then
+     K1-K3 with a lane axis,
      at 8 lanes of 2000x200 and 2 lanes of the padded phase-4 fleet,
      against their plain versions and against the solo kernel launched
      lane by lane; K2 on the mux leg's 2000x200 and 900x100 stagings with
@@ -25,7 +27,9 @@ each of which fails the run:
      iterations; ``[k7]``: K7, the sharded sweep, against its plain
      version on one-card meshes of 1x8 and 2x4 positions at the sharded
      fleet (SHARDED_SHAPE, the partitioned seed with 5% of the nodes
-     down, 8 sweeps); ``[rows]``: the CUDA-event ms and the bound of the rows
+     down, 8 sweeps through one bound launcher), a sweep timed as the
+     anneal loop launches it at the warm schedule's start and end
+     temperatures, with the launcher's host ms; ``[rows]``: the CUDA-event ms and the bound of the rows
      without a kernel (pad_problem_tiers, the carried-state reductions,
      and the summed lane bounds of ``_mux_refine``);
   3. ``[main]``: the unbucketed path without the active-set sub-solve
@@ -92,12 +96,17 @@ each of which fails the run:
      card (K1 and K3 for the chain layout, K7 for the two sharded ones);
      ``[device]``: K4's and K3's device-only ms and device launches a
      call at both sizes (K3 also at 8 lanes), from the kernel cases of
-     ``fleetflow_tpu_torch/tools/k34_profile.py`` in a fresh interpreter;
+     ``fleetflow_tpu_torch/tools/k34_profile.py`` in a fresh interpreter,
+     and K7's device ms a sweep at every [k7] and [sharded] staging (the
+     k7 and k7-sharded cases of ``tools/k67_profile.py``);
      ``[phases]``: K1's and K2's phase split from their cycle stamps (the
      phases case of ``fleetflow_tpu_torch/tools/k12_profile.py``, its own
-     -DK1_PHASES -DK2_PHASES build, in a fresh interpreter);
+     -DK1_PHASES -DK2_PHASES build, in a fresh interpreter), and K6's and
+     K7's (``tools/k67_profile.py``, -DK6_PHASES -DK7_PHASES);
  13. print the per-kernel JSON line (launches also by fleet size; K1 and
-     K2 with each size's ms and their phases), the
+     K2 with each size's ms and their phases, K6 with its microseconds a
+     step, K6 and K7 with their phases, K7 with each staging's device
+     ms), the
      card line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -388,6 +397,76 @@ def measure_phases(recs: dict) -> None:
         recs[name].setdefault("phases", []).append(row)
         print(f"[phases] {json.dumps(row)}", flush=True)
     if not all(recs[k].get("phases") for k in ("k1_sweep", "k2_prerepair")):
+        raise AssertionError(f"[phases] rows missing: {run.stdout[-2000:]}")
+
+
+def measure_k7_device(recs: dict) -> None:
+    """[device]: K7's device ms a sweep at every [k7] and [sharded]
+    staging (the resident 2x4 one after a cold solve and one burst), at
+    the warm schedule's t0 and t1, from the k7 and k7-sharded cases of
+    fleetflow_tpu_torch/tools/k67_profile.py on this checkout in a fresh
+    interpreter (torch.profiler in this process would disturb the later
+    phases' traces). Each row goes under the kernel's `device` and the
+    t0 device ms into its layout."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    tool = os.path.join(root, "fleetflow_tpu_torch", "tools",
+                        "k67_profile.py")
+    run = subprocess.run([sys.executable, tool, "--cases", "k7,k7-sharded",
+                          "--child", root],
+                         capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"[device] k67_profile failed:\n"
+                             f"{run.stderr[-3000:]}")
+    k7 = recs["k7_sharded_sweep"]
+    for line in run.stdout.splitlines():
+        if not line.startswith("{"):
+            continue
+        row = json.loads(line)
+        case = dict(case=row["case"], ms=row["event_ms_median"],
+                    device_ms=row["device_ms"], host_ms=row["host_ms_median"],
+                    device_launches=round(row["device_ops_per_call"]),
+                    applied=row["applied"])
+        k7.setdefault("device", []).append(case)
+        layout, _, temp = row["case"][len("k7 "):].rpartition(" T=")
+        if temp == "t0" and layout in k7["layouts"]:
+            k7["layouts"][layout]["device_ms"] = case["device_ms"]
+        print(f"[device] {row['case']}: {case['device_ms']:.4f} ms of device "
+              f"time, event {case['ms']:.4f} ms, host {case['host_ms']:.4f} "
+              f"ms, {case['device_launches']} device launch a sweep",
+              flush=True)
+    if not all(v["device_ms"] for v in k7["layouts"].values()):
+        raise AssertionError(f"[device] K7 stagings missing: "
+                             f"{run.stdout[-2000:]}")
+    k7["device_ms"] = k7["layouts"]["1x8"]["device_ms"]
+
+
+def measure_k67_phases(recs: dict) -> None:
+    """[phases]: K6's and K7's phase split from their own cycle stamps:
+    the phases case of fleetflow_tpu_torch/tools/k67_profile.py on this
+    checkout (its kernels built with -DK6_PHASES -DK7_PHASES) in a fresh
+    interpreter, each row under its kernel's `phases` (K6 at every
+    [k6_scan] size, K7 at the [k7] stagings at both temperatures)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    tool = os.path.join(root, "fleetflow_tpu_torch", "tools",
+                        "k67_profile.py")
+    run = subprocess.run([sys.executable, tool, "--cases", "phases",
+                          "--phases", root],
+                         capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"[phases] k67_profile failed:\n"
+                             f"{run.stderr[-3000:]}")
+    rows = [json.loads(x) for x in run.stdout.splitlines()
+            if x.startswith("{")]
+    for row in rows:
+        if row.get("stamps") is False:
+            raise AssertionError("[phases] the kernels have no stamps")
+        name = "k6_greedy_scan" if row["case"].startswith("phases k6") else \
+            "k7_sharded_sweep"
+        row.pop("tree")
+        recs[name].setdefault("phases", []).append(row)
+        print(f"[phases] {json.dumps(row)}", flush=True)
+    if not all(recs[k].get("phases")
+               for k in ("k6_greedy_scan", "k7_sharded_sweep")):
         raise AssertionError(f"[phases] rows missing: {run.stdout[-2000:]}")
 
 
@@ -1932,9 +2011,11 @@ def scan_order(torch, np, greedy, problem, pt, prob, dev):
 
 def check_k6(torch, np, pkg, dev):
     """[k6_scan]: K6 against its plain version, equal assignments, at the
-    headline size (spread, both timed with CUDA events) and at 2000x200
+    headline size (spread, both timed with CUDA events), at 2000x200
     with pack, fill_lowest and a best-effort instance (nodes at 45% of
-    their capacity: the later services fit nowhere). Returns K6's record."""
+    their capacity: the later services fit nowhere), and at 512 x 3,000
+    spread with a preference plane (more nodes than a block has threads);
+    each size's kernel ms and microseconds a step. Returns K6's record."""
     greedy, problem, lower = pkg
 
     def case(label, pt):
@@ -1952,11 +2033,11 @@ def check_k6(torch, np, pkg, dev):
                                  f"{int((got != out[0]).sum())} services")
         return prob, order, plain
 
-    pt = lower.synthetic_problem(N_SERVICES, N_NODES, seed=0, n_tenants=8,
-                                 port_fraction=0.2, volume_fraction=0.1)
+    pt = sharded_fleet(lower, (N_SERVICES, N_NODES))
     prob, order, plain = case("10k x 1k spread", pt)
     ms = cuda_ms(torch, lambda: greedy.greedy_place(prob, order))
     small = {}
+    steps = {"10000x1000 spread": ms * 1e3 / order.shape[0]}
     for strategy in ("pack_into_dedicated", "fill_lowest", "best_effort"):
         pt2 = lower.synthetic_problem(
             2000, 200, seed=1, n_tenants=3,
@@ -1969,18 +2050,30 @@ def check_k6(torch, np, pkg, dev):
         prob2, order2, _plain = case(f"2000 x 200 {strategy}", pt2)
         small[strategy] = round(cuda_ms(
             torch, lambda: greedy.greedy_place(prob2, order2)), 3)
+        steps[f"2000x200 {strategy}"] = small[strategy] * 1e3 / order2.shape[0]
+    # more nodes than a block has threads: each thread owns three
+    pt3 = lower.synthetic_problem(512, 3000, seed=2, n_tenants=3)
+    pref = np.random.default_rng(2).random((512, 3000)).astype(np.float32)
+    pt3 = dataclasses.replace(pt3, preferred=pref * np.float32(0.5))
+    prob3, order3, _plain = case("512 x 3000 spread preferred", pt3)
+    small["512x3000_preferred"] = round(cuda_ms(
+        torch, lambda: greedy.greedy_place(prob3, order3)), 3)
+    steps["512x3000 spread preferred"] = (small["512x3000_preferred"] * 1e3
+                                          / order3.shape[0])
     S, N = prob.S, prob.N
     ids = int((prob.conflict_ids >= 0).sum())
-    print(f"[k6_scan] equal assignments at 10k x 1k spread and 2000 x 200 "
-          f"{sorted(small)}; kernel {ms:.3f} ms, plain {plain:.3f} ms at "
-          f"10k x 1k; kernel ms at 2000 x 200 {json.dumps(small)}",
+    print(f"[k6_scan] equal assignments at 10k x 1k spread, 2000 x 200 "
+          f"{sorted(k for k in small if not k.startswith('512'))} and 512 x "
+          f"3000; kernel {ms:.3f} ms, plain {plain:.3f} ms at 10k x 1k; "
+          f"kernel ms {json.dumps(small)}; us a step "
+          f"{json.dumps({k: round(v, 4) for k, v in steps.items()})}",
           flush=True)
     return dict(
         name="k6_greedy_scan", route="cuda",
         source="fleetflow_tpu_torch/csrc/k6_greedy_scan.cu",
         replaces="fleetflow_tpu/solver/greedy.py:58",
         max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None,
-        small_ms=small,
+        small_ms=small, us_per_step=steps,
         # per step: ~30 float32 operations a node (as K4's count) plus one
         # add per valid conflict id a node
         ops=S * N * 30.0 + ids * N,
@@ -2235,23 +2328,30 @@ def run_entry_phase(torch, mods, lower, dev):
 
 def sharded_fleet(lower, shape):
     """The sharded phases' fleet at `shape`, the bench child's generator
-    arguments."""
-    return lower.synthetic_problem(*shape, seed=0, n_tenants=8,
-                                   port_fraction=0.2, volume_fraction=0.1)
+    arguments, made once and kept in the checkout's fleet cache, which
+    fleetflow_tpu_torch/tools/k67_profile.py reads in its own
+    interpreter ([device], [phases])."""
+    from fleetflow_tpu_torch.tools import k67_profile
+    return k67_profile.cached_fleet(
+        lower, f"{shape[0]}x{shape[1]}",
+        lambda lw: k67_profile.sharded_fleet(lw, shape))
 
 
-LAYOUT_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "S",
-               "N", "applied")
+LAYOUT_KEYS = ("ms", "ms_t1", "device_ms", "host_ms", "plain_ms", "bound_ms",
+               "bound_by", "max_abs_err", "S", "N", "applied")
 
 
 def k7_against_plain(torch, mods, prob, seed, R: int, D: int,
                      label: str) -> dict:
     """K7 against sharded_step_plain on the staging `prob` over an RxD
     one-card mesh, from the (S,) assignment `seed` on the card: 8 sweeps
-    of the warm schedule (t0 0.1) with the same draws, equal applied
-    counts, assignments and integer planes, loads within LOAD_RTOL, at
-    least one move applied; CUDA-event ms of both and the bound. Returns
-    the layout's record."""
+    of the warm schedule (t0 0.1) with the same draws, through one bound
+    launcher as anneal_sharded binds it, equal applied counts,
+    assignments and integer planes, loads within LOAD_RTOL, at least one
+    move applied; a sweep's CUDA-event ms as the loop launches it at the
+    schedule's start and end temperatures, the launcher's host ms (the
+    call returns after the launch), the plain version's ms and the bound.
+    Returns the layout's record ([device] adds its device ms)."""
     sharded, anneal = mods
     dev = prob.device
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -2262,14 +2362,13 @@ def k7_against_plain(torch, mods, prob, seed, R: int, D: int,
     gen.manual_seed(11)
     draws_src = sharded.TorchDraws(gen)
     sched = sharded._Schedule(0.1, 1e-3, 64, 1.3, R, True)
-    scratch = sharded._scratch(R, D, M, prob.N, dev)
     st_k, st_p = base.clone(), base.clone()
+    sweep = sharded.sweep_launcher(prob, st_k, D, M)
     draws, applied = [], 0
     for i in range(8):
         d = draws_src.proposals(i, sharded._hot(prob, st_k, D), prob.N, M)
         draws.append(d)
-        _, acc_k = sharded.sharded_step_apply(prob, st_k, *d,
-                                              sched.temps(i), scratch)
+        acc_k = sweep(*d, sched.temps(i))
         _, acc_p = sharded.sharded_step_plain(prob, st_p, *d,
                                               sched.temps(i))
         if not torch.equal(acc_k, acc_p):
@@ -2287,9 +2386,22 @@ def k7_against_plain(torch, mods, prob, seed, R: int, D: int,
         raise AssertionError(f"K7 {label} applied no move in 8 sweeps")
     s_loc, b_idx, u = draws[0]
     temps = sched.temps(0)
-    ms = cuda_ms(torch, lambda st: sharded.sharded_step_apply(
-        prob, st, s_loc, b_idx, u, temps, scratch),
-        setup=lambda: (base.clone(),), reps=20)
+
+    def bound():
+        return (sharded.sweep_launcher(prob, base.clone(), D, M),)
+
+    ms, ms_t1 = (cuda_ms(torch, lambda sw, t=t: sw(s_loc, b_idx, u, t),
+                         setup=bound, reps=20)
+                 for t in (temps, sched.temps(63)))
+    host = []
+    with as_deployed(torch):
+        for _ in range(20):
+            (sw,) = bound()
+            torch.cuda.synchronize()
+            t_call = time.perf_counter()
+            sw(s_loc, b_idx, u, temps)
+            host.append((time.perf_counter() - t_call) * 1e3)
+    host_ms = statistics.median(host)
     plain = cuda_ms(torch, lambda st: sharded.sharded_step_plain(
         prob, st, s_loc, b_idx, u, temps), setup=lambda: (base.clone(),))
     torch.use_deterministic_algorithms(False)
@@ -2300,12 +2412,15 @@ def k7_against_plain(torch, mods, prob, seed, R: int, D: int,
     props = R * D * M
     t_bytes = props * per_prop + 4.0 * R * prob.T
     t_ops = props * 120.0
-    bound, by = bound_of(t_bytes, t_ops)
+    t_bound, by = bound_of(t_bytes, t_ops)
     print(f"[k7] {label}: S {prob.S} (n_real {prob.real_rows}), N {prob.N}, "
           f"{props} proposals a sweep: 8 sweeps equal ({applied} moves), "
-          f"load max |err| {err:.3g}; kernel {ms:.3f} ms, plain "
-          f"{plain:.3f} ms, bound {bound:.3g} ms ({by})", flush=True)
-    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+          f"load max |err| {err:.3g}; a sweep through the bound launcher: "
+          f"event {ms:.4f} ms at t0, {ms_t1:.4f} ms at t1, host "
+          f"{host_ms:.4f} ms (device ms: [device]); plain {plain:.3f} ms, "
+          f"bound {t_bound:.3g} ms ({by})", flush=True)
+    return dict(ms=ms, ms_t1=ms_t1, device_ms=None, host_ms=host_ms,
+                plain_ms=plain, bound_ms=t_bound, bound_by=by,
                 max_abs_err=err, S=prob.S, N=prob.N, applied=applied,
                 bytes=t_bytes, ops=t_ops)
 
@@ -2630,7 +2745,9 @@ def main() -> int:
     k7["max_abs_err"] = max(v["max_abs_err"] for v in k7["layouts"].values())
     by_phase["dryrun"] = run_dryrun_phase(torch, _ext, dryrun_multichip)
     measure_device(recs)
+    measure_k7_device(recs)
     measure_phases(recs)
+    measure_k67_phases(recs)
     if "--profile" in sys.argv[1:]:
         profile_phases(torch, np, pkg_main, lower, pt)
         profile_mux(torch, (_ext, solve, ResidentProblem, ProblemDelta,
@@ -2650,7 +2767,8 @@ def main() -> int:
             "launches_by_phase", "launches_by_size", "max_abs_err", "ms",
             "plain_ms", "bound_ms",
             "bound_by", "library_ms", "device_ms", "device_launches",
-            "sizes", "device", "lanes", "phases", "small_ms", "layouts")
+            "sizes", "device", "lanes", "phases", "small_ms", "us_per_step",
+            "layouts")
             if k in r})
     print(f"[done] {time.perf_counter() - t0:.1f} s after the build started",
           flush=True)

@@ -43,9 +43,9 @@ from typing import Optional
 import torch
 
 __all__ = ["KERNELS", "HOST_LIBS", "LAUNCHES", "MAX_LANES", "Lanes",
-           "ProblemArgs", "SweepArgs", "lanes_arg", "build", "library",
-           "host_library", "launch", "raise_on", "reset_launches",
-           "check_inputs"]
+           "ProblemArgs", "SweepArgs", "K7Args", "lanes_arg", "build",
+           "library", "host_library", "launch", "raise_on", "raise_error",
+           "reset_launches", "check_inputs"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent / "_ext_build"
@@ -114,6 +114,21 @@ class SweepArgs(ctypes.Structure):
                 ("assignment", ctypes.c_void_p), ("load", ctypes.c_void_p),
                 ("used", ctypes.c_void_p), ("coloc", ctypes.c_void_p),
                 ("topo", ctypes.c_void_p)]
+
+
+class K7Args(ctypes.Structure):
+    """``K7Static`` of ``csrc/k7_sharded_sweep.cu``: what stays fixed over
+    an anneal call's sharded sweeps (the problem, the replica and shard
+    counts, the proposals a position, the state planes and the scratch),
+    and the launch shape ``ff_k7_bind`` fills; passed by pointer."""
+    _fields_ = [("p", ProblemArgs), ("R", ctypes.c_int),
+                ("D", ctypes.c_int), ("M", ctypes.c_int),
+                ("assignment", ctypes.c_void_p), ("load", ctypes.c_void_p),
+                ("used", ctypes.c_void_p), ("coloc", ctypes.c_void_p),
+                ("topo", ctypes.c_void_p), ("scratch", ctypes.c_void_p),
+                ("partial", ctypes.c_void_p), ("grid", ctypes.c_int),
+                ("threads", ctypes.c_int), ("H", ctypes.c_int),
+                ("smem", ctypes.c_longlong)]
 
 
 def lanes_arg(n_real, sticky_w=None, temp=None, active=None) -> Lanes:
@@ -307,10 +322,15 @@ def launch(name: str, fn: str, device: torch.device, *args) -> None:
     raise_on(name, getattr(library(name), fn)(*c_args))
 
 
-def raise_on(name: str, err: int) -> None:
-    """Raise on the CUDA error a C entry point of kernel `name` returned;
-    else count its launch."""
+def raise_error(name: str, err: int) -> None:
+    """Raise on the CUDA error a C entry point of kernel `name` returned."""
     if err != 0:
         msg = library(name).ff_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def raise_on(name: str, err: int) -> None:
+    """Raise on the CUDA error a C entry point of kernel `name` returned;
+    else count its launch."""
+    raise_error(name, err)
     LAUNCHES[name] += 1

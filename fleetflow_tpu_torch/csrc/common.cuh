@@ -38,8 +38,9 @@ FF_EXPORT const char* ff_error_string(int err) {
 }
 
 // Compile-time phase stamps (a kernel file defines FF_PHASES when built
-// with its -DK1_PHASES / -DK2_PHASES; fleetflow_tpu_torch/tools/
-// k12_profile.py builds and reads them). Thread 0 of each block writes
+// with its -DK1_PHASES / -DK2_PHASES / -DK6_PHASES / -DK7_PHASES;
+// fleetflow_tpu_torch/tools/k12_profile.py and k67_profile.py build and
+// read them). Thread 0 of each block writes
 // FF_PHASE_SLOTS u64 into row blockIdx.y * gridDim.x + blockIdx.x of the
 // buffer set by ff_set_phases: the global timer (ns) at the block's start
 // and end, the SM cycles between them, four phase cycle counts, two counts
@@ -60,10 +61,15 @@ __device__ __forceinline__ unsigned long long ff_globaltimer() {
   return t;
 }
 
+// stamp row `row`, or null when no buffer is set or not thread 0
+__device__ __forceinline__ unsigned long long* ff_phase_at(size_t row) {
+  if (g_ff_phases == nullptr || threadIdx.x != 0) return nullptr;
+  return g_ff_phases + row * FF_PHASE_SLOTS;
+}
+
 // this block's stamp row, or null when no buffer is set or not thread 0
 __device__ __forceinline__ unsigned long long* ff_phase_row() {
-  if (g_ff_phases == nullptr || threadIdx.x != 0) return nullptr;
-  return g_ff_phases + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * FF_PHASE_SLOTS;
+  return ff_phase_at((size_t)blockIdx.y * gridDim.x + blockIdx.x);
 }
 #endif
 

@@ -37,6 +37,8 @@ path: service slices × disjoint round-robin node subsets, one host FFD
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -131,20 +133,24 @@ def greedy_place(prob: TorchProblem, order: torch.Tensor) -> torch.Tensor:
     if prob.lanes:
         raise ValueError("greedy_place takes one problem, not lanes")
     S, N, G = prob.S, prob.N, prob.G
+    K = prob.conflict_ids.shape[1]
     dev = order.device
     assignment = torch.empty(S, dtype=torch.int32, device=dev)
-    load = torch.empty((N, 3), dtype=torch.float32, device=dev)
-    used = torch.empty((N, G), dtype=torch.int32, device=dev)
+    # the exact occupancy, and the bitmap and load when they do not fit on
+    # chip; the kernel needs none of it cleared
+    lib = _ext.library("k6_greedy_scan")
+    lib.ff_k6_scratch_ints.restype = ctypes.c_longlong
+    scratch = torch.empty(lib.ff_k6_scratch_ints(N, G, K), dtype=torch.int32,
+                          device=dev)
     _ext.check_inputs("greedy_place", order, prob.demand, prob.capacity,
                       prob.conflict_ids, prob.eligible, prob.node_valid,
                       prob.preferred)
     _ext.launch(
         "k6_greedy_scan", "ff_k6_greedy_scan", dev,
-        S, N, G, prob.demand, prob.capacity,
-        prob.conflict_ids, prob.conflict_ids.shape[1],
+        S, N, G, prob.demand, prob.capacity, prob.conflict_ids, K,
         prob.eligible, int(prob.eligible_packed), prob.eligible.shape[1],
         prob.node_valid, prob.preferred, prob.strategy,
-        order, order.shape[0], assignment, load, used)
+        order, order.shape[0], assignment, scratch)
     return assignment
 
 

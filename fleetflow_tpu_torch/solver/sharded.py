@@ -38,6 +38,7 @@ Entry points: :func:`anneal_sharded`, :func:`solve_sharded` over a
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import logging
 import os
@@ -50,7 +51,7 @@ import torch
 from .. import _ext
 from ..core.errors import SolverError
 from .anneal import (W_CAP, W_CONF, W_ELIG, W_SKEW, ChainState,
-                     _proposal_delta, chain_states_from_assignment,
+                     _proposal_delta, _ptr, chain_states_from_assignment,
                      solve_trace_blocks, violation_total_from_parts)
 from .buckets import pad_problem
 from .kernels import CAP_TOL, k3_rebuild
@@ -65,6 +66,7 @@ __all__ = ["anneal_sharded", "pad_problem", "shard_problem",
            "ShardedResident", "solve_sharded", "sharded_route",
            "maybe_solve_sharded", "Mesh", "visible_devices", "TorchDraws",
            "sharded_step_apply", "sharded_step_plain", "merge_sharded",
+           "ShardedSweepLauncher", "sweep_launcher",
            "SHARDED_TRACE_COLS", "SHARDED_RANGE", "SHARDED_COUNTERS"]
 
 SVC_AXIS = "svc"
@@ -384,17 +386,124 @@ def sharded_step_plain(prob: TorchProblem, st: ChainState,
 
 
 class _Scratch(NamedTuple):
-    ints: torch.Tensor      # 4·R·D·M candidates, then R·N election slots
+    # 4·R·D·M candidates, the positions' touched-node lists (R·D·2M) and
+    # lengths (R·D), R·N marks, then R·N election slots
+    ints: torch.Tensor
     partial: torch.Tensor   # (R, D, N, 3) load deltas
 
 
+def _scratch_ints(R: int, D: int, M: int, N: int) -> int:
+    return 6 * R * D * M + R * D + 2 * R * N
+
+
 def _scratch(R: int, D: int, M: int, N: int, dev) -> _Scratch:
-    """K7's scratch: election slots at INT_MAX, partials at 0 (the kernel
-    leaves them so after every sweep)."""
+    """K7's scratch: the marks and the election slots at INT_MAX, the
+    partials at 0 (the kernel leaves them so after every sweep)."""
     return _Scratch(
-        torch.full((4 * R * D * M + R * N,), _INT_MAX, dtype=torch.int32,
+        torch.full((_scratch_ints(R, D, M, N),), _INT_MAX, dtype=torch.int32,
                    device=dev),
         torch.zeros(R * D * N * 3, dtype=torch.float32, device=dev))
+
+
+class ShardedSweepLauncher:
+    """K7 bound to one problem, one (R, ...) replica state and one scratch
+    for the sweeps of one sharded anneal call: the inputs are checked, the
+    C arguments built, the launch shape computed (``ff_k7_bind``) and the
+    library looked up once, and each sweep passes only its draws and the
+    replicas' temperatures. It launches on the stream current when it was
+    built, into one `applied` buffer it returns from every call (read it
+    before the next sweep; stream order makes that safe). Build one per
+    call and drop it with the call: a replaced or merged problem must
+    never be launched through its pointers. Every sweep draws (R, D, M)
+    proposals."""
+
+    def __init__(self, prob: TorchProblem, st: ChainState, D: int, M: int,
+                 scratch: Optional[_Scratch] = None):
+        if prob.sticky_prev is not None or prob.lanes:
+            raise ValueError("the sharded sweep takes one problem without "
+                             "stickiness")
+        if st.assignment.dim() != 2 or st.assignment.shape[1] != prob.S \
+                or prob.S % D:
+            raise ValueError("sharded sweep: an (R, S) state, S a multiple "
+                             "of D")
+        R = st.assignment.shape[0]
+        dev = st.assignment.device
+        if scratch is None:
+            scratch = _scratch(R, D, M, prob.N, dev)
+        elif (scratch.ints.numel() != _scratch_ints(R, D, M, prob.N)
+                or scratch.partial.numel() != R * D * prob.N * 3):
+            raise ValueError("sharded_step_apply: scratch of another shape")
+        _ext.check_inputs("sharded_step_apply", *st, prob.demand,
+                          prob.capacity, prob.conflict_ids, prob.coloc_ids,
+                          prob.eligible, prob.node_valid, prob.node_topology,
+                          prob.preferred, *scratch)
+        self.dev, self.R = dev, R
+        self.shape = (R, D, M)
+        self.lanes = _ext.lanes_arg([prob.real_rows] * R)
+        lib = _ext.library("k7_sharded_sweep")
+        if lib.ff_k7_static_size() != ctypes.sizeof(_ext.K7Args):
+            raise RuntimeError("k7_sharded_sweep: the C argument struct does "
+                               "not match _ext.K7Args")
+        self.args = _ext.K7Args(
+            _ext.ProblemArgs(
+                prob.S, prob.N, prob.G, st.coloc.shape[-1],
+                st.topo.shape[-1], prob.conflict_ids.shape[-1],
+                prob.coloc_ids.shape[-1], prob.demand.data_ptr(),
+                prob.capacity.data_ptr(), prob.conflict_ids.data_ptr(),
+                prob.coloc_ids.data_ptr(), prob.eligible.data_ptr(),
+                int(prob.eligible_packed), prob.eligible.shape[-1],
+                prob.node_valid.data_ptr(), prob.node_topology.data_ptr(),
+                _ptr(prob.preferred), 0, 0.0, prob.strategy, prob.max_skew,
+                prob.real_rows),
+            R, D, M, st.assignment.data_ptr(), st.load.data_ptr(),
+            st.used.data_ptr(), st.coloc.data_ptr(), st.topo.data_ptr(),
+            scratch.ints.data_ptr(), scratch.partial.data_ptr(), 0, 0, 0, 0)
+        lib.ff_k7_bind.argtypes = [ctypes.c_void_p]
+        _ext.raise_error("k7_sharded_sweep",
+                         lib.ff_k7_bind(ctypes.addressof(self.args)))
+        self.fn = lib.ff_k7_sweep
+        self.fn.argtypes = [ctypes.c_void_p, _ext.Lanes, ctypes.c_void_p,
+                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_void_p]
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+        self.applied = torch.empty((R, D), dtype=torch.int32, device=dev)
+        # the prob/state/scratch tensors stay alive while the pointers are
+        # in use
+        self._keep = (prob, st, scratch)
+
+    def __call__(self, s_loc: torch.Tensor, b_idx: torch.Tensor,
+                 u: torch.Tensor, temps) -> torch.Tensor:
+        """One sweep at `temps` (one temperature a replica); returns the
+        applied moves (R, D)."""
+        for x, dt in ((s_loc, torch.int32), (b_idx, torch.int32),
+                      (u, torch.float32)):
+            if (x.shape != self.shape or x.dtype != dt
+                    or x.device != self.dev or not x.is_contiguous()):
+                raise ValueError(
+                    "sharded sweep: proposals must be contiguous "
+                    f"{self.shape} i32, i32, f32 on {self.dev}")
+        if len(temps) != self.R:
+            raise ValueError("sharded sweep: one temperature per replica")
+        lanes = self.lanes
+        for i in range(self.R):
+            lanes.temp[i] = temps[i]
+        _ext.raise_on("k7_sharded_sweep", self.fn(
+            ctypes.addressof(self.args), lanes, s_loc.data_ptr(),
+            b_idx.data_ptr(), u.data_ptr(), self.applied.data_ptr(),
+            self.stream))
+        return self.applied
+
+
+def sweep_launcher(prob: TorchProblem, st: ChainState, D: int, M: int):
+    """The per-sweep K7 call of a sharded anneal loop over D shards: a
+    :class:`ShardedSweepLauncher` on the card, on the CPU the plain
+    version. Called as fn(s_loc, b_idx, u, temps) with one temperature a
+    replica; returns the applied moves (R, D)."""
+    if st.assignment.device.type == "cpu":
+        def plain(s_loc, b_idx, u, temps):
+            return sharded_step_plain(prob, st, s_loc, b_idx, u, temps)[1]
+        return plain
+    return ShardedSweepLauncher(prob, st, D, M)
 
 
 def sharded_step_apply(prob: TorchProblem, st: ChainState,
@@ -409,36 +518,15 @@ def sharded_step_apply(prob: TorchProblem, st: ChainState,
     service is its candidate, the lowest rank m + M·d of the candidates
     aimed at a node wins it, and the winners are applied to `st` in place
     (the load in the reference's order: per-shard partials summed in shard
-    order). Returns (st, applied moves (R, D) int32). `scratch` is reused
-    across sweeps (one is made when None)."""
+    order). Returns (st, applied moves (R, D) int32). `scratch` may be
+    reused across sweeps (one is made when None). The one-shot form of
+    :class:`ShardedSweepLauncher`, which an anneal loop binds once."""
     if s_loc.device.type == "cpu":
         return sharded_step_plain(prob, st, s_loc, b_idx, u, temps)
     _check_step(prob, st, s_loc, b_idx, u, temps)
     R, D, M = s_loc.shape
-    dev = s_loc.device
-    if scratch is None:
-        scratch = _scratch(R, D, M, prob.N, dev)
-    elif (scratch.ints.numel() != 4 * R * D * M + R * prob.N
-            or scratch.partial.numel() != R * D * prob.N * 3):
-        raise ValueError("sharded_step_apply: scratch of another shape")
-    applied = torch.empty((R, D), dtype=torch.int32, device=dev)
-    _ext.check_inputs("sharded_step_apply", *st, s_loc, b_idx, u,
-                      prob.demand, prob.capacity, prob.conflict_ids,
-                      prob.coloc_ids, prob.eligible, prob.node_valid,
-                      prob.node_topology, prob.preferred, *scratch)
-    _ext.launch(
-        "k7_sharded_sweep", "ff_k7_sweep", dev,
-        R, D, prob.S, prob.N, prob.G, st.coloc.shape[-1], st.topo.shape[-1],
-        prob.demand, prob.capacity,
-        prob.conflict_ids, prob.conflict_ids.shape[-1],
-        prob.coloc_ids, prob.coloc_ids.shape[-1],
-        prob.eligible, int(prob.eligible_packed), prob.eligible.shape[-1],
-        prob.node_valid, prob.node_topology, prob.preferred,
-        prob.strategy, prob.max_skew,
-        _ext.lanes_arg([prob.real_rows] * R, temp=list(temps)),
-        st.assignment, st.load, st.used, st.coloc, st.topo,
-        s_loc, b_idx, u, M, applied, scratch.ints, scratch.partial)
-    return st, applied
+    sweep = ShardedSweepLauncher(prob, st, D, M, scratch)
+    return st, sweep(s_loc, b_idx, u, temps)
 
 
 # -- scores of the replicas' state (plain PyTorch) -----------------------------
@@ -581,14 +669,13 @@ def anneal_sharded(prob: TorchProblem, init_assignment: torch.Tensor,
         st = chain_states_from_assignment(prob, seed.expand(n_rep, S))
     else:
         st = init_state
-    scratch = _scratch(n_rep, D, M, N, dev) if dev.type == "cuda" else None
+    step = sweep_launcher(prob, st, D, M)
     viol, soft = _scores(prob, st, real, D)
     best = {"a": st.assignment.clone(), "v": viol, "s": soft}
 
     def sweep(i: int) -> None:
         s_loc, b_idx, u = draws.proposals(i, _hot(prob, st, D), N, M)
-        sharded_step_apply(prob, st, s_loc, b_idx, u, sched.temps(i),
-                           scratch)
+        step(s_loc, b_idx, u, sched.temps(i))
         v, f = _scores(prob, st, real, D)
         better = (v < best["v"]) | ((v == best["v"]) & (f < best["s"]))
         best["v"] = torch.where(better, v, best["v"])

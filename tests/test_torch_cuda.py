@@ -19,7 +19,15 @@ K2 with utilization ties, a budget of 1 and of 256 moves around a service
 no live node can take, and 500, 2,000 and 10,000 nodes (the last one's
 planes in global memory); K1 with many winners leaving each crowded node at T = 1, and
 with duplicate services and targets over 16 sticky, skewed lanes, its
-loads bit-equal to the plain version on the CPU.
+loads bit-equal to the plain version on the CPU; K6 with more nodes than
+a block has threads (512 x 3,000, a preference plane), with 40 and 160
+conflict ids a service, with its
+occupancy bitmap past shared memory and every node tied for half the
+services, and with every node full from the first service on; K7 with
+many winners leaving three crowded nodes from every shard at T = 1, with
+a service drawn many times in one position, M not a multiple of 32 and
+D = 1, 5 and 8, and its bound launcher reused over sweeps and built again
+after a merge, its loads bit-equal to the plain version on the CPU.
 
 Every test needs a CUDA card and skips without one. On the card (which has
 no JAX, so the repository's conftest cannot load):
@@ -945,3 +953,197 @@ def test_solve_sharded_on_the_card(dev, layout):
     assert _ext.LAUNCHES["k7_sharded_sweep"] > 0
     assert _ext.LAUNCHES["k3_rebuild"] > 0
     assert _ext.LAUNCHES["k1_sweep"] == 0
+
+
+def _conflict_heavy(dev, S, N, G, strategy="fill_lowest", tie_pref=False,
+                    seed=11):
+    """A problem whose conflict ids run to G (each service holds port id
+    s % G, so pairs of services share one): the occupancy bitmap of K6 is
+    G·N bits. With `tie_pref`, even services prefer node n by 2n, which
+    cancels fill_lowest's -n: every node ties and the lowest ok node
+    wins."""
+    pt = synthetic_problem(S, N, seed=seed, n_tenants=3,
+                           strategy=PlacementStrategy(strategy))
+    ports = (np.arange(S) % G).astype(np.int32)[:, None]
+    kw = dict(port_ids=ports)
+    if tie_pref:
+        rng = np.random.default_rng(seed)
+        pref = rng.random((S, N)).astype(np.float32)
+        pref[::2] = 2.0 * np.arange(N, dtype=np.float32)[None, :]
+        kw["preferred"] = pref
+    pt = dataclasses.replace(pt, **kw)
+    return pt, prepare_problem(pt, dev)
+
+
+def _k6_against_plain(dev, pt, prob):
+    order = _scan_order(pt, prob, dev)
+    _ext.reset_launches()
+    out = greedy.greedy_place(prob, order)
+    assert _ext.LAUNCHES["k6_greedy_scan"] == 1
+    assert torch.equal(out, greedy.greedy_place_plain(prob, order))
+    return out
+
+
+@pytest.mark.parametrize("strategy", ["spread_across_pool", "fill_lowest"])
+def test_k6_more_nodes_than_threads(dev, strategy):
+    """512 services over 3,000 nodes with a preference plane: each of the
+    block's 1,024 threads owns three nodes (their load in global memory),
+    equal to the plain version."""
+    _pt, prob = _problem(dev, S=512, N=3000, seed=12, strategy=strategy,
+                         preferred=True)
+    _k6_against_plain(dev, _pt, prob)
+
+
+@pytest.mark.parametrize("S,N,G", [(3000, 1000, 2500), (1600, 1500, 1300)])
+def test_k6_bitmap_off_chip_with_ties(dev, S, N, G):
+    """G·N bits past shared memory (the bitmap in global memory), one and
+    several nodes a thread, fill_lowest with every node tied for the even
+    services: equal to the plain version (the lowest ok node wins)."""
+    pt, prob = _conflict_heavy(dev, S, N, G, tie_pref=True)
+    assert prob.G >= G and ((prob.G + 31) // 32) * N * 4 > 227 * 1024
+    _k6_against_plain(dev, pt, prob)
+
+
+@pytest.mark.parametrize("K", [40, 160])
+def test_k6_many_ids_a_service(dev, K):
+    """Rows of more than 29 conflict ids (several elements a lane of the
+    staging warp) and of more than 125 (the rest staged synchronously):
+    equal to the plain version."""
+    pt = synthetic_problem(300, 100, seed=17, n_tenants=2)
+    rng = np.random.default_rng(17)
+    ports = rng.integers(-1, 20 * K, (300, K)).astype(np.int32)
+    pt = dataclasses.replace(pt, port_ids=ports)
+    prob = prepare_problem(pt, dev)
+    assert prob.conflict_ids.shape[1] > 29 + 96 * (K > 100)
+    _k6_against_plain(dev, pt, prob)
+
+
+@pytest.mark.parametrize("N", [300, 1500])
+def test_k6_best_effort_every_node_full(dev, N):
+    """Capacity at 0.1%: no node is ok from the first service on, so every
+    step takes the best-effort argmax (overflow and exact conflict counts
+    on every node), one and several nodes a thread."""
+    pt = synthetic_problem(600, N, seed=13, n_tenants=3,
+                           port_fraction=0.3, volume_fraction=0.2)
+    pt = dataclasses.replace(pt, capacity=(
+        pt.capacity * np.float32(1e-3)).astype(np.float32))
+    prob = prepare_problem(pt, dev)
+    out = _k6_against_plain(dev, pt, prob)
+    assert len(set(out.tolist())) > 1
+
+
+def _k7_against_cpu(prob, st_k, s_loc, b_idx, u, temps, sweep=None):
+    """One K7 sweep on the card (through `sweep`, a bound launcher, or the
+    one-shot wrapper) and the plain version on the CPU copies: applied
+    counts, assignment and integer planes equal, loads bit-equal (the
+    CPU's index_add_ adds each position's moves in proposal order, the
+    kernel's order, and both sum the shards in shard order)."""
+    from fleetflow_tpu_torch.solver import sharded
+    st_c = anneal.ChainState(*(t.to("cpu", copy=True) for t in st_k))
+    if sweep is None:
+        _, acc_k = sharded.sharded_step_apply(prob, st_k, s_loc, b_idx, u,
+                                              temps)
+    else:
+        acc_k = sweep(s_loc, b_idx, u, temps)
+    _, acc_c = sharded.sharded_step_plain(_on_cpu(prob), st_c, s_loc.cpu(),
+                                          b_idx.cpu(), u.cpu(), temps)
+    assert torch.equal(acc_k.cpu(), acc_c)
+    for x, y in zip(st_k, st_c):
+        assert torch.equal(x.cpu(), y)
+    return int(acc_k.sum())
+
+
+@pytest.mark.parametrize("layout", [(1, 8), (2, 4)])
+def test_k7_departures_keep_their_order(dev, layout):
+    """T = 1, every service on one of three nodes, each position moving
+    distinct services of its shard to targets distinct across the replica
+    (u = 0: most moves accepted, each applied): many winners leave each
+    crowded node from every shard, each position's departures in proposal
+    order and the shards' partials in shard order, bit-equal to the plain
+    version on the CPU. (u = 0 still rejects a move whose delta makes
+    exp(-Δ/T) underflow: an ineligible or conflicted target.)"""
+    R, D = layout
+    _pt, prob = _problem(dev, S=640, N=200, seed=14)
+    rng = np.random.default_rng(14)
+    a = torch.tensor(rng.integers(0, 3, (R, prob.S)), dtype=torch.int32,
+                     device=dev)
+    st = anneal.chain_states_from_assignment(prob, a)
+    M = 24
+    s_loc = torch.tensor(np.stack([[rng.permutation(prob.S // D)[:M]
+                                    for _ in range(D)] for _ in range(R)]),
+                         dtype=torch.int32, device=dev)
+    b_idx = torch.tensor(np.stack([3 + rng.permutation(prob.N - 3)[:D * M]
+                                   for _ in range(R)]).reshape(R, D, M),
+                         dtype=torch.int32, device=dev)
+    u = torch.zeros((R, D, M), dtype=torch.float32, device=dev)
+    applied = _k7_against_cpu(prob, st, s_loc, b_idx, u, [1.0] * R)
+    assert applied > R * D * M // 2
+    left = torch.bincount(a[0].long(), minlength=prob.N)[:3] - torch.bincount(
+        st.assignment[0].long(), minlength=prob.N)[:3]
+    assert int(left.min()) >= 20
+
+
+@pytest.mark.parametrize("R,D,M", [(2, 1, 45), (1, 8, 45), (3, 5, 33)])
+def test_k7_duplicate_services_ragged_m(dev, R, D, M):
+    """Each position draws its M proposals (M not a multiple of 32) from
+    four services of its shard, so a service is drawn many times in one
+    position (its candidate is its lowest accepted proposal), over D = 1,
+    8 and 5 shards: bit-equal to the plain version on the CPU, hot and
+    cold."""
+    _pt, prob = _problem(dev, S=600, N=60, seed=15, skew=3)
+    rng = np.random.default_rng(15)
+    st = _sharded_state(dev, prob, R, 15)
+    applied = 0
+    for T in (1.0, 0.05):
+        for _ in range(3):
+            s_loc = torch.tensor(rng.integers(0, 4, (R, D, M)),
+                                 dtype=torch.int32, device=dev)
+            b_idx = torch.tensor(rng.integers(0, prob.N, (R, D, M)),
+                                 dtype=torch.int32, device=dev)
+            u = torch.tensor(rng.random((R, D, M)), dtype=torch.float32,
+                             device=dev)
+            applied += _k7_against_cpu(prob, st, s_loc, b_idx, u,
+                                       [T * 1.3 ** r for r in range(R)])
+    assert applied > 0
+
+
+def test_k7_launcher_reused_then_rebuilt_after_a_merge(dev):
+    """One bound launcher over 4 sweeps (one launch each), then, after a
+    merge takes the busiest node down, a launcher built again over the
+    merged staging for 4 more: every sweep bit-equal to the plain version
+    on the CPU."""
+    from fleetflow_tpu_torch.solver import sharded
+    from fleetflow_tpu_torch.solver.resident import ProblemDelta
+    pt = synthetic_problem(997, 100, seed=0, n_tenants=8,
+                           port_fraction=0.2, volume_fraction=0.1)
+    R, D = 2, 4
+    rp = sharded.ShardedResident(pt, mesh=sharded.tempering_mesh(
+        R, D, devices=[dev] * 8))
+    res = sharded.solve_sharded(pt, resident=rp, steps=16, block=4)
+    M = max(8, min(256, (rp.prob.S // D) // 2))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    draws = sharded.TorchDraws(gen)
+
+    def sweeps(first, temps):
+        st = anneal.chain_states_from_assignment(
+            rp.prob, rp.assignment.reshape(1, -1).expand(R, -1).contiguous())
+        sweep = sharded.sweep_launcher(rp.prob, st, D, M)
+        moved = 0
+        for i in range(first, first + 4):
+            s_loc, b_idx, u = draws.proposals(
+                i, sharded._hot(rp.prob, st, D), rp.prob.N, M)
+            moved += _k7_against_cpu(rp.prob, st, s_loc, b_idx, u, temps,
+                                     sweep)
+        return moved
+
+    _ext.reset_launches()
+    moved = sweeps(0, [1.0, 1.3])
+    assert _ext.LAUNCHES["k7_sharded_sweep"] == 4
+    valid = pt.node_valid.copy()
+    valid[int(np.bincount(res.assignment, minlength=pt.N).argmax())] = False
+    pt2 = dataclasses.replace(pt, node_valid=valid)
+    rp.apply_delta(pt2, ProblemDelta(node_valid=valid))
+    moved += sweeps(4, [0.1, 0.13])
+    assert _ext.LAUNCHES["k7_sharded_sweep"] == 8
+    assert moved > 0

@@ -69,7 +69,9 @@ def _scan_case(case: str):
     parts = case.split("-")
     kind, strategy = parts[0], parts[-1]
     packed = "dense" not in parts
-    ref_pt, port_pt = make_pair(300, 40, 3, strategy=strategy,
+    # "wide": more nodes (1,100) than one block of K6 has threads
+    S, N = (120, 1100) if kind == "wide" else (300, 40)
+    ref_pt, port_pt = make_pair(S, N, 3, strategy=strategy,
                                 preferred="pref" in parts,
                                 n_tenants=1 if kind == "masked" else 3)
     if kind == "besteffort":
@@ -103,7 +105,8 @@ SCAN_CASES = ([f"plain-{layout}{pref}-{s}" for s in STRATEGIES
               + [f"besteffort-{s}" for s in STRATEGIES]
               + ["masked-packed-spread_across_pool",
                  "masked-dense-pref-fill_lowest",
-                 "bucketed-spread_across_pool", "bucketed-pref-pack_into_dedicated"])
+                 "bucketed-spread_across_pool", "bucketed-pref-pack_into_dedicated",
+                 "wide-pref-spread_across_pool", "wide-dense-fill_lowest"])
 
 
 @pytest.mark.parametrize("case", SCAN_CASES)

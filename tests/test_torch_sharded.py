@@ -184,6 +184,16 @@ class TestAnnealParity:
         ref, port, _ = _anneal_pair(*case)
         _check_stats(ref, port)
 
+    def test_many_departures_from_one_node(self):
+        """Every service starts on node 0 and the first sweeps are hot:
+        each sweep moves many services off node 0 (each position's
+        departures in proposal order, the shards' partials summed in shard
+        order), equal to the reference given its draws."""
+        ref, port, (_dp, _dpp, _tpp, orig, _init, _key, _D) = _anneal_pair(
+            "1x8", 256, 40, 21, False, 4, 1, 2, True, {})
+        _check_stats(ref, port)
+        assert int((to_np(port.assignment)[:orig] != 0).sum()) >= 20
+
     def test_random_start_with_return_sweeps(self):
         """A random (infeasible) start, return_sweeps on both."""
         ref, port, ctx = _anneal_pair("t2x4", 73, 12, 7, True, 4, 1, 24,
