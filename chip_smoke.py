@@ -47,8 +47,12 @@ each of which fails the run:
      (ProblemDelta(n_real=...)), and 8 rolling kills of the busiest node.
      At least one burst must be localized and two mini tiers exercised;
      one more localized reschedule under torch.profiler must make no
-     host-to-device copy in its sub-solve range; K5 (gather, commit) is
-     held against its plain version on the plan of a kill3 burst;
+     host-to-device copy in its sub-solve range; every sub-solve's K5
+     stage is held against its plain version on CPU copies of the
+     resident staging with the host mirror as the assignment (so a mirror
+     that drifts from the device shows), its plan uploaded as one copy of
+     O(tier) int32s; K5 (stage, commit) also on the plan of a kill3 burst,
+     timed by entry point, with ``[planner]``'s host split;
   5. ``[ab]``: phase 4's solves replayed on fresh schedulers with the same
      node masks, the sub-solve off (FLEET_SUBSOLVE=0) and on, in the order
      off, on, on, off; one line per solve with its wall ms both ways;
@@ -98,7 +102,9 @@ each of which fails the run:
      call at both sizes (K3 also at 8 lanes), from the kernel cases of
      ``fleetflow_tpu_torch/tools/k34_profile.py`` in a fresh interpreter,
      and K7's device ms a sweep at every [k7] and [sharded] staging (the
-     k7 and k7-sharded cases of ``tools/k67_profile.py``);
+     k7 and k7-sharded cases of ``tools/k67_profile.py``), and K5's
+     device ms by entry point at mini tiers 256-4096 of the phase-4 fleet
+     (``tools/k5_profile.py``'s stage and commit cases);
      ``[phases]``: K1's and K2's phase split from their cycle stamps (the
      phases case of ``fleetflow_tpu_torch/tools/k12_profile.py``, its own
      -DK1_PHASES -DK2_PHASES build, in a fresh interpreter), and K6's and
@@ -169,6 +175,8 @@ PEAK_OPS_S = 67e12
 LOAD_RTOL = 1e-5
 # warm dispatches traced until one trace sees the probe's upload
 H2D_TRIES = 3
+# [device] tool runs until torch.profiler has recorded each case's kernels
+DEVICE_TRIES = 3
 
 
 def fail(msg: str) -> int:
@@ -372,6 +380,47 @@ def measure_device(recs: dict) -> None:
               f"{case['ms']:.4f} ms", flush=True)
 
 
+def measure_k5_device(recs: dict) -> None:
+    """[device]: K5's device ms by entry point at mini tiers 256, 512, 1024
+    and 4096 of the [default] fleet (the stage and commit cases of
+    fleetflow_tpu_torch/tools/k5_profile.py on this checkout, in a fresh
+    interpreter): each row under the kernel's `device`, and the kernel
+    line's device ms (stage + commit) and each entry's at the tier nearest
+    the kill3 plan's. A run in which the profiler recorded no kernel time
+    for an entry at that tier (it lost the records) is repeated, at most
+    DEVICE_TRIES runs."""
+    k5 = recs["k5_subsolve"]
+    for _attempt in range(DEVICE_TRIES):
+        by_case = {}
+        for row in tool_rows("k5_profile.py", "stage,commit", "k5_profile"):
+            row.pop("tree")
+            by_case[row["case"]] = row
+            print(f"[device] k5 {row['case']}: kernel "
+                  f"{row['kernel_device_ms']:.4f} ms of device time "
+                  f"({row['device_ms']:.4f} with its copies, "
+                  f"{row['device_ops_per_call']:.0f} device operations a "
+                  f"call), event {row['event_ms_median']:.4f} ms, host "
+                  f"{row['host_ms_median']:.4f} ms"
+                  + (f", {row['uploads']} upload of {row['upload_bytes']} "
+                     f"bytes, plan_active {row['plan_ms_median']:.3f} ms"
+                     if "uploads" in row else ""), flush=True)
+        tiers = sorted({int(c.rpartition("=")[2]) for c in by_case})
+        if not tiers:
+            raise AssertionError("[device] k5_profile printed no rows")
+        tier = min(tiers, key=lambda t: abs(t - k5["tier"]))
+        rows = [by_case.get(f"{e} tier={tier}") for e in ("stage", "commit")]
+        if all(r is not None and r["kernel_device_ms"] for r in rows):
+            break
+    else:
+        raise AssertionError(f"[device] k5 entries at tier {tier} without "
+                             f"device time after {DEVICE_TRIES} runs")
+    k5["device"] = list(by_case.values())
+    for entry, row in zip(("stage", "commit"), rows):
+        k5["entries"][entry]["device_ms"] = row["kernel_device_ms"]
+    k5["device_ms"] = sum(e["device_ms"] for e in k5["entries"].values())
+    k5["device_tier"] = tier
+
+
 def measure_phases(recs: dict) -> None:
     """[phases]: K1's and K2's phase split from their own cycle stamps:
     the phases case of fleetflow_tpu_torch/tools/k12_profile.py on this
@@ -400,6 +449,21 @@ def measure_phases(recs: dict) -> None:
         raise AssertionError(f"[phases] rows missing: {run.stdout[-2000:]}")
 
 
+def tool_rows(tool: str, cases: str, tag: str) -> list:
+    """The JSON rows of `fleetflow_tpu_torch/tools/<tool> --cases <cases>
+    --child <this checkout>`, run in a fresh interpreter."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run(
+        [sys.executable, os.path.join(root, "fleetflow_tpu_torch", "tools",
+                                      tool), "--cases", cases, "--child",
+         root], capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"[device] {tag} failed:\n"
+                             f"{run.stderr[-3000:]}")
+    return [json.loads(x) for x in run.stdout.splitlines()
+            if x.startswith("{")]
+
+
 def measure_k7_device(recs: dict) -> None:
     """[device]: K7's device ms a sweep at every [k7] and [sharded]
     staging (the resident 2x4 one after a cold solve and one burst), at
@@ -407,36 +471,34 @@ def measure_k7_device(recs: dict) -> None:
     fleetflow_tpu_torch/tools/k67_profile.py on this checkout in a fresh
     interpreter (torch.profiler in this process would disturb the later
     phases' traces). Each row goes under the kernel's `device` and the
-    t0 device ms into its layout."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    tool = os.path.join(root, "fleetflow_tpu_torch", "tools",
-                        "k67_profile.py")
-    run = subprocess.run([sys.executable, tool, "--cases", "k7,k7-sharded",
-                          "--child", root],
-                         capture_output=True, text=True, timeout=600)
-    if run.returncode != 0:
-        raise AssertionError(f"[device] k67_profile failed:\n"
-                             f"{run.stderr[-3000:]}")
+    t0 device ms into its layout. A staging whose sweeps the profiler
+    recorded no device work for (it has lost a case's records) is
+    measured again in a new run of the tool, at most DEVICE_TRIES runs."""
     k7 = recs["k7_sharded_sweep"]
-    for line in run.stdout.splitlines():
-        if not line.startswith("{"):
-            continue
-        row = json.loads(line)
-        case = dict(case=row["case"], ms=row["event_ms_median"],
-                    device_ms=row["device_ms"], host_ms=row["host_ms_median"],
-                    device_launches=round(row["device_ops_per_call"]),
-                    applied=row["applied"])
-        k7.setdefault("device", []).append(case)
-        layout, _, temp = row["case"][len("k7 "):].rpartition(" T=")
-        if temp == "t0" and layout in k7["layouts"]:
-            k7["layouts"][layout]["device_ms"] = case["device_ms"]
-        print(f"[device] {row['case']}: {case['device_ms']:.4f} ms of device "
-              f"time, event {case['ms']:.4f} ms, host {case['host_ms']:.4f} "
-              f"ms, {case['device_launches']} device launch a sweep",
-              flush=True)
-    if not all(v["device_ms"] for v in k7["layouts"].values()):
-        raise AssertionError(f"[device] K7 stagings missing: "
-                             f"{run.stdout[-2000:]}")
+    for _attempt in range(DEVICE_TRIES):
+        for row in tool_rows("k67_profile.py", "k7,k7-sharded", "k67_profile"):
+            case = dict(case=row["case"], ms=row["event_ms_median"],
+                        device_ms=row["device_ms"],
+                        host_ms=row["host_ms_median"],
+                        device_launches=round(row["device_ops_per_call"]),
+                        applied=row["applied"])
+            layout, _, temp = row["case"][len("k7 "):].rpartition(" T=")
+            print(f"[device] {row['case']}: {case['device_ms']:.4f} ms of "
+                  f"device time, event {case['ms']:.4f} ms, host "
+                  f"{case['host_ms']:.4f} ms, {case['device_launches']} "
+                  f"device launch a sweep", flush=True)
+            if not case["device_ms"]:
+                continue            # the profiler lost this case's records
+            k7.setdefault("device", []).append(case)
+            if (temp == "t0" and layout in k7["layouts"]
+                    and not k7["layouts"][layout]["device_ms"]):
+                k7["layouts"][layout]["device_ms"] = case["device_ms"]
+        if all(v["device_ms"] for v in k7["layouts"].values()):
+            break
+    missing = [k for k, v in k7["layouts"].items() if not v["device_ms"]]
+    if missing:
+        raise AssertionError(f"[device] K7 stagings without device time "
+                             f"after {DEVICE_TRIES} runs: {missing}")
     k7["device_ms"] = k7["layouts"]["1x8"]["device_ms"]
 
 
@@ -1031,6 +1093,92 @@ def default_fleet(np, lower, S=N_SERVICES, N=N_NODES,
     return deactivate_rows(full, S), tenant
 
 
+def host_copy(t):
+    """A copy of tensor `t` on the CPU (a copy also when `t` lies there)."""
+    return None if t is None else t.to("cpu", copy=True)
+
+
+def cpu_problem(prob):
+    """A TorchProblem's tensors copied to the CPU."""
+    from fleetflow_tpu_torch.solver.problem import TENSOR_FIELDS
+    return dataclasses.replace(prob, **{
+        name: host_copy(t) for name, t in zip(TENSOR_FIELDS, prob.tensors())
+        if t is not None})
+
+
+@contextmanager
+def stages_kept(torch, subsolve, sched):
+    """Keep, for every sub-solve the block runs, what its K5 stage was
+    given and gave: CPU copies of the resident staging, the host mirror
+    the plan was made from, the device assignment, the staged buffer and
+    the kernel's outputs, and the uploads ``stage_subsolve`` made (count,
+    bytes). The copies are taken after the launch (one sync a sub-solve);
+    the check runs after the block."""
+    kept: list = []
+    real_stage, real_upload = subsolve.k5_stage, subsolve.stage_subsolve
+    uploads: list = []
+
+    def stage_subsolve(resident, plan):
+        before = resident.h2d_copies
+        staged = real_upload(resident, plan)
+        uploads.append((resident.h2d_copies - before,
+                        staged.numel() * staged.element_size()))
+        return staged
+
+    def k5_stage(prob, assignment, staged, plan):
+        out = real_stage(prob, assignment, staged, plan)
+        torch.cuda.synchronize()
+        mirror = sched._slots[0].resident._mirror
+        kept.append(dict(
+            prob=cpu_problem(prob), assignment=host_copy(assignment),
+            mirror=None if mirror is None else mirror.copy(),
+            staged=host_copy(staged), plan=plan, upload=uploads[-1],
+            out=[host_copy(t) for t in out]))
+        return out
+
+    subsolve.k5_stage, subsolve.stage_subsolve = k5_stage, stage_subsolve
+    try:
+        yield kept
+    finally:
+        subsolve.k5_stage, subsolve.stage_subsolve = real_stage, real_upload
+
+
+def check_kept_stages(torch, subsolve, kept: list, n_subs: int) -> None:
+    """Every kept K5 stage against k5_stage_plain on the CPU copies, with
+    the host mirror as the assignment: equal on every output (so the
+    mirror the planner read is the device assignment on every real row,
+    or the frozen base would differ), and its plan uploaded as one copy
+    of O(tier + G_sub + Gc_sub) int32s."""
+    if len(kept) != n_subs:
+        raise AssertionError(f"{len(kept)} K5 stages kept for {n_subs} "
+                             f"sub-solves")
+    for i, k in enumerate(kept):
+        plan = k["plan"]
+        n = plan.n_real
+        if k["mirror"] is None or not torch.equal(
+                torch.from_numpy(k["mirror"][:n]), k["assignment"][:n]):
+            raise AssertionError(f"sub-solve {i}: the host mirror differs "
+                                 f"from the device assignment")
+        ref = subsolve.k5_stage_plain(k["prob"], torch.tensor(k["mirror"]),
+                                      k["staged"], plan)
+        for name, x, y in zip(subsolve.SubStage._fields, k["out"], ref):
+            if (x is None) != (y is None) or (
+                    x is not None and not (x.dtype == y.dtype
+                                           and torch.equal(x, y))):
+                raise AssertionError(f"sub-solve {i}: K5 stage {name} "
+                                     f"differs from the plain stage")
+        copies, nbytes = k["upload"]
+        want = 4 * (plan.tier + len(plan.conf_ids) + len(plan.coloc_ids))
+        if copies != 1 or nbytes != want:
+            raise AssertionError(f"sub-solve {i}: {copies} uploads of "
+                                 f"{nbytes} bytes (want 1 of {want})")
+        print(f"[k5_stage] sub-solve {i}: tier {plan.tier}, {plan.n_sub} "
+              f"closure rows, G_sub {plan.G_sub} ({len(plan.conf_ids)} ids)"
+              f", Gc_sub {plan.Gc_sub} ({len(plan.coloc_ids)}); 1 upload "
+              f"of {nbytes} bytes; stage equal to the plain stage on the "
+              f"mirror", flush=True)
+
+
 def run_default_phase(torch, np, pkg_main, lower, dev_name, S=N_SERVICES,
                       N=N_NODES, tenant_rows=TENANT_ROWS):
     """Phase 4: GpuSolverScheduler() as a user creates it. Returns (launch
@@ -1043,8 +1191,9 @@ def run_default_phase(torch, np, pkg_main, lower, dev_name, S=N_SERVICES,
     torch.cuda.synchronize()
     _ext.reset_launches()
     record = make_record(sched, verify, _ext, dev_name, "default")
-    rows, pt, valid, masks = drive_default(np, pt, sched, ProblemDelta,
-                                           record, index, S, tenant)
+    with stages_kept(torch, subsolve, sched) as kept:
+        rows, pt, valid, masks = drive_default(np, pt, sched, ProblemDelta,
+                                               record, index, S, tenant)
     launches = read_launches(torch, _ext, "default", KERNEL_NAMES[:5],
                              off=("k6_greedy_scan",), size=(pt.S, pt.N))
     outcomes = {k: v - outcomes0[k]
@@ -1061,6 +1210,7 @@ def run_default_phase(torch, np, pkg_main, lower, dev_name, S=N_SERVICES,
     if launches["k5_subsolve"] != 2 * len(subs):
         raise AssertionError(f"K5 launched {launches['k5_subsolve']} times "
                              f"for {len(subs)} sub-solves (2 each)")
+    check_kept_stages(torch, subsolve, kept, len(subs))
 
     # one more localized reschedule under torch.profiler (the busiest live
     # node down): no host-to-device copy in the sub-solve's range
@@ -1132,26 +1282,22 @@ def compare_subsolve(np, pkg_main, lower, dev_name, masks, S=N_SERVICES,
 
 def host_planner_ms(np, subsolve, rp, plan) -> dict:
     """Host clock of the planner on the resident state `plan` came from,
-    median of 5: plan_active in all, and two of its parts, the closure
-    (which reads dep_adj[:, inside] of the S x S matrix) and the frozen
-    conflict occupancy (a Python loop over the closure's ids)."""
+    median of 5: plan_active in all, and its two parts, the closure (which
+    reads dep_adj[:, inside] of the S x S matrix) and the closure's id
+    lists (all that is left of the frozen base on the host)."""
     index, pt, mirror = rp._index, rp.pt, rp._mirror
     S = pt.S
     prev = mirror[:S]
     stranded = np.nonzero(~(pt.node_valid[prev]
                             & pt.eligible[np.arange(S), prev]))[0]
     rows = plan.rows[:plan.n_sub].astype(np.int64)
-    in_sub = np.zeros(max(index.S, S), dtype=bool)
-    in_sub[rows] = True
-    conf = index.conflict[rows[rows < index.S]]
-    ids = np.unique(conf[conf >= 0])
     calls = {
         "plan_active": lambda: subsolve.plan_active(
             index, pt, mirror, rp.prob.S, rp.prob.T,
             np.empty(0, np.int64), G_full=rp.prob.G, Gc_full=rp.prob.Gc),
         "closure": lambda: index.closure(stranded),
-        "frozen_occupancy": lambda: index.frozen_occupancy(
-            ids, index._conf_inv, prev, in_sub, pt.N),
+        "closure_ids": lambda: subsolve.closure_ids(index.conflict,
+                                                    index.coloc, rows),
     }
     out = {}
     for name, fn in calls.items():
@@ -1161,16 +1307,42 @@ def host_planner_ms(np, subsolve, rp, plan) -> dict:
             fn()
             times.append((time.perf_counter() - t) * 1e3)
         out[name] = round(statistics.median(times), 3)
-    out["closure_ids"] = int(ids.size)
+    out["rows"] = int(plan.n_sub)
+    out["ids"] = int(len(plan.conf_ids) + len(plan.coloc_ids))
     return out
+
+
+def k5_bytes(prob, plan) -> dict:
+    """Bytes K5 must move for `plan` on `prob`: the stage reads the real
+    rows' assignment, each slot's demand, eligibility, preference and id
+    rows, each frozen row's demand and id rows, the nodes' validity and
+    domains and the plan buffer, and writes the slot planes and the base;
+    the commit reads the (S,) assignment, the rows and the winner's slot
+    values and writes the (S,) result and the chain."""
+    N, tier, n_sub = prob.N, plan.tier, plan.n_sub
+    K, C = prob.conflict_ids.shape[1], prob.coloc_ids.shape[1]
+    elig = prob.eligible.shape[1] * prob.eligible.element_size()
+    pref = 4.0 * N if prob.preferred is not None else 0.0
+    slot_in = 12.0 + elig + pref + 4.0 * (K + C) + 4.0
+    slot_out = 12.0 + elig + pref + 4.0 * (plan.Kc + plan.Cc) + 4.0
+    frozen = plan.n_real - n_sub
+    stage = (4.0 * plan.n_real + n_sub * slot_in + frozen * (
+        12.0 + 4.0 * (K + C)) + 5.0 * N
+        + 4.0 * (tier + len(plan.conf_ids) + len(plan.coloc_ids))
+        + tier * slot_out
+        + 4.0 * N * (3 + plan.G_sub + max(plan.Gc_sub, 1)) + 4.0 * prob.T)
+    commit = 8.0 * prob.S + 4.0 * tier + 4.0 * n_sub + 16.0 + 4.0
+    return dict(stage=stage, commit=commit)
 
 
 def check_k5(torch, np, sched, pt, valid, ProblemDelta, subsolve):
     """K5 against its plain version on the plan of a kill3 burst (the
-    three busiest live nodes down, merged into the resident state): exact
-    equality of every gathered plane and of the committed assignment;
-    CUDA-event times of the kernel, the plain version and the library
-    calls (index_select gathers, clone + index_copy_)."""
+    three busiest live nodes down, merged into the resident state): its
+    stage equal on every output to the plain stage on CPU copies of the
+    resident staging with the host mirror as the assignment, its commits
+    equal to the plain commit; the plan uploaded as one small copy;
+    CUDA-event times of each entry point, of the plain versions and of the
+    library calls (index_select gathers, clone + index_copy_)."""
     rp = sched._slots[0].resident
     prev = sched.last_result.assignment
     valid = valid.copy()
@@ -1181,21 +1353,19 @@ def check_k5(torch, np, sched, pt, valid, ProblemDelta, subsolve):
     if plan is None:
         raise AssertionError("the kill3 burst planned no sub-solve")
     planner = host_planner_ms(np, subsolve, rp, plan)
-    staged = subsolve.stage_subsolve(rp, plan)
-    rows, prob, a = staged[0], rp.prob, rp.assignment
+    prob, a = rp.prob, rp.assignment
+    with stages_kept(torch, subsolve, sched) as kept:
+        staged = subsolve.stage_subsolve(rp, plan)
+        out_k = subsolve.k5_stage(prob, a, staged, plan)
+    check_kept_stages(torch, subsolve, kept, 1)
+    uploads = kept[0]["upload"]
     n_sub, tier = plan.n_sub, plan.tier
-    out_k = subsolve.k5_gather(prob, a, rows, n_sub)
-    out_p = subsolve.k5_gather_plain(prob, a, rows, n_sub)
-    names = ("demand", "eligible", "preferred", "seed")
-    for name, x, y in zip(names, out_k, out_p):
-        if (x is None) != (y is None) or (
-                x is not None and not torch.equal(x, y)):
-            raise AssertionError(f"K5 gather {name} differs")
-    # two chains: the gathered seed, and the seed with its real rows
+    rows = staged[:tier]
+    # two chains: the staged seed, and the seed with its real rows
     # rotated by one node. Tied violations, so the least soft decides;
     # then violations decide against the soft score (the other chain's key
     # is +inf), either way round
-    seed = out_k[3]
+    seed = out_k.seed
     chain1 = seed.clone()
     chain1[:n_sub] = (chain1[:n_sub] + 1) % prob.N
     best = torch.stack([seed, chain1])
@@ -1214,11 +1384,11 @@ def check_k5(torch, np, sched, pt, valid, ProblemDelta, subsolve):
     viol = torch.zeros(2, device=a.device)
     soft = torch.tensor([0.5, 0.25], device=a.device)
 
-    def gather_k():
-        subsolve.k5_gather(prob, a, rows, n_sub)
+    def stage_k():
+        subsolve.k5_stage(prob, a, staged, plan)
 
-    def gather_p():
-        subsolve.k5_gather_plain(prob, a, rows, n_sub)
+    def stage_p():
+        subsolve.k5_stage_plain(prob, a, staged, plan)
 
     def commit_k():
         subsolve.k5_commit(best, viol, soft, rows, a)
@@ -1231,38 +1401,35 @@ def check_k5(torch, np, sched, pt, valid, ProblemDelta, subsolve):
     src = best[1][keep]
 
     def library():
-        for plane in (prob.demand, prob.eligible, prob.preferred, a):
+        for plane in (prob.demand, prob.eligible, prob.preferred,
+                      prob.conflict_ids, prob.coloc_ids, a):
             if plane is not None:
                 torch.index_select(plane, 0, g)
         a.clone().index_copy_(0, rows.long()[keep], src)
 
-    ms = cuda_ms(torch, gather_k, reps=20) + cuda_ms(torch, commit_k,
-                                                     reps=20)
-    plain = cuda_ms(torch, gather_p, reps=20) + cuda_ms(torch, commit_p,
-                                                        reps=20)
+    entries = {"stage": cuda_ms(torch, stage_k, reps=20),
+               "commit": cuda_ms(torch, commit_k, reps=20)}
+    ms = entries["stage"] + entries["commit"]
+    plain = cuda_ms(torch, stage_p, reps=20) + cuda_ms(torch, commit_p,
+                                                       reps=20)
     lib = cuda_ms(torch, library, reps=20)
-    W, el = prob.eligible.shape[1], prob.eligible.element_size()
-    pref_row = 4.0 * prob.N if prob.preferred is not None else 0.0
-    # gather: per real slot one demand row, eligibility row, preference
-    # row and assignment entry read; per slot the same written, plus the
-    # rows and the N validity bytes read once. commit: the (S,) assignment
-    # read and written, the winner's tier entries and rows read
-    row_bytes = 12.0 + W * el + pref_row
-    g_bytes = (4.0 * tier + prob.N + n_sub * (row_bytes + 4.0)
-               + tier * (row_bytes + 4.0))
-    c_bytes = 8.0 * prob.S + 8.0 * tier + 16.0
+    nbytes = k5_bytes(prob, plan)
     print(f"[planner] kill3 plan on the host: {json.dumps(planner)}",
           flush=True)
     print(f"[k5_subsolve] kill3 plan: {n_sub} closure rows in a tier of "
-          f"{tier}; gathered planes and committed assignment equal; kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms",
-          flush=True)
+          f"{tier}; 1 upload of {uploads[1]} bytes; staged planes and base "
+          f"and committed assignments equal; stage {entries['stage']:.4f} "
+          f"ms, commit {entries['commit']:.4f} ms (event), plain "
+          f"{plain:.4f} ms, library {lib:.4f} ms", flush=True)
     return dict(
         name="k5_subsolve", route="cuda",
         source="fleetflow_tpu_torch/csrc/k5_subsolve.cu",
         replaces="fleetflow_tpu/solver/subsolve.py:378",
         max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=lib, ops=0.0,
-        bytes=g_bytes + c_bytes, tier=tier, n_sub=n_sub)
+        bytes=nbytes["stage"] + nbytes["commit"], tier=tier, n_sub=n_sub,
+        entries={k: dict(ms=v, bound_ms=nbytes[k] / PEAK_BYTES_S * 1e3)
+                 for k, v in entries.items()},
+        uploads=dict(copies=uploads[0], bytes=uploads[1]))
 
 
 def profile_phases(torch, np, pkg_main, lower, pt) -> None:
@@ -2746,6 +2913,7 @@ def main() -> int:
     by_phase["dryrun"] = run_dryrun_phase(torch, _ext, dryrun_multichip)
     measure_device(recs)
     measure_k7_device(recs)
+    measure_k5_device(recs)
     measure_phases(recs)
     measure_k67_phases(recs)
     if "--profile" in sys.argv[1:]:
@@ -2768,7 +2936,7 @@ def main() -> int:
             "plain_ms", "bound_ms",
             "bound_by", "library_ms", "device_ms", "device_launches",
             "sizes", "device", "lanes", "phases", "small_ms", "us_per_step",
-            "layouts")
+            "layouts", "entries", "uploads", "device_tier")
             if k in r})
     print(f"[done] {time.perf_counter() - t0:.1f} s after the build started",
           flush=True)

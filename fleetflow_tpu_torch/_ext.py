@@ -19,7 +19,9 @@ K1-K3 take a lane axis (the tenant multiplexer): L same-tier problems
 stacked on a leading axis, with the per-lane scalars in one by-value
 :class:`Lanes` struct (``FFLanes`` in ``csrc/common.cuh``); a solo call is
 L = 1. K7 (the sharded sweep) takes its per-replica temperatures in the
-same struct. K1 and K7 share the move delta (``csrc/sweep_delta.cuh``).
+same struct. K1 and K7 share the move delta (``csrc/sweep_delta.cuh``);
+K3 and K5 list a node's rows and sum their demand in row order
+(``csrc/node_rows.cuh``).
 
 Every C entry point returns a ``cudaError_t`` (0 = success) taken from
 ``cudaGetLastError()`` right after its launches; :func:`check` raises on
@@ -60,7 +62,7 @@ KERNELS = {
     "k6_greedy_scan": "k6_greedy_scan.cu",
     "k7_sharded_sweep": "k7_sharded_sweep.cu",
 }
-_HEADERS = ("common.cuh", "sweep_delta.cuh")
+_HEADERS = ("common.cuh", "sweep_delta.cuh", "node_rows.cuh")
 # host library name -> C++ source (plain C ABI, built with g++)
 HOST_LIBS = {
     "ffplacer": "host/placer.cpp",

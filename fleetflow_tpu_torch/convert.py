@@ -23,11 +23,11 @@ from .core.model import PlacementStrategy
 from .device import resolve_device
 from .lower.tensors import ProblemTensors
 from .solver.anneal import ChainState
-from .solver.buckets import BucketInfo
+from .solver.buckets import BucketInfo, width_bucket
 from .solver.multiplex import stack_problems
-from .solver.problem import TorchProblem
+from .solver.problem import TorchProblem, unify_conflict_ids
 from .solver.resident import ResidentProblem
-from .solver.subsolve import ActivePlan
+from .solver.subsolve import ActivePlan, closure_ids
 
 __all__ = ["problem_from_reference", "padded_problem_from_reference",
            "stacked_problem_from_reference",
@@ -147,27 +147,30 @@ def padded_problem_from_reference(arrays: Mapping[str, np.ndarray],
                             Gc=prob.Gc)
 
 
-PLAN_ARRAYS = {"rows": np.int32, "sub_conflict": np.int32,
-               "sub_coloc": np.int32, "load0": np.float32,
-               "used0": np.int32, "coloc0": np.int32, "topo0": np.int32}
 PLAN_INTS = ("n_sub", "tier", "G_sub", "Gc_sub", "affected")
 
 
-def plan_from_reference(fields: Mapping[str, object], device=None
-                        ) -> tuple[ActivePlan, tuple]:
-    """A reference ActivePlan's fields as the port's ActivePlan (host
-    arrays), and its arrays staged for one sub-solve dispatch, in the order
-    ``subsolve.stage_subsolve`` gives them, on the card unless `device`
-    names the CPU."""
+def plan_from_reference(fields: Mapping[str, object], pt: ProblemTensors,
+                        device=None) -> tuple[ActivePlan, torch.Tensor]:
+    """A reference ActivePlan's fields as the port's lean ActivePlan, and
+    its buffer staged for one sub-solve dispatch as
+    ``subsolve.stage_subsolve`` gives it, on the card unless `device`
+    names the CPU. `pt` is the staging the plan was made on: the compact
+    id lists come from its closure rows, as ``plan_active`` takes them,
+    and its real rows bound the frozen base. The reference's base and
+    remapped ids are not carried: K5 builds them on the device."""
     device = resolve_device(device)
-    kw = {k: np.array(fields[k], dtype=dt, copy=True)
-          for k, dt in PLAN_ARRAYS.items()}
-    kw.update({k: int(fields[k]) for k in PLAN_INTS})
-    plan = ActivePlan(**kw)
-    staged = tuple(_tensor(kw[k], torch.float32 if dt == np.float32
-                           else torch.int32, device)
-                   for k, dt in PLAN_ARRAYS.items())
-    return plan, staged
+    kw = {k: int(fields[k]) for k in PLAN_INTS}
+    rows = np.array(fields["rows"], dtype=np.int32, copy=True)
+    conflict = unify_conflict_ids(pt)
+    coloc = np.asarray(pt.coloc_ids, dtype=np.int32)
+    conf_ids, coloc_ids = closure_ids(conflict, coloc,
+                                      rows[:kw["n_sub"]].astype(np.int64))
+    plan = ActivePlan(rows=rows, conf_ids=conf_ids.astype(np.int32),
+                      coloc_ids=coloc_ids.astype(np.int32), n_real=pt.S,
+                      Kc=width_bucket(conflict.shape[1], 4),
+                      Cc=width_bucket(coloc.shape[1], 4), **kw)
+    return plan, _tensor(plan.packed(), torch.int32, device)
 
 
 def resident_from_reference(pt: ProblemTensors, mirror: np.ndarray,

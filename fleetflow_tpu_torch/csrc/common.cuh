@@ -38,9 +38,9 @@ FF_EXPORT const char* ff_error_string(int err) {
 }
 
 // Compile-time phase stamps (a kernel file defines FF_PHASES when built
-// with its -DK1_PHASES / -DK2_PHASES / -DK6_PHASES / -DK7_PHASES;
-// fleetflow_tpu_torch/tools/k12_profile.py and k67_profile.py build and
-// read them). Thread 0 of each block writes
+// with its -DK1_PHASES / -DK2_PHASES / -DK5_PHASES / -DK6_PHASES /
+// -DK7_PHASES; fleetflow_tpu_torch/tools/k12_profile.py, k5_profile.py and
+// k67_profile.py build and read them). Thread 0 of each block writes
 // FF_PHASE_SLOTS u64 into row blockIdx.y * gridDim.x + blockIdx.x of the
 // buffer set by ff_set_phases: the global timer (ns) at the block's start
 // and end, the SM cycles between them, four phase cycle counts, two counts

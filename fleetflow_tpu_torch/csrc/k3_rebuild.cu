@@ -41,17 +41,15 @@
 //      each tile with __ballot_sync(a == n), listing its node's services
 //      in lane (= index) order, then gathers their demand 32 at a time
 //      and adds it in list order, tile after tile: service order, with no
-//      counting sort;
+//      counting sort (the scheme of csrc/node_rows.cuh, shared with K5);
 //   3. stats: capacity cells and eligibility per row, block sums by
 //      atomics; the last block of a row (a __threadfence + atomicAdd
 //      counter) takes the skew from the topology counts and writes the
 //      five stats.
-#include <cuda_pipeline.h>
-
 #include "common.cuh"
+#include "node_rows.cuh"
 
 #define K3_THREADS 256
-#define K3_TILE 1024       // assignments staged per tile (4 KB)
 #define K3_INIT_BLOCKS 1024  // init blocks a row at most (base pair slots)
 
 namespace {
@@ -97,8 +95,8 @@ k3_build(int C, int S, int N, int G, int Gc1, int T, int n_scatter,
          const int* __restrict__ ntopo, FFLanes ls,
          const float* __restrict__ load0, float* load, int* used, int* coloc,
          int* topo, unsigned long long* acc) {
-  __shared__ int tile[2][K3_TILE];
-  __shared__ short hits[kWarps][K3_TILE];
+  __shared__ int tile[2][FF_ROW_TILE];
+  __shared__ short hits[kWarps][FF_ROW_TILE];
   __shared__ long long sm[32];
   const int c = blockIdx.y;
   const size_t lane = c / C;
@@ -132,13 +130,10 @@ k3_build(int C, int S, int N, int G, int Gc1, int T, int n_scatter,
     }
     return;
   }
-  // load role: warp w of the block sums node n's services in index order.
-  // Per tile it lists its node's services (tile offsets, in order) and then
-  // gathers their demand 32 at a time, one per lane, adding them in list
-  // order: a node holding thousands of services pays one gather per 32,
-  // and the adds never wait on a load they do not need.
+  // load role: warp w of the block sums node n's services in index order
+  // (csrc/node_rows.cuh): per tile it lists its node's services and adds
+  // their demand in list order
   const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned lower = (1u << wl) - 1u;
   const int n = ((int)blockIdx.x - n_scatter) * kWarps + warp;
   const float* dem = demand + lane * S * 3;
   short* list = hits[warp];
@@ -148,53 +143,18 @@ k3_build(int C, int S, int N, int G, int Gc1, int T, int n_scatter,
     l1 = load0[n * 3 + 1];
     l2 = load0[n * 3 + 2];
   }
-  const int n_tiles = (S + K3_TILE - 1) / K3_TILE;
-  auto stage = [&](int t) {
-    const int base = t * K3_TILE;
-    const int len = min(K3_TILE, S - base);
-    for (int i = threadIdx.x; i < len; i += blockDim.x)
-      __pipeline_memcpy_async(&tile[t & 1][i], &as[base + i], sizeof(int));
-    __pipeline_commit();
-  };
-  stage(0);
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      stage(t + 1);
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    const int base = t * K3_TILE;
-    const int len = min(K3_TILE, S - base);
-    const int* buf = tile[t & 1];
+  ff_for_tiles<FF_ROW_TILE, 2>(tile, as, S, [&](int t, const int* buf) {
+    const int base = t * FF_ROW_TILE;
+    const int len = min(FF_ROW_TILE, S - base);
     int cnt = 0;
     for (int j = 0; j < len; j += 32) {
       const int i = j + wl;
-      const bool hit = n < N && i < len && buf[i] == n;
-      const unsigned bal = __ballot_sync(0xffffffffu, hit);
-      if (hit) list[cnt + __popc(bal & lower)] = (short)i;
-      cnt += __popc(bal);
+      cnt = ff_list_append(n < N && i < len && buf[i] == n, (short)i, list,
+                           cnt);
     }
     __syncwarp();
-    for (int k0 = 0; k0 < cnt; k0 += 32) {
-      float e0 = 0.f, e1 = 0.f, e2 = 0.f;
-      if (k0 + wl < cnt) {
-        const float* d = dem + (size_t)(base + list[k0 + wl]) * 3;
-        e0 = d[0];
-        e1 = d[1];
-        e2 = d[2];
-      }
-      const int m = min(32, cnt - k0);
-#pragma unroll 4
-      for (int q = 0; q < m; ++q) {  // the listed services, in order
-        l0 = l0 + __shfl_sync(0xffffffffu, e0, q);
-        l1 = l1 + __shfl_sync(0xffffffffu, e1, q);
-        l2 = l2 + __shfl_sync(0xffffffffu, e2, q);
-      }
-    }
-    __syncthreads();  // the buffers are restaged on
-  }
+    ff_sum_listed(dem, base, list, cnt, l0, l1, l2);
+  });
   if (n < N && wl == 0) {
     float* out = load + ((size_t)c * N + n) * 3;
     out[0] = l0;

@@ -471,7 +471,7 @@ def solve(pt: ProblemTensors, *, device=None,
     t_anneal = t()
     sub_plan = None
     if resident_warm and fused and adaptive:
-        # the host planner: closure, compact ids and the frozen base
+        # the host planner: the closure and its compact id lists
         t_plan = t()
         sub_plan = resident.take_active_plan()
         timings["plan_ms"] = (t() - t_plan) * 1e3
@@ -479,7 +479,8 @@ def solve(pt: ProblemTensors, *, device=None,
     uploads = 0     # ResidentProblem.upload calls inside the dispatch ranges
     if sub_plan is not None:
         t_sub = t()
-        # the plan's small arrays upload before the dispatch range opens
+        # the plan (rows and id lists, one buffer) uploads before the
+        # dispatch range opens; K5 builds the frozen base on the card
         staged = _sub.stage_subsolve(resident, sub_plan)
         h2d0 = resident.h2d_copies
         with torch.profiler.record_function(SUBSOLVE_RANGE):

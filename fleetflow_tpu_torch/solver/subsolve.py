@@ -11,17 +11,21 @@ warm reschedule therefore first tries to solve exactly that set:
                 groups, each inverted id -> rows
   plan_active   the closure rule (affected rows, rows sharing a conflict
                 or coloc id, dependency neighbours, replica siblings),
-                padded onto a mini tier (256/512/.../4096 rows), with the
-                FROZEN remainder's load, conflict/coloc occupancy and
-                topology counts as the sub-problem's base state
-  subsolve      on the device: gather the closure rows' planes (K5),
-                rebuild the mini state onto the frozen base (K3), the
+                padded onto a mini tier (256/512/.../4096 rows), and the
+                sorted conflict and coloc ids the closure carries (the
+                sub-problem's compact id spaces): O(tier) ints, uploaded
+                as one buffer
+  subsolve      on the device: K5 builds the mini problem from the
+                resident planes (the closure rows' planes and seed, their
+                ids remapped, and the FROZEN remainder's load,
+                conflict/coloc occupancy and topology counts as the base
+                state), K3 rebuilds the mini state onto that base, the
                 fused pre-repair (K2) and at most SUB_MAX_STEPS sweeps of
-                the adaptive anneal (K1) over the mini tier, pick the
-                winning chain and scatter its rows into a FRESH copy of
-                the resident assignment (K5), then the exact full-problem
-                stats of the result (K3): the gate that decides whether
-                the localized result commits
+                the adaptive anneal (K1) run over the mini tier, K5 picks
+                the winning chain and writes its rows into a FRESH copy of
+                the resident assignment, then K3 takes the exact
+                full-problem stats of the result: the gate that decides
+                whether the localized result commits
 
 A gate-rejected sub-solve is discarded and the full path re-runs from the
 untouched resident assignment, which is why the commit never writes into
@@ -32,19 +36,21 @@ Knobs, as in the reference: FLEET_SUBSOLVE=0 disables; FLEET_SUBSOLVE_FRAC
 (default 0.25); FLEET_SUBSOLVE_MIN / FLEET_SUBSOLVE_MAX (default 256 /
 4096) bound the mini tier ladder.
 
-Kernel K5 lives here, two entry points of ``csrc/k5_subsolve.cu``:
-:func:`k5_gather` builds the mini problem's planes and seed from the
-resident ones, :func:`k5_commit` picks the chain and scatters it. On a CPU
-tensor each runs its plain PyTorch version (:func:`k5_gather_plain`,
-:func:`k5_commit_plain`), on a CUDA tensor it launches the kernel or
-raises.
+Kernel K5 lives here, two entry points of ``csrc/k5_subsolve.cu``, each
+one launch: :func:`k5_stage` builds the whole mini problem, frozen base
+included, from the resident planes and the staged plan; :func:`k5_commit`
+picks the chain and writes the new assignment. On a CPU tensor each runs
+its plain PyTorch version (:func:`k5_stage_plain`, :func:`k5_commit_plain`),
+on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -57,10 +63,10 @@ from .kernels import exact_stats_and_soft
 from .problem import TorchProblem, unify_conflict_ids
 
 __all__ = ["SubsolveConfig", "subsolve_config", "ActiveIndex", "ActivePlan",
-           "plan_active", "stage_subsolve", "subsolve", "subsolve_dispatch",
-           "k5_gather", "k5_gather_plain", "k5_commit", "k5_commit_plain",
-           "SUB_OUTCOMES", "SUB_MAX_STEPS", "OUTCOME_COUNTS",
-           "record_outcome"]
+           "closure_ids", "plan_active", "stage_subsolve", "subsolve",
+           "subsolve_dispatch", "SubStage", "k5_stage", "k5_stage_plain",
+           "k5_commit", "k5_commit_plain", "SUB_OUTCOMES", "SUB_MAX_STEPS",
+           "OUTCOME_COUNTS", "record_outcome"]
 
 # the outcome vocabulary: localized = the mini anneal's result passed the
 # exact full-problem gate; fallback_closure = the closure exceeded the size
@@ -171,42 +177,43 @@ class ActiveIndex:
                     out.append(np.asarray(self._groups[base]))
         return np.unique(np.concatenate(out)).astype(np.int64)
 
-    def frozen_occupancy(self, ids: np.ndarray, inv, mirror: np.ndarray,
-                         in_sub: np.ndarray, N: int) -> np.ndarray:
-        """(N, len(ids)) int32 occupancy of the given ids by frozen rows
-        (carriers outside the closure) at their mirror nodes."""
-        out = np.zeros((N, max(len(ids), 1)), dtype=np.int32)
-        uniq, offs, rows = inv
-        if not uniq.size:
-            return out
-        pos = np.searchsorted(uniq, ids)
-        for g, p in enumerate(pos):
-            if p >= uniq.size or uniq[p] != ids[g]:
-                continue
-            carriers = rows[offs[p]:offs[p + 1]]
-            carriers = carriers[~in_sub[carriers]]
-            if carriers.size:
-                np.add.at(out, (mirror[carriers], g), 1)
-        return out
+
+def closure_ids(conflict: np.ndarray, coloc: np.ndarray, rows: np.ndarray
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """The sorted unique conflict and coloc ids the closure `rows` carry
+    (rows past the id tables, arrivals, carry none): the compact id spaces
+    of the sub-problem, compact id g standing for the g-th of them."""
+    inside = rows[rows < conflict.shape[0]]
+    conf_rows = conflict[inside]
+    coloc_rows = coloc[inside]
+    return (np.unique(conf_rows[conf_rows >= 0]),
+            np.unique(coloc_rows[coloc_rows >= 0]))
 
 
 @dataclass
 class ActivePlan:
     """A localized sub-problem planned on the host, ready for one device
-    dispatch. Every array is small (O(tier) rows or O(N) node state): the
-    (S, ·) planes stay on the device and K5 gathers the closure rows."""
-    rows: np.ndarray          # (tier,) i32, pad slots = padded S (dropped)
+    dispatch: the closure rows and the two compact id lists, O(tier) ints.
+    K5 builds the mini problem, its frozen base included, from the
+    resident planes on the device."""
+    rows: np.ndarray          # (tier,) i32 ascending, pad slots = padded S
     n_sub: int                # real closure rows
     tier: int
     G_sub: int                # conflict-id count of the sub-problem
     Gc_sub: int               # coloc-id count (0 = none)
-    sub_conflict: np.ndarray  # (tier, Kc) i32 compact ids, -1 pad
-    sub_coloc: np.ndarray     # (tier, Cc) i32 compact ids, -1 pad
-    load0: np.ndarray         # (N, R) f32 frozen load
-    used0: np.ndarray         # (N, G_sub) i32 frozen conflict occupancy
-    coloc0: np.ndarray        # (N, max(Gc_sub, 1)) i32 frozen coloc occ.
-    topo0: np.ndarray         # (T,) i32 frozen topology counts
+    conf_ids: np.ndarray      # (<= G_sub,) i32 sorted staging conflict ids
+    coloc_ids: np.ndarray     # (<= Gc_sub,) i32 sorted staging coloc ids
+    n_real: int               # real rows of the staging (the frozen rows
+    # are those below it outside the closure)
+    Kc: int                   # sub_conflict columns
+    Cc: int                   # sub_coloc columns
     affected: int = 0         # affected rows before the closure
+
+    def packed(self) -> np.ndarray:
+        """rows | conf_ids | coloc_ids as one int32 array: what
+        :func:`stage_subsolve` uploads and K5 reads."""
+        return np.concatenate([self.rows, self.conf_ids,
+                               self.coloc_ids]).astype(np.int32)
 
 
 def plan_active(index: ActiveIndex, pt, mirror: np.ndarray, padded_S: int,
@@ -219,7 +226,9 @@ def plan_active(index: ActiveIndex, pt, mirror: np.ndarray, padded_S: int,
     `outcome` says why. `mirror` is the host copy of the padded resident
     assignment as of the last solve; `pending_rows` the rows deltas
     touched. Stranded rows are recomputed here from the post-delta
-    tensors."""
+    tensors. `T` is the staging's domain count, kept for the reference's
+    signature: K5 sizes the base from the staging itself."""
+    del T
     cfg = cfg or subsolve_config()
     S = pt.S
     prev = mirror[:S]
@@ -242,20 +251,9 @@ def plan_active(index: ActiveIndex, pt, mirror: np.ndarray, padded_S: int,
     if tier >= S:
         return None, "fallback_small"
 
-    N = pt.N
-    R = np.asarray(pt.demand).shape[1]
-    in_sub = np.zeros(max(index.S, S), dtype=bool)
-    in_sub[rows] = True
-
     # compact id spaces: only ids carried by closure rows exist in the
     # sub-problem; frozen carriers of those ids enter as base occupancy
-    inside = rows[rows < index.S]
-    conf_rows = (index.conflict[inside] if inside.size
-                 else np.empty((0, index.conflict.shape[1]), np.int32))
-    coloc_rows = (index.coloc[inside] if inside.size
-                  else np.empty((0, index.coloc.shape[1]), np.int32))
-    conf_ids = np.unique(conf_rows[conf_rows >= 0])
-    coloc_ids = np.unique(coloc_rows[coloc_rows >= 0])
+    conf_ids, coloc_ids = closure_ids(index.conflict, index.coloc, rows)
     # id-space sizes follow the tier and the staging's G/Gc, not the
     # closure's content; a closure denser in ids than that falls back
     G_sub = max(min(tier, G_full), 16)
@@ -263,62 +261,41 @@ def plan_active(index: ActiveIndex, pt, mirror: np.ndarray, padded_S: int,
     if len(conf_ids) > G_sub or len(coloc_ids) > Gc_sub:
         return None, "fallback_closure"
 
-    Kc = width_bucket(index.conflict.shape[1], 4)
-    Cc = width_bucket(index.coloc.shape[1], 4)
-    sub_conflict = np.full((tier, Kc), -1, dtype=np.int32)
-    sub_coloc = np.full((tier, Cc), -1, dtype=np.int32)
-    if inside.size:
-        remap = np.where(conf_rows >= 0,
-                         np.searchsorted(conf_ids,
-                                         np.where(conf_rows >= 0,
-                                                  conf_rows, 0)), -1)
-        at = np.nonzero(rows < index.S)[0]
-        sub_conflict[at, :conf_rows.shape[1]] = remap
-        if len(coloc_ids):
-            cremap = np.where(coloc_rows >= 0,
-                              np.searchsorted(coloc_ids,
-                                              np.where(coloc_rows >= 0,
-                                                       coloc_rows, 0)), -1)
-            sub_coloc[at, :coloc_rows.shape[1]] = cremap
-
-    # the frozen remainder at its mirror nodes: the capacity debit and the
-    # exact cross-boundary conflict/coloc/skew accounting in one base state
-    frozen = np.nonzero(~in_sub[:S])[0]
-    load0 = np.zeros((N, R), dtype=np.float32)
-    np.add.at(load0, prev[frozen],
-              np.asarray(pt.demand, dtype=np.float32)[frozen])
-    used0 = np.zeros((N, G_sub), dtype=np.int32)
-    used0[:, : max(len(conf_ids), 1)] = index.frozen_occupancy(
-        conf_ids, index._conf_inv, prev, in_sub, N) \
-        if len(conf_ids) else 0
-    coloc0 = np.zeros((N, max(Gc_sub, 1)), dtype=np.int32)
-    if len(coloc_ids):
-        coloc0[:, : len(coloc_ids)] = index.frozen_occupancy(
-            coloc_ids, index._coloc_inv, prev, in_sub, N)
-    topo0 = np.bincount(np.asarray(pt.node_topology)[prev[frozen]],
-                        minlength=T).astype(np.int32)
-
     padded_rows = np.full(tier, padded_S, dtype=np.int32)
     padded_rows[:k] = rows            # ascending: the prologue's order
     plan = ActivePlan(
         rows=padded_rows, n_sub=k, tier=tier, G_sub=G_sub, Gc_sub=Gc_sub,
-        sub_conflict=sub_conflict, sub_coloc=sub_coloc, load0=load0,
-        used0=used0, coloc0=coloc0, topo0=topo0, affected=int(affected.size))
+        conf_ids=conf_ids.astype(np.int32),
+        coloc_ids=coloc_ids.astype(np.int32), n_real=S,
+        Kc=width_bucket(index.conflict.shape[1], 4),
+        Cc=width_bucket(index.coloc.shape[1], 4),
+        affected=int(affected.size))
     return plan, "planned"
 
 
-def stage_subsolve(resident, plan: ActivePlan) -> tuple:
-    """Upload a plan's small arrays through the resident state's counted
-    `upload` (before the sub-solve's dispatch range opens). Returns (rows,
-    sub_conflict, sub_coloc, load0, used0, coloc0, topo0) on the device."""
-    up = resident.upload
-    return (up(plan.rows, torch.int32), up(plan.sub_conflict, torch.int32),
-            up(plan.sub_coloc, torch.int32), up(plan.load0, torch.float32),
-            up(plan.used0, torch.int32), up(plan.coloc0, torch.int32),
-            up(plan.topo0, torch.int32))
+def stage_subsolve(resident, plan: ActivePlan) -> torch.Tensor:
+    """Upload a plan through the resident state's counted `upload` (before
+    the sub-solve's dispatch range opens): one int32 copy of its rows and
+    id lists, O(tier + G_sub + Gc_sub) ints."""
+    return resident.upload(plan.packed(), torch.int32)
 
 
-# -- K5: gather and commit --------------------------------------------------
+# -- K5: stage and commit ---------------------------------------------------
+
+class SubStage(NamedTuple):
+    """K5 stage's outputs: the mini problem's slot planes and its frozen
+    base."""
+    demand: torch.Tensor          # (tier, 3) f32
+    eligible: torch.Tensor        # (tier, W) packed i32 or (tier, N) bool
+    preferred: Optional[torch.Tensor]   # (tier, N) f32 or None
+    seed: torch.Tensor            # (tier,) i32, also sticky_prev
+    sub_conflict: torch.Tensor    # (tier, Kc) i32 compact ids, -1 pad
+    sub_coloc: torch.Tensor       # (tier, Cc) i32 compact ids, -1 pad
+    load0: torch.Tensor           # (N, 3) f32 frozen load
+    used0: torch.Tensor           # (N, G_sub) i32 frozen conflict occupancy
+    coloc0: torch.Tensor          # (N, max(Gc_sub, 1)) i32
+    topo0: torch.Tensor           # (T,) i32 frozen domain counts
+
 
 def _park(node_valid: torch.Tensor) -> torch.Tensor:
     """argmax(node_valid) as a 0-dim int32 tensor: the first valid node, 0
@@ -326,11 +303,48 @@ def _park(node_valid: torch.Tensor) -> torch.Tensor:
     return torch.argmax(node_valid.to(torch.int32)).to(torch.int32)
 
 
-def k5_gather_plain(prob: TorchProblem, assignment: torch.Tensor,
-                    rows: torch.Tensor, n_sub: int):
-    """Plain PyTorch version of K5's gather; see :func:`k5_gather`."""
-    tier = rows.shape[0]
-    dev = rows.device
+def _split(staged: torch.Tensor, plan: ActivePlan):
+    n_conf, tier = len(plan.conf_ids), plan.tier
+    return (staged[:tier], staged[tier:tier + n_conf],
+            staged[tier + n_conf:tier + n_conf + len(plan.coloc_ids)])
+
+
+def _remap_plain(ids: torch.Tensor, rows_g: torch.Tensor,
+                 real: torch.Tensor, lst: torch.Tensor,
+                 width: int) -> torch.Tensor:
+    """The slots' ids as positions in the sorted list `lst`, -1 where
+    absent or padded, in `width` columns."""
+    w = min(ids.shape[1], width)
+    g = ids[rows_g][:, :w]
+    out = torch.full((rows_g.shape[0], width), -1, dtype=torch.int32,
+                     device=ids.device)
+    if lst.numel():
+        pos = torch.searchsorted(lst, g.clamp(min=0).contiguous())
+        out[:, :w] = torch.where((g >= 0) & real, pos.to(torch.int32), -1)
+    return out
+
+
+def _count_plain(ids: torch.Tensor, at: torch.Tensor, lst: torch.Tensor,
+                 N: int, width: int) -> torch.Tensor:
+    """(N, width) counts of the frozen rows' ids found in `lst`, each at
+    its row's node `at`."""
+    if not lst.numel() or not ids.numel():
+        return torch.zeros((N, width), dtype=torch.int32, device=ids.device)
+    pos = torch.searchsorted(lst, ids.clamp(min=0).contiguous())
+    pos = pos.clamp(max=lst.numel() - 1)
+    found = (ids >= 0) & (lst[pos] == ids)
+    flat = (at[:, None] * width + pos)[found]
+    return torch.bincount(flat, minlength=N * width).reshape(
+        N, width).to(torch.int32)
+
+
+def k5_stage_plain(prob: TorchProblem, assignment: torch.Tensor,
+                   staged: torch.Tensor, plan: ActivePlan) -> SubStage:
+    """Plain PyTorch version of K5's stage; see :func:`k5_stage`. The
+    frozen load adds each node's rows one at a time in row order
+    (index_add_ on the CPU), as the reference's np.add.at does."""
+    rows, conf, coloc = _split(staged, plan)
+    tier, n_sub, dev = plan.tier, plan.n_sub, staged.device
     rows_g = torch.clamp(rows.long(), max=prob.S - 1)
     real = (torch.arange(tier, device=dev) < n_sub)[:, None]
     demand = torch.where(real, prob.demand[rows_g], 0.0)
@@ -342,43 +356,145 @@ def k5_gather_plain(prob: TorchProblem, assignment: torch.Tensor,
             else torch.where(real, prob.preferred[rows_g], 0.0))
     seed = torch.where(real[:, 0], assignment[rows_g],
                        _park(prob.node_valid)).to(torch.int32)
-    return demand, eligible, pref, seed
+    sub_conflict = _remap_plain(prob.conflict_ids, rows_g, real, conf,
+                                plan.Kc)
+    sub_coloc = _remap_plain(prob.coloc_ids, rows_g, real, coloc, plan.Cc)
+
+    in_sub = torch.zeros(prob.S, dtype=torch.bool, device=dev)
+    closure = rows[:n_sub].long()
+    in_sub[closure[closure < prob.S]] = True
+    frozen = torch.nonzero(~in_sub[:plan.n_real]).reshape(-1)
+    at = assignment[frozen].long()
+    N = prob.N
+    load0 = torch.zeros((N, 3), dtype=torch.float32, device=dev).index_add_(
+        0, at, prob.demand[frozen])
+    used0 = _count_plain(prob.conflict_ids[frozen], at, conf, N, plan.G_sub)
+    coloc0 = _count_plain(prob.coloc_ids[frozen], at, coloc, N,
+                          max(plan.Gc_sub, 1))
+    topo0 = torch.bincount(prob.node_topology[at].long(),
+                           minlength=prob.T).to(torch.int32)
+    return SubStage(demand, eligible, pref, seed, sub_conflict, sub_coloc,
+                    load0, used0, coloc0, topo0)
 
 
-def k5_gather(prob: TorchProblem, assignment: torch.Tensor,
-              rows: torch.Tensor, n_sub: int):
-    """K5 gather: the mini problem's planes from the resident ones. Slot j
-    < n_sub is closure row min(rows[j], S-1): its demand (tier, R) f32,
-    eligibility row (packed words or dense bools), preference row (when
-    the plane exists) and its current node as the seed. Pad slots are
-    inert phantoms: demand 0, all eligible, preference 0, seeded on the
-    first valid node. Returns (demand, eligible, preferred or None, seed
-    (tier,) i32); the seed is also the sub-problem's sticky_prev."""
-    if rows.device.type == "cpu":
-        return k5_gather_plain(prob, assignment, rows, n_sub)
-    tier = rows.shape[0]
-    if (rows.dtype != torch.int32 or assignment.dtype != torch.int32
-            or assignment.shape != (prob.S,) or rows.dim() != 1
-            or prob.demand.shape[1] != 3 or not 0 <= n_sub <= tier):
-        raise ValueError("k5_gather: rows/assignment must be int32 (tier,) "
-                         "/ (S,) with R=3 and 0 <= n_sub <= tier")
-    dev = rows.device
+class K5StageArgs(ctypes.Structure):
+    """``K5Stage`` of ``csrc/k5_subsolve.cu``: one stage's sizes, planes
+    and outputs (device pointers; 0 for an absent preference plane)."""
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "S", "N", "W", "packed", "T", "K", "C", "tier", "n_sub", "n_real",
+        "n_conf", "n_coloc", "G_sub", "Gc1", "Kc", "Cc")] + [
+        (f, ctypes.c_void_p) for f in (
+            "plan", "assignment", "demand", "elig", "pref", "valid", "cids",
+            "colids", "ntopo", "demand_out", "elig_out", "pref_out",
+            "seed_out", "sub_conflict", "sub_coloc", "load0", "used0",
+            "coloc0", "topo0")]
+
+
+_BOUND: dict[int, ctypes.CDLL] = {}
+
+
+def _k5(device: torch.device) -> ctypes.CDLL:
+    """K5's library with its entry points bound (argument types set, the
+    stage's shared memory allowed) once a process and card."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    lib = _BOUND.get(idx)
+    if lib is None:
+        lib = _ext.library("k5_subsolve")
+        lib.ff_k5_stage_size.restype = ctypes.c_longlong
+        if lib.ff_k5_stage_size() != ctypes.sizeof(K5StageArgs):
+            raise RuntimeError("k5_subsolve: the C argument struct does not "
+                               "match K5StageArgs")
+        lib.ff_k5_stage.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.ff_k5_commit.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
+        with torch.cuda.device(device):
+            _ext.raise_error("k5_subsolve", lib.ff_k5_bind())
+        _BOUND[idx] = lib
+    return lib
+
+
+def _views(buf: torch.Tensor, shapes) -> list:
+    """Contiguous views of `buf` in `shapes`, each starting on a 256-byte
+    boundary (as its own allocation would); as_strided makes each in one
+    call, a third of the host time of a slice and a view."""
+    out, off = [], 0
+    for shape in shapes:
+        stride = (shape[1], 1) if len(shape) == 2 else (1,)
+        out.append(buf.as_strided(shape, stride, off))
+        off += -(-math.prod(shape) // 64) * 64
+    return out
+
+
+def _extent(shapes) -> int:
+    return sum(-(-math.prod(s) // 64) * 64 for s in shapes)
+
+
+def k5_stage(prob: TorchProblem, assignment: torch.Tensor,
+             staged: torch.Tensor, plan: ActivePlan) -> SubStage:
+    """K5 stage: the whole mini problem from the resident planes and the
+    staged plan, in one launch. Slot j < n_sub is closure row
+    min(rows[j], S-1): its demand, eligibility row (packed words or dense
+    bools), preference row (when the plane exists), its current node as
+    the seed (also the sub-problem's sticky_prev) and its conflict and
+    coloc ids as positions in the plan's id lists (-1 where absent). Pad
+    slots are inert phantoms: demand 0, all eligible, preference 0, ids
+    -1, seeded on the first valid node. The frozen base is every real row
+    (below plan.n_real) outside the closure at its node in `assignment`:
+    its load (added in row order), its id counts and its domain counts.
+    `staged` is :func:`stage_subsolve`'s buffer."""
+    if staged.device.type == "cpu":
+        return k5_stage_plain(prob, assignment, staged, plan)
+    tier, N = plan.tier, prob.N
+    n_conf, n_coloc = len(plan.conf_ids), len(plan.coloc_ids)
+    if (staged.dtype != torch.int32 or assignment.dtype != torch.int32
+            or staged.shape != (tier + n_conf + n_coloc,)
+            or assignment.shape != (prob.S,) or prob.demand.shape[1] != 3
+            or not 0 <= plan.n_sub <= tier or plan.n_real > prob.S
+            or n_conf > plan.G_sub or n_coloc > max(plan.Gc_sub, 1)):
+        raise ValueError("k5_stage: expects the plan's int32 buffer, an "
+                         "int32 (S,) assignment, R=3, n_sub <= tier and "
+                         "id lists within G_sub / Gc_sub")
+    _ext.check_inputs("k5_stage", staged, assignment, prob.demand,
+                      prob.eligible, prob.preferred, prob.node_valid,
+                      prob.conflict_ids, prob.coloc_ids, prob.node_topology)
+    dev = staged.device
+    lib = _k5(dev)
     W = prob.eligible.shape[1]
-    demand = torch.empty((tier, 3), dtype=torch.float32, device=dev)
-    eligible = torch.empty((tier, W), dtype=prob.eligible.dtype, device=dev)
-    pref = (None if prob.preferred is None else
-            torch.empty((tier, prob.N), dtype=torch.float32, device=dev))
-    seed = torch.empty(tier, dtype=torch.int32, device=dev)
-    tensors = [rows, assignment, prob.demand, prob.eligible, prob.node_valid]
-    if pref is not None:
-        tensors.append(prob.preferred)
-    _ext.check_inputs("k5_gather", *tensors)
-    _ext.launch("k5_subsolve", "ff_k5_gather", dev,
-                prob.S, prob.N, W, int(prob.eligible_packed), tier, n_sub,
-                rows, assignment, prob.demand, prob.eligible,
-                prob.preferred, prob.node_valid,
-                demand, eligible, pref, seed)
-    return demand, eligible, pref, seed
+    Gc1 = max(plan.Gc_sub, 1)
+    f_shapes = [(tier, 3), (N, 3)] + (
+        [] if prob.preferred is None else [(tier, N)])
+    i_shapes = [(tier,), (tier, plan.Kc), (tier, plan.Cc), (N, plan.G_sub),
+                (N, Gc1), (prob.T,)] + (
+        [(tier, W)] if prob.eligible_packed else [])
+    fbuf = torch.empty(_extent(f_shapes), dtype=torch.float32, device=dev)
+    ibuf = torch.empty(_extent(i_shapes), dtype=torch.int32, device=dev)
+    f = _views(fbuf, f_shapes)
+    i = _views(ibuf, i_shapes)
+    demand, load0 = f[0], f[1]
+    pref = f[2] if prob.preferred is not None else None
+    seed, sub_conflict, sub_coloc, used0, coloc0, topo0 = i[:6]
+    eligible = (i[6] if prob.eligible_packed else torch.empty(
+        (tier, W), dtype=torch.bool, device=dev))
+    args = K5StageArgs(
+        prob.S, N, W, int(prob.eligible_packed), prob.T,
+        prob.conflict_ids.shape[1], prob.coloc_ids.shape[1], tier,
+        plan.n_sub, plan.n_real, n_conf, n_coloc, plan.G_sub, Gc1, plan.Kc,
+        plan.Cc, staged.data_ptr(), assignment.data_ptr(),
+        prob.demand.data_ptr(), prob.eligible.data_ptr(),
+        _ptr(prob.preferred), prob.node_valid.data_ptr(),
+        prob.conflict_ids.data_ptr(), prob.coloc_ids.data_ptr(),
+        prob.node_topology.data_ptr(), demand.data_ptr(),
+        eligible.data_ptr(), _ptr(pref), seed.data_ptr(),
+        sub_conflict.data_ptr(), sub_coloc.data_ptr(), load0.data_ptr(),
+        used0.data_ptr(), coloc0.data_ptr(), topo0.data_ptr())
+    _ext.raise_on("k5_subsolve", lib.ff_k5_stage(
+        ctypes.addressof(args), torch.cuda.current_stream(dev).cuda_stream))
+    return SubStage(demand, eligible, pref, seed, sub_conflict, sub_coloc,
+                    load0, used0, coloc0, topo0)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def k5_commit_plain(best_assign: torch.Tensor, best_viol: torch.Tensor,
@@ -397,11 +513,12 @@ def k5_commit(best_assign: torch.Tensor, best_viol: torch.Tensor,
               best_soft: torch.Tensor, rows: torch.Tensor,
               assignment: torch.Tensor):
     """K5 commit: pick the winning chain of the mini anneal (least
-    violations, then least soft, the first chain on ties) and scatter its
-    rows into a FRESH copy of `assignment` (S,), dropping pad slots
-    (rows[j] >= S). `assignment` itself is never written: a gate-rejected
-    sub-solve re-runs the full path from it. Returns (new assignment (S,)
-    i32, winning chain (1,) i32)."""
+    violations, then least soft, the first chain on ties) and write a
+    FRESH copy of `assignment` (S,) with the winner's slot values at the
+    closure rows (`rows` ascending and unique, as a plan's are; pad slots,
+    rows[j] >= S, are dropped), in one launch. `assignment` itself is
+    never written: a gate-rejected sub-solve re-runs the full path from
+    it. Returns (new assignment (S,) i32, winning chain (1,) i32)."""
     if rows.device.type == "cpu":
         return k5_commit_plain(best_assign, best_viol, best_soft, rows,
                                assignment)
@@ -414,15 +531,18 @@ def k5_commit(best_assign: torch.Tensor, best_viol: torch.Tensor,
             or best_soft.shape != (C,) or assignment.dim() != 1):
         raise ValueError("k5_commit: expects (C, tier) i32, (C,) f32, (C,) "
                          "f32, (tier,) i32 and (S,) i32")
-    dev = rows.device
-    out = torch.empty_like(assignment)
-    best = torch.empty(1, dtype=torch.int32, device=dev)
     _ext.check_inputs("k5_commit", best_assign, best_viol, best_soft, rows,
                       assignment)
-    _ext.launch("k5_subsolve", "ff_k5_commit", dev,
-                C, tier, assignment.shape[0], best_assign, best_viol,
-                best_soft, rows, assignment, out, best)
-    return out, best
+    dev = rows.device
+    lib = _k5(dev)
+    S = assignment.shape[0]
+    buf = torch.empty(S + 1, dtype=torch.int32, device=dev)
+    _ext.raise_on("k5_subsolve", lib.ff_k5_commit(
+        C, tier, S, best_assign.data_ptr(), best_viol.data_ptr(),
+        best_soft.data_ptr(), rows.data_ptr(), assignment.data_ptr(),
+        buf.data_ptr(), buf.data_ptr() + 4 * S,
+        torch.cuda.current_stream(dev).cuda_stream))
+    return buf.as_strided((S,), (1,), 0), buf.as_strided((1,), (1,), S)
 
 
 # -- the device body ---------------------------------------------------------
@@ -431,29 +551,29 @@ SUB_MAX_STEPS = 16   # mini-anneal sweep budget: a closure that has not
 # converged in 16 sweeps goes back to the full path
 
 
-def subsolve(prob: TorchProblem, assignment: torch.Tensor, staged: tuple,
-             n_sub: int, Gc_sub: int, gen: torch.Generator, t0: float,
-             t1: float, migration_weight: float, *, chains: int, steps: int,
-             block: int, proposals_per_step: int, prerepair_moves: int,
-             trace_blocks: int = 0):
-    """The localized solve on the device: K5 gather, K3 onto the frozen
+def subsolve(prob: TorchProblem, assignment: torch.Tensor,
+             staged: torch.Tensor, plan: ActivePlan, gen: torch.Generator,
+             t0: float, t1: float, migration_weight: float, *, chains: int,
+             steps: int, block: int, proposals_per_step: int,
+             prerepair_moves: int, trace_blocks: int = 0):
+    """The localized solve on the device: K5 stage, K3 onto the frozen
     base, K2, the adaptive anneal (K1), K5 commit, and K3's exact
     full-problem stats of the result as the gate. Returns (new assignment
     (S,) i32, stats dict, soft 0-dim, sweeps_run, accepted 0-dim,
     telemetry)."""
-    rows, sub_conflict, sub_coloc, load0, used0, coloc0, topo0 = staged
-    demand, eligible, pref, seed = k5_gather(prob, assignment, rows, n_sub)
+    st = k5_stage(prob, assignment, staged, plan)
     # warm stickiness as on the full path: staying on the previous
     # still-eligible node earns migration_weight
     sub = TorchProblem(
-        demand=demand, capacity=prob.capacity, conflict_ids=sub_conflict,
-        coloc_ids=sub_coloc, eligible=eligible, node_valid=prob.node_valid,
-        node_topology=prob.node_topology, S=rows.shape[0], N=prob.N,
-        G=used0.shape[1], Gc=Gc_sub, T=prob.T, strategy=prob.strategy,
-        max_skew=prob.max_skew, preferred=pref, n_real=n_sub,
-        sticky_prev=seed, sticky_w=float(migration_weight))
-    st0 = chain_states_from_assignment(sub, seed,
-                                       base=(load0, used0, coloc0, topo0))
+        demand=st.demand, capacity=prob.capacity,
+        conflict_ids=st.sub_conflict, coloc_ids=st.sub_coloc,
+        eligible=st.eligible, node_valid=prob.node_valid,
+        node_topology=prob.node_topology, S=plan.tier, N=prob.N,
+        G=plan.G_sub, Gc=plan.Gc_sub, T=prob.T, strategy=prob.strategy,
+        max_skew=prob.max_skew, preferred=st.preferred, n_real=plan.n_sub,
+        sticky_prev=st.seed, sticky_w=float(migration_weight))
+    st0 = chain_states_from_assignment(
+        sub, st.seed, base=(st.load0, st.used0, st.coloc0, st.topo0))
     st0, prerepair_applied = prerepair_state_counted(sub, st0,
                                                      prerepair_moves)
     inits = st0.assignment.expand(chains, -1)
@@ -463,8 +583,8 @@ def subsolve(prob: TorchProblem, assignment: torch.Tensor, staged: tuple,
         proposals_per_step=proposals_per_step,
         init_states=st0.expand(chains), exit_on_feasible_init=True,
         trace_blocks=trace_blocks)
-    new_assignment, _best = k5_commit(best_c, viol_c, soft_c, rows,
-                                      assignment)
+    new_assignment, _best = k5_commit(best_c, viol_c, soft_c,
+                                      staged[:plan.tier], assignment)
     # the gate: whatever the mini anneal believed, THIS decides
     stats, soft = exact_stats_and_soft(prob, new_assignment)
     telem = dict(telem, prerepair_moves=prerepair_applied[0])
@@ -473,14 +593,15 @@ def subsolve(prob: TorchProblem, assignment: torch.Tensor, staged: tuple,
 
 
 def subsolve_dispatch(prob: TorchProblem, assignment: torch.Tensor,
-                      staged: tuple, plan: ActivePlan, gen: torch.Generator,
-                      t0: float, t1: float, migration_weight: float, *,
-                      chains: int, steps: int, block: int,
-                      proposals_per_step: int, trace_blocks: int = 0):
+                      staged: torch.Tensor, plan: ActivePlan,
+                      gen: torch.Generator, t0: float, t1: float,
+                      migration_weight: float, *, chains: int, steps: int,
+                      block: int, proposals_per_step: int,
+                      trace_blocks: int = 0):
     """Run :func:`subsolve` for `plan` with the reference's budgets: at
     most SUB_MAX_STEPS sweeps, max(16, min(tier, 256)) pre-repair moves."""
-    return subsolve(prob, assignment, staged, plan.n_sub, plan.Gc_sub, gen,
-                    t0, t1, migration_weight, chains=chains,
+    return subsolve(prob, assignment, staged, plan, gen, t0, t1,
+                    migration_weight, chains=chains,
                     steps=min(steps, SUB_MAX_STEPS), block=block,
                     proposals_per_step=proposals_per_step,
                     prerepair_moves=max(16, min(plan.tier, 256)),

@@ -24,7 +24,8 @@ from fleetflow_tpu_torch.convert import resident_from_reference
 from fleetflow_tpu_torch.solver import buckets as port_buckets
 from fleetflow_tpu_torch.solver import problem as port_problem
 from fleetflow_tpu_torch.solver.resident import ProblemDelta
-from fleetflow_tpu_torch.solver.subsolve import k5_gather_plain
+from fleetflow_tpu_torch.solver.subsolve import (ActivePlan,
+                                                 k5_stage_plain)
 from test_torch_problem import CPU, make_pair, to_np
 
 PLANES = ("demand", "capacity", "conflict_ids", "coloc_ids", "eligible",
@@ -137,8 +138,8 @@ def test_pad_assignment_matches_reference(first_dead):
 @pytest.mark.parametrize("packed", [True, False])
 def test_k5_gather_plain_is_fancy_indexing_of_reference_planes(packed,
                                                                monkeypatch):
-    """K5's plain gather against numpy fancy indexing of the reference's
-    staged planes, pad slots included."""
+    """K5's plain stage's slot planes (what the gather was) against numpy
+    fancy indexing of the reference's staged planes, pad slots included."""
     monkeypatch.setenv("FLEET_PACKED", "1" if packed else "0")
     ref_pt, port_pt = make_pair(180, 40, 5, preferred=not packed)
     dp, _ = ref_buckets.stage_problem_tiers(ref_pt,
@@ -154,8 +155,12 @@ def test_k5_gather_plain_is_fancy_indexing_of_reference_planes(packed,
     valid = np.asarray(dp.node_valid).copy()
     valid[:2] = False
     tp.node_valid = torch.tensor(valid)
-    demand, elig, pref, seed = k5_gather_plain(
-        tp, torch.tensor(assignment), torch.tensor(rows), n_sub)
+    plan = ActivePlan(rows=rows, n_sub=n_sub, tier=tier, G_sub=16, Gc_sub=0,
+                      conf_ids=np.empty(0, np.int32),
+                      coloc_ids=np.empty(0, np.int32), n_real=port_pt.S,
+                      Kc=4, Cc=4)
+    demand, elig, pref, seed = k5_stage_plain(
+        tp, torch.tensor(assignment), torch.tensor(plan.packed()), plan)[:4]
 
     g = np.minimum(rows, S_pad - 1)
     real = np.arange(tier) < n_sub

@@ -3,10 +3,12 @@ the card, at small sizes, over the branches chip_smoke.py's headline
 instance does not reach: pack and fill_lowest strategies, a preference
 plane, the dense eligibility layout, a spread constraint, phantom rows,
 stickiness, a frozen base, the lane axis of K1-K3 (1, 3 and 16 lanes, an
-inactive lane) and a place_many batch; K5, the sub-solve's gather and
-commit, at the 10k x 1k headline size with mini tiers of 256 and 4096
-rows; K6, the per-service scan seed, at 2000 x 200 for each strategy and
-on best-effort instances; the host placer's build and the host seeds of
+inactive lane) and a place_many batch; K5, the sub-solve's stage (the
+mini problem and its frozen base) and commit, at the 10k x 1k headline
+size with mini tiers of 256 and 4096 rows, and on a resident staging
+after arrivals into phantom rows with 6 topology domains; K6, the
+per-service scan seed, at 2000 x 200 for each strategy and on best-effort
+instances; the host placer's build and the host seeds of
 solve() on the card; K7, the sharded sweep, at 2000 x 200 on one-card
 meshes of 1 x 8 and 2 x 4 positions, and a cold and a warm solve_sharded;
 K4's selection where it is hardest (scores tied across nodes, fewer
@@ -35,8 +37,9 @@ no JAX, so the repository's conftest cannot load):
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 
 Tolerances: assignments, integer planes, stats and move counts must be
-equal (K5's gathered planes and committed assignments too: they are
-copies). Loads: the plain versions add with index_add_, which on the card
+equal (K5's staged planes and committed assignments too: they are
+copies and counts, and K5's frozen load adds in row order, as its plain
+version on the CPU does). Loads: the plain versions add with index_add_, which on the card
 groups the contributions to one row before adding them, where the kernels
 add one at a time in index order; float32 loads agree to rtol 1e-5.
 """
@@ -534,26 +537,115 @@ def _plan_rows(S, S_pad, tier, seed):
     return rows, n_sub
 
 
+def _headline_plan(pt, prob, tier, seed):
+    """A plan of the K5 stage on the headline staging: the closure rows
+    as _plan_rows draws them, the id lists those rows carry, every real
+    row's node drawn at random (the frozen base's input)."""
+    from fleetflow_tpu_torch.solver.buckets import width_bucket
+    rows, n_sub = _plan_rows(pt.S, prob.S, tier, seed)
+    conflict = unify_conflict_ids(pt)
+    conf, coloc = subsolve.closure_ids(conflict, pt.coloc_ids,
+                                       rows[:n_sub].astype(np.int64))
+    plan = subsolve.ActivePlan(
+        rows=rows, n_sub=n_sub, tier=tier,
+        G_sub=max(min(tier, prob.G), len(conf), 16),
+        Gc_sub=0 if prob.Gc == 0 else max(min(tier // 4, prob.Gc),
+                                          len(coloc), 4),
+        conf_ids=conf.astype(np.int32), coloc_ids=coloc.astype(np.int32),
+        n_real=pt.S, Kc=width_bucket(conflict.shape[1]),
+        Cc=width_bucket(pt.coloc_ids.shape[1]))
+    return plan
+
+
+def _assert_stage_equal(prob, a, staged, plan):
+    """K5 stage on the card, one launch, equal to its plain version on
+    CPU copies (which adds the frozen load in row order) on every
+    output."""
+    before = _ext.LAUNCHES["k5_subsolve"]
+    out = subsolve.k5_stage(prob, a, staged, plan)
+    assert _ext.LAUNCHES["k5_subsolve"] == before + 1
+    ref = subsolve.k5_stage_plain(_on_cpu(prob), a.cpu(), staged.cpu(),
+                                  plan)
+    for name, x, y in zip(subsolve.SubStage._fields, out, ref):
+        assert (x is None) == (y is None), name
+        if x is not None:
+            assert x.dtype == y.dtype and torch.equal(x.cpu(), y), name
+    return out
+
+
 @pytest.mark.parametrize("layout", ["packed", "dense"])
 @pytest.mark.parametrize("tier", [256, 4096])
-def test_k5_gather_matches_plain(dev, headline, layout, tier):
+def test_k5_stage_matches_plain(dev, headline, layout, tier):
     pt, probs = headline
     prob = dataclasses.replace(probs[layout])
     valid = prob.node_valid.clone()
     valid[:3] = False                        # phantoms park on node 3
     prob.node_valid = valid
-    rows, n_sub = _plan_rows(pt.S, prob.S, tier, tier)
-    rows_t = torch.tensor(rows, device=dev)
+    plan = _headline_plan(pt, prob, tier, tier)
+    staged = torch.tensor(plan.packed(), device=dev)
     a = torch.randint(0, prob.N, (prob.S,), dtype=torch.int32, device=dev)
-    before = _ext.LAUNCHES["k5_subsolve"]
-    out = subsolve.k5_gather(prob, a, rows_t, n_sub)
-    ref = subsolve.k5_gather_plain(prob, a, rows_t, n_sub)
-    assert _ext.LAUNCHES["k5_subsolve"] == before + 1
-    for x, y in zip(out, ref):
-        assert (x is None) == (y is None)
-        if x is not None:
-            assert x.dtype == y.dtype and torch.equal(x, y)
-    assert bool((out[3][n_sub:] == 3).all())
+    out = _assert_stage_equal(prob, a, staged, plan)
+    assert bool((out.seed[plan.n_sub:] == 3).all())
+    assert int(out.used0.sum()) > 0 and len(plan.conf_ids) > 0
+
+
+def test_k5_stage_after_arrivals_with_domains(dev):
+    """The resident path on the card: a staging with 6 topology domains
+    and coloc ids, a node killed and 5 id-free arrivals into phantom rows
+    in one delta; the plan the resident takes, staged with one upload,
+    equal to the plain stage; the arrivals' id rows are -1 on the card."""
+    from fleetflow_tpu_torch.convert import resident_from_reference
+    from fleetflow_tpu_torch.solver.buckets import pad_assignment
+    from fleetflow_tpu_torch.solver.resident import (ProblemDelta,
+                                                     ResidentProblem)
+    rng = np.random.default_rng(3)
+    pt = synthetic_problem(2000, 60, seed=3, n_tenants=3)
+    coloc = np.where(rng.random((2000, 2)) < 0.1,
+                     rng.integers(0, 30, (2000, 2)), -1).astype(np.int32)
+    pt = dataclasses.replace(pt, coloc_ids=coloc, max_skew=4,
+                             node_topology=(np.arange(60) % 6).astype(
+                                 np.int32))
+    padded_S = ResidentProblem(pt, torch.device("cpu")).prob.S
+    ok = pt.eligible & pt.node_valid[None, :]
+    real = np.argmax(rng.random(ok.shape) * ok, axis=1).astype(np.int32)
+    mirror = pad_assignment(real, padded_S, pt.node_valid)
+    rp = resident_from_reference(pt, mirror, True, device=dev)
+    # 5 id-free arrivals (demand 0.01, eligible everywhere)
+    k, S = 5, pt.S
+    grow = lambda x: np.concatenate(  # noqa: E731
+        [x, np.full((k, x.shape[1]), -1, dtype=x.dtype)])
+    dem = np.full((k, 3), 0.01, dtype=np.float32)
+    elig = np.ones((k, 60), dtype=bool)
+    names = [f"arrival{i}" for i in range(k)]
+    grown = dataclasses.replace(
+        pt, service_names=pt.service_names + names,
+        demand=np.concatenate([pt.demand, dem]),
+        eligible=np.concatenate([pt.eligible, elig]),
+        dep_adj=np.pad(pt.dep_adj, ((0, k), (0, k))),
+        dep_depth=np.concatenate([pt.dep_depth,
+                                  np.zeros(k, pt.dep_depth.dtype)]),
+        port_ids=grow(pt.port_ids), volume_ids=grow(pt.volume_ids),
+        anti_ids=grow(pt.anti_ids), coloc_ids=grow(pt.coloc_ids),
+        replica_of=(pt.replica_of + names if pt.replica_of
+                    else pt.replica_of))
+    new_rows = np.arange(S, S + k, dtype=np.int32)
+    kw = dict(demand_rows=(new_rows, dem), eligible_rows=(new_rows, elig),
+              n_real=S + k)
+    valid = pt.node_valid.copy()
+    held = np.bincount(mirror[:pt.S], minlength=60).astype(float)
+    held[held == 0] = np.inf
+    valid[held.argmin()] = False            # the least loaded busy node
+    cur = dataclasses.replace(grown, node_valid=valid.copy())
+    rp.apply_delta(cur, ProblemDelta(node_valid=valid.copy(), **kw))
+    assert rp.prob.n_real == cur.S and rp.prob.T == 6
+    assert bool((rp.prob.conflict_ids[pt.S:cur.S] == -1).all())
+    plan = rp.take_active_plan()
+    assert plan is not None and (plan.rows[:plan.n_sub] >= pt.S).sum() == 5
+    before = rp.h2d_copies
+    staged = subsolve.stage_subsolve(rp, plan)
+    assert rp.h2d_copies == before + 1
+    out = _assert_stage_equal(rp.prob, rp.assignment, staged, plan)
+    assert int(out.topo0.sum()) == cur.S - plan.n_sub
 
 
 @pytest.mark.parametrize("tier", [256, 4096])
@@ -600,12 +692,16 @@ def test_k5_commit_ties(dev, viol, soft, best):
 
 
 def test_k5_wrappers_raise_on_bad_input(dev, headline):
-    _, probs = headline
+    pt, probs = headline
     prob = probs["packed"]
     a = torch.zeros(prob.S, dtype=torch.int32, device=dev)
+    plan = _headline_plan(pt, prob, 256, 1)
     with pytest.raises(ValueError):
-        subsolve.k5_gather(prob, a, torch.zeros(16, dtype=torch.int64,
-                                                device=dev), 4)
+        subsolve.k5_stage(prob, a, torch.tensor(plan.packed(), device=dev,
+                                                dtype=torch.int64), plan)
+    with pytest.raises(ValueError):      # the buffer of another plan
+        subsolve.k5_stage(prob, a, torch.zeros(16, dtype=torch.int32,
+                                               device=dev), plan)
     with pytest.raises(ValueError):
         subsolve.k5_commit(torch.zeros((2, 16), dtype=torch.int64,
                                        device=dev),

@@ -219,11 +219,18 @@ class TestConvert:
         assert info == pinfo and info.padded_S == rinfo.padded_S
 
     def test_plan_from_reference(self, monkeypatch):
+        """A reference plan as the port's lean plan and its staged buffer:
+        the plan's ints carried, the id lists those of its closure rows,
+        and K5's plain stage of it equal to the reference's base and
+        remapped ids."""
         from fleetflow_tpu.solver.subsolve import ActiveIndex, plan_active
-        from fleetflow_tpu_torch.solver.subsolve import ActivePlan
+        from fleetflow_tpu_torch.solver.buckets import width_bucket
+        from fleetflow_tpu_torch.solver.problem import prepare_problem
+        from fleetflow_tpu_torch.solver.subsolve import (ActivePlan,
+                                                         k5_stage_plain)
         monkeypatch.setenv("FLEET_SUBSOLVE_MIN", "16")
         monkeypatch.setenv("FLEET_SUBSOLVE_FRAC", "1.0")
-        ref_pt, _ = make_pair(300, 30, 2, n_tenants=1)
+        ref_pt, port_pt = make_pair(300, 30, 2, n_tenants=1)
         mirror = np.random.default_rng(2).integers(0, 30, 320).astype(
             np.int32)
         valid = ref_pt.node_valid.copy()
@@ -234,16 +241,22 @@ class TestConvert:
         assert plan is not None, outcome
         fields = {f.name: getattr(plan, f.name)
                   for f in dataclasses.fields(plan)}
-        conv, staged = plan_from_reference(fields, device=CPU)
+        port_cur = dataclasses.replace(port_pt, node_valid=valid)
+        conv, staged = plan_from_reference(fields, port_cur, device=CPU)
         assert isinstance(conv, ActivePlan)
-        names = ("rows", "sub_conflict", "sub_coloc", "load0", "used0",
-                 "coloc0", "topo0")
-        for name, t in zip(names, staged):
-            a, b = fields[name], getattr(conv, name)
-            assert a.dtype == b.dtype and np.array_equal(a, b), name
-            assert np.array_equal(to_np(t), a), name
+        assert conv.rows.dtype == np.int32
+        assert np.array_equal(conv.rows, fields["rows"])
         for name in ("n_sub", "tier", "G_sub", "Gc_sub", "affected"):
             assert getattr(conv, name) == fields[name], name
+        assert conv.n_real == 300
+        assert np.array_equal(to_np(staged), conv.packed())
+        prob = prepare_problem(port_cur, CPU, extents=lambda S, K, C, G, Gc: (
+            320, width_bucket(K), width_bucket(C), G, Gc))
+        out = k5_stage_plain(prob, torch.tensor(mirror), staged, conv)
+        for name in ("sub_conflict", "sub_coloc", "load0", "used0",
+                     "coloc0", "topo0"):
+            a, b = fields[name], to_np(getattr(out, name))
+            assert a.dtype == b.dtype and np.array_equal(a, b), name
 
     def test_resident_from_reference(self):
         from fleetflow_tpu.solver import solve as ref_solve
@@ -329,16 +342,10 @@ class TestBoundaries:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(SolverError):
             padded_problem_from_reference(*ref_arrays(dp), 30)
-        plan = {"rows": np.zeros(16, np.int32),
-                "sub_conflict": np.full((16, 4), -1, np.int32),
-                "sub_coloc": np.full((16, 4), -1, np.int32),
-                "load0": np.zeros((6, 3), np.float32),
-                "used0": np.zeros((6, 16), np.int32),
-                "coloc0": np.zeros((6, 1), np.int32),
-                "topo0": np.zeros(6, np.int32), "n_sub": 1, "tier": 16,
+        plan = {"rows": np.zeros(16, np.int32), "n_sub": 1, "tier": 16,
                 "G_sub": 16, "Gc_sub": 0, "affected": 1}
         with pytest.raises(SolverError):
-            plan_from_reference(plan)
+            plan_from_reference(plan, pt)
         with pytest.raises(SolverError):
             resident_from_reference(pt, np.zeros(64, np.int32), True)
 

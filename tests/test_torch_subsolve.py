@@ -1,8 +1,14 @@
 """The active-set sub-solve (fleetflow_tpu_torch/solver/subsolve.py) against
 the JAX package on the CPU.
 
-  * the host planner is a copy: closures and every ActivePlan field are
-    bit-equal to the reference's, given the same mirror and pending rows
+  * the host planner keeps the reference's decisions: closures are
+    bit-equal, and the port's lean plan (rows and compact id lists) plus
+    K5's plain stage on the same mirror and post-delta staging equal every
+    field of the reference's ActivePlan, its frozen base included, exactly
+    (also after arrivals into phantom rows, a departed row, without coloc
+    ids, with a closure carrying no conflict id, packed and dense, with a
+    preference plane)
+  * a localized warm solve uploads its plan as one small int32 buffer
   * one sub-solve dispatch that exits at 0 sweeps (the fused pre-repair
     lands feasible, so no random draw is made) gives the reference's new
     assignment and stats exactly, and its soft score within rel 1e-5
@@ -39,8 +45,11 @@ from fleetflow_tpu_torch.convert import (plan_from_reference,
 from fleetflow_tpu_torch.lower.tensors import synthetic_problem
 from fleetflow_tpu_torch.solver import solve
 from fleetflow_tpu_torch.solver import subsolve as port_sub
+from fleetflow_tpu_torch.solver.buckets import pad_assignment, width_bucket
+from fleetflow_tpu_torch.solver.problem import prepare_problem
 from fleetflow_tpu_torch.solver.repair import verify
 from fleetflow_tpu_torch.solver.resident import ProblemDelta, ResidentProblem
+from test_torch_buckets import _grown
 from test_torch_problem import CPU, make_pair, to_np
 
 SOLVE_KW = dict(steps=32, anneal_block=1, chains=1)
@@ -48,6 +57,9 @@ SOFT_RTOL = 1e-5       # one gate's soft score, float32 sums reordered
 FULL_SOFT_ATOL = 0.1   # localized vs the port's own full path (reference)
 PLAN_FIELDS = ("rows", "n_sub", "tier", "G_sub", "Gc_sub", "sub_conflict",
                "sub_coloc", "load0", "used0", "coloc0", "topo0", "affected")
+# the reference plan's fields the port's lean plan carries itself; K5's
+# stage builds the rest on the device
+LEAN_FIELDS = ("rows", "n_sub", "tier", "G_sub", "Gc_sub", "affected")
 
 
 @pytest.fixture
@@ -58,6 +70,29 @@ def small_tiers(monkeypatch):
 
 def _plan_fields(plan) -> dict:
     return {k: getattr(plan, k) for k in PLAN_FIELDS}
+
+
+def assert_plan_matches(ref_plan, plan, prob, assignment, staged) -> None:
+    """The port's lean `plan`, and K5's plain stage of it on the staging
+    `prob` and padded `assignment`, equal every field of the reference's
+    ActivePlan exactly, dtype included; `staged` is the plan's buffer."""
+    assert np.array_equal(to_np(staged), plan.packed())
+    out = port_sub.k5_stage_plain(prob, assignment, staged, plan)
+    for k, v in _plan_fields(ref_plan).items():
+        w = getattr(plan, k) if k in LEAN_FIELDS else to_np(getattr(out, k))
+        if isinstance(v, np.ndarray):
+            assert v.dtype == w.dtype and np.array_equal(v, w), k
+        else:
+            assert v == w, k
+
+
+def _padded_stage(pt, S_pad: int, packed=None):
+    """`pt` staged on the CPU with S_pad rows (phantoms past pt.S) and the
+    id tables at their width buckets, as a resident staging holds it."""
+    return prepare_problem(pt, CPU, packed=packed,
+                           extents=lambda S, K, C, G, Gc: (
+                               S_pad, width_bucket(K), width_bucket(C), G,
+                               Gc))
 
 
 def _kill(pt, assignment, valid, pick):
@@ -97,8 +132,9 @@ def test_closure_bit_equal(seed):
 @pytest.mark.parametrize("extras", [{}, {"coloc": True},
                                     {"max_skew": 3, "domains": 4}])
 def test_plan_active_bit_equal(extras, small_tiers):
-    """Every ActivePlan field, and the fallback outcomes, equal the
-    reference's given the same mirror and pending rows."""
+    """The fallback outcomes equal the reference's, and the lean plan plus
+    K5's plain stage equal every field of its ActivePlan, given the same
+    mirror and pending rows."""
     ref_pt, port_pt = make_pair(150, 15, 3, **extras)
     rng = np.random.default_rng(7)
     S_pad = 160
@@ -110,6 +146,8 @@ def test_plan_active_bit_equal(extras, small_tiers):
     ref_idx, port_idx = ref_sub.ActiveIndex(ref_pt), port_sub.ActiveIndex(
         port_pt)
     T = int(port_pt.node_topology.max()) + 1
+    prob = _padded_stage(port_cur, S_pad)
+    assert prob.T == T
     for pending, frac in ((np.array([4, 77]), 0.6), (np.empty(0), 0.6),
                           (np.array([1]), 0.01)):
         cfg_r = dataclasses.replace(ref_sub.subsolve_config(), frac=frac)
@@ -124,12 +162,8 @@ def test_plan_active_bit_equal(extras, small_tiers):
         assert (pr is None) == (pp is None)
         if pr is None:
             continue
-        for k, v in _plan_fields(pr).items():
-            w = getattr(pp, k)
-            if isinstance(v, np.ndarray):
-                assert v.dtype == w.dtype and np.array_equal(v, w), k
-            else:
-                assert v == w, k
+        assert_plan_matches(pr, pp, prob, torch.tensor(mirror),
+                            torch.tensor(pp.packed()))
 
 
 def _ref_resident_after_kill(S, N, seed, pick):
@@ -156,12 +190,152 @@ def test_resident_plan_matches_reference(seed, small_tiers):
                                       pending_rows=np.empty(0), device=CPU)
     pr, pp = ref_rp.take_active_plan(), port_rp.take_active_plan()
     assert pr is not None and pp is not None
-    for k, v in _plan_fields(pr).items():
-        w = getattr(pp, k)
-        assert (np.array_equal(v, w) if isinstance(v, np.ndarray)
-                else v == w), k
+    assert_plan_matches(pr, pp, port_rp.prob, port_rp.assignment,
+                        port_sub.stage_subsolve(port_rp, pp))
     # the plan is consumed: the next call has nothing pending
     assert port_rp.take_active_plan() is None
+
+
+def _mirror(pt, S_pad: int, seed: int) -> np.ndarray:
+    """A padded assignment with every real row on a random valid node
+    eligible for it (no row stranded), phantoms on the first valid node."""
+    rng = np.random.default_rng(seed)
+    ok = np.asarray(pt.eligible) & np.asarray(pt.node_valid)[None, :]
+    real = np.array([rng.choice(np.nonzero(r)[0]) for r in ok],
+                    dtype=np.int32)
+    return pad_assignment(real, S_pad, np.asarray(pt.node_valid))
+
+
+def _no_conflict_ids(pt):
+    return dataclasses.replace(
+        pt, port_ids=np.full_like(pt.port_ids, -1),
+        volume_ids=np.full_like(pt.volume_ids, -1),
+        anti_ids=np.full_like(pt.anti_ids, -1))
+
+
+def _sparse_coloc(pt, seed: int):
+    """`pt` with one in ten services in one of 30 colocation groups (a
+    closure of a few groups, where make_pair's 4 groups take every row)."""
+    rng = np.random.default_rng(seed)
+    ids = np.where(rng.random((pt.S, 2)) < 0.1,
+                   rng.integers(0, 30, (pt.S, 2)), -1).astype(np.int32)
+    return dataclasses.replace(pt, coloc_ids=ids)
+
+
+SCENARIOS = {
+    # name: (make_pair extras, FLEET_PACKED)
+    "packed": ({"max_skew": 3, "domains": 4}, "1"),
+    "dense": ({}, "0"),
+    "preferred": ({"preferred": True}, "0"),
+    "no_coloc": ({}, "1"),
+    "no_conflict_ids": ({}, "1"),
+    "arrivals": ({"max_skew": 2, "domains": 3}, "1"),
+    "departed": ({}, "0"),
+}
+
+
+@pytest.mark.parametrize("scenario", list(SCENARIOS))
+def test_lean_plan_matches_reference_after_delta(scenario, small_tiers,
+                                                 monkeypatch):
+    """Both packages' residents carry one mirror and take one delta; the
+    reference's plan equals the port's lean plan plus K5's plain stage on
+    the port's merged staging, field for field."""
+    extras, packed = SCENARIOS[scenario]
+    monkeypatch.setenv("FLEET_PACKED", packed)
+    ref_pt, port_pt = make_pair(140, 14, 11, **extras)
+    if scenario != "no_coloc":
+        ref_pt, port_pt = _sparse_coloc(ref_pt, 11), _sparse_coloc(port_pt, 11)
+    if scenario == "no_conflict_ids":
+        ref_pt, port_pt = (_no_conflict_ids(ref_pt),
+                           _no_conflict_ids(port_pt))
+    port_rp = ResidentProblem(port_pt, CPU)
+    mirror = _mirror(port_pt, port_rp.prob.S, 11)
+    port_rp = resident_from_reference(port_pt, mirror, True, device=CPU)
+    ref_rp = RefResident(ref_pt)
+    ref_rp.adopt_host(mirror[:port_pt.S], port_pt.node_valid, warm=False)
+    ref_rp.note_host_assignment(padded=mirror.copy(), feasible=True)
+    assert np.array_equal(np.asarray(ref_rp.assignment), mirror)
+
+    valid = port_pt.node_valid.copy()
+    valid[np.bincount(mirror[:port_pt.S], minlength=14).argmax()] = False
+    kw = dict(node_valid=valid)
+    ref_next, port_next = ref_pt, port_pt
+    if scenario == "arrivals":
+        ref_next, ref_kw = _grown(ref_pt, 5, 14)
+        port_next, port_kw = _grown(port_pt, 5, 14)
+        kw.update(port_kw)
+    if scenario == "departed":
+        gone = np.array([7, 60], dtype=np.int32)
+        dem = np.zeros((2, 3), np.float32)
+        elig = np.ones((2, 14), dtype=bool)
+        for p in (ref_next, port_next):
+            p.demand[gone], p.eligible[gone] = dem, elig
+        kw.update(demand_rows=(gone, dem), eligible_rows=(gone, elig))
+    ref_cur = dataclasses.replace(ref_next, node_valid=valid.copy())
+    port_cur = dataclasses.replace(port_next, node_valid=valid.copy())
+    ref_rp.apply_delta(ref_cur, RefDelta(**kw))
+    port_rp.apply_delta(port_cur, ProblemDelta(**kw))
+    if scenario == "arrivals":
+        # the arrivals took the delta path into phantom rows, which carry
+        # no ids on the card (so the frozen base counts none for them)
+        assert port_rp.prob.n_real == port_cur.S > port_pt.S
+        new = slice(port_pt.S, port_cur.S)
+        assert bool((port_rp.prob.conflict_ids[new] == -1).all())
+        assert bool((port_rp.prob.coloc_ids[new] == -1).all())
+
+    pr, pp = ref_rp.take_active_plan(), port_rp.take_active_plan()
+    assert pr is not None and pp is not None
+    assert pp.n_real == port_cur.S
+    if scenario == "arrivals":
+        assert (pp.rows[:pp.n_sub] >= port_pt.S).sum() == 5
+    if scenario == "no_coloc":
+        assert pp.Gc_sub == 0 and pr.coloc0.shape == (14, 1)
+    else:
+        assert len(pp.coloc_ids) and pr.coloc0.any()
+    if scenario == "no_conflict_ids":
+        assert len(pp.conf_ids) == 0 and not pr.used0.any()
+    assert_plan_matches(pr, pp, port_rp.prob, port_rp.assignment,
+                        port_sub.stage_subsolve(port_rp, pp))
+
+
+def test_localized_solve_uploads_one_small_buffer(monkeypatch, small_tiers):
+    """A localized warm solve stages its sub-solve with one counted upload
+    of O(tier + G_sub + Gc_sub) int32s: no (N, ·) plane crosses."""
+    pt = _sparse_coloc(make_pair(140, 14, 2)[1], 2)
+    rp = ResidentProblem(pt, CPU)
+    res = solve(pt, prob=rp.prob, resident=rp, seed=2, bucket=True,
+                **SOLVE_KW)
+    valid, _ = _kill(pt, res.assignment, pt.node_valid, max)
+    cur = dataclasses.replace(pt, node_valid=valid)
+    rp.apply_delta(cur, ProblemDelta(node_valid=valid))
+    seen = []
+    real_stage = port_sub.stage_subsolve
+
+    def stage(resident, plan):
+        real_upload = resident.upload
+
+        def upload(arr, dtype):
+            seen.append((np.asarray(arr).shape, dtype))
+            return real_upload(arr, dtype)
+
+        monkeypatch.setattr(resident, "upload", upload)
+        before = resident.h2d_copies
+        try:
+            out = real_stage(resident, plan)
+        finally:
+            monkeypatch.setattr(resident, "upload", real_upload)
+        seen.append(("plan", plan, resident.h2d_copies - before))
+        return out
+
+    monkeypatch.setattr(port_sub, "stage_subsolve", stage)
+    r = solve(cur, prob=rp.prob, resident=rp, resident_warm=True, seed=5,
+              bucket=True, **SOLVE_KW)
+    assert r.subsolve is not None and r.subsolve["outcome"] == "localized"
+    assert len(seen) == 2
+    (shape, dtype), (_, plan, copies) = seen
+    assert copies == 1 and dtype == torch.int32
+    assert shape == (plan.tier + len(plan.conf_ids) + len(plan.coloc_ids),)
+    assert shape[0] <= plan.tier + plan.G_sub + plan.Gc_sub
 
 
 @pytest.mark.parametrize("seed", [1, 2, 3])
@@ -182,7 +356,10 @@ def test_zero_sweep_subsolve_matches_reference(seed, small_tiers):
     assert int(sweeps_r) == 0
 
     port_rp = resident_from_reference(port_cur, mirror, True, device=CPU)
-    p_plan, p_staged = plan_from_reference(_plan_fields(plan), device=CPU)
+    p_plan, p_staged = plan_from_reference(_plan_fields(plan), port_cur,
+                                           device=CPU)
+    assert_plan_matches(plan, p_plan, port_rp.prob, port_rp.assignment,
+                        p_staged)
     gen = torch.Generator()
     gen.manual_seed(0)
     before = port_rp.assignment.clone()
