@@ -56,6 +56,17 @@ each of which fails the run:
   5. ``[ab]``: phase 4's solves replayed on fresh schedulers with the same
      node masks, the sub-solve off (FLEET_SUBSOLVE=0) and on, in the order
      off, on, on, off; one line per solve with its wall ms both ways;
+     then ``[obs]``, the port's observability, outside every profiler
+     window: a cold place of the phase-4 fleet and three bursts (one node
+     down, 64 arrivals, 5% down with the sub-solve off), a K = 3
+     ``solve_multiplexed`` batch and a cold 1x8 ``solve_sharded`` with
+     FLEET_TRACE_FILE set, the registry's counters moved exactly as those
+     calls imply and one ``solve.trace`` record a solve holding its
+     telemetry; FLEET_PROFILE_SOLVER=1's dispatch delta read from the
+     allocator; FLEET_PROFILE_DIR's Chrome trace of a cold solve with its
+     ranges and K4's, K3's and K1's kernel events; the per-solve
+     bookkeeping's host µs, at most 1% of the median of ``[ab]``'s
+     sub-solve-off 0-sweep bursts, printed with the card line;
   6. ``[mux]``: the tenant multiplexer (FLEET_SUBSOLVE=0). Stages of the
      reference bench's mux leg, synthetic_problem(S, N, seed=i,
      port_fraction=0.3, volume_fraction=0.2) at 900x100 and 2000x200 with
@@ -139,6 +150,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import logging
 import math
 import os
 import statistics
@@ -735,17 +747,28 @@ def drive_main_path(np, pt, sched, ProblemDelta, record) -> None:
 
 
 @contextmanager
-def subsolve_off():
-    """FLEET_SUBSOLVE=0 around the block, the previous value restored."""
-    prev = os.environ.get("FLEET_SUBSOLVE")
-    os.environ["FLEET_SUBSOLVE"] = "0"
+def env_set(**values):
+    """Environment variables set (None: unset) around the block, the
+    previous values restored."""
+    prev = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
-        if prev is None:
-            os.environ.pop("FLEET_SUBSOLVE", None)
-        else:
-            os.environ["FLEET_SUBSOLVE"] = prev
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def subsolve_off():
+    """FLEET_SUBSOLVE=0 around the block, the previous value restored."""
+    return env_set(FLEET_SUBSOLVE="0")
 
 
 def make_record(sched, verify, _ext, dev_name: str, tag: str,
@@ -1187,7 +1210,9 @@ def run_default_phase(torch, np, pkg_main, lower, dev_name, S=N_SERVICES,
     pt, tenant = default_fleet(np, lower, S, N, tenant_rows)
     index = subsolve.ActiveIndex(pt)
     sched = GpuSolverScheduler()
-    outcomes0 = dict(subsolve.OUTCOME_COUNTS)
+    from fleetflow_tpu_torch.obs.metrics import REGISTRY
+    sub_total = REGISTRY.get("fleet_solver_subsolve_total")
+    outcomes0 = {k: sub_total.value(outcome=k) for k in subsolve.SUB_OUTCOMES}
     torch.cuda.synchronize()
     _ext.reset_launches()
     record = make_record(sched, verify, _ext, dev_name, "default")
@@ -1196,8 +1221,8 @@ def run_default_phase(torch, np, pkg_main, lower, dev_name, S=N_SERVICES,
                                                record, index, S, tenant)
     launches = read_launches(torch, _ext, "default", KERNEL_NAMES[:5],
                              off=("k6_greedy_scan",), size=(pt.S, pt.N))
-    outcomes = {k: v - outcomes0[k]
-                for k, v in subsolve.OUTCOME_COUNTS.items()}
+    outcomes = {k: int(sub_total.value(outcome=k) - v)
+                for k, v in outcomes0.items()}
     subs = [r["subsolve"] for r in rows if r.get("subsolve")]
     tiers = sorted({s["tier"] for s in subs})
     localized = sum(s["outcome"] == "localized" for s in subs)
@@ -1243,7 +1268,9 @@ def compare_subsolve(np, pkg_main, lower, dev_name, masks, S=N_SERVICES,
     sub-solve off (FLEET_SUBSOLVE=0, the full path on every burst) and on,
     in the order off, on, on, off. Every solve passes the phase's checks.
     Prints each solve's wall ms both ways, with the on runs' plan_ms and
-    subsolve_ms; returns the summed wall ms of the bursts by mode."""
+    subsolve_ms; returns the summed wall ms of the bursts by mode and the
+    wall ms of every sub-solve-off burst that ran 0 sweeps (the full
+    path's 0-sweep bursts)."""
     GpuSolverScheduler, ProblemDelta, verify, _ext, subsolve = pkg_main
     pt0, tenant = default_fleet(np, lower, S, N, tenant_rows)
     index = subsolve.ActiveIndex(pt0)
@@ -1277,7 +1304,350 @@ def compare_subsolve(np, pkg_main, lower, dev_name, masks, S=N_SERVICES,
             subsolve_ms=[t.get("subsolve_ms") for t in t_on])), flush=True)
     print(f"[ab] bursts' summed wall ms (off, on, on, off order; by mode): "
           f"{json.dumps(totals)}", flush=True)
-    return totals
+    full_zero_ms = [r["ms"] for rows in runs["off"] for r in rows[1:]
+                    if r["sweeps"] == 0]
+    return totals, full_zero_ms
+
+
+OBS_MUX_K = 3               # [obs]'s solve_multiplexed batch (rung 4)
+OBS_BOOKKEEPING_CALLS = 1000
+# the per-solve bookkeeping may cost at most this share of the full path's
+# 0-sweep warm burst
+OBS_COST_SHARE = 0.01
+# the __global__ functions of the cold solve's kernels, as a Chrome trace
+# names their events
+OBS_KERNEL_SYMBOLS = {"k4_greedy": ("k4_seed",),
+                      "k3_rebuild": ("k3_init", "k3_build", "k3_stats"),
+                      "k1_sweep": ("k1_sweep_kernel",)}
+# the record fields of a solve.trace event besides the payload
+TRACE_FIELDS = {"S", "N", "warm", "resident", "violations", "pre_repair",
+                "total_ms", "telemetry"}
+
+
+def counter_delta(REGISTRY, before: dict) -> dict:
+    """Every counter child that moved since the snapshot `before`."""
+    now = REGISTRY.counter_values()
+    return {k: v - before.get(k, 0.0) for k, v in now.items()
+            if v != before.get(k, 0.0)}
+
+
+def obs_expect(moved: dict, want: dict) -> None:
+    """Each counter child of `want` moved by exactly its value."""
+    bad = {k: (moved.get(k, 0.0), v) for k, v in want.items()
+           if moved.get(k, 0.0) != v}
+    if bad:
+        raise AssertionError(f"[obs] counters moved (got, want): {bad}")
+
+
+def obs_drive(torch, np, mods, lower, dev, fleet, tally, S=N_SERVICES,
+              N=N_NODES, tenant_rows=TENANT_ROWS, mux_tier=None):
+    """[obs]' solves, with FLEET_TRACE_FILE set by the caller: the
+    [default] scheduler's cold place of the fleet and three bursts (the
+    busiest node down; 64 arrivals into phantom rows; 5% of the nodes down
+    with FLEET_SUBSOLVE=0, a sweeping full-path solve), one
+    solve_multiplexed call of OBS_MUX_K resident-warm stages and one cold
+    solve_sharded over a 1x8 mesh of the card. Returns (results in solve
+    order as (kind, pt, result), what the drive implies each counter moved
+    by, the sub-solves run). `tally(S, N)` is called after the scheduler's
+    solves and after the others, with the fleet size they ran at."""
+    (_ext, GpuSolverScheduler, ProblemDelta, verify, solve, ResidentProblem,
+     multiplex, sharded) = mods
+    dev_name = str(dev)
+    pt, _tenant = default_fleet(np, lower, S, N, tenant_rows)
+    sched = GpuSolverScheduler(device=dev)
+    record = make_record(sched, verify, _ext, dev_name, "obs")
+    solved: list = []
+
+    def place(label, call, pt_now):
+        placed = call()
+        record(label, placed, pt_now, subsolve=sched.last_result.subsolve)
+        solved.append(("sched", pt_now, sched.last_result))
+
+    place("cold", lambda: sched.place(pt), pt)
+    valid = pt.node_valid.copy()
+    valid[busiest(np, sched.last_result.assignment, valid, 1)] = False
+    pt = dataclasses.replace(pt, node_valid=valid.copy())
+    place("kill1", lambda: sched.reschedule(
+        pt, delta=ProblemDelta(node_valid=valid.copy())), pt)
+    grown, delta_kw = with_arrivals(np, pt, ARRIVALS,
+                                    np.random.default_rng(2))
+    place("arrival_n_real", lambda: sched.reschedule(
+        grown, delta=ProblemDelta(node_valid=valid.copy(), **delta_kw)),
+        grown)
+    alive = np.flatnonzero(valid)
+    valid[np.random.default_rng(3).choice(alive, int(0.05 * grown.N),
+                                          replace=False)] = False
+    down = dataclasses.replace(grown, node_valid=valid.copy())
+    with subsolve_off():
+        place("warm_5pct_nodes_down", lambda: sched.reschedule(
+            down, delta=ProblemDelta(node_valid=valid.copy())), down)
+    full = solved[-1][2]
+    if full.steps == 0 or full.subsolve is not None:
+        raise AssertionError(f"[obs] the 5% burst ran {full.steps} sweeps, "
+                             f"sub-solve {full.subsolve}: expected a "
+                             f"sweeping full-path solve")
+    tally(down.S, down.N)
+
+    # one batch of OBS_MUX_K resident-warm stages (one node down each)
+    mS, mN = mux_tier or MUX_TIERS[1]
+    entries = []
+    for i in range(OBS_MUX_K):
+        st = fleet(mS, mN, 40 + i)
+        rp = ResidentProblem(st, dev)
+        cold = solve(st, prob=rp.prob, resident=rp, seed=i, steps=MUX_STEPS,
+                     bucket=rp.bucket)
+        solved.append(("mux_cold", st, cold))
+        cur = dataclasses.replace(st, node_valid=st.node_valid.copy())
+        cur.node_valid[int(np.bincount(cold.assignment,
+                                       minlength=mN).argmax())] = False
+        rp.apply_delta(cur, ProblemDelta(node_valid=cur.node_valid.copy()))
+        entries.append(multiplex.MuxEntry(pt=cur, resident=rp, seed=i,
+                                          stage=f"obs{i}"))
+    with subsolve_off():
+        lanes = multiplex.solve_multiplexed(entries, steps=MUX_STEPS,
+                                            device=dev)
+    for e, res in zip(entries, lanes):
+        check_solve(res, e.pt, verify, dev_name, f"[obs] mux {e.stage}")
+        solved.append(("mux_lane", e.pt, res))
+
+    # one cold sharded solve over 1x8 positions of the card
+    sh_pt = fleet(mS, mN, 40 + OBS_MUX_K)
+    rp = sharded.ShardedResident(sh_pt, mesh=sharded.Mesh(
+        [dev] * 8, (sharded.SVC_AXIS,)))
+    sh_res = sharded.solve_sharded(sh_pt, resident=rp, steps=64, block=4)
+    check_solve(sh_res, sh_pt, verify, dev_name, "[obs] sharded 1x8")
+    solved.append(("sharded", sh_pt, sh_res))
+    tally(mS, mN)
+
+    def lbl(name, **labels):
+        inner = ",".join(f'{k}="{v}"' for k, v in labels.items())
+        return f"{name}{{{inner}}}" if inner else name
+
+    sched_res = [r for k, _p, r in solved if k == "sched"]
+    subs = [r.subsolve["outcome"] for r in sched_res if r.subsolve]
+    backend = "gpu" if dev.type == "cuda" else "cpu"
+    want = {
+        lbl("fleet_solver_solves_total", backend=backend, warm="false"):
+            1 + OBS_MUX_K + 1,
+        lbl("fleet_solver_solves_total", backend=backend, warm="true"):
+            len(sched_res) - 1 + OBS_MUX_K,
+        lbl("fleet_solver_sweeps_total"):
+            sum(r.steps for _k, _p, r in solved),
+        lbl("fleet_solver_mux_batches_total", k=multiplex.mux_k(OBS_MUX_K)):
+            1,
+        lbl("fleet_solver_mux_lanes_total", kind="stage"): OBS_MUX_K,
+        lbl("fleet_solver_mux_lanes_total", kind="pad"):
+            multiplex.mux_k(OBS_MUX_K) - OBS_MUX_K,
+        lbl("fleet_solver_sharded_solves_total", outcome="cold"): 1,
+        lbl("fleet_placements_total", source="gpu-anneal"): len(sched_res),
+        lbl("fleet_solver_resident_reuse_total", outcome="cold"):
+            1 + OBS_MUX_K + 1,
+        lbl("fleet_solver_resident_reuse_total", outcome="delta"):
+            len(sched_res) - 1 + OBS_MUX_K,
+        lbl("fleet_solver_host_transfers_total"): 0,
+        lbl("fleet_solver_compile_events_total"): 0,
+    }
+    for outcome in ("localized", "fallback_infeasible"):
+        want[lbl("fleet_solver_subsolve_total", outcome=outcome)] = \
+            subs.count(outcome)
+    return solved, want, len(subs)
+
+
+def obs_check_trace(trace_file: str, solved: list, read_trace_file) -> int:
+    """One solve.trace record per solve, in solve order, each with the
+    reference's fields and the payload of that solve's telemetry."""
+    recs = [e for e in read_trace_file(trace_file)
+            if e["kind"] == "telemetry" and e["name"] == "solve.trace"]
+    if len(recs) != len(solved):
+        raise AssertionError(f"[obs] {len(recs)} solve.trace records for "
+                             f"{len(solved)} solves")
+    for rec, (kind, pt_now, res) in zip(recs, solved):
+        fields = rec["fields"]
+        if set(fields) != TRACE_FIELDS:
+            raise AssertionError(f"[obs] {kind} record fields "
+                                 f"{sorted(fields)}")
+        payload = json.loads(json.dumps(res.telemetry))
+        if fields["telemetry"] != payload:
+            raise AssertionError(f"[obs] {kind} record's payload differs "
+                                 f"from its SolveResult.telemetry")
+        if (fields["S"], fields["violations"]) != (pt_now.S, res.violations):
+            raise AssertionError(f"[obs] {kind} record {fields['S']} rows, "
+                                 f"{fields['violations']} violations")
+    return len(recs)
+
+
+def obs_profile_solver(torch, np, sched_pt, mods, dev, REGISTRY):
+    """FLEET_PROFILE_SOLVER=1: the dispatch-delta gauge is the allocator's
+    bytes read on either side of the last dispatch (torch.cuda
+    .memory_allocated, spied on); without the variable nothing reads it."""
+    (_ext, GpuSolverScheduler, ProblemDelta, verify) = mods
+    real = torch.cuda.memory_allocated
+    reads: list = []
+
+    def spy(*a, **kw):
+        reads.append(real(*a, **kw))
+        return reads[-1]
+
+    sched = GpuSolverScheduler(device=dev)
+    record = make_record(sched, verify, _ext, str(dev), "obs", echo=False)
+    pt = sched_pt
+    record("profile_solver_cold", sched.place(pt), pt)
+    gauge = REGISTRY.get("fleet_solver_dispatch_device_delta_bytes")
+    torch.cuda.memory_allocated = spy
+    try:
+        valid = pt.node_valid.copy()
+        for step, value in enumerate((None, "1")):
+            with env_set(FLEET_PROFILE_SOLVER=value):
+                gauge.set(-1.0)
+                valid[busiest(np, sched.last_result.assignment, valid,
+                              1)] = False
+                pt = dataclasses.replace(pt, node_valid=valid.copy())
+                record(f"profile_solver_{step}", sched.reschedule(
+                    pt, delta=ProblemDelta(node_valid=valid.copy())), pt)
+            if value is None and (reads or gauge.value() != -1.0):
+                raise AssertionError(f"[obs] without FLEET_PROFILE_SOLVER "
+                                     f"{len(reads)} allocator reads")
+    finally:
+        torch.cuda.memory_allocated = real
+    if len(reads) < 2 or gauge.value() != reads[-1] - reads[-2]:
+        raise AssertionError(f"[obs] dispatch delta {gauge.value()} from "
+                             f"the allocator reads {reads}")
+    print(f"[obs] FLEET_PROFILE_SOLVER=1: {len(reads)} allocator reads, "
+          f"dispatch delta {gauge.value():.0f} bytes", flush=True)
+
+
+def obs_profile_dir(torch, pt, solve, dev, prof_dir: str) -> None:
+    """FLEET_PROFILE_DIR: one cold solve() writes a Chrome trace holding
+    the solve and fleet.refine ranges and the card's K4, K3 and K1 kernel
+    events under their symbol names."""
+    from fleetflow_tpu_torch.solver.api import REFINE_RANGE
+    os.makedirs(prof_dir, exist_ok=True)
+    before = set(os.listdir(prof_dir))
+    with env_set(FLEET_PROFILE_DIR=prof_dir):
+        res = solve(pt, device=dev)
+    written = sorted(set(os.listdir(prof_dir)) - before)
+    if len(written) != 1 or res.violations:
+        raise AssertionError(f"[obs] FLEET_PROFILE_DIR: traces {written}, "
+                             f"{res.violations} violations")
+    with open(os.path.join(prof_dir, written[0])) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    # demangled, e.g. "(anonymous namespace)::k3_build(int, ...)"
+    found = {name: sum(any(f"{sym}(" in k for sym in syms) for k in kernels)
+             for name, syms in OBS_KERNEL_SYMBOLS.items()}
+    if not {"solve", REFINE_RANGE} <= names or not all(found.values()):
+        raise AssertionError(f"[obs] the trace {written[0]}: ranges "
+                             f"{sorted(n for n in names if 'fleet' in n)}, "
+                             f"kernel events {found}")
+    print(f"[obs] FLEET_PROFILE_DIR: {written[0]}, {len(events)} events, "
+          f"kernel events {json.dumps(found)}", flush=True)
+
+
+def obs_bookkeeping_us(torch, api, res, pt, dev) -> dict:
+    """Host µs a solve of the per-solve bookkeeping, on a recorded result,
+    INFO disabled (library mode) and FLEET_TRACE_FILE unset: the solve
+    families, the trace record's check and the solve line's
+    (record_solve), and what the dispatch scope adds to the torch.profiler
+    range it opens (the range itself predates the scope: its own µs are
+    timed alone and subtracted)."""
+    if api.log.isEnabledFor(logging.INFO):
+        raise AssertionError("[obs] INFO is enabled: not library mode")
+    n = OBS_BOOKKEEPING_CALLS
+    t0 = time.perf_counter()
+    for _ in range(n):
+        api.record_solve(res, pt, steps=api.DEFAULT_STEPS, warm=True,
+                         resident_warm=True, bucket_hit=True)
+    record_us = (time.perf_counter() - t0) / n * 1e6
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with torch.profiler.record_function(api.REFINE_RANGE):
+            pass
+    range_us = (time.perf_counter() - t0) / n * 1e6
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with api._dispatch_scope(api.REFINE_RANGE, dev):
+            pass
+    scope_us = (time.perf_counter() - t0) / n * 1e6
+    return {"record_solve_us": round(record_us, 3),
+            "dispatch_scope_us": round(scope_us, 3),
+            "range_alone_us": round(range_us, 3),
+            "per_solve_us": round(record_us + max(scope_us - range_us, 0.0),
+                                  3)}
+
+
+def run_obs_phase(torch, np, mods, lower, dev, fleet, full_zero_ms: list,
+                  card: str, S=N_SERVICES, N=N_NODES,
+                  tenant_rows=TENANT_ROWS, mux_tier=None):
+    """[obs]: the port's observability on the card, outside every other
+    phase's profiler. (1) the solve families moved as obs_drive's solves
+    imply, the in-flight gauge back at 0; (2) FLEET_TRACE_FILE: one
+    solve.trace record a solve, its payload that solve's telemetry; (3)
+    FLEET_PROFILE_SOLVER=1: the dispatch delta read from the allocator;
+    (4) FLEET_PROFILE_DIR: a cold solve's Chrome trace with its ranges and
+    kernels; (5) the bookkeeping's host µs a solve beside the median wall
+    ms of the run's full-path 0-sweep bursts (`full_zero_ms`, [ab]'s
+    sub-solve-off bursts), at most OBS_COST_SHARE of it, printed with the
+    `card` line. Returns the launch counts of (1)-(4)."""
+    (_ext, GpuSolverScheduler, ProblemDelta, verify, solve, ResidentProblem,
+     multiplex, sharded, api) = mods
+    from fleetflow_tpu_torch.obs.metrics import REGISTRY
+    from fleetflow_tpu_torch.obs.trace import read_trace_file
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "fleetflow_tpu_torch", "_ext_build", "obs")
+    os.makedirs(out_dir, exist_ok=True)
+    trace_file = os.path.join(out_dir, f"flight.{os.getpid()}.jsonl")
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    before = REGISTRY.counter_values()
+    hist = REGISTRY.get("fleet_solver_subsolve_ms")
+    sub_ms0 = hist.count()
+    since: Optional[dict] = None
+
+    def tally(S_run, N_run):
+        nonlocal since
+        since = tally_size(_ext, S_run, N_run, since)
+
+    with env_set(FLEET_TRACE_FILE=trace_file, FLEET_PROFILE_SOLVER=None,
+                 FLEET_PROFILE_DIR=None):
+        solved, want, n_subs = obs_drive(
+            torch, np, mods[:-1], lower, dev, fleet, tally, S, N,
+            tenant_rows, mux_tier)
+    moved = counter_delta(REGISTRY, before)
+    obs_expect(moved, want)
+    inflight = REGISTRY.get("fleet_solver_dispatches_in_flight").value()
+    if inflight != 0 or hist.count() - sub_ms0 != n_subs:
+        raise AssertionError(f"[obs] in flight {inflight}, sub-solve ms "
+                             f"observed {hist.count() - sub_ms0} times for "
+                             f"{n_subs} sub-solves")
+    n_recs = obs_check_trace(trace_file, solved, read_trace_file)
+    print(f"[obs] {len(solved)} solves, {n_recs} solve.trace records; "
+          f"counters moved {json.dumps(moved, sort_keys=True)}", flush=True)
+
+    sched_pt = default_fleet(np, lower, S, N, tenant_rows)[0]
+    obs_profile_solver(torch, np, sched_pt, mods[:4], dev, REGISTRY)
+    obs_profile_dir(torch, sched_pt, solve, dev,
+                    os.path.join(out_dir, "profile"))
+    tally(sched_pt.S, sched_pt.N)
+    launches = read_launches(torch, _ext, "obs", KERNEL_NAMES[:5]
+                             + ("k7_sharded_sweep",),
+                             off=("k6_greedy_scan",))
+
+    # (5) the bookkeeping's cost, on the 5% burst's recorded result
+    _kind, pt5, res5 = [s for s in solved if s[0] == "sched"][-1]
+    with env_set(FLEET_TRACE_FILE=None):
+        cost = obs_bookkeeping_us(torch, api, res5, pt5, dev)
+    zero = sorted(full_zero_ms)
+    median_ms = statistics.median(zero) if zero else float("nan")
+    share = cost["per_solve_us"] / (median_ms * 1e3)
+    print(f"[obs] bookkeeping {json.dumps(cost)} a solve "
+          f"({OBS_BOOKKEEPING_CALLS} calls); full-path 0-sweep burst "
+          f"median {median_ms:.3f} ms over {len(zero)} bursts; share "
+          f"{share:.5f}; {card}", flush=True)
+    if not zero or not share <= OBS_COST_SHARE:
+        raise AssertionError(f"[obs] bookkeeping {cost['per_solve_us']} µs "
+                             f"against a {median_ms} ms burst")
+    return launches
 
 
 def host_planner_ms(np, subsolve, rp, plan) -> dict:
@@ -2056,7 +2426,8 @@ def run_slots_phase(torch, np, mods, fleet, dev_name):
         # reschedule on a scheduler that never evicts, and the evictions
         # after it keep the placements it returned
         # (each stage with its busiest node down)
-        from fleetflow_tpu_torch.solver import multiplex
+        from fleetflow_tpu_torch.obs.metrics import REGISTRY
+        mux_lanes = REGISTRY.get("fleet_solver_mux_lanes_total")
         roomy = GpuSolverScheduler()
         roomy._max_slots = SLOT_STAGES
         many = GpuSolverScheduler()
@@ -2069,7 +2440,7 @@ def run_slots_phase(torch, np, mods, fleet, dev_name):
             cur[k] = dataclasses.replace(pts[k], node_valid=valid)
         want = [roomy.reschedule(cur[k], stage=k, delta=ProblemDelta(
             node_valid=cur[k].node_valid.copy())) for k in keys]
-        stages = multiplex.MUX_LANES["stage"]
+        stages = mux_lanes.value(kind="stage")
         t_many = time.perf_counter()
         got = many.place_many([{"pt": cur[k], "warm_start": True, "stage": k,
                                 "delta": ProblemDelta(
@@ -2085,7 +2456,7 @@ def run_slots_phase(torch, np, mods, fleet, dev_name):
                 raise AssertionError(f"[slots] place_many {k} differs from "
                                      f"its solo reschedule")
         st = many.slots_status()
-        if (multiplex.MUX_LANES["stage"] != stages + SLOT_STAGES
+        if (mux_lanes.value(kind="stage") != stages + SLOT_STAGES
                 or [s["stage"] for s in st["slots"]] != keys[::-1][:8]
                 or many.byte_drift() != 0):
             raise AssertionError(f"[slots] place_many over the bound: {st}")
@@ -2838,7 +3209,7 @@ def main() -> int:
                                                pick_scheduler,
                                                place_with_fallback,
                                                relax_problem)
-        from fleetflow_tpu_torch.solver import (anneal, buckets, greedy,
+        from fleetflow_tpu_torch.solver import (anneal, api, buckets, greedy,
                                                 kernels, multiplex, problem,
                                                 sharded, subsolve)
         from fleetflow_tpu_torch.solver.api import solve
@@ -2888,7 +3259,12 @@ def main() -> int:
     by_phase = {"main": run_main_path(torch, np, pkg_main, pt, str(dev))}
     by_phase["default"], recs["k5_subsolve"], masks = run_default_phase(
         torch, np, pkg_main, lower, str(dev))
-    compare_subsolve(np, pkg_main, lower, str(dev), masks)
+    _totals, full_zero_ms = compare_subsolve(np, pkg_main, lower, str(dev),
+                                             masks)
+    by_phase["obs"] = run_obs_phase(
+        torch, np, (_ext, GpuSolverScheduler, ProblemDelta, verify, solve,
+                    ResidentProblem, multiplex, sharded, api),
+        lower, dev, fleet, full_zero_ms, card)
     by_phase["mux"], _mux_rows = run_mux_phase(
         torch, np, (_ext, solve, ResidentProblem, ProblemDelta, multiplex),
         fleet, str(dev), tenant_fleet)

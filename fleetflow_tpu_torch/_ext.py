@@ -28,6 +28,10 @@ Every C entry point returns a ``cudaError_t`` (0 = success) taken from
 anything else. ``LAUNCHES`` counts the entry-point calls per kernel: a
 wrapper adds one where it launches its kernel and nowhere else, so a run can
 show which kernels the main path went through.
+
+``fleet_solver_compile_events_total`` (the reference's name) counts the
+port's only compiles: each kernel library and host library this process
+built or loaded, at its first use.
 """
 
 from __future__ import annotations
@@ -44,10 +48,17 @@ from typing import Optional
 
 import torch
 
+from .obs.metrics import REGISTRY
+
 __all__ = ["KERNELS", "HOST_LIBS", "LAUNCHES", "MAX_LANES", "Lanes",
            "ProblemArgs", "SweepArgs", "K7Args", "lanes_arg", "build",
            "library", "host_library", "launch", "raise_on", "raise_error",
-           "reset_launches", "check_inputs"]
+           "reset_launches", "check_inputs", "M_COMPILE_EVENTS"]
+
+M_COMPILE_EVENTS = REGISTRY.counter(
+    "fleet_solver_compile_events_total",
+    "Kernel-library builds or loads (the CUDA kernels' and the host "
+    "placer's shared libraries, at their first use in the process)")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent / "_ext_build"
@@ -263,6 +274,7 @@ def build(verbose: bool = False) -> float:
             lib.ff_error_string.argtypes = [ctypes.c_int]
             lib.ff_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
+        M_COMPILE_EVENTS.inc(len(KERNELS))
         return time.perf_counter() - t0
 
 
@@ -285,6 +297,7 @@ def host_library(name: str) -> ctypes.CDLL:
                 _host_libs[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
             except OSError as e:
                 raise RuntimeError(f"host library {name}: {e}") from e
+            M_COMPILE_EVENTS.inc()
         return _host_libs[name]
 
 

@@ -1,6 +1,6 @@
 """The Placement result, the Scheduler protocol and the dependency level
-schedule (copy of ``fleetflow_tpu/sched/base.py``; the metrics registry is
-not ported: ``record_placement`` keeps plain counters)."""
+schedule (copy of ``fleetflow_tpu/sched/base.py``); ``record_placement``
+folds each placement into the port's metrics registry."""
 
 from __future__ import annotations
 
@@ -10,13 +10,23 @@ from typing import Protocol
 import numpy as np
 
 from ..lower.tensors import ProblemTensors
+from ..obs.metrics import REGISTRY
 
 __all__ = ["Placement", "Scheduler", "level_schedule", "assemble_placement",
-           "record_placement", "PLACEMENTS"]
+           "record_placement"]
 
-# placements produced, by solver source (host-greedy, cpp-greedy, ...),
-# kept as plain counters until the metrics registry is ported
-PLACEMENTS: dict[str, int] = {}
+# one entry per scheduler backend: host-greedy, cpp-greedy, gpu-anneal and
+# the relaxed sources — whatever `source` says
+_M_PLACEMENTS = REGISTRY.counter(
+    "fleet_placements_total", "Placements produced, by solver source",
+    labels=("source",))
+_M_PLACE_S = REGISTRY.histogram(
+    "fleet_placement_duration_seconds", "Placement solve wall time by source",
+    labels=("source",))
+_M_PLACE_VIOL = REGISTRY.gauge(
+    "fleet_placement_violations",
+    "Hard violations of the most recent placement, by source",
+    labels=("source",))
 
 
 def level_schedule(pt: ProblemTensors) -> list[list[str]]:
@@ -43,9 +53,11 @@ class Placement:
 
 
 def record_placement(placement: Placement) -> None:
-    """Count one solved Placement under its source (every greedy backend
-    calls this once per solve)."""
-    PLACEMENTS[placement.source] = PLACEMENTS.get(placement.source, 0) + 1
+    """Fold one solved Placement into the placement families (every
+    scheduler backend calls this exactly once per solve)."""
+    _M_PLACEMENTS.inc(source=placement.source)
+    _M_PLACE_S.observe(placement.solve_ms / 1e3, source=placement.source)
+    _M_PLACE_VIOL.set(placement.violations, source=placement.source)
 
 
 def assemble_placement(pt: ProblemTensors, assignment: np.ndarray,

@@ -13,7 +13,6 @@ classes that had to be relaxed (empty on a clean solve), and marks
 from __future__ import annotations
 
 import dataclasses
-import logging
 from typing import Optional
 
 import numpy as np
@@ -22,11 +21,12 @@ from ..lower.tensors import (ELIGIBILITY_RELAX_CLASSES as _ELIG,
                              PREF_RELAX_CLASSES as _PREF,
                              SPREAD_RELAX_CLASSES as _SPREAD,
                              ProblemTensors)
+from ..obs import get_logger, kv
 from .base import Placement, Scheduler
 
 __all__ = ["place_with_fallback", "relax_problem"]
 
-log = logging.getLogger("fleetflow_tpu_torch.sched")
+log = get_logger("sched")
 
 
 def relax_problem(pt: ProblemTensors, what: str) -> Optional[ProblemTensors]:
@@ -45,7 +45,7 @@ def relax_problem(pt: ProblemTensors, what: str) -> Optional[ProblemTensors]:
             return None
         return dataclasses.replace(
             pt, eligible=np.ones_like(pt.eligible))
-    log.warning("unknown fallback class what=%s", what)
+    log.warning("unknown fallback class %s", kv(what=what))
     return None
 
 
@@ -74,8 +74,8 @@ def place_with_fallback(scheduler: Scheduler, pt: ProblemTensors, *,
             continue
         pt = pt2
         relaxed.append(what)
-        log.info("placement infeasible; relaxing what=%s order=%s", what,
-                 ",".join(pt.relax_order))
+        log.info("placement infeasible; relaxing %s",
+                 kv(what=what, order=",".join(pt.relax_order)))
         placement = scheduler.place(pt, **kw)
     if relaxed:
         placement = dataclasses.replace(

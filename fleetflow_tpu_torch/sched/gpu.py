@@ -28,6 +28,11 @@ a later warm request for the stage re-admits it from the snapshot through
 ``adopt_host`` and runs the resident-warm solve, bit-identical to a slot
 that was never evicted.
 
+The slot manager's census rides the port's metrics registry under the
+reference's families: evictions, warm re-admissions, resident bytes and
+slots, and the bytes drift (refreshed by ``byte_drift``); every placement
+is folded into the placement families (``base.record_placement``).
+
 ``place_many`` is the tenant-multiplexer entry (solver/multiplex.py):
 same-tier resident-warm stages batch into ONE dispatch, the rest solve
 serially, with the same results.
@@ -43,6 +48,7 @@ is absent, and the CPU is used only when the caller passes device="cpu".
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 from dataclasses import dataclass, field
@@ -52,21 +58,39 @@ import numpy as np
 
 from ..device import resolve_device
 from ..lower.tensors import ProblemTensors
+from ..obs import get_logger, kv
+from ..obs.metrics import REGISTRY
 from ..solver.api import SolveResult, solve
 from ..solver.multiplex import MuxEntry, solve_multiplexed
 from ..solver.resident import ProblemDelta, ResidentProblem
 from ..solver.sharded import ShardedResident, sharded_route, solve_sharded
-from .base import Placement, level_schedule
+from .base import Placement, level_schedule, record_placement
 
-__all__ = ["GpuSolverScheduler", "SLOT_EVENTS"]
+__all__ = ["GpuSolverScheduler"]
+
+log = get_logger("sched.gpu")
+
+_M_EVICTIONS = REGISTRY.counter(
+    "fleet_sched_slot_evictions_total",
+    "Resident slots evicted by the device-memory slot manager")
+_M_READMITS = REGISTRY.counter(
+    "fleet_sched_slot_readmissions_total",
+    "Evicted stages re-admitted warm from their host snapshot")
+_M_RES_BYTES = REGISTRY.gauge(
+    "fleet_sched_resident_bytes",
+    "Device bytes held by resident stage slots (packed-plane accounting)")
+_M_RES_SLOTS = REGISTRY.gauge(
+    "fleet_sched_resident_slots", "Resident stage slots currently held")
+_M_RES_DRIFT = REGISTRY.gauge(
+    "fleet_solver_resident_bytes_drift",
+    "Live device bytes of resident slots minus the slot manager's "
+    "admission-time accounting — nonzero drift means a slot's buffers "
+    "grew or shrank after admission (refreshed by slots_status / the "
+    "obs collector's cross-check)")
 
 # the default device budget of the resident slots: roomy on a card, and
 # far above what test-scale problems allocate
 _DEFAULT_BUDGET = 256 << 20
-
-# evictions and warm re-admissions, kept as plain counters until the
-# metrics registry is ported
-SLOT_EVENTS = {"evictions": 0, "readmissions": 0}
 
 
 @dataclass
@@ -156,7 +180,9 @@ class GpuSolverScheduler:
                 # the oldest record falls off (dicts keep insertion order)
                 self._evicted.pop(next(iter(self._evicted)))
         slot.resident.release()
-        SLOT_EVENTS["evictions"] += 1
+        _M_EVICTIONS.inc()
+        log.debug("slot-evict %s", kv(stage=slot.key, bytes=slot.nbytes,
+                                      snapshot=snap is not None))
 
     def _admit(self, slot: _StageSlot) -> None:
         """Insert a slot at the MRU head, then evict from the LRU tail
@@ -176,13 +202,18 @@ class GpuSolverScheduler:
                 len(self._slots) > self._max_slots
                 or self._resident_bytes() > self._budget_bytes):
             self._evict(self._slots.pop())
+        _M_RES_BYTES.set(self._resident_bytes())
+        _M_RES_SLOTS.set(len(self._slots))
 
     def byte_drift(self) -> int:
         """Live device bytes of the resident slots minus the bytes the
         manager accounted at admission: nonzero means a slot's buffers
         changed size after admission, which the budget cannot see. A walk
         of tensor shapes, no device sync."""
-        return sum(s.resident.device_nbytes() - s.nbytes for s in self._slots)
+        drift = sum(s.resident.device_nbytes() - s.nbytes
+                    for s in self._slots)
+        _M_RES_DRIFT.set(drift)
+        return drift
 
     def slots_status(self) -> dict:
         """Occupancy: per slot its stage key, tier, bytes, idle seconds,
@@ -294,7 +325,9 @@ class GpuSolverScheduler:
             resident.adopt_host(snap, pt.node_valid, warm=False)
             resident.note_host_assignment(padded=snap, feasible=rec.feasible)
             resident_warm = True
-            SLOT_EVENTS["readmissions"] += 1
+            _M_READMITS.inc()
+            log.debug("slot-readmit %s", kv(stage=stage,
+                                            evictions=rec.evictions))
         self._admit(slot)
         return slot, resident_warm
 
@@ -317,7 +350,12 @@ class GpuSolverScheduler:
         slot.last_assignment = res.assignment
         slot.last_used = time.monotonic()
         self.last_result = res
-        return Placement(
+        if res.subsolve is not None and log.isEnabledFor(logging.DEBUG):
+            log.debug("active-set %s", kv(
+                stage=slot.key, rows=res.subsolve["rows"],
+                tier=res.subsolve["tier"], outcome=res.subsolve["outcome"],
+                ms=res.subsolve["ms"]))
+        placement = Placement(
             assignment={pt.service_names[i]:
                         pt.node_names[int(res.assignment[i])]
                         for i in range(pt.S)},
@@ -329,6 +367,8 @@ class GpuSolverScheduler:
             solve_ms=ms,
             raw=res.assignment,
         )
+        record_placement(placement)
+        return placement
 
     @staticmethod
     def _host_seed(pt, slot, warm: bool, resident_warm: bool):

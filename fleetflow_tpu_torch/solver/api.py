@@ -21,12 +21,24 @@ stages at once (the tenant multiplexer, solver/multiplex.py); a solo solve
 is its one-lane case. :func:`solve` first asks the sharded route
 (solver/sharded.py) whether the instance takes the service-axis sharded
 path; the chain-sharded mesh of the reference is the chain axis here.
+
+Observability, as the reference's: the solver's metric families on the
+port's ``obs.metrics.REGISTRY`` (the reference's names, labels and HELP),
+one ``solve …`` INFO line a call under `fleetflow.solver`, the telemetry
+payload as a ``solve.trace`` flight-recorder record when FLEET_TRACE_FILE
+is set, the whole call under ``obs.profile_trace`` (a torch.profiler
+Chrome trace when FLEET_PROFILE_DIR is set), and every hot dispatch in
+:func:`_dispatch_scope`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import inspect
+import logging
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -34,8 +46,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import _ext
 from ..device import resolve_device
 from ..lower.tensors import ProblemTensors
+from ..obs import get_logger, kv, profile_trace
+from ..obs.metrics import REGISTRY, SOLVE_SECONDS_BUCKETS
+from ..obs.trace import (current_span_id, current_trace_id, flight_recorder,
+                         new_span_id, new_trace_id, record_span_event)
 from . import subsolve as _sub
 from .anneal import (TRACE_COLS, anneal_adaptive_lanes,
                      anneal_states, backend_proposals_per_step,
@@ -43,7 +60,7 @@ from .anneal import (TRACE_COLS, anneal_adaptive_lanes,
                      solve_trace_blocks, state_soft_score,
                      state_violation_stats)
 from .buckets import (_env_flag, bucket_config, pad_assignment,
-                      pad_problem_tiers, stage_problem_tiers)
+                      pad_problem_tiers, record_bucket, stage_problem_tiers)
 from .greedy import (greedy_place, greedy_place_batched,
                      partitioned_seed, placement_order)
 from .kernels import (STAT_KEYS, exact_stats_and_soft, k3_rebuild,
@@ -54,7 +71,53 @@ from .resident import ResidentProblem
 
 __all__ = ["solve", "SolveResult", "make_chain_inits", "DEFAULT_STEPS",
            "REFINE_RANGE", "SUBSOLVE_RANGE", "SEED_IMPLS",
-           "legacy_host_prepass"]
+           "legacy_host_prepass", "count_solve", "record_solve"]
+
+log = get_logger("solver")
+
+_M_SOLVES = REGISTRY.counter(
+    "fleet_solver_solves_total", "Placement solves by backend and start mode",
+    labels=("backend", "warm"))
+_M_SOLVE_S = REGISTRY.histogram(
+    "fleet_solver_solve_duration_seconds", "End-to-end solve() wall time",
+    buckets=SOLVE_SECONDS_BUCKETS)
+_M_SWEEPS = REGISTRY.counter(
+    "fleet_solver_sweeps_total", "Annealing sweeps run across all solves")
+_M_ACCEPTED = REGISTRY.counter(
+    "fleet_solver_proposals_accepted_total",
+    "Metropolis proposals accepted (adaptive anneal)")
+_M_VIOL = REGISTRY.gauge(
+    "fleet_solver_violations",
+    "Hard violations of the most recent solve (post-repair)")
+_M_PRE_VIOL = REGISTRY.gauge(
+    "fleet_solver_pre_repair_violations",
+    "Device-solver violations of the most recent solve before host repair")
+_M_BUCKET = REGISTRY.counter(
+    "fleet_solver_bucket_solves_total",
+    "Bucketed solves by executable reuse (hit = padded shape already "
+    "compiled for in this process)", labels=("hit",))
+_M_PAD_WASTE = REGISTRY.gauge(
+    "fleet_solver_bucket_pad_waste_ratio",
+    "Phantom fraction of the most recent bucketed solve's service rows")
+_M_INFLIGHT = REGISTRY.gauge(
+    "fleet_solver_dispatches_in_flight",
+    "Solver anneal dispatches currently executing (full fused + "
+    "localized sub-solve) — deep-sampled by the obs collector")
+_M_DISPATCH_DELTA = REGISTRY.gauge(
+    "fleet_solver_dispatch_device_delta_bytes",
+    "Device bytes_in_use delta across the most recent profiled dispatch "
+    "(FLEET_PROFILE_SOLVER=1; stays 0 when the backend reports no "
+    "allocator stats, e.g. CPU)")
+# the front end's staging phase, get-or-create with the front end's own
+# registration (name, HELP and labels of the reference's core/parsecache)
+_M_FRONTEND_MS = REGISTRY.gauge(
+    "fleet_frontend_phase_ms",
+    "Milliseconds of the most recent front-end phase: parse (per-file "
+    "fragment parsing incl. cache lookups), lower (aggregation + tensor "
+    "lowering), stage (host->device staging)",
+    labels=("phase",))
+# the kernel libraries' builds and loads (registered by _ext)
+_M_COMPILES = _ext.M_COMPILE_EVENTS
 
 DEFAULT_STEPS = 128   # max sweeps of the adaptive anneal
 # torch.profiler ranges around the device work of a solve: on a warm solve
@@ -62,6 +125,48 @@ DEFAULT_STEPS = 128   # max sweeps of the adaptive anneal
 # copy
 REFINE_RANGE = "fleet.refine"       # _refine, the full path
 SUBSOLVE_RANGE = "fleet.subsolve"   # the localized sub-solve
+
+
+def backend_label(dev) -> str:
+    """The `backend` label of a solve on `dev` (a device or its name): the
+    reference's vocabulary (``jax.default_backend()``), "gpu" on the card
+    and "cpu" on the host."""
+    return "gpu" if str(dev).startswith("cuda") else "cpu"
+
+
+@contextlib.contextmanager
+def _dispatch_scope(label: str, dev: torch.device):
+    """Every hot dispatch (the full path's refine, the localized sub-solve)
+    runs inside this scope, under the torch.profiler range `label`.
+    Always: the in-flight gauge. On the card with FLEET_PROFILE_SOLVER=1
+    also the allocator's bytes delta across the dispatch
+    (``torch.cuda.memory_allocated``, a host counter: no sync), so a
+    leaking dispatch shows as a climbing gauge; on the CPU the gauge stays
+    0, as the reference's does there."""
+    profile = dev.type == "cuda" and os.environ.get(
+        "FLEET_PROFILE_SOLVER", "").lower() in ("1", "true", "on", "yes")
+    before = torch.cuda.memory_allocated(dev) if profile else 0
+    _M_INFLIGHT.inc()
+    try:
+        with torch.profiler.record_function(label):
+            yield
+    finally:
+        _M_INFLIGHT.dec()
+        if profile:
+            _M_DISPATCH_DELTA.set(torch.cuda.memory_allocated(dev) - before)
+
+
+def _record_solve_trace(payload: dict, **fields) -> None:
+    """Record one solve's telemetry as a flight-recorder span payload
+    (kind="telemetry", name "solve.trace"). No-op — one env lookup — when
+    FLEET_TRACE_FILE is unset."""
+    if flight_recorder() is None:
+        return
+    record_span_event(
+        "telemetry", "solve.trace", "fleetflow.solver",
+        trace=current_trace_id() or new_trace_id(),
+        span=current_span_id() or new_span_id(),
+        fields={**fields, "telemetry": payload})
 
 
 @dataclass
@@ -290,6 +395,78 @@ def _set_kwargs(fn, values: dict) -> dict:
     return out
 
 
+def _solve_device(device=None, prob=None, resident=None, **_):
+    """The device a solve call runs on, as solve() resolves it (the card
+    when nothing names one), for profile_trace's CUDA activity."""
+    if resident is not None:
+        return resident.device
+    if prob is not None:
+        return prob.device
+    return torch.device("cuda" if device is None else device)
+
+
+def _profiled(fn):
+    """Run `fn` (solve) under ``profile_trace("solve")``: a torch.profiler
+    Chrome trace of the whole call when FLEET_PROFILE_DIR is set, nothing
+    otherwise."""
+    @functools.wraps(fn)
+    def wrapper(pt, **kw):
+        with profile_trace("solve", lambda: _solve_device(**kw)):
+            return fn(pt, **kw)
+    return wrapper
+
+
+def count_solve(res: "SolveResult", pt: ProblemTensors, *, warm: bool,
+                resident_warm: bool, lane: bool = False) -> None:
+    """Fold a finished solve into the solve families and, when
+    FLEET_TRACE_FILE is set, write its telemetry as a ``solve.trace``
+    record. A multiplexer `lane` counts its solve, sweeps and accepted
+    proposals, as the reference's lanes do (not its wall time or the
+    violation gauges)."""
+    _M_SOLVES.inc(backend=backend_label(res.device),
+                  warm="true" if warm else "false")
+    _M_SWEEPS.inc(res.steps)
+    if res.accepted_moves >= 0:
+        _M_ACCEPTED.inc(res.accepted_moves)
+    total_ms = res.timings_ms.get("total_ms", 0.0)
+    if not lane:
+        _M_SOLVE_S.observe(total_ms / 1e3)
+        _M_VIOL.set(res.violations)
+        _M_PRE_VIOL.set(res.pre_repair_violations)
+    if res.telemetry is not None:
+        _record_solve_trace(res.telemetry, S=pt.S, N=pt.N, warm=warm,
+                            resident=resident_warm,
+                            violations=res.violations,
+                            pre_repair=res.pre_repair_violations,
+                            total_ms=round(total_ms, 3))
+
+
+def record_solve(res: "SolveResult", pt: ProblemTensors, *, steps: int,
+                 warm: bool, resident_warm: bool,
+                 bucket_hit: Optional[bool] = None,
+                 compiles: int = 0) -> None:
+    """The per-solve bookkeeping of a finished solve: :func:`count_solve`
+    and the ``solve …`` INFO line, built only when INFO is enabled."""
+    count_solve(res, pt, warm=warm, resident_warm=resident_warm)
+    if not log.isEnabledFor(logging.INFO):
+        return
+    b = res.bucket
+    sub = res.subsolve
+    log.info("solve %s", kv(
+        S=pt.S, N=pt.N, chains=res.chains, steps=steps, sweeps=res.steps,
+        accepted=res.accepted_moves if res.accepted_moves >= 0 else None,
+        compiles=compiles or None,
+        bucket=b["padded_S"] if b and b["padded_S"] != b["orig_S"] else None,
+        bucket_hit=bucket_hit or None,
+        violations=res.violations, pre_repair=res.pre_repair_violations,
+        repaired=res.moves_repaired or None, warm=warm or None,
+        resident=resident_warm or None, fused=res.fused_prerepair or None,
+        sub=(f"{sub['rows']}/{sub['tier']}({sub['outcome']})"
+             if sub else None),
+        **{k: f"{v:.1f}" for k, v in res.timings_ms.items()}))
+
+
+@_profiled
 def solve(pt: ProblemTensors, *, device=None,
           chains: Optional[int] = None, steps: int = DEFAULT_STEPS,
           seed: int = 0,
@@ -368,7 +545,9 @@ def solve(pt: ProblemTensors, *, device=None,
                          and resident.assignment is not None)
 
     t_start = t()
+    compiles0 = _M_COMPILES.value()
     binfo = None
+    staged_cold = False
     if prob is None and resident is not None:
         prob = resident.prob
     if bucket is None:
@@ -382,6 +561,7 @@ def solve(pt: ProblemTensors, *, device=None,
         # cold: stage directly at the padded shape, or at the exact one
         if bucket:
             prob, binfo = stage_problem_tiers(pt, cfg, dev)
+            staged_cold = True
         else:
             prob = prepare_problem(pt, dev)
     elif bucket:
@@ -392,6 +572,8 @@ def solve(pt: ProblemTensors, *, device=None,
     if resident_warm:
         timings["delta_stage_ms"] = resident.consume_delta_ms()
     timings["stage_ms"] = (t() - t_start) * 1e3
+    if staged_cold:
+        _M_FRONTEND_MS.set(timings["stage_ms"], phase="stage")
 
     t_seed = t()
     warm = init_assignment is not None or resident_warm
@@ -475,6 +657,23 @@ def solve(pt: ProblemTensors, *, device=None,
         t_plan = t()
         sub_plan = resident.take_active_plan()
         timings["plan_ms"] = (t() - t_plan) * 1e3
+    if binfo is not None:
+        # hit = this process already ran a dispatch at these padded
+        # extents and statics (the reference's executable identity)
+        binfo.hit = record_bucket(
+            (prob.S, prob.N, prob.G, prob.Gc, prob.T, prob.strategy,
+             prob.max_skew, prob.conflict_ids.shape[1],
+             prob.coloc_ids.shape[1], chains, steps,
+             bool(warm and migration_weight > 0), adaptive,
+             min(warm_block, anneal_block) if warm else anneal_block,
+             M, fused, prerepair_moves,
+             bool(resident_warm and adaptive and fused),
+             prob.n_real is not None, trace_blocks, prob.eligible_packed,
+             prob.preferred is not None,
+             (sub_plan.tier, sub_plan.G_sub, sub_plan.Gc_sub)
+             if sub_plan is not None else None))
+        _M_BUCKET.inc(hit="true" if binfo.hit else "false")
+        _M_PAD_WASTE.set(binfo.pad_waste)
     sub_info = None
     uploads = 0     # ResidentProblem.upload calls inside the dispatch ranges
     if sub_plan is not None:
@@ -483,7 +682,7 @@ def solve(pt: ProblemTensors, *, device=None,
         # dispatch range opens; K5 builds the frozen base on the card
         staged = _sub.stage_subsolve(resident, sub_plan)
         h2d0 = resident.h2d_copies
-        with torch.profiler.record_function(SUBSOLVE_RANGE):
+        with _dispatch_scope(SUBSOLVE_RANGE, dev):
             (winner, dstats, dsoft, sweeps_run, accepted,
              dtelem) = _sub.subsolve_dispatch(
                 prob, resident.assignment, staged, sub_plan, gen, t0, t1,
@@ -498,6 +697,7 @@ def solve(pt: ProblemTensors, *, device=None,
         # result; otherwise the full path re-runs from the untouched seed
         sub_feasible = float(dstats["total"]) == 0
         timings["subsolve_ms"] = (t() - t_sub) * 1e3
+        _sub.record_subsolve_ms(timings["subsolve_ms"])
         outcome = "localized" if sub_feasible else "fallback_infeasible"
         _sub.record_outcome(outcome)
         sub_info = {"rows": sub_plan.n_sub, "tier": sub_plan.tier,
@@ -507,7 +707,7 @@ def solve(pt: ProblemTensors, *, device=None,
             sub_plan = None
     if sub_plan is None:
         h2d0 = resident.h2d_copies if resident is not None else 0
-        with torch.profiler.record_function(REFINE_RANGE):
+        with _dispatch_scope(REFINE_RANGE, dev):
             winner, dstats, dsoft, sweeps_run, accepted, dtelem = _refine(
                 prob, seed_assignment, gen, t0, t1, migration_weight,
                 chains=chains, steps=steps,
@@ -595,7 +795,7 @@ def solve(pt: ProblemTensors, *, device=None,
         }
         if sub_info is not None:
             telemetry["subsolve"] = dict(sub_info)
-    return SolveResult(
+    res = SolveResult(
         assignment=assignment, stats=stats, soft=soft,
         feasible=stats["total"] == 0, moves_repaired=moves,
         pre_repair_violations=pre_repair, timings_ms=timings,
@@ -605,3 +805,8 @@ def solve(pt: ProblemTensors, *, device=None,
         warm_h2d_copies=uploads if resident_warm else 0, device=str(dev),
         bucket=binfo.to_dict() if binfo is not None else None,
         subsolve=sub_info)
+    record_solve(res, pt, steps=steps, warm=warm,
+                 resident_warm=resident_warm,
+                 bucket_hit=binfo.hit if binfo is not None else None,
+                 compiles=int(_M_COMPILES.value() - compiles0))
+    return res

@@ -29,6 +29,11 @@ reference's names.
 The reference assembles padded host planes in per-tier arenas reused
 across restagings; :func:`stage_problem_tiers` here builds fresh host
 arrays for each staging and uploads each plane once (no arena cache).
+
+:func:`record_bucket` keeps the reference's census of the padded dispatch
+shapes a process has run (``fleet_solver_bucket_solves_total{hit}``): the
+same extents and statics the reference keys its executables on, so both
+packages count the same hits for the same sequence of solves.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -48,7 +54,8 @@ from .problem import TorchProblem, prepare_problem
 
 __all__ = ["BucketConfig", "BucketInfo", "bucket_config", "bucket_size",
            "bucket_bounds", "subsolve_tier", "width_bucket", "pad_problem",
-           "pad_problem_tiers", "pad_assignment", "stage_problem_tiers"]
+           "pad_problem_tiers", "pad_assignment", "stage_problem_tiers",
+           "record_bucket"]
 
 
 @dataclass(frozen=True)
@@ -135,6 +142,9 @@ class BucketInfo:
     padded_S: int
     G: int
     Gc: int
+    # this process already ran a dispatch at these padded extents
+    # (record_bucket)
+    hit: bool = False
 
     @property
     def pad_waste(self) -> float:
@@ -256,3 +266,15 @@ def stage_problem_tiers(pt: ProblemTensors,
         prob.n_real = pt.S
     return prob, BucketInfo(orig_S=pt.S, padded_S=prob.S, G=prob.G,
                             Gc=prob.Gc)
+
+
+_seen_buckets: set = set()
+_seen_lock = threading.Lock()
+
+
+def record_bucket(key: tuple) -> bool:
+    """Record a padded dispatch key; True when it was already seen (hit)."""
+    with _seen_lock:
+        hit = key in _seen_buckets
+        _seen_buckets.add(key)
+        return hit

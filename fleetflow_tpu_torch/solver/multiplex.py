@@ -26,13 +26,17 @@ Entries that cannot batch (singleton tier groups, stagings with no adopted
 assignment) go through the serial ``api.solve`` path with identical
 results.
 
-The reference's ``fleet_solver_mux_*`` metrics wait for the metrics
-registry; ``MUX_BATCHES`` and ``MUX_LANES`` count the same census.
+The reference's census rides the port's metrics registry:
+``fleet_solver_mux_batches_total{k}``, ``fleet_solver_mux_lanes_total{kind}``
+and ``fleet_solver_mux_stack_ms``; each lane counts as a warm solve in the
+solver's families, writes its telemetry as a ``solve.trace`` record when
+FLEET_TRACE_FILE is set, and every batch logs one ``mux …`` INFO line.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
 from dataclasses import dataclass
@@ -44,8 +48,10 @@ import torch
 from .. import _ext
 from ..device import resolve_device
 from ..lower.tensors import ProblemTensors
+from ..obs import get_logger, kv
+from ..obs.metrics import REGISTRY
 from .anneal import TRACE_COLS, backend_proposals_per_step, solve_trace_blocks
-from .api import DEFAULT_STEPS, SolveResult, _refine_lanes, solve
+from .api import DEFAULT_STEPS, SolveResult, _refine_lanes, count_solve, solve
 from .buckets import BucketInfo
 from .kernels import STAT_KEYS, soft_score
 from .problem import TENSOR_FIELDS, TorchProblem
@@ -53,7 +59,21 @@ from .repair import RepairResult, repair, soft_score_host, verify
 from .resident import ResidentProblem
 
 __all__ = ["MuxEntry", "solve_multiplexed", "mux_k", "stack_problems",
-           "MUX_LADDER_MAX", "MUX_RANGE", "MUX_BATCHES", "MUX_LANES"]
+           "MUX_LADDER_MAX", "MUX_RANGE"]
+
+log = get_logger("solver.mux")
+
+_M_MUX_BATCHES = REGISTRY.counter(
+    "fleet_solver_mux_batches_total",
+    "Batched multiplexer dispatches by ladder lane count", labels=("k",))
+_M_MUX_LANES = REGISTRY.counter(
+    "fleet_solver_mux_lanes_total",
+    "Multiplexer lanes by kind (stage = real stage solved in a batch, "
+    "pad = ladder-padding replica, serial = mux-ineligible fallback)",
+    labels=("kind",))
+_M_MUX_STACK_MS = REGISTRY.gauge(
+    "fleet_solver_mux_stack_ms",
+    "Host+device time spent stacking the most recent mux batch")
 
 # default ceiling of the lane ladder; FLEET_MUX_MAX overrides (the
 # kernels' by-value lane struct holds at most this many lanes)
@@ -61,12 +81,6 @@ MUX_LADDER_MAX = _ext.MAX_LANES
 # the torch.profiler range around the batched warm dispatch, in which the
 # card must make no host-to-device copy
 MUX_RANGE = "fleet.mux"
-
-# the lane census: batched dispatches by ladder lane count, and lanes by
-# kind (stage = a real stage solved in a batch, pad = a ladder-padding
-# replica, serial = an entry that could not batch)
-MUX_BATCHES: dict[int, int] = {}
-MUX_LANES = {"stage": 0, "pad": 0, "serial": 0}
 
 
 def _ladder_max() -> int:
@@ -193,7 +207,7 @@ def solve_multiplexed(entries: list[MuxEntry], *,
 
     for i in serial:
         e = entries[i]
-        MUX_LANES["serial"] += 1
+        _M_MUX_LANES.inc(kind="serial")
         results[i] = solve(
             e.pt, prob=e.resident.prob, chains=chains, steps=steps,
             seed=e.seed, t0=e.t0, t1=e.t1,
@@ -207,6 +221,7 @@ def _solve_batch(entries: list[MuxEntry], idxs: list[int], results: list,
                  *, chains: int, steps: int, block: int) -> None:
     t = time.perf_counter
     t_start = t()
+    compiles0 = _ext.M_COMPILE_EVENTS.value()
     lanes = [entries[i] for i in idxs]
     K = len(lanes)
     Kp = mux_k(K)
@@ -234,6 +249,7 @@ def _solve_batch(entries: list[MuxEntry], idxs: list[int], results: list,
     M = backend_proposals_per_step(prob0.S, dev)
     trace_blocks = solve_trace_blocks()
     stack_ms = (t() - t_start) * 1e3
+    _M_MUX_STACK_MS.set(stack_ms)
 
     t_anneal = t()
     h2d0 = sum(e.resident.h2d_copies for e in lanes)
@@ -264,9 +280,10 @@ def _solve_batch(entries: list[MuxEntry], idxs: list[int], results: list,
     host_win = np.array(winners[:K].cpu().numpy(), dtype=np.int32, copy=True)
     anneal_ms = (t() - t_anneal) * 1e3
 
-    MUX_BATCHES[Kp] = MUX_BATCHES.get(Kp, 0) + 1
-    MUX_LANES["stage"] += K
-    MUX_LANES["pad"] += Kp - K
+    _M_MUX_BATCHES.inc(k=str(Kp))
+    _M_MUX_LANES.inc(K, kind="stage")
+    if Kp > K:
+        _M_MUX_LANES.inc(Kp - K, kind="pad")
 
     at = K * n_scalars
     for j, e in enumerate(lanes):
@@ -325,7 +342,7 @@ def _solve_batch(entries: list[MuxEntry], idxs: list[int], results: list,
         verify_ms = (t() - t_verify) * 1e3
         binfo = (BucketInfo(orig_S=e.pt.S, padded_S=prob.S, G=prob.G,
                             Gc=prob.Gc) if rp.bucket else None)
-        results[idxs[j]] = SolveResult(
+        res = results[idxs[j]] = SolveResult(
             assignment=assignment, stats=stats, soft=soft,
             feasible=stats["total"] == 0, moves_repaired=moves,
             pre_repair_violations=pre_repair,
@@ -338,3 +355,9 @@ def _solve_batch(entries: list[MuxEntry], idxs: list[int], results: list,
             accepted_moves=int(sc[6]), fused_prerepair=True,
             telemetry=telemetry, warm_h2d_copies=uploads, device=str(dev),
             bucket=binfo.to_dict() if binfo is not None else None)
+        count_solve(res, e.pt, warm=True, resident_warm=True, lane=True)
+    if log.isEnabledFor(logging.INFO):
+        log.info("mux %s", kv(k=Kp, stages=K, tier=f"{prob0.S}x{prob0.N}",
+                              compiles=int(_ext.M_COMPILE_EVENTS.value()
+                                           - compiles0) or None,
+                              ms=f"{anneal_ms:.1f}"))

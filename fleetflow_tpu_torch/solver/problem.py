@@ -28,11 +28,12 @@ import torch
 
 from ..core.model import PlacementStrategy
 from ..lower.tensors import ProblemTensors
+from ..obs.metrics import REGISTRY
 
 __all__ = ["TorchProblem", "TENSOR_FIELDS", "STRATEGY_CODES", "PLANE_PACK",
            "packed_width", "packed_enabled", "pack_bool_rows",
            "eligible_lookup", "eligible_row", "eligible_rows",
-           "prepare_problem", "unify_conflict_ids"]
+           "prepare_problem", "unify_conflict_ids", "record_plane_bytes"]
 
 STRATEGY_CODES = {
     PlacementStrategy.SPREAD_ACROSS_POOL: 0,
@@ -193,6 +194,28 @@ class TorchProblem:
         return self.S if self.n_real is None else int(self.n_real)
 
 
+_M_PLANE_BYTES = REGISTRY.gauge(
+    "fleet_solver_plane_bytes",
+    "Device bytes of the most recent staging's dense (S, N) problem "
+    "planes, by plane and layout (packed=\"true\" = bit-packed eligibility "
+    "/ absent preferred plane)",
+    labels=("plane", "packed"))
+
+
+def record_plane_bytes(prob: TorchProblem) -> None:
+    """Report the staged footprint of the (S, N) planes (the packed layout
+    above), read off the staging itself."""
+    e = prob.eligible
+    _M_PLANE_BYTES.set(float(e.numel() * e.element_size()), plane="eligible",
+                       packed="true" if prob.eligible_packed else "false")
+    if prob.preferred is None:
+        _M_PLANE_BYTES.set(0.0, plane="preferred", packed="true")
+    else:
+        p = prob.preferred
+        _M_PLANE_BYTES.set(float(p.numel() * p.element_size()),
+                           plane="preferred", packed="false")
+
+
 def unify_conflict_ids(pt: ProblemTensors) -> np.ndarray:
     """Concatenate the three id families into one id space, compacting out
     unused slots per row (reference: problem._unify_conflict_ids)."""
@@ -256,7 +279,7 @@ def prepare_problem(pt: ProblemTensors, device: torch.device,
                        packed_width(N), -1)
     else:
         eligible = put(pt.eligible, torch.bool, N, True)
-    return TorchProblem(
+    prob = TorchProblem(
         demand=put(pt.demand, torch.float32, pt.demand.shape[1], 0.0),
         capacity=put(pt.capacity, torch.float32),
         conflict_ids=put(conflict, torch.int32, K_pad, -1),
@@ -270,3 +293,5 @@ def prepare_problem(pt: ProblemTensors, device: torch.device,
         strategy=STRATEGY_CODES[PlacementStrategy(pt.strategy)],
         max_skew=int(pt.max_skew),
     )
+    record_plane_bytes(prob)
+    return prob

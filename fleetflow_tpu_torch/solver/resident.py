@@ -38,19 +38,33 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..obs.metrics import MS_BUCKETS, REGISTRY
 from .buckets import (BucketConfig, bucket_config, bucket_size,
                       pad_assignment, stage_problem_tiers)
 from .problem import TorchProblem, pack_bool_rows, prepare_problem
 
-__all__ = ["ProblemDelta", "ResidentProblem", "HOST_TRANSFERS",
-           "merge_delta"]
+__all__ = ["ProblemDelta", "ResidentProblem", "merge_delta"]
 
+_M_REUSE = REGISTRY.counter(
+    "fleet_solver_resident_reuse_total",
+    "Resident-state staging decisions: delta = on-device delta applied to "
+    "the resident problem, cold = full host (re)staging",
+    labels=("outcome",))
+_M_DELTA_MS = REGISTRY.histogram(
+    "fleet_solver_delta_stage_ms",
+    "Milliseconds spent applying on-device churn deltas per warm solve "
+    "(upload + donated merge dispatch)",
+    buckets=MS_BUCKETS)
 # warm solves whose problem or seed had to cross the host boundary where
 # the reference's disallow transfer guard would have fired: a host-repaired
 # winner re-uploaded on the warm path, or a warm request that had to
-# cold-stage (the reference's fleet_solver_host_transfers_total; the
-# metrics registry is not ported yet)
-HOST_TRANSFERS = {"count": 0}
+# cold-stage
+_M_HOST_XFER = REGISTRY.counter(
+    "fleet_solver_host_transfers_total",
+    "Warm-path solves that had to move problem tensors across the host "
+    "boundary (cold restage on a warm attempt, or a host repair re-upload) "
+    "— each is an event the transfer guard would have caught in disallow "
+    "mode")
 
 
 @dataclass
@@ -167,6 +181,7 @@ class ResidentProblem:
         self._index = None
         self._pending_rows = None
         self._pending_churn = False
+        _M_REUSE.inc(outcome="cold")
 
     def _expected_padded_S(self, pt) -> int:
         """The padded S a cold staging of `pt` would produce."""
@@ -317,6 +332,8 @@ class ResidentProblem:
         self._cap_fp = up["cap_np"].copy()
         ms = (time.perf_counter() - t0) * 1e3
         self._delta_ms += ms
+        _M_DELTA_MS.observe(ms)
+        _M_REUSE.inc(outcome="delta")
         return ms
 
     def drifted(self, pt) -> bool:
@@ -344,19 +361,20 @@ class ResidentProblem:
         """Host repair rewrote the winner: upload it, phantoms parked on the
         first valid node, as the warm seed (a counted host-to-device copy)
         and as the sub-solve mirror. On the warm path that upload is a
-        host transfer (``HOST_TRANSFERS``); a re-admission after eviction
+        host transfer (``fleet_solver_host_transfers_total``); a
+        re-admission after eviction
         (`warm=False`) is staging."""
         padded = pad_assignment(np.asarray(assignment, dtype=np.int32),
                                 self.prob.S, np.asarray(node_valid))
         self.assignment = self.upload(padded, torch.int32)
         self._mirror = padded.copy()
         if warm:
-            HOST_TRANSFERS["count"] += 1
+            _M_HOST_XFER.inc()
 
     def record_warm_fallback(self) -> None:
         """A warm attempt had to cold-stage: problem tensors crossed the
         host boundary."""
-        HOST_TRANSFERS["count"] += 1
+        _M_HOST_XFER.inc()
 
     # -- slot manager hooks (sched/gpu.py) -----------------------------------
 

@@ -50,6 +50,8 @@ import torch
 
 from .. import _ext
 from ..core.errors import SolverError
+from ..obs import get_logger, kv
+from ..obs.metrics import REGISTRY
 from .anneal import (W_CAP, W_CONF, W_ELIG, W_SKEW, ChainState,
                      _proposal_delta, _ptr, chain_states_from_assignment,
                      solve_trace_blocks, violation_total_from_parts)
@@ -58,7 +60,7 @@ from .kernels import CAP_TOL, k3_rebuild
 from .problem import TorchProblem, eligible_lookup
 from .resident import ResidentProblem, merge_delta
 
-log = logging.getLogger("fleetflow_tpu_torch.solver")
+log = get_logger("solver.sharded")
 
 __all__ = ["anneal_sharded", "pad_problem", "shard_problem",
            "per_device_bytes", "SVC_AXIS", "REPLICA_AXIS", "ShardedStats",
@@ -67,7 +69,7 @@ __all__ = ["anneal_sharded", "pad_problem", "shard_problem",
            "maybe_solve_sharded", "Mesh", "visible_devices", "TorchDraws",
            "sharded_step_apply", "sharded_step_plain", "merge_sharded",
            "ShardedSweepLauncher", "sweep_launcher",
-           "SHARDED_TRACE_COLS", "SHARDED_RANGE", "SHARDED_COUNTERS"]
+           "SHARDED_TRACE_COLS", "SHARDED_RANGE"]
 
 SVC_AXIS = "svc"
 REPLICA_AXIS = "replica"
@@ -76,13 +78,20 @@ REPLICA_AXIS = "replica"
 # no host-to-device copy)
 SHARDED_RANGE = "fleet.sharded"
 
-# the reference's fleet_solver_sharded_solves_total{outcome},
-# fleet_solver_tempering_swaps_total{accepted} and the
-# fleet_solver_sharded_device_bytes gauge, kept as plain counters until the
-# metrics registry is ported
-SHARDED_COUNTERS = {"sharded_solves": {"cold": 0, "delta": 0},
-                    "tempering_swaps": {"true": 0, "false": 0},
-                    "sharded_device_bytes": 0}
+_M_SHARDED = REGISTRY.counter(
+    "fleet_solver_sharded_solves_total",
+    "Pod-scale sharded solves by staging outcome: delta = warm re-solve "
+    "from mesh-resident buffers, cold = full host staging",
+    labels=("outcome",))
+_M_SWAPS = REGISTRY.counter(
+    "fleet_solver_tempering_swaps_total",
+    "Parallel-tempering replica-exchange attempts by outcome",
+    labels=("accepted",))
+_M_SH_BYTES = REGISTRY.gauge(
+    "fleet_solver_sharded_device_bytes",
+    "Per-device bytes of the most recent sharded solve: problem tensors "
+    "(service-axis shards + replicated node state) plus the anneal's "
+    "chain/tempering working state")
 
 # per-block telemetry rows of the sharded dispatch
 SHARDED_TRACE_COLS = ("sweep", "temperature", "best_violations",
@@ -860,7 +869,7 @@ def solve_sharded(pt, *, resident: ShardedResident,
     ratio of neighbouring replicas, `exchange_every`
     (FLEET_TEMPER_EXCHANGE, default 1) the blocks between exchange
     rounds."""
-    from .api import SolveResult
+    from .api import SolveResult, count_solve
     from .repair import repair, soft_score_host, verify
 
     t = time.perf_counter
@@ -895,7 +904,7 @@ def solve_sharded(pt, *, resident: ShardedResident,
         rp.adopt_host(seed_np, pt.node_valid, warm=False)
         seed_assignment = rp.assignment
     timings["seed_ms"] = (t() - t_seed) * 1e3
-    SHARDED_COUNTERS["sharded_solves"]["delta" if warm else "cold"] += 1
+    _M_SHARDED.inc(outcome="delta" if warm else "cold")
 
     t_anneal = t()
     gen = torch.Generator(device=dev)
@@ -949,10 +958,10 @@ def solve_sharded(pt, *, resident: ShardedResident,
     timings["total_ms"] = (t() - t_start) * 1e3
 
     if att > 0:
-        SHARDED_COUNTERS["tempering_swaps"]["true"] += acc
-        SHARDED_COUNTERS["tempering_swaps"]["false"] += att - acc
-    SHARDED_COUNTERS["sharded_device_bytes"] = sum(
-        per_device_bytes(prob, mesh, state=True).values())
+        _M_SWAPS.inc(acc, accepted="true")
+        _M_SWAPS.inc(att - acc, accepted="false")
+    _M_SH_BYTES.set(float(sum(
+        per_device_bytes(prob, mesh, state=True).values())))
     telemetry = None
     if trace_blocks > 0:
         filled = min(-(-res.sweeps // block), trace_blocks)
@@ -967,10 +976,7 @@ def solve_sharded(pt, *, resident: ShardedResident,
             "path": "sharded",
             "mesh": f"{n_rep}x{D}",
         }
-    log.debug("solve_sharded S=%d N=%d padded=%d mesh=%dx%d sweeps=%d "
-              "swaps=%d/%d violations=%d warm=%s", pt.S, pt.N, prob.S, n_rep,
-              D, res.sweeps, acc, att, stats["total"], warm)
-    return SolveResult(
+    out = SolveResult(
         assignment=assignment, stats=stats, soft=float(soft),
         feasible=stats["total"] == 0, moves_repaired=moves,
         pre_repair_violations=pre_repair, timings_ms=timings,
@@ -983,6 +989,17 @@ def solve_sharded(pt, *, resident: ShardedResident,
         tempering={"replicas": n_rep, "ladder": float(ladder),
                    "exchange_every": int(exchange_every),
                    "swap_attempts": att, "swap_accepts": acc})
+    # the solver's own families too: above the routing threshold these are
+    # the only solves a fleet runs
+    count_solve(out, pt, warm=warm, resident_warm=warm)
+    if log.isEnabledFor(logging.INFO):
+        log.info("solve_sharded %s", kv(
+            S=pt.S, N=pt.N, padded=prob.S, mesh=f"{n_rep}x{D}",
+            sweeps=int(res.sweeps), swaps=f"{acc}/{att}" if att else None,
+            violations=int(stats["total"]), pre_repair=pre_repair,
+            repaired=moves or None, warm=warm or None,
+            **{k: f"{v:.1f}" for k, v in timings.items()}))
+    return out
 
 
 # -- routing: when does a solve take the sharded path? -------------------------

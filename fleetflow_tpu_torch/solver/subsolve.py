@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from .. import _ext
+from ..obs.metrics import MS_BUCKETS, REGISTRY
 from .anneal import (anneal_adaptive_states, chain_states_from_assignment,
                      prerepair_state_counted)
 from .buckets import subsolve_tier, width_bucket
@@ -66,7 +67,7 @@ __all__ = ["SubsolveConfig", "subsolve_config", "ActiveIndex", "ActivePlan",
            "closure_ids", "plan_active", "stage_subsolve", "subsolve",
            "subsolve_dispatch", "SubStage", "k5_stage", "k5_stage_plain",
            "k5_commit", "k5_commit_plain", "SUB_OUTCOMES", "SUB_MAX_STEPS",
-           "OUTCOME_COUNTS", "record_outcome"]
+           "record_outcome", "record_subsolve_ms"]
 
 # the outcome vocabulary: localized = the mini anneal's result passed the
 # exact full-problem gate; fallback_closure = the closure exceeded the size
@@ -74,11 +75,34 @@ __all__ = ["SubsolveConfig", "subsolve_config", "ActiveIndex", "ActivePlan",
 # fallback_infeasible = the gate rejected the result and the full path ran
 SUB_OUTCOMES = ("localized", "fallback_closure", "fallback_small",
                 "fallback_infeasible")
-OUTCOME_COUNTS: dict[str, int] = {o: 0 for o in SUB_OUTCOMES}
+
+_M_SUB = REGISTRY.counter(
+    "fleet_solver_subsolve_total",
+    "Active-set sub-solve attempts by outcome: localized = mini anneal "
+    "accepted by the exact full-problem gate, fallback_closure = closure "
+    "exceeded the size cap, fallback_small = the problem is too small for "
+    "a sub-problem to win, fallback_infeasible = the sub-solve landed "
+    "infeasible and the full fused path re-ran",
+    labels=("outcome",))
+_M_SUB_ROWS = REGISTRY.gauge(
+    "fleet_solver_subsolve_rows",
+    "Closure size (real rows) of the most recent active-set sub-solve")
+_M_SUB_TIER = REGISTRY.gauge(
+    "fleet_solver_subsolve_tier",
+    "Padded mini-tier of the most recent active-set sub-solve")
+_M_SUB_MS = REGISTRY.histogram(
+    "fleet_solver_subsolve_ms",
+    "Wall milliseconds per localized sub-solve dispatch "
+    "(staging + mini anneal + scatter + exact full-problem gate)",
+    buckets=MS_BUCKETS)
 
 
 def record_outcome(outcome: str) -> None:
-    OUTCOME_COUNTS[outcome] += 1
+    _M_SUB.inc(outcome=outcome)
+
+
+def record_subsolve_ms(ms: float) -> None:
+    _M_SUB_MS.observe(ms)
 
 
 @dataclass(frozen=True)
@@ -600,6 +624,8 @@ def subsolve_dispatch(prob: TorchProblem, assignment: torch.Tensor,
                       trace_blocks: int = 0):
     """Run :func:`subsolve` for `plan` with the reference's budgets: at
     most SUB_MAX_STEPS sweeps, max(16, min(tier, 256)) pre-repair moves."""
+    _M_SUB_ROWS.set(plan.n_sub)
+    _M_SUB_TIER.set(plan.tier)
     return subsolve(prob, assignment, staged, plan, gen, t0, t1,
                     migration_weight, chains=chains,
                     steps=min(steps, SUB_MAX_STEPS), block=block,

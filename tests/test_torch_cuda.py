@@ -870,8 +870,8 @@ def test_one_lane_equals_the_solo_kernels(dev):
 def test_place_many_on_the_card(dev, monkeypatch):
     """One batch of three same-tier stages through place_many equals the
     solo warm reschedules of a control scheduler."""
+    from fleetflow_tpu_torch.obs.metrics import REGISTRY
     from fleetflow_tpu_torch.sched import GpuSolverScheduler
-    from fleetflow_tpu_torch.solver import multiplex
     monkeypatch.setenv("FLEET_SUBSOLVE", "0")
     pts = {k: synthetic_problem(300, 30, seed=i, port_fraction=0.3,
                                 volume_fraction=0.2)
@@ -882,10 +882,11 @@ def test_place_many_on_the_card(dev, monkeypatch):
         solo_sched.place(pts[k], stage=k)
         many.place(pts[k], stage=k)
     solo = {k: solo_sched.reschedule(pts[k], stage=k) for k in "ABC"}
-    stages = multiplex.MUX_LANES["stage"]
+    lanes = REGISTRY.get("fleet_solver_mux_lanes_total")
+    stages = lanes.value(kind="stage")
     batch = many.place_many([{"pt": pts[k], "warm_start": True, "stage": k}
                              for k in "ABC"])
-    assert multiplex.MUX_LANES["stage"] == stages + 3
+    assert lanes.value(kind="stage") == stages + 3
     for k, res in zip("ABC", batch):
         assert np.array_equal(solo[k].raw, res.raw), k
         assert res.feasible == solo[k].feasible

@@ -30,12 +30,18 @@ from fleetflow_tpu_torch.sched import (GpuSolverScheduler,
                                        HostGreedyScheduler, gpu,
                                        pick_scheduler, place_with_fallback,
                                        relax_problem)
-from fleetflow_tpu_torch.sched.base import PLACEMENTS
+from fleetflow_tpu_torch.obs.metrics import REGISTRY
 from fleetflow_tpu_torch.solver.repair import verify
 from test_torch_problem import CPU, STRATEGIES, make_pair
 from test_torch_seeds import tier_blocked
 
 LADDER = ["preferred", "spread", "tier"]
+
+
+def _placements() -> float:
+    """Placements the port's registry counted, over every source."""
+    return sum(v for k, v in REGISTRY.counter_values().items()
+               if k.startswith("fleet_placements_total{"))
 
 
 def _pair(S, N, seed, *, blocked=True, relax_order=LADDER, strategy=
@@ -91,7 +97,7 @@ def test_place_with_fallback_matches_reference(backend, case):
     ref_sched, sched = ((RefHost(), HostGreedyScheduler())
                         if backend == "host"
                         else (RefNative(), NativeGreedyScheduler()))
-    before = dict(PLACEMENTS)
+    before = _placements()
     ref_p, ref_relaxed = ref_pwf(ref_sched, ref_pt)
     port_p, relaxed = place_with_fallback(sched, port_pt)
     assert relaxed == ref_relaxed
@@ -102,7 +108,7 @@ def test_place_with_fallback_matches_reference(backend, case):
     assert port_p.assignment == ref_p.assignment
     assert port_p.levels == ref_p.levels
     solves = 1 + len(relaxed)
-    assert sum(PLACEMENTS.values()) - sum(before.values()) == solves
+    assert _placements() - before == solves
     if case == "feasible":
         assert relaxed == [] and port_p.feasible
     elif case == "blocked-no-tier":
@@ -117,10 +123,10 @@ def test_place_with_fallback_initial_skips_first_solve():
     sched = HostGreedyScheduler()
     first = sched.place(pt)
     assert not first.feasible
-    before = dict(PLACEMENTS)
+    before = _placements()
     placement, relaxed = place_with_fallback(sched, pt, initial=first)
     assert placement.feasible and relaxed == LADDER[2:]
-    assert sum(PLACEMENTS.values()) - sum(before.values()) == 1
+    assert _placements() - before == 1
 
 
 def test_gpu_scheduler_relaxes_in_the_stage_slot(monkeypatch):

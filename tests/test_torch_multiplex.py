@@ -39,6 +39,7 @@ from fleetflow_tpu.solver.resident import ResidentProblem as RefResident
 from fleetflow_tpu_torch.convert import stacked_problem_from_reference
 from fleetflow_tpu_torch.core.errors import SolverError
 from fleetflow_tpu_torch.lower.tensors import synthetic_problem
+from fleetflow_tpu_torch.obs.metrics import REGISTRY
 from fleetflow_tpu_torch.solver import anneal, kernels, multiplex
 from fleetflow_tpu_torch.solver.api import solve
 from fleetflow_tpu_torch.solver.multiplex import (MuxEntry, mux_k,
@@ -50,6 +51,17 @@ from test_torch_problem import CPU, make_pair, ref_arrays, to_np
 
 ref_anneal = importlib.import_module("fleetflow_tpu.solver.anneal")
 ref_kernels = importlib.import_module("fleetflow_tpu.solver.kernels")
+
+
+def _lanes_metric(name: str = "fleet_solver_mux_lanes_total", **labels):
+    """A mux census child, read from the port's registry."""
+    return REGISTRY.get(name).value(**labels)
+
+
+def _batches_total() -> float:
+    """Every batched dispatch, whatever its ladder rung."""
+    return sum(v for k, v in REGISTRY.counter_values().items()
+               if k.startswith("fleet_solver_mux_batches_total{"))
 
 S, N = 60, 12
 SOFT_BAND = 0.15      # |port - ref| <= 15% of |ref|
@@ -343,14 +355,15 @@ class TestParity:
             pt, rp, _ = _build(10 + i)
             entries.append(MuxEntry(pt=pt, resident=rp, seed=7 + i))
             solo_stages.append(_build(10 + i)[:2])
-        batches = dict(multiplex.MUX_BATCHES)
+        batches = _lanes_metric("fleet_solver_mux_batches_total", k="2")
         for _ in range(2):
             res = solve_multiplexed(entries, steps=32, device=CPU)
             ref = [_solo(pt, rp, 7 + i)
                    for i, (pt, rp) in enumerate(solo_stages)]
             for i in range(2):
                 _same(ref[i], res[i], i)
-        assert multiplex.MUX_BATCHES[2] == batches.get(2, 0) + 2
+        assert _lanes_metric("fleet_solver_mux_batches_total",
+                             k="2") == batches + 2
 
     def test_padded_batch_same_rung(self):
         """3 lanes run on the 4-lane rung; the padding lane is counted and
@@ -360,12 +373,12 @@ class TestParity:
             pt, rp, _ = _build(20 + i)
             entries.append(MuxEntry(pt=pt, resident=rp, seed=7 + i))
             ref.append(_solo(*_build(20 + i)[:2], 7 + i))
-        lanes = dict(multiplex.MUX_LANES)
+        lanes = {kind: _lanes_metric(kind=kind) for kind in ("pad", "stage")}
         res = solve_multiplexed(entries, steps=32, device=CPU)
         assert len(res) == 3
         assert all(r.timings_ms["mux_k"] == 4.0 for r in res)
-        assert multiplex.MUX_LANES["pad"] == lanes["pad"] + 1
-        assert multiplex.MUX_LANES["stage"] == lanes["stage"] + 3
+        assert _lanes_metric(kind="pad") == lanes["pad"] + 1
+        assert _lanes_metric(kind="stage") == lanes["stage"] + 3
         for i in range(3):
             _same(ref[i], res[i], i)
 
@@ -375,12 +388,12 @@ class TestSerialFallback:
         pt, rp, _ = _build(30)
         ref = _solo(pt, rp, 5)
         pt2, rp2, _ = _build(30)
-        serial = multiplex.MUX_LANES["serial"]
+        serial = _lanes_metric(kind="serial")
         [m] = solve_multiplexed([MuxEntry(pt=pt2, resident=rp2, seed=5)],
                                 steps=32, device=CPU)
         assert np.array_equal(ref.assignment, m.assignment)
         assert "mux_k" not in m.timings_ms    # serial path, not a batch of 1
-        assert multiplex.MUX_LANES["serial"] == serial + 1
+        assert _lanes_metric(kind="serial") == serial + 1
 
     def test_ineligible_resident_falls_back_to_serial(self):
         """A staging with no adopted assignment is not resident-warm and
@@ -404,10 +417,10 @@ class TestSerialFallback:
         for i in range(2):
             pt, rp, _ = _build(60 + i, steps=16, S=24, N=6)
             entries.append(MuxEntry(pt=pt, resident=rp, seed=i))
-        batches = sum(multiplex.MUX_BATCHES.values())
+        batches = _batches_total()
         res = solve_multiplexed(entries, steps=16, device=CPU)
         assert len(res) == 4
-        assert sum(multiplex.MUX_BATCHES.values()) == batches + 2
+        assert _batches_total() == batches + 2
         assert res[0].assignment.shape == (S,)
         assert res[2].assignment.shape == (24,)
         assert all(r.timings_ms["mux_k"] == 2.0 for r in res)

@@ -284,8 +284,9 @@ class TestConvert:
 
 class TestBoundaries:
     def test_package_imports_no_jax(self):
-        """Every module of the port (and chip_smoke.py) imports in a fresh
-        interpreter without jax or fleetflow_tpu entering sys.modules."""
+        """Every module of the port (the obs package among them) and
+        chip_smoke.py import in a fresh interpreter without jax or
+        fleetflow_tpu entering sys.modules."""
         code = (
             "import importlib, importlib.util, pkgutil, sys\n"
             "import fleetflow_tpu_torch as pkg\n"
@@ -297,8 +298,11 @@ class TestBoundaries:
             "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'fleetflow_tpu'))\n"
-            "print(len(mods), bad)\n"
-            "sys.exit(1 if bad or len(mods) < 15 else 0)\n")
+            "obs = {'fleetflow_tpu_torch.obs.' + m for m in "
+            "('metrics', 'trace', 'slo')} | {'fleetflow_tpu_torch.obs'}\n"
+            "print(len(mods), bad, sorted(obs - set(mods)))\n"
+            "sys.exit(1 if bad or len(mods) < 15 or obs - set(mods) "
+            "else 0)\n")
         env = dict(os.environ)
         env["PYTHONPATH"] = str(REPO)
         out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -45,6 +45,7 @@ from fleetflow_tpu_torch.convert import sharded_from_reference
 from fleetflow_tpu_torch.core.errors import SolverError
 from fleetflow_tpu_torch.entry import dryrun_multichip
 from fleetflow_tpu_torch.lower.tensors import synthetic_problem
+from fleetflow_tpu_torch.obs.metrics import REGISTRY
 from fleetflow_tpu_torch.solver import problem as port_problem
 from fleetflow_tpu_torch.solver import sharded as sh
 from fleetflow_tpu_torch.solver.buckets import pad_problem as port_pad
@@ -591,7 +592,8 @@ class TestRouting:
         monkeypatch.setattr(sh, "visible_devices", lambda: CPU8)
         pt = synthetic_problem(73, 12, seed=31, port_fraction=0.3)
         sched = GpuSolverScheduler(chains=1, steps=STEPS, device="cpu")
-        before = dict(sh.SHARDED_COUNTERS["sharded_solves"])
+        counts = REGISTRY.get("fleet_solver_sharded_solves_total")
+        before = {k: counts.value(outcome=k) for k in ("cold", "delta")}
         p = sched.place(pt)
         assert p.raw.shape[0] == pt.S and p.feasible
         assert isinstance(sched._slots[0].resident, sh.ShardedResident)
@@ -603,9 +605,8 @@ class TestRouting:
         assert r.raw.shape[0] == pt.S
         assert not [s for s, n in r.assignment.items()
                     if n == pt.node_names[3]]
-        counts = sh.SHARDED_COUNTERS["sharded_solves"]
-        assert counts["cold"] == before["cold"] + 1
-        assert counts["delta"] == before["delta"] + 1
+        assert counts.value(outcome="cold") == before["cold"] + 1
+        assert counts.value(outcome="delta") == before["delta"] + 1
         assert len(sched._slots) == 1
 
     def test_routing_flip_cannot_reuse_sharded_slot(self, monkeypatch):
@@ -616,14 +617,15 @@ class TestRouting:
         sched = GpuSolverScheduler(chains=1, steps=STEPS, device="cpu")
         sched.place(pt)
         monkeypatch.setenv("FLEET_SHARDED", "0")
-        counts = sh.SHARDED_COUNTERS["sharded_solves"]
-        before = counts["cold"] + counts["delta"]
+        counts = REGISTRY.get("fleet_solver_sharded_solves_total")
+        before = counts.value(outcome="cold") + counts.value(outcome="delta")
         valid = pt.node_valid.copy()
         valid[2] = False
         pt2 = dataclasses.replace(pt, node_valid=valid)
         r = sched.reschedule(pt2, delta=ProblemDelta(node_valid=valid))
         assert r.raw.shape[0] == pt.S
-        assert counts["cold"] + counts["delta"] == before
+        assert counts.value(outcome="cold") + \
+            counts.value(outcome="delta") == before
         assert sched.last_result.tempering is None
         assert not isinstance(sched._slots[0].resident, sh.ShardedResident)
 
@@ -714,8 +716,8 @@ class TestSolveContract:
         assert len(tel["blocks"]) == -(-res.steps // 4)
         assert tel["blocks"][-1][4] == res.tempering["swap_attempts"]
         assert res.bucket["padded_S"] == rp.prob.S
-        assert sh.SHARDED_COUNTERS["sharded_device_bytes"] == sum(
-            sh.per_device_bytes(rp.prob, rp.mesh, state=True).values())
+        assert REGISTRY.get("fleet_solver_sharded_device_bytes").value() == \
+            sum(sh.per_device_bytes(rp.prob, rp.mesh, state=True).values())
 
     def test_host_seed_raises_without_a_compiler(self, monkeypatch,
                                                  tmp_path):

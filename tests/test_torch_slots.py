@@ -17,12 +17,16 @@ import torch
 from fleetflow_tpu.lower import synthetic_problem as ref_synthetic
 from fleetflow_tpu.sched import TpuSolverScheduler
 from fleetflow_tpu_torch.lower.tensors import synthetic_problem
+from fleetflow_tpu_torch.obs.metrics import REGISTRY
 from fleetflow_tpu_torch.sched import GpuSolverScheduler
-from fleetflow_tpu_torch.sched import gpu as port_gpu
-from fleetflow_tpu_torch.solver import multiplex
 from fleetflow_tpu_torch.solver.resident import ProblemDelta
 from test_torch_problem import CPU
 
+
+
+def _metric(name: str, **labels) -> float:
+    """A family's child, read from the port's registry."""
+    return REGISTRY.get(name).value(**labels)
 
 def _pts(n=3, make=synthetic_problem):
     return {k: make(60, 12, seed=i, port_fraction=0.3, volume_fraction=0.2)
@@ -55,9 +59,9 @@ def test_evict_readmit_warm_seeds_bit_identically(monkeypatch):
     st = hot.slots_status()
     assert _stages(st) == (["C", "B"], ["A"])
     assert st["evicted"][0]["snapshot"]
-    readmits = port_gpu.SLOT_EVENTS["readmissions"]
+    readmits = _metric("fleet_sched_slot_readmissions_total")
     got = hot.reschedule(pts["A"], stage="A")
-    assert port_gpu.SLOT_EVENTS["readmissions"] == readmits + 1
+    assert _metric("fleet_sched_slot_readmissions_total") == readmits + 1
     assert np.array_equal(ref.raw, got.raw)
     assert got.feasible == ref.feasible
     assert hot.last_result.steps == ctl.last_result.steps
@@ -149,23 +153,22 @@ def test_eviction_drops_the_device_tensors(monkeypatch):
     sched.place(pts["B"], stage="B")
     assert held.prob is None and held.assignment is None
     assert held.device_nbytes() == 0
-    assert port_gpu.SLOT_EVENTS["evictions"] >= 1
+    assert _metric("fleet_sched_slot_evictions_total") >= 1
 
 
 def test_broken_delta_contract_counts_a_host_transfer(monkeypatch):
     """A warm request whose fleet a delta cannot express (relowered conflict
     ids) cold-stages the stage's slot in place and counts the host
     transfer; it still warm-starts from the stage's last assignment."""
-    from fleetflow_tpu_torch.solver.resident import HOST_TRANSFERS
     monkeypatch.setenv("FLEET_SUBSOLVE", "0")
     pts = _pts(1)
     sched = _sched()
     first = sched.place(pts["A"], stage="A")
     relowered = dataclasses.replace(pts["A"],
                                     port_ids=pts["A"].port_ids.copy())
-    count = HOST_TRANSFERS["count"]
+    count = _metric("fleet_solver_host_transfers_total")
     again = sched.reschedule(relowered, stage="A")
-    assert HOST_TRANSFERS["count"] == count + 1
+    assert _metric("fleet_solver_host_transfers_total") == count + 1
     assert again.feasible and len(sched._slots) == 1
     assert float((again.raw != first.raw).mean()) < 0.5
 
@@ -182,10 +185,10 @@ def test_place_many_matches_solo_reschedules(monkeypatch):
     many = _sched()
     for k in "ABC":
         many.place(pts[k], stage=k)
-    stages = multiplex.MUX_LANES["stage"]
+    stages = _metric("fleet_solver_mux_lanes_total", kind="stage")
     batch = many.place_many([{"pt": pts[k], "warm_start": True, "stage": k}
                              for k in "ABC"])
-    assert multiplex.MUX_LANES["stage"] == stages + 3
+    assert _metric("fleet_solver_mux_lanes_total", kind="stage") == stages + 3
     assert len(batch) == 3
     for k, res in zip("ABC", batch):
         assert np.array_equal(solo[k].raw, res.raw), k
@@ -211,13 +214,14 @@ def test_place_many_over_the_slot_bound(monkeypatch):
     for k in "ABCD":
         many.place(pts[k], stage=k)
     assert _stages(many.slots_status()) == (["D", "C"], ["A", "B"])
-    readmits = port_gpu.SLOT_EVENTS["readmissions"]
-    stages, serial = multiplex.MUX_LANES["stage"], multiplex.MUX_LANES["serial"]
+    readmits = _metric("fleet_sched_slot_readmissions_total")
+    stages = _metric("fleet_solver_mux_lanes_total", kind="stage")
+    serial = _metric("fleet_solver_mux_lanes_total", kind="serial")
     batch = many.place_many([{"pt": pts[k], "warm_start": True, "stage": k}
                              for k in "ABCD"])
-    assert port_gpu.SLOT_EVENTS["readmissions"] == readmits + 2
-    assert multiplex.MUX_LANES["stage"] == stages + 4
-    assert multiplex.MUX_LANES["serial"] == serial
+    assert _metric("fleet_sched_slot_readmissions_total") == readmits + 2
+    assert _metric("fleet_solver_mux_lanes_total", kind="stage") == stages + 4
+    assert _metric("fleet_solver_mux_lanes_total", kind="serial") == serial
     for k, res in zip("ABCD", batch):
         assert np.array_equal(solo[k].raw, res.raw), k
         assert res.feasible == solo[k].feasible

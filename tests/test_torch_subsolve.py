@@ -43,6 +43,7 @@ from fleetflow_tpu.solver.resident import ResidentProblem as RefResident
 from fleetflow_tpu_torch.convert import (plan_from_reference,
                                          resident_from_reference)
 from fleetflow_tpu_torch.lower.tensors import synthetic_problem
+from fleetflow_tpu_torch.obs.metrics import REGISTRY
 from fleetflow_tpu_torch.solver import solve
 from fleetflow_tpu_torch.solver import subsolve as port_sub
 from fleetflow_tpu_torch.solver.buckets import pad_assignment, width_bucket
@@ -447,13 +448,13 @@ def test_gate_rejection_falls_back_to_full_path(monkeypatch, small_tiers):
     valid, _ = _kill(pt, res.assignment, pt.node_valid, max)
     cur = dataclasses.replace(pt, node_valid=valid)
     rp.apply_delta(cur, ProblemDelta(node_valid=valid))
-    before = dict(port_sub.OUTCOME_COUNTS)
+    outcomes = REGISTRY.get("fleet_solver_subsolve_total")
+    before = outcomes.value(outcome="fallback_infeasible")
     r = solve(cur, prob=rp.prob, resident=rp, resident_warm=True, seed=5,
               bucket=True, **SOLVE_KW)
     assert r.subsolve["outcome"] == "fallback_infeasible"
     assert r.telemetry["path"] == "full"
-    assert port_sub.OUTCOME_COUNTS["fallback_infeasible"] == \
-        before["fallback_infeasible"] + 1
+    assert outcomes.value(outcome="fallback_infeasible") == before + 1
     assert r.feasible and r.pre_repair_violations == 0
     assert valid[r.assignment].all()
     assert "subsolve_ms" in r.timings_ms
