@@ -91,6 +91,20 @@ each of which fails the run:
      eligibility (every 8th service may use only 10 nodes, all down;
      relax_order ["tier"]): feasible after relaxing "tier", in one slot;
      ``pick_scheduler`` at three sizes;
+     ``[frontend]``: KDL text to the card. The fleet the reference bench's
+     pipeline generates for one tenant (``generate_fleet_kdl("t0", 10000,
+     seed=100, n_nodes_hint=1000, port_base=10000)`` and
+     ``generate_servers_kdl(1000, seed=7)``) parsed with the native fast
+     path (the CPython assembly built from ``csrc/host/``) and with
+     FLEET_KDL_NATIVE=0, the two Flows equal through ``flow_to_dict``;
+     ``lower_stage`` to 10,602 x 1,000; ``GpuSolverScheduler()`` cold,
+     then one node and 5% of the nodes down (K4, K3 and K1 launch);
+     ``explain_assignment`` of the first port row and the first colocated
+     row (chosen node feasible); the same fleet as a two-file project
+     loaded with FLEET_PARSE_WORKERS=2 (a fork pool after CUDA is up)
+     lowering to the same tensors; every stage of ``examples/`` loaded
+     with the pool, lowered and placed (production's keeps its quota,
+     fallback and spread);
  10. ``[entry]``: ``fn(*args)`` of ``fleetflow_tpu_torch.entry.entry()``,
      K1 launched 32 times, the cost finite and no worse than the
      all-on-node-0 start;
@@ -156,6 +170,7 @@ import os
 import statistics
 import subprocess
 import sys
+import sysconfig
 import time
 from collections import deque
 from contextlib import contextmanager, nullcontext
@@ -185,7 +200,7 @@ PEAK_OPS_S = 67e12
 # float planes: the plain versions sum with atomics on the card (another
 # order than the kernels' index order), so loads agree to float32 rounding
 LOAD_RTOL = 1e-5
-# warm dispatches traced until one trace sees the probe's upload
+# warm dispatches traced until one trace sees a probe's upload
 H2D_TRIES = 3
 # [device] tool runs until torch.profiler has recorded each case's kernels
 DEVICE_TRIES = 3
@@ -885,65 +900,116 @@ def h2d_in_range(prof, name: str) -> tuple[int, int, list]:
     return len(roots), ops, h2d
 
 
+PROBES = ("chip_smoke.h2d_probe", "chip_smoke.h2d_probe_after")
+
+
 def profiled(torch, run):
-    """run() under torch.profiler, after a probe range that uploads one
-    small tensor (it shows that the count sees such a copy). Returns
-    (run's result, profiler)."""
+    """run() under torch.profiler, between two probe ranges that each
+    upload one small tensor (they show that the count sees such a copy).
+    Returns (run's result, profiler)."""
     from torch.profiler import ProfilerActivity, profile, record_function
+
+    from fleetflow_tpu_torch.obs import CUDA_TRACE_LEAD_S
+    dev = torch.device("cuda", 0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        # one kernel and a sync first: a copy made the moment the tracing
-        # starts was once missed by it
-        torch.zeros(1, device=torch.device("cuda", 0)).add_(1)
+        # one kernel, a sync and the lead first: the device tracing goes
+        # live some ms after the profile is entered, and the records of
+        # what ran before are lost
+        torch.zeros(1, device=dev).add_(1)
         torch.cuda.synchronize()
-        with record_function("chip_smoke.h2d_probe"):
-            torch.tensor([1, 2, 3], device=torch.device("cuda", 0))
+        time.sleep(CUDA_TRACE_LEAD_S)
+        with record_function(PROBES[0]):
+            torch.tensor([1, 2, 3], device=dev)
         torch.cuda.synchronize()
         out = run()
+        torch.cuda.synchronize()
+        with record_function(PROBES[1]):
+            torch.tensor([4, 5, 6], device=dev)
         torch.cuda.synchronize()
     return out, prof
 
 
+def trace_times(prof, range_name: str) -> dict:
+    """Where a trace's records lie, in µs from its start: the probes' and
+    `range_name`'s host ranges, the first device record, and each
+    host-to-device copy's device record."""
+    host = {n: [round(e.time_range.start, 1) for e in prof.events()
+                if e.name == n and str(e.device_type).endswith("CPU")]
+            for n in PROBES + (range_name,)}
+    device = [e for e in prof.events()
+              if not str(e.device_type).endswith("CPU")]
+    return dict(host=host, device_records=len(device),
+                first_device=round(min((e.time_range.start
+                                        for e in device), default=-1), 1),
+                h2d_device=[round(e.time_range.start, 1) for e in device
+                            if "HtoD" in e.name][:6])
+
+
+def probe_seen(prof, range_name: str):
+    """(name, h2d_in_range) of the probe that shows this trace would have
+    seen a copy in the dispatch, or None. The first probe shows it: it
+    ran before the dispatch. Late in a long process the profiler can lose
+    every device record up to some point after that probe (on an H100 it
+    lost them up to the traced run's first launches). Then the second
+    probe shows that the trace links copies, and a device record linked
+    to a host op that began before the dispatch's host range shows that
+    the kept records reach back before the dispatch (one stream: the card
+    runs the ops in launch order)."""
+    first, after = (h2d_in_range(prof, p) for p in PROBES)
+    if first[0] == 1 and first[2]:
+        return PROBES[0], first
+    start = [e.time_range.start for e in prof.events()
+             if e.name == range_name and str(e.device_type).endswith("CPU")]
+    if after[0] == 1 and after[2] and len(start) == 1 and any(
+            e.kernels and e.time_range.start < start[0]
+            for e in prof.events() if str(e.device_type).endswith("CPU")):
+        return PROBES[1], after
+    return None
+
+
 def check_no_h2d(prof, range_name: str, tag: str) -> None:
     """The card made no host-to-device copy in the `range_name` range (a
-    warm dispatch), and the probe's upload was seen."""
-    probe = h2d_in_range(prof, "chip_smoke.h2d_probe")
+    warm dispatch), and a probe's upload was seen (probe_seen)."""
+    seen = probe_seen(prof, range_name)
     warm = h2d_in_range(prof, range_name)
-    if probe[0] != 1 or not probe[2]:
-        raise AssertionError(f"the host-to-device count missed the probe's "
-                             f"upload: {probe}")
+    if seen is None:
+        raise AssertionError(f"the host-to-device count missed the probes' "
+                             f"uploads: {trace_times(prof, range_name)}")
     if warm[0] != 1 or warm[1] == 0:
         raise AssertionError(f"no {range_name} dispatch traced: {warm}")
     if warm[2]:
         raise AssertionError(f"host-to-device copies in {range_name}: "
                              f"{warm[2]}")
     print(f"[{tag}] {range_name} under torch.profiler: {warm[1]} device "
-          f"operations, 0 host-to-device copies; the probe's torch.tensor "
-          f"upload showed {len(probe[2])}: {probe[2]}", flush=True)
+          f"operations, 0 host-to-device copies; the {seen[0]} upload "
+          f"showed {len(seen[1][2])}: {seen[1][2]}; "
+          f"{json.dumps(trace_times(prof, range_name))}", flush=True)
 
 
 def no_h2d_in_dispatch(attempt, range_name: str, tag: str,
                        tries: int = H2D_TRIES) -> None:
     """check_no_h2d on a warm dispatch traced by `attempt(i)` (a fresh
     dispatch under profiled() each call, its contract checked by the
-    caller; returns the profiler). A trace that missed the probe's upload
-    cannot show that the dispatch made no copy: the profiler lost a copy's
-    device record. Then the next attempt (another burst) is traced, up to
-    `tries`; the run fails if none saw the probe."""
+    caller; returns the profiler). A trace in which no probe was seen
+    (probe_seen) cannot show that the dispatch made no copy: the profiler
+    lost a copy's device record. Then the next attempt (another burst) is
+    traced, up to `tries`; the run fails if none saw a probe."""
     for i in range(tries):
         prof = attempt(i)
-        probe = h2d_in_range(prof, "chip_smoke.h2d_probe")
-        if probe[0] == 1 and probe[2]:
+        if probe_seen(prof, range_name) is not None:
             check_no_h2d(prof, range_name, tag)
             return
         warm = h2d_in_range(prof, range_name)
-        print(f"[{tag}] trace {i + 1} of {tries} missed the probe's upload "
-              f"(probe {probe}; {range_name}: {warm[0]} ranges, {warm[1]} "
-              f"device operations, {len(warm[2])} copies); another "
+        print(f"[{tag}] trace {i + 1} of {tries} missed the probes' "
+              f"uploads ({[h2d_in_range(prof, p) for p in PROBES]}; "
+              f"{range_name}: {warm[0]} ranges, {warm[1]} device "
+              f"operations, {len(warm[2])} copies; "
+              f"{json.dumps(trace_times(prof, range_name))}); another "
               f"dispatch", flush=True)
     raise AssertionError(f"[{tag}] the host-to-device count missed the "
-                         f"probe's upload in {tries} traces")
+                         f"probes' uploads in {tries} traces")
 
 
 def warm_h2d_check(torch, np, sched, pt, ProblemDelta, record) -> None:
@@ -1516,32 +1582,44 @@ def obs_profile_solver(torch, np, sched_pt, mods, dev, REGISTRY):
           f"dispatch delta {gauge.value():.0f} bytes", flush=True)
 
 
-def obs_profile_dir(torch, pt, solve, dev, prof_dir: str) -> None:
+def obs_profile_dir(torch, pt, solve, dev, prof_dir: str,
+                    tries: int = H2D_TRIES) -> None:
     """FLEET_PROFILE_DIR: one cold solve() writes a Chrome trace holding
     the solve and fleet.refine ranges and the card's K4, K3 and K1 kernel
-    events under their symbol names."""
+    events under their symbol names. A trace that lost its first device
+    records (K4 is the solve's first launch; see probe_seen) is taken
+    again on another cold solve, up to `tries`."""
     from fleetflow_tpu_torch.solver.api import REFINE_RANGE
     os.makedirs(prof_dir, exist_ok=True)
-    before = set(os.listdir(prof_dir))
-    with env_set(FLEET_PROFILE_DIR=prof_dir):
-        res = solve(pt, device=dev)
-    written = sorted(set(os.listdir(prof_dir)) - before)
-    if len(written) != 1 or res.violations:
-        raise AssertionError(f"[obs] FLEET_PROFILE_DIR: traces {written}, "
-                             f"{res.violations} violations")
-    with open(os.path.join(prof_dir, written[0])) as f:
-        events = json.load(f)["traceEvents"]
-    names = {e.get("name", "") for e in events}
-    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
-    # demangled, e.g. "(anonymous namespace)::k3_build(int, ...)"
-    found = {name: sum(any(f"{sym}(" in k for sym in syms) for k in kernels)
-             for name, syms in OBS_KERNEL_SYMBOLS.items()}
-    if not {"solve", REFINE_RANGE} <= names or not all(found.values()):
-        raise AssertionError(f"[obs] the trace {written[0]}: ranges "
-                             f"{sorted(n for n in names if 'fleet' in n)}, "
-                             f"kernel events {found}")
-    print(f"[obs] FLEET_PROFILE_DIR: {written[0]}, {len(events)} events, "
-          f"kernel events {json.dumps(found)}", flush=True)
+    for i in range(tries):
+        before = set(os.listdir(prof_dir))
+        with env_set(FLEET_PROFILE_DIR=prof_dir):
+            res = solve(pt, device=dev)
+        written = sorted(set(os.listdir(prof_dir)) - before)
+        if len(written) != 1 or res.violations:
+            raise AssertionError(f"[obs] FLEET_PROFILE_DIR: traces "
+                                 f"{written}, {res.violations} violations")
+        with open(os.path.join(prof_dir, written[0])) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name", "") for e in events}
+        kernels = [e.get("name", "") for e in events
+                   if e.get("cat") == "kernel"]
+        # demangled, e.g. "(anonymous namespace)::k3_build(int, ...)"
+        found = {name: sum(any(f"{sym}(" in k for sym in syms)
+                           for k in kernels)
+                 for name, syms in OBS_KERNEL_SYMBOLS.items()}
+        if not {"solve", REFINE_RANGE} <= names:
+            raise AssertionError(f"[obs] the trace {written[0]}: ranges "
+                                 f"{sorted(n for n in names if 'fleet' in n)}")
+        if all(found.values()):
+            print(f"[obs] FLEET_PROFILE_DIR: {written[0]}, {len(events)} "
+                  f"events, kernel events {json.dumps(found)}", flush=True)
+            return
+        print(f"[obs] FLEET_PROFILE_DIR: trace {i + 1} of {tries}, "
+              f"{written[0]}, lost kernel events {json.dumps(found)}; "
+              f"another cold solve", flush=True)
+    raise AssertionError(f"[obs] FLEET_PROFILE_DIR: {tries} traces without "
+                         f"every kernel's events")
 
 
 def obs_bookkeeping_us(torch, api, res, pt, dev) -> dict:
@@ -3187,6 +3265,217 @@ def small_agreement(torch, lower, solve):
           f"cpu {cpu.soft:.6f}", flush=True)
 
 
+# [frontend]: the fleet the reference bench's pipeline generates for one
+# tenant (fleetgen), the shape its lowering gives, and the examples
+FRONTEND_FLEET = dict(fleet="t0", n_services=10_000, seed=100,
+                      n_nodes_hint=1_000, port_base=10_000)
+FRONTEND_SERVERS = dict(n=1_000, seed=7)
+FRONTEND_SHAPE = (10_602, 1_000)
+EXAMPLES = ("hello-world", "production", "plan-simulate")
+FRONTEND_DIR = os.path.join("fleetflow_tpu_torch", "_ext_build", "frontend")
+
+
+def flows_equal(serialize, a, b) -> bool:
+    return serialize.flow_to_dict(a) == serialize.flow_to_dict(b)
+
+
+def tensors_equal(np, a, b) -> list:
+    """The fields in which two ProblemTensors differ (exact, dtype too)."""
+    bad = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            same = (isinstance(x, np.ndarray) and isinstance(y, np.ndarray)
+                    and x.dtype == y.dtype and np.array_equal(x, y))
+        else:
+            same = x == y
+        if not same:
+            bad.append(f.name)
+    return bad
+
+
+def timed_parse(core, text: str, native: bool):
+    """(flow, ms) of one uncached parse_kdl_string, the native fast path
+    on or off (FLEET_KDL_NATIVE)."""
+    with env_set(FLEET_KDL_NATIVE=None if native else "0"):
+        t0 = time.perf_counter()
+        flow = core.parse_kdl_string(text, cache=False)
+        return flow, (time.perf_counter() - t0) * 1e3
+
+
+def example_projects(root: str) -> list:
+    """(name, project root) of each example: plan-simulate ships its flow
+    as one file, so it is copied into a project of its own under `root`."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = []
+    for name in EXAMPLES:
+        src = os.path.join(here, "examples", name)
+        if not os.path.isdir(os.path.join(src, ".fleetflow")):
+            proj = os.path.join(root, name, ".fleetflow")
+            os.makedirs(proj, exist_ok=True)
+            with open(os.path.join(src, "flow.kdl")) as f_in, \
+                    open(os.path.join(proj, "fleet.kdl"), "w") as f_out:
+                f_out.write(f_in.read())
+            src = os.path.join(root, name)
+        out.append((name, src))
+    return out
+
+
+def run_frontend_phase(torch, np, mods, dev_name, fleet=FRONTEND_FLEET,
+                       servers=FRONTEND_SERVERS, shape=FRONTEND_SHAPE,
+                       root=FRONTEND_DIR):
+    """[frontend]: KDL text to the card. (a) The generated fleet and its
+    server pool parsed through the native fast path and through the Python
+    parser (equal Flows), lowered by lower_stage to `shape`, then a
+    GpuSolverScheduler() cold place and reschedules after one node and 5%
+    of the nodes down; explain_assignment of a port row and a colocated
+    row. The same fleet loaded as a two-file project with
+    FLEET_PARSE_WORKERS=2 (a fork pool, after CUDA is up) lowers to the
+    same tensors. (b) Every stage of the examples, loaded with the same
+    pool, lowered and placed through place_with_fallback (production's
+    stage declares a fallback and needs it). Returns the launch counts of
+    the phase."""
+    (_ext, GpuSolverScheduler, ProblemDelta, verify, solve,
+     place_with_fallback, relax_problem, core, serialize, fleetgen, lower,
+     native_kdl, parsecache, explain_assignment) = mods
+    fleet_text = fleetgen.generate_fleet_kdl(
+        fleet["fleet"], fleet["n_services"], seed=fleet["seed"],
+        n_nodes_hint=fleet["n_nodes_hint"], port_base=fleet["port_base"])
+    servers_text = fleetgen.generate_servers_kdl(servers["n"],
+                                                 seed=servers["seed"])
+    parse_ms = {}
+    parsed = {}
+    for native in (True, False):
+        path = "native" if native else "python"
+        flow, ms_f = timed_parse(core, fleet_text, native)
+        pool, ms_s = timed_parse(core, servers_text, native)
+        parsed[path] = (flow, pool)
+        parse_ms[path] = ms_f + ms_s
+    if not (flows_equal(serialize, parsed["native"][0], parsed["python"][0])
+            and flows_equal(serialize, parsed["native"][1],
+                            parsed["python"][1])):
+        raise AssertionError("[frontend] the native and Python parses "
+                             "differ")
+    flow, pool = parsed["native"]
+    nodes = list(pool.servers.values())
+    t0 = time.perf_counter()
+    pt = lower.lower_stage(flow, "prod", nodes=nodes)
+    lower_ms = (time.perf_counter() - t0) * 1e3
+    if shape is not None and (pt.S, pt.N) != shape:
+        raise AssertionError(f"[frontend] lowered {pt.S}x{pt.N}, expected "
+                             f"{shape[0]}x{shape[1]}")
+    print(f"[frontend] {json.dumps(dict(kdl_bytes=len(fleet_text) + len(servers_text), assembly=native_kdl.assembly(), native_parse_ms=round(parse_ms['native'], 3), python_parse_ms=round(parse_ms['python'], 3), lower_ms=round(lower_ms, 3), rows=pt.S, nodes=pt.N, port_rows=int((pt.port_ids >= 0).any(1).sum()), max_depth=int(pt.dep_depth.max())))}",
+          flush=True)
+
+    sched = GpuSolverScheduler()
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    record = make_record(sched, verify, _ext, dev_name, "frontend")
+    gauge = parsecache.M_FRONTEND_PHASE_MS
+    t0 = time.perf_counter()
+    placed = sched.place(pt)
+    record("cold", placed, pt, wall_ms=round((time.perf_counter() - t0)
+                                             * 1e3, 3))
+    cold = placed.raw.copy()
+    rng = np.random.default_rng(0)
+    valid = pt.node_valid.copy()
+    valid[int(np.bincount(cold, minlength=pt.N).argmax())] = False
+    pt_now = pt
+    for label in ("warm_one_node_down", "warm_5pct_nodes_down"):
+        if label == "warm_5pct_nodes_down":
+            alive = np.flatnonzero(valid)
+            valid[rng.choice(alive, int(0.05 * pt.N), replace=False)] = False
+        pt_now = dataclasses.replace(pt, node_valid=valid.copy())
+        t0 = time.perf_counter()
+        placed = sched.reschedule(pt_now, delta=ProblemDelta(
+            node_valid=valid.copy()))
+        record(label, placed, pt_now,
+               wall_ms=round((time.perf_counter() - t0) * 1e3, 3))
+    # a bucketed solve() stages cold itself and sets the front end's stage
+    # gauge
+    t0 = time.perf_counter()
+    res = solve(pt, seed=0, bucket=True)
+    wall = (time.perf_counter() - t0) * 1e3
+    check_solve(res, pt, verify, dev_name, "[frontend] solve()")
+    print(f"[frontend] {json.dumps(dict(solve='solve()', wall_ms=round(wall, 3), stage_ms=round(gauge.value(phase='stage'), 3), sweeps=res.steps))}",
+          flush=True)
+    since = tally_size(_ext, pt.S, pt.N)
+    print(f"[frontend] fleet launches {json.dumps(since)}", flush=True)
+    missing = [k for k in ("k4_greedy", "k3_rebuild", "k1_sweep")
+               if since[k] == 0]
+    if missing:
+        raise AssertionError(f"[frontend] {missing} did not launch")
+
+    rows = {"port": np.flatnonzero((pt.port_ids >= 0).any(1)),
+            "coloc": np.flatnonzero((pt.coloc_ids >= 0).any(1))}
+    for kind, idx in rows.items():
+        if idx.size == 0:
+            raise AssertionError(f"[frontend] no {kind} row to explain")
+        name = pt.service_names[int(idx[0])]
+        rep = explain_assignment(pt, cold, name)
+        if not rep["chosen"]["feasible"]:
+            raise AssertionError(f"[frontend] explain {name}: {rep}")
+        print(f"[frontend] explain {json.dumps(dict(kind=kind, service=name, chosen=rep['chosen']['node'], rank=rep['chosen_rank'], feasible_nodes=rep['blocked_counts']['feasible']))}",
+              flush=True)
+
+    # the same fleet as a project of two files, parsed by a fork pool of 2
+    # workers after CUDA is up (the workers only parse)
+    proj = os.path.join(root, "fleet", ".fleetflow")
+    os.makedirs(proj, exist_ok=True)
+    for fname, text in (("cloud.kdl", servers_text),
+                        ("fleet.kdl", fleet_text)):
+        with open(os.path.join(proj, fname), "w") as f:
+            f.write(text)
+    with env_set(FLEET_PARSE_WORKERS="2"):
+        t0 = time.perf_counter()
+        loaded = core.load_project_from_root_with_stage(
+            os.path.dirname(proj), "prod")
+        load_ms = (time.perf_counter() - t0) * 1e3
+    got = lower.lower_stage(loaded, "prod")
+    bad = tensors_equal(np, pt, got)
+    if bad:
+        raise AssertionError(f"[frontend] the loaded project lowers "
+                             f"otherwise: {bad}")
+    print(f"[frontend] {json.dumps(dict(project='fleet', workers=2, load_ms=round(load_ms, 3), parse_ms=round(gauge.value(phase='parse'), 3)))}",
+          flush=True)
+
+    # (b) the examples, every stage, through the same pool
+    n_stages = 0
+    with env_set(FLEET_PARSE_WORKERS="2"):
+        for name, path in example_projects(root):
+            with open(os.path.join(path, ".fleetflow", "fleet.kdl")) as f:
+                stages = [n.args[0] for n in core.parse_document(f.read())
+                          if n.name == "stage"]
+            for st in stages:
+                ex_flow = core.load_project_from_root_with_stage(path, st)
+                ex_pt = lower.lower_stage(ex_flow, st)
+                # a stage that declares fallback{} is placed as its users
+                # place it: relaxing its classes in order while infeasible
+                t0 = time.perf_counter()
+                placed, relaxed = place_with_fallback(
+                    sched, ex_pt, place_kwargs={"stage": f"{name}/{st}"})
+                wall = (time.perf_counter() - t0) * 1e3
+                final_pt = ex_pt
+                for what in relaxed:
+                    final_pt = relax_problem(final_pt, what)
+                record(f"{name}/{st}", placed, final_pt, rows=ex_pt.S,
+                       nodes=ex_pt.N, relaxed=relaxed, wall_ms=round(wall, 3))
+                since = tally_size(_ext, ex_pt.S, ex_pt.N, since)
+                if name == "production":
+                    pol = ex_flow.stages[st].placement
+                    if not (pol and pol.resource_quota
+                            and pol.fallback_policy
+                            and ex_pt.relax_order and ex_pt.max_skew > 0):
+                        raise AssertionError(f"[frontend] {name}/{st} lost "
+                                             f"its policy")
+                n_stages += 1
+    if n_stages < len(EXAMPLES):
+        raise AssertionError(f"[frontend] {n_stages} example stages")
+    return read_launches(torch, _ext, "frontend",
+                         ("k1_sweep", "k3_rebuild", "k4_greedy"),
+                         off=("k6_greedy_scan",))
+
+
 def launches_by_size(name: str, total: int) -> dict:
     """A kernel's main-path launches by the fleet size they ran at; every
     phase's launches must have been tallied."""
@@ -3216,6 +3505,11 @@ def main() -> int:
         from fleetflow_tpu_torch.solver.repair import verify
         from fleetflow_tpu_torch.solver.resident import (ProblemDelta,
                                                          ResidentProblem)
+        from fleetflow_tpu_torch import core
+        from fleetflow_tpu_torch.core import parsecache, serialize
+        from fleetflow_tpu_torch.lower import fleetgen
+        from fleetflow_tpu_torch.native import kdl as native_kdl
+        from fleetflow_tpu_torch.solver.explain import explain_assignment
     except ImportError as e:
         return fail(f"fleetflow_tpu_torch is not importable here ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3227,14 +3521,22 @@ def main() -> int:
     print(f"[card] {kind}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    # the host placer (g++) builds into its own directory beside the
-    # kernels' nvcc builds, all at once
+    # the host libraries (g++: the placer, the KDL parser and its CPython
+    # assembly) build into their own directory beside the kernels' nvcc
+    # builds, all at once
+    inc = sysconfig.get_paths().get("include") or ""
+    print(f"[build] Python.h in {inc}: "
+          f"{os.path.isfile(os.path.join(inc, 'Python.h'))}", flush=True)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        host = pool.submit(_ext.host_library, "ffplacer")
+        host = pool.submit(lambda: ([_ext.host_library(n)
+                                     for n in _ext.HOST_LIBS],
+                                    [_ext.host_extension(n)
+                                     for n in _ext.HOST_EXTS]))
         build_s = _ext.build(verbose=True)
         host.result()
     print(f"[build] {len(_ext.KERNELS)} kernels built in {build_s:.1f} s, "
-          f"{len(_ext.HOST_LIBS)} host library with them", flush=True)
+          f"{len(_ext.HOST_LIBS)} host libraries and "
+          f"{len(_ext.HOST_EXTS)} extension with them", flush=True)
 
     recs = check_kernels(torch, np, (anneal, kernels, greedy, problem, lower,
                                      buckets), dev)
@@ -3277,6 +3579,11 @@ def main() -> int:
     by_phase["fallback"] = run_fallback_phase(
         torch, np, (_ext, GpuSolverScheduler, place_with_fallback,
                     relax_problem, pick_scheduler, verify), lower, str(dev))
+    by_phase["frontend"] = run_frontend_phase(
+        torch, np, (_ext, GpuSolverScheduler, ProblemDelta, verify, solve,
+                    place_with_fallback, relax_problem, core, serialize,
+                    fleetgen, lower, native_kdl, parsecache,
+                    explain_assignment), str(dev))
     by_phase["entry"] = run_entry_phase(
         torch, (_ext, entry, kernels.total_cost, problem), lower, dev)
     by_phase["sharded"], k7_layouts = run_sharded_phase(

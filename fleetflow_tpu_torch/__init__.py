@@ -10,11 +10,23 @@ device step is plain PyTorch. The package imports neither JAX nor
 ``fleetflow_tpu``: what it needs of the host layers it keeps as its own copy
 (``core/``, ``lower/``, ``solver/repair.py``, ``sched/base.py``).
 
+The front end (``core/``: the KDL parser with its native fast path, the
+flow parser, templates, discovery, the parse cache and the loader;
+``lower/``: ``lower_stage`` and the fleet generator) turns a project's KDL
+text into ``ProblemTensors`` and imports no torch.
+
 Entry points (``sched.gpu.GpuSolverScheduler`` with ``place_many``,
 ``solver.api.solve``, ``solver.multiplex.solve_multiplexed``) run on the
 card unless the caller passes ``device="cpu"``; they never fall back.
 """
 
-from .device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # resolve_device is imported on first use: the config front end
+    # (core/, lower/, native/) is usable without importing torch
+    if name == "resolve_device":
+        from .device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,4 +1,4 @@
-"""Build, load and count the hand-written CUDA kernels and the host library.
+"""Build, load and count the hand-written CUDA kernels and the host libraries.
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 into its own shared library for ``sm_90a``; the libraries are loaded with
@@ -8,12 +8,16 @@ the first wrapper call on a CUDA tensor builds every source at once (one
 directory named after a hash of the sources and flags so a changed source
 never loads a stale library.
 
-The host placer (``csrc/host/placer.cpp``, the native first-fit-decreasing
-seed) is plain C++: ``g++`` builds it at its first use (:func:`host_library`,
-which needs no card and no ``nvcc``) into a hashed directory of its own, so
-an edit to it rebuilds none of the kernels and a failed host build stops no
-kernel from loading. A failed build raises with the compiler's output, as
-for the CUDA sources.
+The host libraries are plain C++: the host placer (``csrc/host/placer.cpp``,
+the native first-fit-decreasing seed and the Kahn dependency depths), the
+native KDL parser (``csrc/host/kdl.cpp``, a ctypes library) and its CPython
+assembly (``csrc/host/kdlpy.cpp`` with ``kdl.cpp``, an extension module
+compiled against this interpreter's headers and named with its
+``EXT_SUFFIX``). ``g++`` builds each at its first use (:func:`host_library`,
+:func:`host_extension`; no card, no ``nvcc``, no torch) into a hashed
+directory of its own, so an edit to one rebuilds none of the kernels and a
+failed host build stops no kernel from loading. A failed build raises with
+the compiler's output, as for the CUDA sources.
 
 K1-K3 take a lane axis (the tenant multiplexer): L same-tier problems
 stacked on a leading axis, with the per-lane scalars in one by-value
@@ -38,21 +42,24 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 import time
 from pathlib import Path
-from typing import Optional
-
-import torch
+from typing import TYPE_CHECKING, Optional
 
 from .obs.metrics import REGISTRY
 
-__all__ = ["KERNELS", "HOST_LIBS", "LAUNCHES", "MAX_LANES", "Lanes",
+if TYPE_CHECKING:
+    import torch
+
+__all__ = ["KERNELS", "HOST_LIBS", "HOST_EXTS", "LAUNCHES", "MAX_LANES", "Lanes",
            "ProblemArgs", "SweepArgs", "K7Args", "lanes_arg", "build",
-           "library", "host_library", "launch", "raise_on", "raise_error",
+           "library", "host_library", "host_extension", "launch", "raise_on", "raise_error",
            "reset_launches", "check_inputs", "M_COMPILE_EVENTS"]
 
 M_COMPILE_EVENTS = REGISTRY.counter(
@@ -74,9 +81,15 @@ KERNELS = {
     "k7_sharded_sweep": "k7_sharded_sweep.cu",
 }
 _HEADERS = ("common.cuh", "sweep_delta.cuh", "node_rows.cuh")
-# host library name -> C++ source (plain C ABI, built with g++)
+# host library name -> C++ sources (plain C ABI, built with g++)
 HOST_LIBS = {
-    "ffplacer": "host/placer.cpp",
+    "ffplacer": ("host/placer.cpp",),
+    "ffkdl": ("host/kdl.cpp",),
+}
+# CPython extension name -> C++ sources (built with g++ against this
+# interpreter's Python.h; CPython resolves its symbols at import time)
+HOST_EXTS = {
+    "ffkdlpy": ("host/kdlpy.cpp", "host/kdl.cpp"),
 }
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 
@@ -163,6 +176,8 @@ _lock = threading.Lock()
 _host_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _host_libs: dict[str, ctypes.CDLL] = {}
+_host_exts: dict = {}
+_torch = None                           # see _torch_module
 
 
 def reset_launches() -> None:
@@ -203,7 +218,7 @@ def _nvcc() -> str:
 def _cxx() -> str:
     found = shutil.which(os.environ.get("CXX") or "g++")
     if found is None:
-        raise RuntimeError("g++ not found: the host placer needs a C++ "
+        raise RuntimeError("g++ not found: the host libraries need a C++ "
                            "compiler (set CXX)")
     return found
 
@@ -221,20 +236,22 @@ def _kernel_dir() -> Path:
 
 
 def _host_dir() -> Path:
-    return _BUILD_ROOT / ("host-" + _digest(HOST_LIBS.values(), CXX_FLAGS))
+    sources = [src for srcs in (*HOST_LIBS.values(), *HOST_EXTS.values())
+               for src in srcs]
+    return _BUILD_ROOT / ("host-" + _digest(sources, CXX_FLAGS))
 
 
 def _compile(jobs: dict, out_dir: Path, verbose: bool) -> None:
-    """Run every job's compiler at once; `jobs` maps a library name to
-    its command without the output path. Each builds to a temporary file
-    that is renamed into place, so concurrent builders never load half a
-    library. Raises with the compilers' output when any fails."""
+    """Run every job's compiler at once; `jobs` maps a library's file name
+    to its command without the output path. Each builds to a temporary
+    file that is renamed into place, so concurrent builds never load half
+    a library. Raises with the compilers' output when any fails."""
     procs = {}
     for name, cmd in jobs.items():
-        target = out_dir / f"lib{name}.so"
+        target = out_dir / name
         if target.exists():
             continue
-        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+        tmp = out_dir / f"{name}.{os.getpid()}.tmp"
         procs[name] = (subprocess.Popen(
             [*cmd, "-o", str(tmp)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), tmp, target)
@@ -267,7 +284,7 @@ def build(verbose: bool = False) -> float:
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), str(_CSRC / src)]
             if verbose:
                 cmd.insert(1, "-Xptxas=-v")
-            jobs[name] = cmd
+            jobs[f"lib{name}.so"] = cmd
         _compile(jobs, out_dir, verbose)
         for name in KERNELS:
             lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
@@ -290,15 +307,55 @@ def host_library(name: str) -> ctypes.CDLL:
             out_dir = _host_dir()
             out_dir.mkdir(parents=True, exist_ok=True)
             if not (out_dir / f"lib{name}.so").exists():
-                _compile({name: [_cxx(), *CXX_FLAGS,
-                                 str(_CSRC / HOST_LIBS[name])]},
-                         out_dir, verbose=False)
+                _compile({f"lib{name}.so": [
+                    _cxx(), *CXX_FLAGS,
+                    *(str(_CSRC / src) for src in HOST_LIBS[name])]},
+                    out_dir, verbose=False)
             try:
                 _host_libs[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
             except OSError as e:
                 raise RuntimeError(f"host library {name}: {e}") from e
             M_COMPILE_EVENTS.inc()
         return _host_libs[name]
+
+
+def _python_include() -> str:
+    inc = sysconfig.get_paths().get("include") or ""
+    if not (Path(inc) / "Python.h").is_file():
+        raise RuntimeError(
+            f"Python.h not found in {inc!r}: the CPython extensions need "
+            f"this interpreter's development headers")
+    return inc
+
+
+def host_extension(name: str):
+    """The imported CPython extension `name`, built with g++ against this
+    interpreter's headers at its first use (the file carries the
+    interpreter's EXT_SUFFIX, so another interpreter never imports it).
+    Raises RuntimeError when it cannot be built or imported."""
+    mod = _host_exts.get(name)
+    if mod is not None:
+        return mod
+    with _host_lock:
+        if name not in _host_exts:
+            out_dir = _host_dir()
+            out_dir.mkdir(parents=True, exist_ok=True)
+            fname = name + (sysconfig.get_config_var("EXT_SUFFIX") or ".so")
+            if not (out_dir / fname).exists():
+                _compile({fname: [
+                    _cxx(), *CXX_FLAGS, "-I", _python_include(),
+                    *(str(_CSRC / src) for src in HOST_EXTS[name])]},
+                    out_dir, verbose=False)
+            spec = importlib.util.spec_from_file_location(
+                name, str(out_dir / fname))
+            try:
+                mod = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(mod)
+            except (ImportError, OSError) as e:
+                raise RuntimeError(f"host extension {name}: {e}") from e
+            _host_exts[name] = mod
+            M_COMPILE_EVENTS.inc()
+        return _host_exts[name]
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -310,8 +367,18 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def _torch_module():
+    """torch, imported at the first kernel launch: the host libraries (and
+    the front end that loads them) need no torch."""
+    global _torch
+    if _torch is None:
+        import torch
+        _torch = torch
+    return _torch
+
+
 def _c_arg(a):
-    if isinstance(a, torch.Tensor):
+    if isinstance(a, (_torch or _torch_module()).Tensor):
         return ctypes.c_void_p(a.data_ptr())
     if a is None:                       # absent optional plane
         return ctypes.c_void_p(0)
@@ -332,6 +399,7 @@ def launch(name: str, fn: str, device: torch.device, *args) -> None:
     Tensors pass as device pointers, None as a null pointer, ints as C
     ints, floats as C floats and a :class:`Lanes` by value; the stream is
     appended last."""
+    torch = _torch or _torch_module()
     c_args = [_c_arg(a) for a in args]
     c_args.append(ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     raise_on(name, getattr(library(name), fn)(*c_args))

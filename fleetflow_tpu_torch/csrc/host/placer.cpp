@@ -4,7 +4,8 @@
 // counterpart of sched/host.py ``greedy_host_place`` for fleet-scale
 // instances where the Python loop is the bottleneck. It is the seed behind
 // solve(seed_impl="native"), the per-slice FFD of the partitioned seed and
-// NativeGreedyScheduler. Built with g++ into _ext_build/ at first use
+// NativeGreedyScheduler; and ``ff_dep_depths``, the Kahn levels of a
+// dependency CSR. Built with g++ into _ext_build/ at first use
 // (fleetflow_tpu_torch/_ext.py) and loaded with ctypes
 // (fleetflow_tpu_torch/native/lib.py).
 //
@@ -216,6 +217,42 @@ int64_t ff_place(int32_t S, int32_t N, int32_t R,
     }
 
     return violations;
+}
+
+// Kahn-level dependency depths over a CSR adjacency (service -> its deps).
+// Returns -1 on cycle, else max depth. (native analog of
+// lower/tensors.py dependency_depths; native/lib.py native_dep_depths)
+int64_t ff_dep_depths(int32_t S,
+                      const int32_t* dep_indptr,   // i32[S+1]
+                      const int32_t* dep_indices,  // i32[nnz], dep targets
+                      int32_t* out_depth) {        // i32[S]
+    std::vector<int32_t> remaining(S, 0);
+    std::vector<std::vector<int32_t>> dependents(S);
+    for (int32_t s = 0; s < S; ++s) {
+        remaining[s] = dep_indptr[s + 1] - dep_indptr[s];
+        for (int32_t k = dep_indptr[s]; k < dep_indptr[s + 1]; ++k)
+            dependents[dep_indices[k]].push_back(s);
+    }
+    std::vector<int32_t> queue;
+    queue.reserve(S);
+    for (int32_t s = 0; s < S; ++s)
+        if (remaining[s] == 0) { out_depth[s] = 0; queue.push_back(s); }
+    size_t head = 0;
+    int32_t max_depth = 0;
+    int64_t seen = (int64_t)queue.size();
+    while (head < queue.size()) {
+        int32_t u = queue[head++];
+        for (int32_t v : dependents[u]) {
+            out_depth[v] = std::max(out_depth[v], out_depth[u] + 1);
+            if (--remaining[v] == 0) {
+                max_depth = std::max(max_depth, out_depth[v]);
+                queue.push_back(v);
+                ++seen;
+            }
+        }
+    }
+    if (seen != S) return -1;  // cycle
+    return max_depth;
 }
 
 }  // extern "C"

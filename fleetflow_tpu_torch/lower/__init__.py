@@ -1,5 +1,8 @@
-"""Dense placement tensors (the port's copy of ``fleetflow_tpu.lower``)."""
+"""Lowering pass: Flow -> dense constraint tensors (the port's own copy of
+``fleetflow_tpu.lower``)."""
 
-from .tensors import ProblemTensors, dependency_depths, synthetic_problem
+from .tensors import (LOCAL_NODE_NAME, ProblemTensors, dependency_depths,
+                      local_node, lower_stage, synthetic_problem)
 
-__all__ = ["ProblemTensors", "dependency_depths", "synthetic_problem"]
+__all__ = ["LOCAL_NODE_NAME", "ProblemTensors", "dependency_depths",
+           "local_node", "lower_stage", "synthetic_problem"]

@@ -1,5 +1,6 @@
-"""ctypes binding of the host placer's ``ff_place`` and its array
-marshalling (the counterpart of ``fleetflow_tpu/native/lib.py``)."""
+"""ctypes binding of the host placer's ``ff_place`` and ``ff_dep_depths``
+and their array marshalling (the counterpart of
+``fleetflow_tpu/native/lib.py``)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import numpy as np
 from .. import _ext
 from ..core.errors import SolverError
 
-__all__ = ["load", "native_place"]
+__all__ = ["load", "native_place", "native_dep_depths"]
 
 _LIB = "ffplacer"
 _STRATEGY_CODE = {"spread_across_pool": 0, "pack_into_dedicated": 1,
@@ -35,6 +36,12 @@ def load() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
             ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
             ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32),
+        ]
+        lib.ff_dep_depths.restype = ctypes.c_int64
+        lib.ff_dep_depths.argtypes = [
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
             ctypes.POINTER(ctypes.c_int32),
         ]
     return lib
@@ -87,3 +94,26 @@ def native_place(demand: np.ndarray, capacity: np.ndarray,
         _STRATEGY_CODE[strategy],
         _ptr(out, ctypes.c_int32))
     return out, int(violations)
+
+
+def native_dep_depths(dep_adj: np.ndarray) -> np.ndarray:
+    """Kahn levels via ff_dep_depths over a CSR of the boolean adjacency
+    (the same depths as ``lower.tensors.dependency_depths``). Raises
+    ValueError on cycles and SolverError when the library cannot be
+    built."""
+    lib = load()
+    S = dep_adj.shape[0]
+    # one vectorized CSR build: np.nonzero iterates rows in order
+    rows, cols = np.nonzero(dep_adj)
+    indptr = np.zeros(S + 1, dtype=np.int32)
+    indptr[1:] = np.cumsum(np.bincount(rows, minlength=S))
+    indices = np.ascontiguousarray(cols, dtype=np.int32)
+    if indices.size == 0:
+        indices = np.zeros(1, dtype=np.int32)  # a valid pointer for ctypes
+    out = np.zeros(S, dtype=np.int32)
+    rc = lib.ff_dep_depths(S, _ptr(indptr, ctypes.c_int32),
+                           _ptr(indices, ctypes.c_int32),
+                           _ptr(out, ctypes.c_int32))
+    if rc < 0:
+        raise ValueError("dependency cycle")
+    return out

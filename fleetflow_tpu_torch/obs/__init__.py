@@ -196,6 +196,11 @@ def span(log: logging.Logger, name: str, level: int = logging.INFO,
 
 
 _trace_seq = itertools.count()
+# torch.profiler's device tracing goes live some ms after the profile is
+# entered, and the device records of what ran before are lost
+# (fleetflow_tpu_torch/tools/trace_lead.py counts how often). A CUDA trace
+# syncs and waits this long before its block.
+CUDA_TRACE_LEAD_S = 0.1
 
 
 @contextlib.contextmanager
@@ -222,6 +227,9 @@ def profile_trace(label: str = "solve", device=None) -> Iterator[None]:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(prof_dir, exist_ok=True)
     with profile(activities=activities) as prof:
+        if ProfilerActivity.CUDA in activities:
+            torch.cuda.synchronize(device)
+            time.sleep(CUDA_TRACE_LEAD_S)
         with record_function(label):
             yield
     prof.export_chrome_trace(os.path.join(

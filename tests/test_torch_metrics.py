@@ -58,7 +58,6 @@ NOT_REGISTERED = {
     "compilation cache has no torch counterpart",
     "fleet_placement_churn_fallbacks_total": "the control-plane slice",
     "fleet_sched_resident_budget_bytes": "the control-plane slice",
-    "fleet_frontend_parse_cache_total": "the front-end slice",
 }
 
 

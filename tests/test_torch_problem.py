@@ -284,9 +284,9 @@ class TestConvert:
 
 class TestBoundaries:
     def test_package_imports_no_jax(self):
-        """Every module of the port (the obs package among them) and
-        chip_smoke.py import in a fresh interpreter without jax or
-        fleetflow_tpu entering sys.modules."""
+        """Every module of the port (the obs package and the front end
+        among them) and chip_smoke.py import in a fresh interpreter without
+        jax or fleetflow_tpu entering sys.modules."""
         code = (
             "import importlib, importlib.util, pkgutil, sys\n"
             "import fleetflow_tpu_torch as pkg\n"
@@ -300,6 +300,9 @@ class TestBoundaries:
             "('jax', 'jaxlib', 'fleetflow_tpu'))\n"
             "obs = {'fleetflow_tpu_torch.obs.' + m for m in "
             "('metrics', 'trace', 'slo')} | {'fleetflow_tpu_torch.obs'}\n"
+            "obs |= {'fleetflow_tpu_torch.' + m for m in ('core.kdl', "
+            "'core.parser', 'core.loader', 'lower.fleetgen', 'native.kdl', "
+            "'solver.explain')}\n"
             "print(len(mods), bad, sorted(obs - set(mods)))\n"
             "sys.exit(1 if bad or len(mods) < 15 or obs - set(mods) "
             "else 0)\n")
