@@ -105,6 +105,22 @@ each of which fails the run:
      lowering to the same tensors; every stage of ``examples/`` loaded
      with the pool, lowered and placed (production's keeps its quota,
      fallback and spread);
+     ``[cp]``: the control plane's placement path on ``[frontend]``'s
+     fleet and servers. A ``Store`` of the 1,000 servers (online, with
+     the KDL's capacities and labels); ``PlacementService(store)`` (the
+     card) solves and commits the fleet and a second stage on the same
+     servers (``generate_fleet_kdl("t1", 1000, seed=101, ...)``), then
+     ``node_events`` with the busiest node the stages share down, and 50
+     more nodes down, and commits what the churn placed; an
+     ``AdmissionController`` on the first stage drains 64 arrivals and
+     16 departures through ``step()``; ``explain`` of a port row. Each
+     call prints its wall, solve and host ms (lower, inventory,
+     bookkeeping) and the solver's timings with the card line. Every
+     placement has 0 violations and nothing on a dead node, no server is
+     booked past its capacity across the stages, the churn-fallback
+     counter never moves, every source is ``gpu-anneal``, the cold solves
+     launch K4, K3 and K1 and every warm call K2 or K5, and each
+     admission micro-solve is a resident delta merge (no cold restage);
  10. ``[entry]``: ``fn(*args)`` of ``fleetflow_tpu_torch.entry.entry()``,
      K1 launched 32 times, the cost finite and no worse than the
      all-on-node-0 start;
@@ -3334,7 +3350,7 @@ def run_frontend_phase(torch, np, mods, dev_name, fleet=FRONTEND_FLEET,
     same tensors. (b) Every stage of the examples, loaded with the same
     pool, lowered and placed through place_with_fallback (production's
     stage declares a fallback and needs it). Returns the launch counts of
-    the phase."""
+    the phase, and the parsed fleet and server pool [cp] reuses."""
     (_ext, GpuSolverScheduler, ProblemDelta, verify, solve,
      place_with_fallback, relax_problem, core, serialize, fleetgen, lower,
      native_kdl, parsecache, explain_assignment) = mods
@@ -3473,6 +3489,287 @@ def run_frontend_phase(torch, np, mods, dev_name, fleet=FRONTEND_FLEET,
         raise AssertionError(f"[frontend] {n_stages} example stages")
     return read_launches(torch, _ext, "frontend",
                          ("k1_sweep", "k3_rebuild", "k4_greedy"),
+                         off=("k6_greedy_scan",)), flow, pool
+
+
+# [cp]: the second stage on the same servers, the admission stream and the
+# second burst's size
+CP_SECOND_FLEET = dict(fleet="t1", n_services=1_000, seed=101,
+                       n_nodes_hint=1_000, port_base=30_000)
+CP_ARRIVALS = 64
+CP_DEPARTURES = 16
+CP_KILL = 50
+CP_COLD = ("k4_greedy", "k3_rebuild", "k1_sweep")
+CP_WARM = ("k2_prerepair", "k5_subsolve")
+
+
+def cp_store(cp_models, Store, pool):
+    """A control-plane store holding the server pool's KDL servers as
+    online Server records, with their capacities and labels."""
+    store = Store.connect_memory()
+    with store.batch():
+        for srv in pool.servers.values():
+            cap, lbl = srv.capacity, srv.labels
+            store.create("servers", cp_models.Server(
+                slug=srv.name, hostname=srv.name, status="online",
+                tenant="default",
+                capacity=cp_models.ServerCapacity(
+                    cpu=cap.cpu, memory=cap.memory, disk=cap.disk),
+                labels=cp_models.ServerLabelsRec(
+                    tier=lbl.tier, region=lbl.region, clazz=lbl.clazz,
+                    arch=lbl.arch, extra=dict(lbl.extra))))
+    return store
+
+
+def cp_expect_launches(label: str, launched: dict, want: tuple,
+                       any_of: bool = False) -> None:
+    """A [cp] call launched every kernel of `want` (or one, `any_of`)."""
+    hit = [k for k in want if launched.get(k, 0) > 0]
+    if (not hit) if any_of else len(hit) < len(want):
+        raise AssertionError(f"[cp] {label}: launches {launched}, expected "
+                             f"{'one' if any_of else 'all'} of {want}")
+
+
+class CpMeter:
+    """Times a PlacementService's calls and splits their wall time: the
+    card scheduler's solves (each one's SolveResult kept, its launches
+    tallied at its fleet size), and on the host the lowering, the
+    inventory and the rest (the reservation book and the store)."""
+
+    def __init__(self, _ext, cp_placement, svc):
+        self._ext, self.mod, self.svc = _ext, cp_placement, svc
+        self.sched = svc._sched_gpu
+        self.ms = {"lower": 0.0, "inventory": 0.0, "solve": 0.0}
+        self.results: list = []
+        self.since = None
+        self._lower = cp_placement.lower_stage
+        place, inventory = self.sched.place, svc._inventory
+
+        def timed(key, fn):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self.ms[key] += (time.perf_counter() - t0) * 1e3
+            return run
+
+        def solve(pt, **kw):
+            out = timed("solve", place)(pt, **kw)
+            self.results.append(self.sched.last_result)
+            self.since = tally_size(_ext, pt.S, pt.N, self.since)
+            return out
+
+        cp_placement.lower_stage = timed("lower", self._lower)
+        svc._inventory = timed("inventory", inventory)
+        self.sched.place = solve
+
+    def close(self) -> None:
+        self.mod.lower_stage = self._lower
+
+    def call(self, label: str, fn, card: str, **extra):
+        """Run fn() as one metered call; print and return its row."""
+        self.ms = dict.fromkeys(self.ms, 0.0)
+        self.results = []
+        seen = dict(self._ext.LAUNCHES)
+        t0 = time.perf_counter()
+        out = fn()
+        wall = (time.perf_counter() - t0) * 1e3
+        launched = {k: v - seen[k] for k, v in self._ext.LAUNCHES.items()
+                    if v != seen[k]}
+        host = wall - self.ms["solve"]
+        row = dict(call=label, wall_ms=round(wall, 3),
+                   solves=len(self.results),
+                   solve_ms=round(self.ms["solve"], 3),
+                   sweeps=[r.steps for r in self.results],
+                   subsolve=[(r.subsolve or {}).get("outcome")
+                             for r in self.results],
+                   timings_ms=[{k: round(v, 3)
+                                for k, v in r.timings_ms.items()}
+                               for r in self.results],
+                   host_ms=round(host, 3),
+                   lower_ms=round(self.ms["lower"], 3),
+                   inventory_ms=round(self.ms["inventory"], 3),
+                   bookkeeping_ms=round(host - self.ms["lower"]
+                                        - self.ms["inventory"], 3),
+                   launches=launched, **extra, card=card)
+        print(f"[cp] {json.dumps(row)}", flush=True)
+        return out, row
+
+
+def cp_check(np, svc, verify, dev_name: str, dead: set, meter, label: str,
+             card: str):
+    """Every retained placement: feasible, 0 violations by the host
+    verify, nothing on a dead node, the card's source; each of the call's
+    solves on the card; the servers' committed and reserved demand, and
+    the retained placements' summed load, within every capacity."""
+    for res in meter.results:
+        if res.device != dev_name:
+            raise AssertionError(f"[cp] {label}: solved on {res.device}")
+    load: dict = {}
+    for key in svc.snapshot():
+        pt, pl = svc.retained(key)
+        raw = np.asarray(pl.raw)
+        host = verify(pt, raw)
+        on_dead = sorted(set(pl.assignment.values()) & dead)
+        if (not pl.feasible or pl.violations or host["total"]
+                or (~pt.node_valid[raw]).any() or on_dead):
+            raise AssertionError(
+                f"[cp] {label}: {key} feasible={pl.feasible} violations "
+                f"{pl.violations} host {host} on dead nodes {on_dead[:5]}")
+        if not pl.source.startswith("gpu-anneal"):
+            raise AssertionError(f"[cp] {label}: {key} source {pl.source}")
+        for i, j in enumerate(raw):
+            slug = pt.node_names[int(j)]
+            load[slug] = load.get(slug, 0.0) + pt.demand[i].astype(
+                np.float64)
+    booked = {}
+    for s in svc.store.list("servers"):
+        booked[s.slug] = np.array([s.allocated.cpu, s.allocated.memory,
+                                   s.allocated.disk])
+    for r in svc.reservations_snapshot()["in_flight"]:
+        for slug, d in r["demand_by_node"].items():
+            booked[slug] = booked[slug] + np.asarray(d)
+    fill = 0.0
+    for s in svc.store.list("servers"):
+        cap = np.array([s.capacity.cpu, s.capacity.memory, s.capacity.disk])
+        for what, v in (("retained load", load.get(s.slug, 0.0)),
+                        ("booked", booked[s.slug])):
+            if (np.asarray(v) > cap * (1 + 1e-6) + 1e-3).any():
+                raise AssertionError(f"[cp] {label}: {s.slug} {what} {v} "
+                                     f"over capacity {cap}")
+        fill = max(fill, float((booked[s.slug] / cap).max()))
+    snap = svc.reservations_snapshot()
+    print(f"[cp] book {json.dumps(dict(after=label, max_fill=round(fill, 6), in_flight=len(snap['in_flight']), committed=len(snap['committed']), card=card))}",
+          flush=True)
+
+
+def run_cp_phase(torch, np, mods, dev_name, flow, pool, card, device=None,
+                 second=CP_SECOND_FLEET, arrivals=CP_ARRIVALS,
+                 departures=CP_DEPARTURES, kill=CP_KILL):
+    """[cp]: the control plane's placement path on the card. A Store of
+    [frontend]'s server pool; ``PlacementService(store)`` (the card by
+    default: `device` names another only for a rehearsal) solves and
+    commits [frontend]'s fleet and a second stage on the same servers,
+    re-solves both after one node and then `kill` nodes go down and
+    commits what the churn placed; an AdmissionController on the first
+    stage drains `arrivals` arrivals and `departures` departures through
+    step(); explain of a port row. Each call prints its wall, solve and
+    host ms and the solver's timings; every check of cp_check holds after
+    each, the churn-fallback counter never moves, the cold solves launch
+    K4, K3 and K1 and the warm ones K2 or K5, and every admission
+    micro-solve is a resident delta merge. Returns the phase's launch
+    counts."""
+    (_ext, cp_models, Store, cp_placement, AdmissionController,
+     AdmissionConfig, REGISTRY, verify, fleetgen, core) = mods
+    fallbacks = REGISTRY.get("fleet_placement_churn_fallbacks_total")
+    reuse = REGISTRY.get("fleet_solver_resident_reuse_total")
+    fallbacks0 = fallbacks.value()
+    store = cp_store(cp_models, Store, pool)
+    svc = cp_placement.PlacementService(store, device=device)
+    t1_text = fleetgen.generate_fleet_kdl(
+        second["fleet"], second["n_services"], seed=second["seed"],
+        n_nodes_hint=second["n_nodes_hint"], port_base=second["port_base"])
+    flow2 = core.parse_kdl_string(t1_text, cache=False)
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    meter = CpMeter(_ext, cp_placement, svc)
+    dead: set = set()
+    try:
+        for fl in (flow, flow2):
+            key = f"{fl.name}/prod"
+            (pl, rid), row = meter.call(
+                f"solve_stage {key}",
+                lambda fl=fl: svc.solve_stage(fl, "prod"), card)
+            cp_expect_launches(row["call"], row["launches"], CP_COLD)
+            t0 = time.perf_counter()
+            if not svc.commit(rid):
+                raise AssertionError(f"[cp] commit {key} refused")
+            print(f"[cp] {json.dumps(dict(call=f'commit {key}', wall_ms=round((time.perf_counter() - t0) * 1e3, 3), card=card))}",
+                  flush=True)
+            cp_check(np, svc, verify, dev_name, dead, meter, row["call"],
+                     card)
+
+        # the busiest node of the first stage that holds both stages'
+        # services, then `kill` more of the live nodes
+        a0 = svc.retained(f"{flow.name}/prod")[1].assignment.values()
+        a1 = set(svc.retained(f"{flow2.name}/prod")[1].assignment.values())
+        counts: dict = {}
+        for node in a0:
+            if node in a1:
+                counts[node] = counts.get(node, 0) + 1
+        victim = max(sorted(counts), key=counts.get)
+        rng = np.random.default_rng(0)
+        alive = sorted(s.slug for s in store.list("servers")
+                       if s.slug != victim)
+        burst = [str(x) for x in rng.choice(alive, kill, replace=False)]
+        for label, slugs in (("node_events one node", [victim]),
+                             (f"node_events {kill} nodes", burst)):
+            dead |= set(slugs)
+            moved, row = meter.call(
+                label, lambda slugs=slugs: svc.node_events(
+                    [(s, False) for s in slugs]), card, events=len(slugs))
+            if len(moved) != 2:
+                raise AssertionError(f"[cp] {label} re-solved "
+                                     f"{[k for k, _ in moved]}")
+            cp_expect_launches(label, row["launches"], CP_WARM, any_of=True)
+            cp_check(np, svc, verify, dev_name, dead, meter, label, card)
+        for fl in (flow, flow2):
+            if not svc.commit_retained(f"{fl.name}/prod"):
+                raise AssertionError(f"[cp] commit_retained {fl.name}")
+        cp_check(np, svc, verify, dev_name, dead, meter,
+                 "commit_retained", card)
+
+        ctrl = AdmissionController(svc, config=AdmissionConfig(
+            batch_max=max(arrivals, departures)))
+        key = ctrl.attach(flow, "prod")
+        cold0, delta0 = reuse.value(outcome="cold"), \
+            reuse.value(outcome="delta")
+        names = [f"cp-arrival-{i:03d}" for i in range(arrivals)]
+        ctrl.submit("t0", arrivals=[
+            {"name": n, "cpu": 0.25, "memory": 256.0, "disk": 512.0}
+            for n in names])
+        out, row = meter.call(f"admit {arrivals} arrivals", ctrl.step, card)
+        if sorted(out["placed"]) != names:
+            raise AssertionError(f"[cp] admitted {out}")
+        cp_expect_launches(row["call"], row["launches"], CP_WARM,
+                           any_of=True)
+        cp_check(np, svc, verify, dev_name, dead, meter, row["call"],
+                     card)
+        ctrl.submit("t0", departures=names[:departures])
+        out, row = meter.call(f"admit {departures} departures", ctrl.step,
+                              card)
+        if sorted(out["departed"]) != names[:departures]:
+            raise AssertionError(f"[cp] departed {out}")
+        cp_check(np, svc, verify, dev_name, dead, meter, row["call"],
+                     card)
+        live = ctrl.live_names(key)
+        st = ctrl.status()
+        solves = st["stats"]["solves"]
+        cold = reuse.value(outcome="cold") - cold0
+        delta = reuse.value(outcome="delta") - delta0
+        print(f"[cp] admission {json.dumps(dict(stage=key, solves=solves, admitted=st['stats']['admitted'], departed=st['stats']['departed'], parked=st['parked'], live=len(live), resident_delta=delta, resident_cold=cold, streams=st['streams'][key], phase_ms=st['solve_phases_ms'], card=card))}",
+              flush=True)
+        if cold or delta != solves or len(live) != arrivals - departures:
+            raise AssertionError(f"[cp] admission: {solves} micro-solves, "
+                                 f"{delta} delta merges, {cold} cold "
+                                 f"restages, {len(live)} live")
+
+        pt, _pl = svc.retained(key)
+        row_i = int(np.flatnonzero((pt.port_ids >= 0).any(1))[0])
+        rep = svc.explain(key, pt.service_names[row_i])
+        if not rep["chosen"]["feasible"] or rep["source"] != "gpu-anneal":
+            raise AssertionError(f"[cp] explain: {rep}")
+        print(f"[cp] explain {json.dumps(dict(stage=key, service=pt.service_names[row_i], chosen=rep['chosen']['node'], rank=rep['chosen_rank'], feasible_nodes=rep['blocked_counts']['feasible']))}",
+              flush=True)
+    finally:
+        meter.close()
+    moved = fallbacks.value() - fallbacks0
+    print(f"[cp] {json.dumps(dict(fallbacks=moved, sources=sorted({v['source'] for v in svc.snapshot().values()}), slots=[s['stage'] for s in svc.solver_slots()['slots']], card=card))}",
+          flush=True)
+    if moved:
+        raise AssertionError(f"[cp] {moved} churn fallbacks")
+    return read_launches(torch, _ext, "cp", CP_COLD,
                          off=("k6_greedy_scan",))
 
 
@@ -3510,6 +3807,12 @@ def main() -> int:
         from fleetflow_tpu_torch.lower import fleetgen
         from fleetflow_tpu_torch.native import kdl as native_kdl
         from fleetflow_tpu_torch.solver.explain import explain_assignment
+        from fleetflow_tpu_torch.cp import models as cp_models
+        from fleetflow_tpu_torch.cp import placement as cp_placement
+        from fleetflow_tpu_torch.cp.admission import (AdmissionConfig,
+                                                      AdmissionController)
+        from fleetflow_tpu_torch.cp.store import Store
+        from fleetflow_tpu_torch.obs.metrics import REGISTRY
     except ImportError as e:
         return fail(f"fleetflow_tpu_torch is not importable here ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3579,11 +3882,15 @@ def main() -> int:
     by_phase["fallback"] = run_fallback_phase(
         torch, np, (_ext, GpuSolverScheduler, place_with_fallback,
                     relax_problem, pick_scheduler, verify), lower, str(dev))
-    by_phase["frontend"] = run_frontend_phase(
+    by_phase["frontend"], fe_flow, fe_pool = run_frontend_phase(
         torch, np, (_ext, GpuSolverScheduler, ProblemDelta, verify, solve,
                     place_with_fallback, relax_problem, core, serialize,
                     fleetgen, lower, native_kdl, parsecache,
                     explain_assignment), str(dev))
+    by_phase["cp"] = run_cp_phase(
+        torch, np, (_ext, cp_models, Store, cp_placement,
+                    AdmissionController, AdmissionConfig, REGISTRY, verify,
+                    fleetgen, core), str(dev), fe_flow, fe_pool, card)
     by_phase["entry"] = run_entry_phase(
         torch, (_ext, entry, kernels.total_cost, problem), lower, dev)
     by_phase["sharded"], k7_layouts = run_sharded_phase(

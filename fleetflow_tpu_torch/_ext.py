@@ -19,6 +19,11 @@ directory of its own, so an edit to one rebuilds none of the kernels and a
 failed host build stops no kernel from loading. A failed build raises with
 the compiler's output, as for the CUDA sources.
 
+Every failure of this layer (a missing compiler, a failed build or load,
+a CUDA error after a launch) raises ``KernelError``, a ``RuntimeError``:
+the control plane's degrade path re-raises it rather than place on the
+host around a broken kernel.
+
 K1-K3 take a lane axis (the tenant multiplexer): L same-tier problems
 stacked on a leading axis, with the per-lane scalars in one by-value
 :class:`Lanes` struct (``FFLanes`` in ``csrc/common.cuh``); a solo call is
@@ -52,6 +57,7 @@ import time
 from pathlib import Path
 from typing import TYPE_CHECKING, Optional
 
+from .core.errors import KernelError
 from .obs.metrics import REGISTRY
 
 if TYPE_CHECKING:
@@ -210,7 +216,7 @@ def _nvcc() -> str:
             return str(Path(home) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+        raise KernelError("nvcc not found: the CUDA kernels need the CUDA "
                            "toolkit (set CUDA_HOME)")
     return found
 
@@ -218,7 +224,7 @@ def _nvcc() -> str:
 def _cxx() -> str:
     found = shutil.which(os.environ.get("CXX") or "g++")
     if found is None:
-        raise RuntimeError("g++ not found: the host libraries need a C++ "
+        raise KernelError("g++ not found: the host libraries need a C++ "
                            "compiler (set CXX)")
     return found
 
@@ -265,7 +271,7 @@ def _compile(jobs: dict, out_dir: Path, verbose: bool) -> None:
             print(f"[build {name}]\n{log}", flush=True)
         os.replace(tmp, target)
     if errors:
-        raise RuntimeError("build failed:\n" + "\n".join(errors))
+        raise KernelError("build failed:\n" + "\n".join(errors))
 
 
 def build(verbose: bool = False) -> float:
@@ -287,7 +293,10 @@ def build(verbose: bool = False) -> float:
             jobs[f"lib{name}.so"] = cmd
         _compile(jobs, out_dir, verbose)
         for name in KERNELS:
-            lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+            try:
+                lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+            except OSError as e:
+                raise KernelError(f"kernel library {name}: {e}") from e
             lib.ff_error_string.argtypes = [ctypes.c_int]
             lib.ff_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
@@ -297,7 +306,7 @@ def build(verbose: bool = False) -> float:
 
 def host_library(name: str) -> ctypes.CDLL:
     """The loaded host library `name`, built with g++ at its first use (no
-    card, no nvcc). Raises RuntimeError when it cannot be built or
+    card, no nvcc). Raises KernelError when it cannot be built or
     loaded."""
     lib = _host_libs.get(name)
     if lib is not None:
@@ -314,7 +323,7 @@ def host_library(name: str) -> ctypes.CDLL:
             try:
                 _host_libs[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
             except OSError as e:
-                raise RuntimeError(f"host library {name}: {e}") from e
+                raise KernelError(f"host library {name}: {e}") from e
             M_COMPILE_EVENTS.inc()
         return _host_libs[name]
 
@@ -322,7 +331,7 @@ def host_library(name: str) -> ctypes.CDLL:
 def _python_include() -> str:
     inc = sysconfig.get_paths().get("include") or ""
     if not (Path(inc) / "Python.h").is_file():
-        raise RuntimeError(
+        raise KernelError(
             f"Python.h not found in {inc!r}: the CPython extensions need "
             f"this interpreter's development headers")
     return inc
@@ -332,7 +341,7 @@ def host_extension(name: str):
     """The imported CPython extension `name`, built with g++ against this
     interpreter's headers at its first use (the file carries the
     interpreter's EXT_SUFFIX, so another interpreter never imports it).
-    Raises RuntimeError when it cannot be built or imported."""
+    Raises KernelError when it cannot be built or imported."""
     mod = _host_exts.get(name)
     if mod is not None:
         return mod
@@ -352,7 +361,7 @@ def host_extension(name: str):
                 mod = importlib.util.module_from_spec(spec)
                 spec.loader.exec_module(mod)
             except (ImportError, OSError) as e:
-                raise RuntimeError(f"host extension {name}: {e}") from e
+                raise KernelError(f"host extension {name}: {e}") from e
             _host_exts[name] = mod
             M_COMPILE_EVENTS.inc()
         return _host_exts[name]
@@ -409,7 +418,7 @@ def raise_error(name: str, err: int) -> None:
     """Raise on the CUDA error a C entry point of kernel `name` returned."""
     if err != 0:
         msg = library(name).ff_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+        raise KernelError(f"{name}: CUDA error {err}: {msg}")
 
 
 def raise_on(name: str, err: int) -> None:

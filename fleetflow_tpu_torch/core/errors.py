@@ -4,8 +4,9 @@ reference: crates/fleetflow-core/src/error.rs `FlowError`)."""
 from __future__ import annotations
 
 __all__ = ["FlowError", "ConfigNotFound", "ContainerError", "CloudError",
-           "ControlPlaneError", "SolverError", "AgentCommandError",
-           "AgentUnreachable", "AgentCommandFailed"]
+           "ControlPlaneError", "SolverError", "DeviceUnavailable",
+           "KernelError", "AgentCommandError", "AgentUnreachable",
+           "AgentCommandFailed"]
 
 
 class FlowError(Exception):
@@ -70,3 +71,15 @@ class AgentCommandFailed(AgentCommandError):
 
 class SolverError(Exception):
     """Placement solver error (infeasible, bad tensors, missing device)."""
+
+
+class DeviceUnavailable(SolverError):
+    """The card a solve asked for is not there (no CUDA in the process).
+    Not a solver failure the control plane may degrade around: placing on
+    the host instead would hide the missing device."""
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel or host library could not be built or loaded,
+    or a launch returned a CUDA error. Like DeviceUnavailable, a fault of
+    the device path itself, never degraded around."""

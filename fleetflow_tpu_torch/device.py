@@ -12,7 +12,7 @@ from typing import Optional, Union
 
 import torch
 
-from .core.errors import SolverError
+from .core.errors import DeviceUnavailable, SolverError
 
 __all__ = ["resolve_device"]
 
@@ -20,12 +20,12 @@ __all__ = ["resolve_device"]
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """The device a solve runs on: CUDA unless `device` names the CPU.
-    Raises SolverError when CUDA is asked for (explicitly or by default)
-    and the process has no usable card."""
+    Raises DeviceUnavailable (a SolverError) when CUDA is asked for
+    (explicitly or by default) and the process has no usable card."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
-            raise SolverError(
+            raise DeviceUnavailable(
                 "fleetflow_tpu_torch needs a CUDA device; pass device='cpu' "
                 "to run the plain PyTorch versions on the host")
         if dev.index is None:

@@ -56,14 +56,20 @@ NOT_REGISTERED = {
     "cache has no torch counterpart",
     "fleet_solver_compile_cache_rejects_total": "the JAX persistent "
     "compilation cache has no torch counterpart",
-    "fleet_placement_churn_fallbacks_total": "the control-plane slice",
-    "fleet_sched_resident_budget_bytes": "the control-plane slice",
+    "fleet_sched_resident_budget_bytes": "the reference's obs collector "
+    "sets it; the collector is not ported yet",
+    "fleet_admission_tenant_queue_depth": "the reference's obs collector "
+    "and CP server export it; neither is ported yet",
+    "fleet_admission_tenant_oldest_age_seconds": "the reference's obs "
+    "collector and CP server export it; neither is ported yet",
 }
 
 
 # the name prefixes of the reference's families this slice ports
 _PORTED = ("fleet_solver_", "fleet_sched_", "fleet_placement", "fleet_slo_",
-           "fleet_frontend_")
+           "fleet_frontend_", "fleet_store_", "fleet_admission_",
+           "fleet_heartbeats_total",
+           "fleet_replication_fencing_rejections_total")
 
 
 def _import_port() -> None:
@@ -266,8 +272,9 @@ def test_registered_families_match_the_golden():
     _import_port()
     golden = _golden()
     names = REGISTRY.names()
-    # the whole solver, scheduler, SLO and front-end-stage surface of the
-    # reference, but for the families listed in NOT_REGISTERED
+    # the whole solver, scheduler, SLO, front-end-stage, store, placement
+    # and admission surface of the reference, but for the families listed
+    # in NOT_REGISTERED
     assert set(names) == {n for n in golden if n.startswith(_PORTED)} - \
         set(NOT_REGISTERED)
     for name in names:
@@ -286,6 +293,41 @@ def test_families_left_to_later_slices_are_not_registered():
     golden = _golden()
     for name in NOT_REGISTERED:
         assert name in golden and REGISTRY.get(name) is None, name
+
+
+# the control plane's families: the store's, the placement service's and
+# the admission controller's
+CP_FAMILIES = (
+    "fleet_store_ops_total", "fleet_heartbeats_total",
+    "fleet_store_compactions_total",
+    "fleet_replication_fencing_rejections_total",
+    "fleet_placement_churn_fallbacks_total",
+    "fleet_admission_queue_depth", "fleet_admission_oldest_age_seconds",
+    "fleet_admission_batch_size", "fleet_admission_batch_age_seconds",
+    "fleet_admission_wait_seconds", "fleet_admission_admitted_total",
+    "fleet_admission_departed_total", "fleet_admission_sheds_total",
+    "fleet_admission_parked_total", "fleet_admission_unparked_total",
+    "fleet_admission_quota_parked_total", "fleet_admission_solves_total",
+    "fleet_admission_placements_per_s", "fleet_admission_fairness_debt",
+    "fleet_admission_solve_phase_ms")
+
+
+@pytest.mark.parametrize("name", CP_FAMILIES)
+def test_control_plane_families_equal_the_reference(name):
+    """Each family of the port's cp/ modules has the reference's kind,
+    HELP line, TYPE line, labels and buckets, and renders the same
+    exposition head."""
+    importlib.import_module("fleetflow_tpu.cp.admission")
+    importlib.import_module("fleetflow_tpu.cp.placement")
+    importlib.import_module("fleetflow_tpu_torch.cp")
+    ref, port = ref_metrics.REGISTRY.get(name), REGISTRY.get(name)
+    assert ref is not None and port is not None
+    assert (port.kind, port.help, port.labelnames) == \
+        (ref.kind, ref.help, ref.labelnames)
+    assert getattr(port, "buckets", None) == getattr(ref, "buckets", None)
+    golden = _golden()[name]
+    head = port.render().splitlines()[:2]
+    assert head == [golden["HELP"], golden["TYPE"]]
 
 
 def test_frontend_phase_family_is_get_or_create():
