@@ -139,6 +139,17 @@ each of which fails the run:
      on these stagings, from each one's winner;
  12. ``[dryrun]``: ``entry.dryrun_multichip(8)`` on 8 positions of the
      card (K1 and K3 for the chain layout, K7 for the two sharded ones);
+     ``[heal]``, after the other phases: the control plane's
+     self-healing loop at ``[cp]``'s width. Both stages solved and
+     committed on a fresh store, deployed on 1,000 in-process agents
+     (a MockBackend and a DeployEngine each, behind an AgentRegistry), a
+     FailureDetector fed heartbeats on a virtual clock and the
+     Reconverger: the busiest shared node
+     disconnects, then 8 seeded nodes lapse; each dead verdict's one step
+     re-solves both stages on the card (K2 or K5 in each) and redeploys
+     them on the survivors, every service row running on its placed
+     node, nothing parked, no fallback; each burst prints the sweep,
+     node_events, payload-build, fan-out, commit and record ms;
      ``[device]``: K4's and K3's device-only ms and device launches a
      call at both sizes (K3 also at 8 lanes), from the kernel cases of
      ``fleetflow_tpu_torch/tools/k34_profile.py`` in a fresh interpreter,
@@ -177,19 +188,24 @@ package is not beside it.
 
 from __future__ import annotations
 
+import asyncio
 import concurrent.futures
 import dataclasses
+import importlib
 import json
 import logging
 import math
 import os
+import random
 import statistics
 import subprocess
 import sys
 import sysconfig
+import threading
 import time
 from collections import deque
 from contextlib import contextmanager, nullcontext
+from types import SimpleNamespace
 from typing import Optional
 
 N_SERVICES, N_NODES = 10_000, 1_000
@@ -3521,13 +3537,25 @@ def cp_store(cp_models, Store, pool):
     return store
 
 
+def busiest_shared(svc, key0: str, key1: str) -> str:
+    """The node holding the most of stage `key0`'s rows among the nodes
+    that hold rows of both stages (ties: the first by name)."""
+    a1 = set(svc.retained(key1)[1].assignment.values())
+    counts: dict = {}
+    for node in svc.retained(key0)[1].assignment.values():
+        if node in a1:
+            counts[node] = counts.get(node, 0) + 1
+    return max(sorted(counts), key=counts.get)
+
+
 def cp_expect_launches(label: str, launched: dict, want: tuple,
-                       any_of: bool = False) -> None:
+                       any_of: bool = False, tag: str = "cp") -> None:
     """A [cp] call launched every kernel of `want` (or one, `any_of`)."""
     hit = [k for k in want if launched.get(k, 0) > 0]
     if (not hit) if any_of else len(hit) < len(want):
-        raise AssertionError(f"[cp] {label}: launches {launched}, expected "
-                             f"{'one' if any_of else 'all'} of {want}")
+        raise AssertionError(f"[{tag}] {label}: launches {launched}, "
+                             f"expected {'one' if any_of else 'all'} of "
+                             f"{want}")
 
 
 class CpMeter:
@@ -3541,6 +3569,7 @@ class CpMeter:
         self.sched = svc._sched_gpu
         self.ms = {"lower": 0.0, "inventory": 0.0, "solve": 0.0}
         self.results: list = []
+        self.per_solve: list = []    # each solve's launches, by kernel
         self.since = None
         self._lower = cp_placement.lower_stage
         place, inventory = self.sched.place, svc._inventory
@@ -3555,9 +3584,13 @@ class CpMeter:
             return run
 
         def solve(pt, **kw):
+            before = dict(_ext.LAUNCHES)
             out = timed("solve", place)(pt, **kw)
             self.results.append(self.sched.last_result)
             self.since = tally_size(_ext, pt.S, pt.N, self.since)
+            self.per_solve.append({k: v - before[k]
+                                   for k, v in self.since.items()
+                                   if v != before[k]})
             return out
 
         cp_placement.lower_stage = timed("lower", self._lower)
@@ -3569,8 +3602,15 @@ class CpMeter:
 
     def call(self, label: str, fn, card: str, **extra):
         """Run fn() as one metered call; print and return its row."""
+        out, row = self.measure(label, fn, card, **extra)
+        print(f"[cp] {json.dumps(row)}", flush=True)
+        return out, row
+
+    def measure(self, label: str, fn, card: str, **extra):
+        """Run fn() as one metered call; return its output and row."""
         self.ms = dict.fromkeys(self.ms, 0.0)
         self.results = []
+        self.per_solve = []
         seen = dict(self._ext.LAUNCHES)
         t0 = time.perf_counter()
         out = fn()
@@ -3593,7 +3633,6 @@ class CpMeter:
                    bookkeeping_ms=round(host - self.ms["lower"]
                                         - self.ms["inventory"], 3),
                    launches=launched, **extra, card=card)
-        print(f"[cp] {json.dumps(row)}", flush=True)
         return out, row
 
 
@@ -3692,13 +3731,8 @@ def run_cp_phase(torch, np, mods, dev_name, flow, pool, card, device=None,
 
         # the busiest node of the first stage that holds both stages'
         # services, then `kill` more of the live nodes
-        a0 = svc.retained(f"{flow.name}/prod")[1].assignment.values()
-        a1 = set(svc.retained(f"{flow2.name}/prod")[1].assignment.values())
-        counts: dict = {}
-        for node in a0:
-            if node in a1:
-                counts[node] = counts.get(node, 0) + 1
-        victim = max(sorted(counts), key=counts.get)
+        victim = busiest_shared(svc, f"{flow.name}/prod",
+                                f"{flow2.name}/prod")
         rng = np.random.default_rng(0)
         alive = sorted(s.slug for s in store.list("servers")
                        if s.slug != victim)
@@ -3770,6 +3804,563 @@ def run_cp_phase(torch, np, mods, dev_name, flow, pool, card, device=None,
     if moved:
         raise AssertionError(f"[cp] {moved} churn fallbacks")
     return read_launches(torch, _ext, "cp", CP_COLD,
+                         off=("k6_greedy_scan",))
+
+
+HEAL_BURST2 = 8            # burst 2: seeded live nodes that lapse together
+HEAL_TICK_S = 10.0         # the agents' heartbeat interval (virtual s)
+HEAL_MAX_TICKS = 64        # burst 2 needs lease + grace = 12 ticks
+HEAL_BUDGET_S = 150.0      # the phase's time on the card's host
+HEAL_SHARDS = 4            # the registry's shard table: send_batch lanes
+
+
+def heal_kit(root: str = "fleetflow_tpu_torch") -> SimpleNamespace:
+    """The classes and functions the heal drive uses, from package `root`
+    (the port; its parity tests pass the reference's name as well)."""
+    def mod(name: str):
+        return importlib.import_module(f"{root}.{name}")
+    rt, base, lower = mod("runtime"), mod("sched.base"), mod("lower.tensors")
+    fd, models = mod("cp.failure_detector"), mod("cp.models")
+    rc = mod("cp.reconverge")
+    return SimpleNamespace(
+        root=root, DeployEngine=rt.DeployEngine,
+        DeployRequest=rt.DeployRequest, MockBackend=rt.MockBackend,
+        container_name=rt.container_name, Placement=base.Placement,
+        level_schedule=base.level_schedule, lower_stage=lower.lower_stage,
+        local_node=lower.local_node,
+        flow_from_dict=mod("core.serialize").flow_from_dict,
+        ControlPlaneError=mod("core.errors").ControlPlaneError,
+        AgentRegistry=mod("cp.agent_registry").AgentRegistry,
+        ShardTable=mod("cp.shards").ShardTable,
+        FailureDetector=fd.FailureDetector, LeaseConfig=fd.LeaseConfig,
+        Reconverger=rc.Reconverger, reconverge=rc,
+        Deployment=models.Deployment,
+        DeploymentStatus=models.DeploymentStatus)
+
+
+class VirtualClock:
+    """The heal drive's monotonic clock: it moves only when the drive
+    ticks it or a deploy engine's wait sleeps on it."""
+
+    def __init__(self, t: float = 0.0):
+        self.t = t
+
+    def now(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        self.t += max(float(dt), 0.0)
+
+
+class SimConnection:
+    """Duck-types the protocol's Connection for the agent registry: the
+    wire is an inline call into the agent (the reference's chaos world's
+    SimConnection)."""
+
+    def __init__(self, agent: "SimAgent"):
+        self.agent = agent
+        self.identity = agent.slug
+        self._closed = False
+
+    async def send_event(self, channel: str, method: str,
+                         payload: dict) -> None:
+        if self._closed:
+            raise self.agent.fleet.kit.ControlPlaneError(
+                f"connection to {self.agent.slug} is closed")
+        await self.agent.on_command(method, payload)
+
+    async def close(self) -> None:
+        self._closed = True
+
+
+class SimAgent:
+    """One node: a ``MockBackend(auto_pull=True)`` and the agent's
+    ``deploy.execute``, answered through the registry's
+    ``resolve_result``. Its idempotency cache keeps the newest key of each
+    stage (project and stage name): a fresh key is a fresh assignment and
+    supersedes the last, so a replay of the current one answers from the
+    cache and the cache holds at most one entry a stage."""
+
+    def __init__(self, slug: str, fleet: "HealAgents"):
+        self.slug, self.fleet = slug, fleet
+        self.backend = fleet.kit.MockBackend(auto_pull=True)
+        self.conn = SimConnection(self)
+        self.idem: dict = {}
+
+    async def on_command(self, method: str, payload: dict) -> None:
+        request_id = payload.get("request_id")
+        try:
+            reply = {"request_id": request_id, "result": self.execute(
+                method, payload.get("payload", {}))}
+        except Exception as e:   # errors ride back, as an agent's do
+            reply = {"request_id": request_id, "error": str(e)}
+        if request_id:
+            self.fleet.registry.resolve_result(request_id, reply)
+
+    def execute(self, method: str, payload: dict) -> dict:
+        if method != "deploy.execute":
+            raise ValueError(f"unknown command {method!r}")
+        d, key = payload["request"], payload.get("idempotency_key")
+        stage = (d["flow"]["name"], d["stage_name"])
+        hit = self.idem.get(stage)
+        if key and hit is not None and hit[0] == key:
+            self.fleet.replays += 1
+            return hit[1]
+        req = self.fleet.request(key, d)
+        req.node = req.node or self.slug
+        result = self.fleet.run(self, req, payload.get("assignment"))
+        if key:
+            self.idem[stage] = (key, result)
+        return result
+
+
+class HealAgents:
+    """The in-process agents of a heal drive, one a server. They decode a
+    request's flow once per stage and idempotency key and share it, and
+    build a stage's level schedule once (the chaos world's cache): a real
+    agent decodes on its own host, and 1,000 decodes of a 10k-service
+    flow in one process would take ~85 s. The decodes, the level
+    schedules and the engines' runs are timed apart."""
+
+    def __init__(self, kit, slugs, registry, clock: VirtualClock):
+        self.kit, self.registry, self.clock = kit, registry, clock
+        self.agents = {s: SimAgent(s, self) for s in slugs}
+        self._flows: dict = {}     # (project, stage) -> (key, Flow)
+        self._levels: dict = {}    # (stage, its services) -> level schedule
+        self.ms = dict(decode=0.0, levels=0.0, engine=0.0)
+        self.executions = 0
+        self.replays = 0
+
+    def take(self) -> dict:
+        """The timings and counts since the last take, zeroed."""
+        out = dict({k: round(v, 3) for k, v in self.ms.items()},
+                   executions=self.executions, replays=self.replays)
+        self.ms = dict.fromkeys(self.ms, 0.0)
+        self.executions = self.replays = 0
+        return out
+
+    def connect(self, slug: str) -> None:
+        self.registry.register(slug, self.agents[slug].conn, principal=slug)
+
+    def disconnect(self, slug: str) -> None:
+        conn = self.agents[slug].conn
+        conn._closed = True
+        self.registry.unregister(slug, conn)
+
+    def request(self, key: Optional[str], d: dict):
+        """The DeployRequest of wire dict `d`; its flow is decoded once per
+        stage and idempotency key."""
+        stage = (d["flow"]["name"], d["stage_name"])
+        have = self._flows.get(stage)
+        if have is None or key is None or have[0] != key:
+            t0 = time.perf_counter()
+            flow = self.kit.flow_from_dict(d["flow"])
+            self.ms["decode"] += (time.perf_counter() - t0) * 1e3
+            have = self._flows[stage] = (key, flow)
+        return self.kit.DeployRequest(
+            flow=have[1], stage_name=d["stage_name"],
+            target_services=d.get("target_services", []),
+            no_pull=d.get("no_pull", False),
+            no_prune=d.get("no_prune", False), node=d.get("node"),
+            trace_id=d.get("trace_id"))
+
+    def placement(self, req, assignment: dict):
+        """The control plane's placement as an agent executes it: the
+        assignment with the stage's level schedule (the chaos world's
+        cp_placement, keyed on the stage's service list)."""
+        sig = (req.flow.name, req.stage_name,
+               tuple(req.flow.stage(req.stage_name).services))
+        levels = self._levels.get(sig)
+        if levels is None:
+            t0 = time.perf_counter()
+            pt = self.kit.lower_stage(
+                req.flow, req.stage_name,
+                nodes=[self.kit.local_node(req.node or "sim")])
+            levels = self.kit.level_schedule(pt)
+            if len(self._levels) > 8:
+                self._levels.clear()
+            self._levels[sig] = levels
+            self.ms["levels"] += (time.perf_counter() - t0) * 1e3
+        return self.kit.Placement(assignment=assignment, levels=levels,
+                                  feasible=True, source="cp-solved")
+
+    def run(self, agent: SimAgent, req, assignment: dict) -> dict:
+        """Execute `req` on `agent` with the control plane's assignment."""
+        placement = self.placement(req, assignment)
+        t0 = time.perf_counter()
+        engine = self.kit.DeployEngine(agent.backend,
+                                       sleep=self.clock.advance)
+        res = engine.execute(req, placement=placement)
+        self.ms["engine"] += (time.perf_counter() - t0) * 1e3
+        self.executions += 1
+        if not res.ok:
+            raise RuntimeError(f"failed services: {sorted(res.failed)}")
+        return {"deployed": res.deployed, "removed": res.removed}
+
+    def cache_sizes(self) -> dict:
+        return dict(idempotency=sum(len(a.idem)
+                                    for a in self.agents.values()),
+                    flows=len(self._flows), levels=len(self._levels))
+
+
+class HealWorld:
+    """A control plane's self-healing loop over in-process agents on a
+    virtual clock: an AgentRegistry with a shard table, one SimAgent a
+    server, a FailureDetector primed for every server and fed heartbeats,
+    and the Reconverger on a plain holder of the store, the placement
+    service and the registry."""
+
+    def __init__(self, kit, store, svc, slugs, shards: int = HEAL_SHARDS):
+        self.kit, self.store, self.svc = kit, store, svc
+        self.clock = VirtualClock()
+        self.registry = kit.AgentRegistry(shard_table=kit.ShardTable(shards))
+        self.fleet = HealAgents(kit, slugs, self.registry, self.clock)
+        self.detector = kit.FailureDetector(kit.LeaseConfig(),
+                                            clock=self.clock.now)
+        for slug in slugs:
+            self.fleet.connect(slug)
+            self.detector.prime(slug)
+            self.detector.observe_heartbeat(slug)
+        # the state the reconverger reads: the server's AppState (not
+        # ported) holds these three and more
+        state = SimpleNamespace(store=store, placement=svc,
+                                agent_registry=self.registry)
+        self.rc = kit.Reconverger(state, self.detector, clock=self.clock.now,
+                                  rng=random.Random(0))
+        self.silent: set = set()
+        self.loop = asyncio.new_event_loop()
+
+    def close(self) -> None:
+        self.loop.run_until_complete(self.loop.shutdown_default_executor())
+        self.loop.close()
+
+    def deploy(self, flow, stage: str) -> None:
+        """What a deploy of the stage leaves behind (the reference's
+        handlers.execute_deploy, not ported): its Deployment record with
+        the replay template, and each node's slice running on its agent's
+        backend, executed there directly, with no wire."""
+        assignment = self.svc.retained(f"{flow.name}/{stage}")[1].assignment
+        db = self.store
+        tenant = db.ensure_tenant("default")
+        project = db.ensure_project(tenant.name, flow.name)
+        st = db.ensure_stage(project.id, stage)
+        req = self.kit.DeployRequest(flow=flow, stage_name=stage).to_dict()
+        db.create("deployments", self.kit.Deployment(
+            tenant=tenant.name, project=project.id, stage=st.id,
+            status=self.kit.DeploymentStatus.SUCCEEDED.value,
+            services=[s.name for s in flow.stage(stage).resolved_services(
+                flow)],
+            placement=dict(assignment), request=req))
+        for slug in sorted(set(assignment.values())):
+            self.fleet.run(self.fleet.agents[slug], self.kit.DeployRequest(
+                flow=flow, stage_name=stage, node=slug), assignment)
+
+    def kill(self, slugs, *, disconnect: bool) -> None:
+        """The nodes stop heartbeating; with `disconnect`, their agents'
+        sessions drop too."""
+        for slug in slugs:
+            self.silent.add(slug)
+            if disconnect:
+                self.fleet.disconnect(slug)
+                self.detector.observe_disconnect(slug)
+
+    def tick(self) -> None:
+        """One heartbeat interval: the clock moves, every live agent
+        heartbeats."""
+        self.clock.advance(HEAL_TICK_S)
+        for slug in self.fleet.agents:
+            if slug not in self.silent:
+                self.detector.observe_heartbeat(slug)
+
+    def step(self) -> dict:
+        return self.loop.run_until_complete(self.rc.step())
+
+    def until_verdict(self, on_step=None) -> tuple[dict, int]:
+        """Tick until a step's sweep hands out verdicts; returns that
+        step's summary and the ticks it took. `on_step(step)` runs each
+        step (a meter)."""
+        for tick in range(1, HEAL_MAX_TICKS + 1):
+            self.tick()
+            summary = on_step(self.step) if on_step else self.step()
+            if summary["dead"] or summary["online"]:
+                return summary, tick
+        raise AssertionError(f"no verdict in {HEAL_MAX_TICKS} ticks")
+
+    def misplaced(self, key: str) -> list:
+        """Rows of stage `key` with no running container on the backend
+        of the node its retained placement names."""
+        project, _, stage = key.partition("/")
+        bad = []
+        for row, node in self.svc.retained(key)[1].assignment.items():
+            base, _, idx = row.partition("#")
+            name = self.kit.container_name(project, stage, base)
+            info = self.fleet.agents[node].backend.inspect(
+                f"{name}-{idx}" if idx else name)
+            if info is None or not info.running:
+                bad.append((row, node))
+        return bad
+
+    def heal_records(self) -> dict:
+        """The reconverger's Deployment records: id -> (project, stage)."""
+        return {d.id: (d.project, d.stage)
+                for d in self.store.list("deployments")
+                if d.log.startswith("self-heal")}
+
+
+@contextmanager
+def heal_timers(torch, world: HealWorld, dev_name: str):
+    """Time the heal's parts while inside: the detector's sweep,
+    ``node_events``, the CP-side payload build (each target's
+    ``DeployRequest.to_dict``), the registry's ``send_batch`` fan-out,
+    ``commit_retained`` and the Deployment record; keep the ``heal_s``
+    samples and, on the card, each re-solve's thread and stream."""
+    t = dict(ms=dict.fromkeys(("sweep", "node_events", "payload", "fanout",
+                               "commit", "record"), 0.0),
+             payload_targets=0, heal_s=[], solves=[])
+    svc, rc_mod = world.svc, world.kit.reconverge
+    plain_req, plain_slo = rc_mod.DeployRequest, rc_mod.slo_observe
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                t["ms"][key] += (time.perf_counter() - t0) * 1e3
+
+        async def run_async(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return await fn(*a, **kw)
+            finally:
+                t["ms"][key] += (time.perf_counter() - t0) * 1e3
+        return run_async if asyncio.iscoroutinefunction(fn) else run
+
+    class Payload(plain_req):
+        def to_dict(self):
+            if not self.node:    # the Deployment record's template
+                return super().to_dict()
+            t["payload_targets"] += 1
+            return timed("payload", super().to_dict)()
+
+    def slo(name, value):
+        if name == "heal_s":
+            t["heal_s"].append(value)
+        return plain_slo(name, value)
+
+    patched = [(world.detector, "sweep", "sweep"),
+               (svc, "node_events", "node_events"),
+               (world.registry, "send_batch", "fanout"),
+               (svc, "commit_retained", "commit"),
+               (world.rc, "_record_deployment", "record")]
+    for obj, attr, key in patched:
+        setattr(obj, attr, timed(key, getattr(obj, attr)))
+    sched = getattr(svc, "_sched_gpu", None)
+    if sched is not None and dev_name.startswith("cuda"):
+        dev, reschedule = torch.device(dev_name), sched.reschedule
+
+        def traced(*a, **kw):
+            t["solves"].append((threading.get_ident(),
+                                torch.cuda.current_stream(dev).cuda_stream))
+            return reschedule(*a, **kw)
+        sched.reschedule = traced
+        patched.append((sched, "reschedule", None))
+    rc_mod.DeployRequest, rc_mod.slo_observe = Payload, slo
+    try:
+        yield t
+    finally:
+        rc_mod.DeployRequest, rc_mod.slo_observe = plain_req, plain_slo
+        for obj, attr, _ in patched:
+            delattr(obj, attr)
+
+
+def heal_burst(torch, np, world: HealWorld, meter, mods, dev_name: str,
+               dead: set, victims: list, label: str, card: str,
+               disconnect: bool, keys: list) -> dict:
+    """One [heal] burst: `victims` stop (their agents' sessions drop too
+    with `disconnect`), the clock ticks until the detector's sweep says
+    they are dead, and that one step heals. Prints the burst's line and
+    returns it; fails unless the heal held every check."""
+    REGISTRY, verify = mods
+    ok = REGISTRY.get("fleet_reconverge_redeliveries_total")
+    fallbacks = REGISTRY.get("fleet_placement_churn_fallbacks_total")
+    inflight = REGISTRY.get("fleet_solver_dispatches_in_flight")
+    ok0, fb0 = ok.value(outcome="ok"), fallbacks.value()
+    records0 = world.heal_records()
+    world.kill(victims, disconnect=disconnect)
+    t_kill = world.clock.now()
+    world.fleet.take()
+    measured: dict = {}
+
+    with heal_timers(torch, world, dev_name) as timers:
+        def on_step(step):
+            timers["ms"] = dict.fromkeys(timers["ms"], 0.0)
+            timers["payload_targets"] = 0
+            out, measured["row"] = meter.measure(f"heal {label}", step, card)
+            return out
+        summary, ticks = world.until_verdict(on_step)
+    row, agents, rc = measured["row"], world.fleet.take(), world.rc
+    dead |= set(victims)
+    resolved = {r["stage"]: r["feasible"] for r in summary["resolved"]}
+    problems = []
+    if summary["dead"] != sorted(victims) or summary["online"]:
+        problems.append(f"verdicts dead {summary['dead']} online "
+                        f"{summary['online']}, victims {sorted(victims)}")
+    if resolved != {k: True for k in keys}:
+        problems.append(f"resolved {summary['resolved']}")
+    if sorted(summary["redelivered"]) != sorted(keys):
+        problems.append(f"redelivered {summary['redelivered']}")
+    if (summary["parked"] or summary["retried"] or rc.parked_stage_keys()
+            or rc.has_work()):
+        problems.append(f"parked {summary['parked']} retried "
+                        f"{summary['retried']} work {rc.status()['work']}")
+    new = {i: v for i, v in world.heal_records().items()
+           if i not in records0}
+    if len(new) != len(keys) or len(set(new.values())) != len(keys):
+        problems.append(f"heal records {new}")
+    if ok.value(outcome="ok") - ok0 != len(keys):
+        problems.append(f"ok redeliveries {ok.value(outcome='ok') - ok0}")
+    if fallbacks.value() != fb0:
+        problems.append(f"churn fallbacks {fallbacks.value() - fb0}")
+    if inflight.value() != 0:
+        problems.append(f"dispatches in flight {inflight.value()}")
+    pending = {k: len(getattr(world.registry, k)) for k in
+               ("_pending", "_pending_conn", "_pending_shard")}
+    if any(pending.values()):
+        problems.append(f"registry pending {pending}")
+    caches = world.fleet.cache_sizes()
+    if (caches["idempotency"] > len(world.fleet.agents) * len(keys)
+            or caches["flows"] > len(keys) or caches["levels"] > len(keys)):
+        problems.append(f"agents' caches {caches}")
+    for key in keys:
+        bad = world.misplaced(key)
+        if bad:
+            problems.append(f"{key}: {len(bad)} rows not running where "
+                            f"placed, {bad[:3]}")
+    if dev_name.startswith("cuda"):
+        main = threading.get_ident()
+        stream = torch.cuda.current_stream(
+            torch.device(dev_name)).cuda_stream
+        if len(timers["solves"]) != len(keys) or any(
+                th == main or st != stream for th, st in timers["solves"]):
+            problems.append(f"re-solves' threads and streams "
+                            f"{timers['solves']}, main {main} {stream}")
+    if len(meter.per_solve) != len(keys):
+        problems.append(f"{len(meter.per_solve)} re-solves")
+    if problems:
+        raise AssertionError(f"[heal] {label}: " + "; ".join(problems))
+    for i, launched in enumerate(meter.per_solve):
+        cp_expect_launches(f"{label} re-solve {i}", launched, CP_WARM,
+                           any_of=True, tag="heal")
+    cp_check(np, world.svc, verify, dev_name, dead, meter, f"heal {label}",
+             card)
+    ms = {k: round(v, 3) for k, v in timers["ms"].items()}
+    line = dict(
+        burst=label, dead=summary["dead"], ticks=ticks,
+        verdict_at_s=world.clock.now(), sweep_ms=ms["sweep"],
+        node_events_ms=ms["node_events"], solve_ms=row["solve_ms"],
+        stages=[dict(sweeps=r.steps,
+                     subsolve=(r.subsolve or {}).get("outcome"),
+                     timings_ms={k: round(v, 3)
+                                 for k, v in r.timings_ms.items()},
+                     launches=launched)
+                for r, launched in zip(meter.results, meter.per_solve)],
+        redeliver_ms=round(ms["payload"] + ms["fanout"], 3),
+        payload_ms=ms["payload"], payload_targets=timers["payload_targets"],
+        fanout_ms=ms["fanout"], agents=agents, commit_ms=ms["commit"],
+        record_ms=ms["record"], step_ms=row["wall_ms"],
+        heal_s=timers["heal_s"],
+        since_kill_s=round(world.clock.now() - t_kill, 3),
+        caches=caches, pending=pending, card=card)
+    print(f"[heal] {json.dumps(line)}", flush=True)
+    return line
+
+
+def run_heal_phase(torch, np, mods, dev_name, flow, pool, card, device=None,
+                   second=CP_SECOND_FLEET, burst2=HEAL_BURST2, kit=None):
+    """[heal]: the control plane's self-healing loop on the card, at
+    [cp]'s width. A fresh Store of [frontend]'s servers and
+    ``PlacementService(store)`` (the card by default: `device` names
+    another only for a rehearsal) solve and commit [frontend]'s fleet and
+    [cp]'s second stage; each stage's Deployment record is stored as a
+    deploy would, and every node's slice runs on its agent's
+    MockBackend. One SimAgent a server answers the AgentRegistry; its
+    DeployEngine executes the CP-solved placement on the virtual clock.
+    The agents of this process decode a request's flow once per
+    idempotency key and share it (a real agent decodes on its own host).
+    A FailureDetector (``LeaseConfig()``) is primed for every server and
+    fed heartbeats; the Reconverger runs on a plain holder of the store,
+    the placement service and the registry, ``rng=Random(0)``.
+
+    Burst 1: the busiest node both stages share stops heartbeating and
+    its agent disconnects; the clock ticks until the sweep's dead verdict
+    and that step heals. Burst 2: `burst2` seeded live nodes holding rows
+    of both stages lapse together: one coalesced re-solve a stage. After
+    each: the verdicts are the victims, both stages resolved feasible and
+    redelivered, nothing parked or retried, cp_check holds, every row runs
+    on its placed node's backend, a new Deployment record a stage, two
+    ok redeliveries, no churn fallback, K2 or K5 in every re-solve (each
+    on an executor thread, on the card's current stream), nothing pending
+    in the registry, the agents' caches within one entry an agent and
+    stage. Prints each burst's split. Returns the phase's launch
+    counts."""
+    (_ext, cp_models, Store, cp_placement, REGISTRY, verify, fleetgen,
+     core) = mods
+    kit = kit or heal_kit()
+    t_phase = time.perf_counter()
+    store = cp_store(cp_models, Store, pool)
+    svc = cp_placement.PlacementService(store, device=device)
+    flow2 = core.parse_kdl_string(fleetgen.generate_fleet_kdl(
+        second["fleet"], second["n_services"], seed=second["seed"],
+        n_nodes_hint=second["n_nodes_hint"], port_base=second["port_base"]),
+        cache=False)
+    flows = (flow, flow2)
+    keys = [f"{fl.name}/prod" for fl in flows]
+    slugs = sorted(s.slug for s in store.list("servers"))
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    meter = CpMeter(_ext, cp_placement, svc)
+    world = None
+    try:
+        for fl, key in zip(flows, keys):
+            (pl, rid), row = meter.measure(
+                f"solve_stage {key}",
+                lambda fl=fl: svc.solve_stage(fl, "prod"), card)
+            print(f"[heal] {json.dumps(row)}", flush=True)
+            cp_expect_launches(row["call"], row["launches"], CP_COLD,
+                               tag="heal")
+            if not svc.commit(rid):
+                raise AssertionError(f"[heal] commit {key} refused")
+        t0 = time.perf_counter()
+        world = HealWorld(kit, store, svc, slugs)
+        for fl in flows:
+            world.deploy(fl, "prod")
+        seeded = world.fleet.take()
+        print(f"[heal] {json.dumps(dict(setup='agents', agents=len(slugs), wall_ms=round((time.perf_counter() - t0) * 1e3, 3), containers=sum(len(a.backend.containers) for a in world.fleet.agents.values()), **seeded, card=card))}",
+              flush=True)
+        for key in keys:
+            if world.misplaced(key):
+                raise AssertionError(f"[heal] {key} not deployed")
+        dead: set = set()
+        heal_burst(torch, np, world, meter, (REGISTRY, verify), dev_name,
+                   dead, [busiest_shared(svc, *keys)], "one node", card,
+                   True, keys)
+        both = set(svc.retained(keys[1])[1].assignment.values())
+        live = sorted(n for n in both & set(
+            svc.retained(keys[0])[1].assignment.values()) if n not in dead)
+        rng = np.random.default_rng(1)
+        burst = sorted(str(x) for x in rng.choice(live, burst2,
+                                                  replace=False))
+        heal_burst(torch, np, world, meter, (REGISTRY, verify), dev_name,
+                   dead, burst, f"{burst2} nodes", card, False, keys)
+    finally:
+        meter.close()
+        if world is not None:
+            world.close()
+    took = time.perf_counter() - t_phase
+    print(f"[heal] {json.dumps(dict(phase_s=round(took, 3), budget_s=HEAL_BUDGET_S, over_budget=took > HEAL_BUDGET_S, card=card))}",
+          flush=True)
+    return read_launches(torch, _ext, "heal", CP_COLD,
                          off=("k6_greedy_scan",))
 
 
@@ -3901,6 +4492,12 @@ def main() -> int:
                           for k, v in k7_layouts.items()})
     k7["max_abs_err"] = max(v["max_abs_err"] for v in k7["layouts"].values())
     by_phase["dryrun"] = run_dryrun_phase(torch, _ext, dryrun_multichip)
+    # [heal] drives the main path last: ~3 minutes of host work and ~10 GB
+    # of request payloads before [sharded] left its torch.profiler traces
+    # without the device records that reach back before the dispatch
+    by_phase["heal"] = run_heal_phase(
+        torch, np, (_ext, cp_models, Store, cp_placement, REGISTRY, verify,
+                    fleetgen, core), str(dev), fe_flow, fe_pool, card)
     measure_device(recs)
     measure_k7_device(recs)
     measure_k5_device(recs)

@@ -51,6 +51,13 @@ class Placement:
     solve_ms: float = 0.0
     raw: np.ndarray | None = field(default=None, repr=False)  # (S,) node idx
 
+    def node_levels(self, node: str) -> list[list[str]]:
+        """The level schedule restricted to one node (what that node's
+        executor runs, wave by wave: the deploy engine's slice)."""
+        mine = {s for s, n in self.assignment.items() if n == node}
+        return [[s for s in lvl if s in mine] for lvl in self.levels
+                if any(s in mine for s in lvl)]
+
 
 def record_placement(placement: Placement) -> None:
     """Fold one solved Placement into the placement families (every

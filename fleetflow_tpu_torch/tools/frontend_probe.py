@@ -1,4 +1,5 @@
-"""Run chip_smoke's ``[frontend]`` and ``[cp]`` phases alone on the card.
+"""Run chip_smoke's ``[frontend]``, ``[cp]`` and ``[heal]`` phases alone on
+the card.
 
     python3 fleetflow_tpu_torch/tools/frontend_probe.py
 
@@ -12,7 +13,10 @@ explained, loaded as a two-file project through the fork pool, and every
 example stage placed; then ``chip_smoke.run_cp_phase``: that fleet and a
 second stage placed through the control plane's ``PlacementService`` on
 a store of the parsed servers, two churn bursts, an admission stream and
-an explain. Its ``[frontend]`` and ``[cp]`` lines are chip_smoke's. A
+an explain; then ``chip_smoke.run_heal_phase``: the control plane's
+self-healing loop at that width, 1,000 in-process agents, the failure
+detector and the reconverger healing one dead node and then a burst of 8.
+Its ``[frontend]``, ``[cp]`` and ``[heal]`` lines are chip_smoke's. A
 quick check of the front end and the control plane on the card, without
 chip_smoke's other phases.
 """
@@ -86,6 +90,11 @@ def main() -> int:
                     AdmissionController, AdmissionConfig, REGISTRY, verify,
                     fleetgen, core), "cuda:0", flow, pool, card)
     print(f"[cp] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    cs.run_heal_phase(
+        torch, np, (_ext, cp_models, Store, cp_placement, REGISTRY, verify,
+                    fleetgen, core), "cuda:0", flow, pool, card)
+    print(f"[heal] phase {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 
 

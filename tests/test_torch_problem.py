@@ -284,8 +284,9 @@ class TestConvert:
 
 class TestBoundaries:
     def test_package_imports_no_jax(self):
-        """Every module of the port (the obs package, the front end and
-        the control plane among them) and chip_smoke.py import in a fresh interpreter without
+        """Every module of the port (the obs package, the front end, the
+        control plane, the runtime and lint among them) and chip_smoke.py
+        import in a fresh interpreter without
         jax or fleetflow_tpu entering sys.modules."""
         code = (
             "import importlib, importlib.util, pkgutil, sys\n"
@@ -303,7 +304,11 @@ class TestBoundaries:
             "obs |= {'fleetflow_tpu_torch.' + m for m in ('core.kdl', "
             "'core.parser', 'core.loader', 'lower.fleetgen', 'native.kdl', "
             "'solver.explain', 'cp.models', 'cp.store', 'cp.placement', "
-            "'cp.admission')}\n"
+            "'cp.admission', 'cp.protocol', 'cp.shards', "
+            "'cp.agent_registry', 'cp.failure_detector', 'cp.reconverge', "
+            "'runtime', 'runtime.converter', 'runtime.backend', "
+            "'runtime.waiter', 'runtime.engine', 'lint', 'lint.diagnostics', "
+            "'lint.rules', 'lint.engine', 'lint.sarif')}\n"
             "print(len(mods), bad, sorted(obs - set(mods)))\n"
             "sys.exit(1 if bad or len(mods) < 15 or obs - set(mods) "
             "else 0)\n")
