@@ -150,6 +150,20 @@ each of which fails the run:
      them on the survivors, every service row running on its placed
      node, nothing parked, no fallback; each burst prints the sweep,
      node_events, payload-build, fan-out, commit and record ms;
+     ``[world]``, after ``[heal]``: the chaos world placing on the card.
+     Every scenario of ``chaos.scenario_names()`` at seed 7 and its
+     docstring sizing with ``pool_min=2`` (the eight hand-written ones at
+     60x10x2, the four world ones at 200x20x4 or 200x21x4), then the
+     acceptance runs ``rolling-kill-selfheal`` and ``cp-failover`` at
+     1,000 services x 100 nodes x 2 stages; each run holds every
+     invariant (no violation) with 0 host fallbacks and solves on the
+     card; K1, K3 and K4 launch over the phase, and K2 or K5;
+     ``rolling-kill-selfheal`` at its pack size run twice gives one
+     digest; after the 1,000 x 100 ``cp-failover`` (three promotions,
+     each on a fresh scheduler) the card's allocated memory is back
+     within 64 MB of its value before the phase. One line a run (size,
+     wall s, stats, heals, failovers, solves, launches by kernel, digest)
+     and the phase's seconds against its 300 s budget;
      ``[device]``: K4's and K3's device-only ms and device launches a
      call at both sizes (K3 also at 8 lanes), from the kernel cases of
      ``fleetflow_tpu_torch/tools/k34_profile.py`` in a fresh interpreter,
@@ -3838,20 +3852,6 @@ def heal_kit(root: str = "fleetflow_tpu_torch") -> SimpleNamespace:
         DeploymentStatus=models.DeploymentStatus)
 
 
-class VirtualClock:
-    """The heal drive's monotonic clock: it moves only when the drive
-    ticks it or a deploy engine's wait sleeps on it."""
-
-    def __init__(self, t: float = 0.0):
-        self.t = t
-
-    def now(self) -> float:
-        return self.t
-
-    def advance(self, dt: float) -> None:
-        self.t += max(float(dt), 0.0)
-
-
 class SimConnection:
     """Duck-types the protocol's Connection for the agent registry: the
     wire is an inline call into the agent (the reference's chaos world's
@@ -3922,7 +3922,7 @@ class HealAgents:
     flow in one process would take ~85 s. The decodes, the level
     schedules and the engines' runs are timed apart."""
 
-    def __init__(self, kit, slugs, registry, clock: VirtualClock):
+    def __init__(self, kit, slugs, registry, clock):
         self.kit, self.registry, self.clock = kit, registry, clock
         self.agents = {s: SimAgent(s, self) for s in slugs}
         self._flows: dict = {}     # (project, stage) -> (key, Flow)
@@ -4011,6 +4011,9 @@ class HealWorld:
     service and the registry."""
 
     def __init__(self, kit, store, svc, slugs, shards: int = HEAL_SHARDS):
+        # the chaos world's clock: it moves only when the drive ticks it
+        # or a deploy engine's wait sleeps on it
+        from fleetflow_tpu_torch.chaos.runner import VirtualClock
         self.kit, self.store, self.svc = kit, store, svc
         self.clock = VirtualClock()
         self.registry = kit.AgentRegistry(shard_table=kit.ShardTable(shards))
@@ -4021,8 +4024,8 @@ class HealWorld:
             self.fleet.connect(slug)
             self.detector.prime(slug)
             self.detector.observe_heartbeat(slug)
-        # the state the reconverger reads: the server's AppState (not
-        # ported) holds these three and more
+        # the state the reconverger reads (its HealState): the server's
+        # AppState holds these three and more
         state = SimpleNamespace(store=store, placement=svc,
                                 agent_registry=self.registry)
         self.rc = kit.Reconverger(state, self.detector, clock=self.clock.now,
@@ -4364,6 +4367,137 @@ def run_heal_phase(torch, np, mods, dev_name, flow, pool, card, device=None,
                          off=("k6_greedy_scan",))
 
 
+WORLD_SEED = 7
+WORLD_POOL_MIN = 2
+# the reference's acceptance-scale runs (tests/test_chaos.py TestFullPack)
+WORLD_ACCEPTANCE = ("rolling-kill-selfheal", "cp-failover")
+WORLD_ACCEPTANCE_SIZE = dict(services=1_000, nodes=100, stages=2)
+WORLD_REPEAT = "rolling-kill-selfheal"   # run twice: one digest
+WORLD_MEMORY_SLACK = 64 << 20            # bytes, after the failover run
+WORLD_BUDGET_S = 300.0                   # the phase's time on the host
+
+
+def world_sizing(chaos, name: str) -> dict:
+    """A scenario's docstring sizing (services, nodes, stages)."""
+    info = chaos.scenario_info(name)
+    return {k: int(v) for k, v in (kv.split("=")
+                                   for kv in info["sizing"].split())}
+
+
+class WorldMeter:
+    """Counts the card scheduler's solves of a chaos world and tallies the
+    launches since the last solve at each solve's fleet size (every
+    scheduler of the world, failovers included, is a GpuSolverScheduler:
+    its place is wrapped on the class for the phase)."""
+
+    def __init__(self, _ext, sched_cls):
+        self._ext, self.cls = _ext, sched_cls
+        self.place = sched_cls.place
+        self.solves = 0
+        self.since: Optional[dict] = None
+        self.last_size: Optional[tuple] = None
+        meter, place = self, self.place
+
+        def counted(sched, pt, **kw):
+            out = place(sched, pt, **kw)
+            meter.solves += 1
+            meter.last_size = (pt.S, pt.N)
+            meter.since = tally_size(meter._ext, pt.S, pt.N, meter.since)
+            return out
+        sched_cls.place = counted
+
+    def close(self) -> None:
+        """Restore place; launches after the last solve go to its size."""
+        self.cls.place = self.place
+        if self.last_size is not None:
+            self.since = tally_size(self._ext, *self.last_size, self.since)
+
+
+def run_world_phase(torch, _ext, REGISTRY, card, device=None, runs=None):
+    """[world]: the chaos world placing on the card. Each of `runs` (name,
+    size) through ``chaos.run_scenario(name, seed=7, pool_min=2,
+    device=device)``: by default every scenario of the pack at its sizing,
+    the acceptance runs at 1,000 x 100 x 2, and WORLD_REPEAT at its pack
+    size once more. A run fails the phase unless its report is ok (no
+    violation listed) and the card scheduler served its solves with no
+    host fallback (``fleet_placement_churn_fallbacks_total`` unmoved); a
+    scenario run twice at one size must give one digest; over the phase
+    K1, K3 and K4 launch, and K2 or K5. After the last ``cp-failover`` run
+    and a collection, the card's allocated memory is within 64 MB of its
+    value before the phase. Returns the phase's launch counts."""
+    import gc
+
+    from fleetflow_tpu_torch import chaos
+    from fleetflow_tpu_torch.sched.gpu import GpuSolverScheduler
+    if runs is None:
+        runs = ([(n, world_sizing(chaos, n)) for n in chaos.scenario_names()]
+                + [(n, dict(WORLD_ACCEPTANCE_SIZE))
+                   for n in WORLD_ACCEPTANCE])
+        runs.append((WORLD_REPEAT, world_sizing(chaos, WORLD_REPEAT)))
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    fallbacks = REGISTRY.get("fleet_placement_churn_fallbacks_total")
+    _ext.reset_launches()
+    meter = WorldMeter(_ext, GpuSolverScheduler)
+    digests: dict = {}
+    mem_after = None
+    problems = []
+    try:
+        for name, size in runs:
+            fb0, solves0 = fallbacks.value(), meter.solves
+            seen = dict(_ext.LAUNCHES)
+            t0 = time.perf_counter()
+            r = chaos.run_scenario(name, seed=WORLD_SEED,
+                                   pool_min=WORLD_POOL_MIN, device=device,
+                                   **size)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = {k: v - seen[k] for k, v in _ext.LAUNCHES.items()
+                        if v != seen[k]}
+            solves = meter.solves - solves0
+            moved = fallbacks.value() - fb0
+            digest = r.digest()
+            label = f"{name}@{size['services']}x{size['nodes']}"
+            digests.setdefault(label, []).append(digest)
+            print(f"[world] {json.dumps(dict(scenario=name, size=[size['services'], size['nodes'], size['stages']], wall_s=round(wall, 3), ok=r.ok, violations=r.violations[:3], stats=r.stats, heals=r.stats['heals'], failovers=r.stats['failovers'], solves=solves, fallbacks=moved, launches=launched, digest=digest, card=card))}",
+                  flush=True)
+            if not r.ok:
+                problems.append(f"{label}: violations {r.violations[:5]}")
+            if moved:
+                problems.append(f"{label}: {moved} host fallbacks")
+            if not solves:
+                problems.append(f"{label}: the card scheduler never solved")
+            if name == "cp-failover":
+                del r
+                gc.collect()
+                torch.cuda.synchronize()
+                mem_after = torch.cuda.memory_allocated()
+    finally:
+        meter.close()
+    for label, ds in digests.items():
+        if len(set(ds)) != 1:
+            problems.append(f"{label}: digests differ across runs {ds}")
+    if not any(len(ds) > 1 for ds in digests.values()):
+        problems.append("no run was repeated")
+    took = time.perf_counter() - t_phase
+    print(f"[world] {json.dumps(dict(memory_before=mem0, memory_after=mem_after, slack=WORLD_MEMORY_SLACK, repeated={k: v for k, v in digests.items() if len(v) > 1}, card=card))}",
+          flush=True)
+    if mem_after is None or abs(mem_after - mem0) > WORLD_MEMORY_SLACK:
+        problems.append(f"allocated memory {mem0} -> {mem_after} after "
+                        "cp-failover")
+    if problems:
+        raise AssertionError("[world] " + "; ".join(problems))
+    print(f"[world] {json.dumps(dict(phase_s=round(took, 3), budget_s=WORLD_BUDGET_S, over_budget=took > WORLD_BUDGET_S, runs=len(runs), card=card))}",
+          flush=True)
+    launches = read_launches(torch, _ext, "world", CP_COLD,
+                             off=("k6_greedy_scan",))
+    cp_expect_launches("world", launches, ("k2_prerepair", "k5_subsolve"),
+                       any_of=True, tag="world")
+    return launches
+
+
 def launches_by_size(name: str, total: int) -> dict:
     """A kernel's main-path launches by the fleet size they ran at; every
     phase's launches must have been tallied."""
@@ -4498,6 +4632,9 @@ def main() -> int:
     by_phase["heal"] = run_heal_phase(
         torch, np, (_ext, cp_models, Store, cp_placement, REGISTRY, verify,
                     fleetgen, core), str(dev), fe_flow, fe_pool, card)
+    # [world]: every scenario of the chaos pack and the acceptance runs,
+    # each world placing on the card
+    by_phase["world"] = run_world_phase(torch, _ext, REGISTRY, card)
     measure_device(recs)
     measure_k7_device(recs)
     measure_k5_device(recs)

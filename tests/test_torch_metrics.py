@@ -56,26 +56,19 @@ NOT_REGISTERED = {
     "cache has no torch counterpart",
     "fleet_solver_compile_cache_rejects_total": "the JAX persistent "
     "compilation cache has no torch counterpart",
-    "fleet_sched_resident_budget_bytes": "the reference's obs collector "
-    "sets it; the collector is not ported yet",
-    "fleet_admission_tenant_queue_depth": "the reference's obs collector "
-    "and CP server export it; neither is ported yet",
-    "fleet_admission_tenant_oldest_age_seconds": "the reference's obs "
-    "collector and CP server export it; neither is ported yet",
-    "fleet_reconverge_redelivery_debt": "the reference's obs collector "
-    "sets it from the reconverger's debt(); the collector is not ported yet",
 }
 
 
 # the name prefixes of the reference's families this slice ports
 _PORTED = ("fleet_solver_", "fleet_sched_", "fleet_placement", "fleet_slo_",
            "fleet_frontend_", "fleet_store_", "fleet_admission_",
-           "fleet_heartbeats_total",
-           "fleet_replication_fencing_rejections_total",
+           "fleet_heartbeats_total", "fleet_replication_",
            "fleet_lease_", "fleet_reconverge_", "fleet_cp_shard_",
            "fleet_deploy", "fleet_agents_connected",
            "fleet_agent_registrations_total", "fleet_agent_commands_total",
-           "fleet_agent_command_errors_total")
+           "fleet_agent_command_errors_total", "fleet_obs_",
+           "fleet_log_", "fleet_autoscaler_", "fleet_cloud_provider_",
+           "fleet_cp_request_", "fleet_world_")
 
 
 def _import_port() -> None:
@@ -359,6 +352,50 @@ def test_self_healing_families_equal_the_reference(name):
     exposition head."""
     for mod in ("cp.failure_detector", "cp.reconverge", "cp.agent_registry",
                 "cp.shards", "runtime.engine"):
+        importlib.import_module(f"fleetflow_tpu.{mod}")
+        importlib.import_module(f"fleetflow_tpu_torch.{mod}")
+    ref, port = ref_metrics.REGISTRY.get(name), REGISTRY.get(name)
+    assert ref is not None and port is not None
+    assert (port.kind, port.help, port.labelnames) == \
+        (ref.kind, ref.help, ref.labelnames)
+    assert getattr(port, "buckets", None) == getattr(ref, "buckets", None)
+    golden = _golden()[name]
+    head = port.render().splitlines()[:2]
+    assert head == [golden["HELP"], golden["TYPE"]]
+
+
+# the chaos world's families: the collector's and the deep gauges its
+# sources set, the log router's, the autoscaler's, the cloud provider's,
+# journal replication's, the channel handlers' and the world simulator's
+WORLD_FAMILIES = (
+    "fleet_obs_samples_total", "fleet_obs_series",
+    "fleet_obs_series_dropped_total", "fleet_obs_agent_snapshots_total",
+    "fleet_admission_tenant_queue_depth",
+    "fleet_admission_tenant_oldest_age_seconds",
+    "fleet_log_router_backlog_lines", "fleet_reconverge_redelivery_debt",
+    "fleet_sched_resident_budget_bytes", "fleet_log_lines_published_total",
+    "fleet_log_lines_delivered_total", "fleet_log_lines_dropped_total",
+    "fleet_autoscaler_pressure", "fleet_cloud_provider_degraded_total",
+    "fleet_replication_role", "fleet_replication_epoch",
+    "fleet_replication_standby_lag",
+    "fleet_replication_entries_shipped_total",
+    "fleet_replication_entries_acked_total",
+    "fleet_replication_snapshot_catchups_total",
+    "fleet_replication_failovers_total",
+    "fleet_cp_request_duration_seconds", "fleet_cp_request_errors_total",
+    "fleet_world_arrivals_total", "fleet_world_reclaims_total",
+    "fleet_world_zone_outages_total")
+
+
+@pytest.mark.parametrize("name", WORLD_FAMILIES)
+def test_world_families_equal_the_reference(name):
+    """Each family of the port's collector, log router, autoscaler, cloud
+    provider, replication, deploy handler and world simulator has the
+    reference's kind, HELP line, TYPE line, labels and buckets, and
+    renders the same exposition head."""
+    for mod in ("obs.collector", "cp.log_router", "cp.autoscaler",
+                "cloud.provider", "cp.replication", "cp.handlers",
+                "chaos.worldgen"):
         importlib.import_module(f"fleetflow_tpu.{mod}")
         importlib.import_module(f"fleetflow_tpu_torch.{mod}")
     ref, port = ref_metrics.REGISTRY.get(name), REGISTRY.get(name)

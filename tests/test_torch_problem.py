@@ -285,7 +285,8 @@ class TestConvert:
 class TestBoundaries:
     def test_package_imports_no_jax(self):
         """Every module of the port (the obs package, the front end, the
-        control plane, the runtime and lint among them) and chip_smoke.py
+        control plane, the runtime, lint, the cloud traits and the chaos
+        world among them) and chip_smoke.py
         import in a fresh interpreter without
         jax or fleetflow_tpu entering sys.modules."""
         code = (
@@ -308,7 +309,12 @@ class TestBoundaries:
             "'cp.agent_registry', 'cp.failure_detector', 'cp.reconverge', "
             "'runtime', 'runtime.converter', 'runtime.backend', "
             "'runtime.waiter', 'runtime.engine', 'lint', 'lint.diagnostics', "
-            "'lint.rules', 'lint.engine', 'lint.sarif')}\n"
+            "'lint.rules', 'lint.engine', 'lint.sarif', 'obs.tsdb', "
+            "'obs.collector', 'cloud', 'cloud.action', 'cloud.state', "
+            "'cloud.provider', 'cp.log_router', 'cp.auth', 'cp.autoscaler', "
+            "'cp.replication', 'cp.server', 'cp.handlers', 'chaos', "
+            "'chaos.faults', 'chaos.injector', 'chaos.worldgen', "
+            "'chaos.invariants', 'chaos.runner', 'chaos.scenarios')}\n"
             "print(len(mods), bad, sorted(obs - set(mods)))\n"
             "sys.exit(1 if bad or len(mods) < 15 or obs - set(mods) "
             "else 0)\n")

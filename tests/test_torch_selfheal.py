@@ -30,7 +30,8 @@ reconverger) against the reference's (fleetflow_tpu.cp), on the CPU.
   Deployment records and backend states.
 
 The reference's reconverger runs on its server's AppState; the port's on
-any holder of the three attributes it reads (``AppState`` is not ported).
+any holder of the three attributes it reads (its ``HealState``: the port's
+``AppState`` is one, these cases hold them in a SimpleNamespace).
 """
 
 from __future__ import annotations
