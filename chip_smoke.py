@@ -164,6 +164,26 @@ each of which fails the run:
      within 64 MB of its value before the phase. One line a run (size,
      wall s, stats, heals, failovers, solves, launches by kernel, digest)
      and the phase's seconds against its 300 s budget;
+     ``[wire]``, after ``[world]``: a control-plane server on a socket
+     (``cp.start`` with token auth, self-heal, admission and the
+     collector, placing on the card), reached by ProtocolClients: the
+     [frontend] servers registered over ``server.register``,
+     ``placement.solve`` of the 10,602-row fleet with a reservation and
+     its commit, ``node_events`` with the busiest node down and then 50
+     more, ``explain``, ``health solver.slots``, 64 arrivals through
+     ``deploy.submit`` until admitted; 100 agents on the agent channel, a
+     1,000-service ``deploy.execute`` onto them, the busiest agent's
+     session closed and its rows healed onto the survivors; a standby
+     that catches up, promotes when the server stops and solves the
+     fleet on a fresh scheduler. Where ``cryptography`` imports, a server
+     with its mesh CA and a master key is reached through a pinned
+     client too. Fails on an RPC error, a moved request-error counter, a
+     violation, a row on a dead node, a source other than
+     ``gpu-anneal``, a host fallback, a deployed row not running, K1, K3,
+     K4 or both of K2 and K5 not launched, or the card's memory more
+     than 64 MB from before; one line an RPC with its wall ms beside the
+     solver's, the heal's and the promotion's seconds, and the phase's
+     seconds against its 120 s budget;
      ``[device]``: K4's and K3's device-only ms and device launches a
      call at both sizes (K3 also at 8 lanes), from the kernel cases of
      ``fleetflow_tpu_torch/tools/k34_profile.py`` in a fresh interpreter,
@@ -3651,14 +3671,14 @@ class CpMeter:
 
 
 def cp_check(np, svc, verify, dev_name: str, dead: set, meter, label: str,
-             card: str):
+             card: str, tag: str = "cp"):
     """Every retained placement: feasible, 0 violations by the host
     verify, nothing on a dead node, the card's source; each of the call's
     solves on the card; the servers' committed and reserved demand, and
     the retained placements' summed load, within every capacity."""
     for res in meter.results:
         if res.device != dev_name:
-            raise AssertionError(f"[cp] {label}: solved on {res.device}")
+            raise AssertionError(f"[{tag}] {label}: solved on {res.device}")
     load: dict = {}
     for key in svc.snapshot():
         pt, pl = svc.retained(key)
@@ -3668,10 +3688,10 @@ def cp_check(np, svc, verify, dev_name: str, dead: set, meter, label: str,
         if (not pl.feasible or pl.violations or host["total"]
                 or (~pt.node_valid[raw]).any() or on_dead):
             raise AssertionError(
-                f"[cp] {label}: {key} feasible={pl.feasible} violations "
+                f"[{tag}] {label}: {key} feasible={pl.feasible} violations "
                 f"{pl.violations} host {host} on dead nodes {on_dead[:5]}")
         if not pl.source.startswith("gpu-anneal"):
-            raise AssertionError(f"[cp] {label}: {key} source {pl.source}")
+            raise AssertionError(f"[{tag}] {label}: {key} source {pl.source}")
         for i, j in enumerate(raw):
             slug = pt.node_names[int(j)]
             load[slug] = load.get(slug, 0.0) + pt.demand[i].astype(
@@ -3689,11 +3709,11 @@ def cp_check(np, svc, verify, dev_name: str, dead: set, meter, label: str,
         for what, v in (("retained load", load.get(s.slug, 0.0)),
                         ("booked", booked[s.slug])):
             if (np.asarray(v) > cap * (1 + 1e-6) + 1e-3).any():
-                raise AssertionError(f"[cp] {label}: {s.slug} {what} {v} "
+                raise AssertionError(f"[{tag}] {label}: {s.slug} {what} {v} "
                                      f"over capacity {cap}")
         fill = max(fill, float((booked[s.slug] / cap).max()))
     snap = svc.reservations_snapshot()
-    print(f"[cp] book {json.dumps(dict(after=label, max_fill=round(fill, 6), in_flight=len(snap['in_flight']), committed=len(snap['committed']), card=card))}",
+    print(f"[{tag}] book {json.dumps(dict(after=label, max_fill=round(fill, 6), in_flight=len(snap['in_flight']), committed=len(snap['committed']), card=card))}",
           flush=True)
 
 
@@ -4498,6 +4518,599 @@ def run_world_phase(torch, _ext, REGISTRY, card, device=None, runs=None):
     return launches
 
 
+WIRE_AGENTS = 100          # agents on the agent channel, one a node
+WIRE_SERVICES = 1_000      # the deployed stage: the chaos world's make_flow
+WIRE_FLOW_SEED = 7
+WIRE_ARRIVALS = 64
+WIRE_KILL = 50
+WIRE_BUDGET_S = 120.0      # the phase's time on the card's host
+WIRE_HEARTBEAT_S = 0.25
+WIRE_CAPACITY = {"cpu": 4.0, "memory": 8192.0, "disk": 100_000.0}
+# short leases, as the reference's self-heal end-to-end test sets them,
+# with room for the loop that serves the agents' deploys too: a dropped
+# session is dead after the suspect grace
+WIRE_LEASE = dict(lease_s=4.0, suspect_grace_s=1.0, heal_interval_s=0.1,
+                  heal_backoff_base_s=0.1, heal_backoff_max_s=1.0)
+WIRE_STANDBY = dict(standby_lease_s=2.0, standby_grace_s=0.5,
+                    standby_ping_interval_s=0.1)
+WIRE_WAIT_S = 120.0        # the longest wait for admission, heal, catch-up
+WIRE_SECRET = "fleetflow-chip-smoke"
+WIRE_DIR = os.path.join("fleetflow_tpu_torch", "_ext_build", "wire")
+WIRE_CHANNELS = ("tenant", "project", "stage", "service", "container",
+                 "server", "health", "cost", "dns", "deploy", "volume",
+                 "build", "placement", "agent", "replication")
+
+
+class WireAgent:
+    """One node's agent on the wire: a ProtocolClient on the agent channel
+    holding the agent contract (register with its capacity, heartbeat
+    events, one ``command_result`` a command), executing each command
+    through a SimAgent of HealAgents (a DeployEngine on its own
+    MockBackend, the idempotency cache of the heal drive)."""
+
+    def __init__(self, sim: SimAgent):
+        self.sim, self.slug = sim, sim.slug
+        self.conn = self.task = self.beat = None
+        self.commands = 0
+
+    async def connect(self, ProtocolClient, host: str, port: int,
+                      token: Optional[str], ssl_context=None,
+                      heartbeat_s: float = WIRE_HEARTBEAT_S) -> "WireAgent":
+        async def on_command(conn, method, payload):
+            request_id = payload.get("request_id")
+            self.commands += 1
+            try:
+                reply = {"request_id": request_id, "result": self.sim.execute(
+                    method, payload.get("payload", {}))}
+            except Exception as e:   # errors ride back, as an agent's do
+                reply = {"request_id": request_id, "error": str(e)}
+            if request_id:
+                await conn.send_event("agent", "command_result", reply)
+
+        self.conn, self.task = await ProtocolClient.connect(
+            host, port, identity=self.slug, token=token,
+            ssl_context=ssl_context, event_handlers={"agent": on_command})
+        reply = await self.conn.request("agent", "register", {
+            "slug": self.slug, "version": "0.1.0",
+            "capacity": dict(WIRE_CAPACITY)})
+        if not reply.get("registered"):
+            raise AssertionError(f"[wire] {self.slug} register: {reply}")
+        self.beat = asyncio.ensure_future(self._heartbeats(heartbeat_s))
+        return self
+
+    async def _heartbeats(self, every: float) -> None:
+        try:
+            while True:
+                await asyncio.sleep(every)
+                await self.conn.send_event("agent", "heartbeat",
+                                           {"version": "0.1.0"})
+        except Exception:
+            return               # the session is gone: so is the agent
+
+    async def close(self) -> None:
+        if self.beat is not None:
+            self.beat.cancel()
+        if self.conn is not None:
+            await self.conn.close()
+        if self.task is not None:
+            self.task.cancel()
+            try:
+                await self.task
+            except BaseException:
+                pass
+
+
+class WireMeter:
+    """Wraps ``GpuSolverScheduler.place`` on the class for the phase: every
+    scheduler's solve (the promoted standby's too) is timed and kept with
+    its result, and the launches since the last solve are tallied at its
+    fleet size."""
+
+    def __init__(self, _ext, sched_cls):
+        self._ext, self.cls, self.place = _ext, sched_cls, sched_cls.place
+        self.solves: list = []     # (S, N, ms, SolveResult) since the take
+        self.since: Optional[dict] = None
+        self.last_size: Optional[tuple] = None
+        self._lock = threading.Lock()
+        meter, place = self, self.place
+
+        def counted(sched, pt, **kw):
+            t0 = time.perf_counter()
+            out = place(sched, pt, **kw)
+            ms = (time.perf_counter() - t0) * 1e3
+            with meter._lock:
+                meter.solves.append((pt.S, pt.N, ms, sched.last_result))
+                meter.last_size = (pt.S, pt.N)
+                meter.since = tally_size(meter._ext, pt.S, pt.N, meter.since)
+            return out
+        sched_cls.place = counted
+
+    def take(self) -> list:
+        with self._lock:
+            out, self.solves = self.solves, []
+        return out
+
+    def close(self) -> None:
+        """Restore place; launches after the last solve go to its size."""
+        self.cls.place = self.place
+        if self.last_size is not None:
+            self.since = tally_size(self._ext, *self.last_size, self.since)
+
+
+def wire_errors(REGISTRY) -> dict:
+    """``fleet_cp_request_errors_total`` by channel."""
+    errors = REGISTRY.get("fleet_cp_request_errors_total")
+    return {ch: errors.value(channel=ch) for ch in WIRE_CHANNELS}
+
+
+def wire_misplaced(kit, svc, fleet: HealAgents, key: str) -> list:
+    """Rows of stage `key` with no running container on the backend of the
+    agent its retained placement names."""
+    project, _, stage = key.partition("/")
+    bad = []
+    for row, node in svc.retained(key)[1].assignment.items():
+        base, _, idx = row.partition("#")
+        name = kit.container_name(project, stage, base)
+        info = fleet.agents[node].backend.inspect(
+            f"{name}-{idx}" if idx else name)
+        if info is None or not info.running:
+            bad.append((row, node))
+    return bad
+
+
+async def wire_until(what: str, cond, timeout: float = WIRE_WAIT_S,
+                     every: float = 0.05) -> float:
+    """Poll `cond()` until it holds; its seconds. Fails after `timeout`."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"[wire] {what}: not after {timeout} s")
+        await asyncio.sleep(every)
+    return time.perf_counter() - t0
+
+
+def wire_tls_check(start, ServerConfig, ProtocolClient, MockBackend,
+                   device) -> dict:
+    """The server with its mesh CA (``tls_dir``) and tenant secrets sealed
+    with a master key from the environment, reached through a client that
+    pins the CA: a ping and a secret's round trip. Needs `cryptography`;
+    without it, says so and checks nothing."""
+    try:
+        from fleetflow_tpu_torch.cp.cert import client_ssl_context
+        from fleetflow_tpu_torch.cp.crypto import generate_master_key
+    except ImportError as e:
+        return dict(tls=False, reason=f"no cryptography ({e})")
+
+    async def drive():
+        with env_set(FLEETFLOW_MASTER_KEY=generate_master_key()):
+            handle = await start(
+                ServerConfig(name="fleetflow-cp-tls", auth_kind="token",
+                             auth_secret=WIRE_SECRET,
+                             tls_dir=os.path.join(WIRE_DIR, "ca"),
+                             master_key_env=True, self_heal=False,
+                             admission=False, collector=False,
+                             device=device),
+                backend_factory=lambda: MockBackend(auto_pull=True))
+        try:
+            token = handle.state.auth.issue("operator@chip-smoke",
+                                            ["admin:all"])
+            conn, task = await ProtocolClient.connect(
+                handle.host, handle.port, identity="cli", token=token,
+                ssl_context=client_ssl_context(handle.ca_pem))
+            t0 = time.perf_counter()
+            pong = await conn.request("health", "ping")
+            ping_ms = (time.perf_counter() - t0) * 1e3
+            await conn.request("tenant", "secret.set", {
+                "name": "acme", "key": "DB_PASS", "value": "hunter2"})
+            got = await conn.request("tenant", "secret.get",
+                                     {"name": "acme", "key": "DB_PASS"})
+            sealed = handle.state.store.tenant_by_name("acme").secrets
+            await conn.close()
+            task.cancel()
+        finally:
+            await handle.stop()
+        if (not pong.get("pong") or got.get("value") != "hunter2"
+                or sealed.get("DB_PASS") == "hunter2"):
+            raise AssertionError(f"[wire] tls: ping {pong}, secret {got}")
+        return dict(tls=True, ping_ms=round(ping_ms, 3), sealed=True)
+
+    return asyncio.run(drive())
+
+
+def run_wire_phase(torch, np, _ext, REGISTRY, verify, dev_name, flow, pool,
+                   card, device=None, agents=WIRE_AGENTS,
+                   services=WIRE_SERVICES, arrivals=WIRE_ARRIVALS,
+                   kill=WIRE_KILL):
+    """[wire]: a control-plane server on a TCP socket placing on the card.
+    ``start(ServerConfig(auth_kind="token", self_heal=True, admission=True,
+    collector=True))`` on 127.0.0.1 (the card unless `device` names
+    another, for a rehearsal), reached by token-authenticated
+    ProtocolClients: [frontend]'s servers registered through
+    ``server.register`` with their capacities and labels and marked up
+    through ``placement.node_events``; ``placement.solve`` of [frontend]'s
+    fleet with a reservation, ``commit``; ``node_events`` with the busiest
+    node down, then `kill` more; ``explain`` of a port row;
+    ``health solver.slots``; ``deploy.submit`` of `arrivals` arrivals,
+    ``admit_status`` polled until they are admitted. Then `agents`
+    WireAgents register, ``deploy.execute`` places a `services`-service
+    stage onto them and fans it out; the busiest agent's session closes,
+    and the reconverger re-places and redeploys its rows on the
+    survivors. A standby of the server catches up on the journal, the
+    server stops, the standby promotes and solves [frontend]'s fleet on
+    a fresh scheduler. Where `cryptography` imports, a server with its
+    mesh CA and a master key is also reached through a pinned client
+    (wire_tls_check).
+
+    Fails unless every RPC answers without error and
+    ``fleet_cp_request_errors_total`` stands still; every placement has 0
+    violations, nothing on a dead node and the card's ``gpu-anneal``
+    source, solved on `dev_name`; the churn-fallback counter stands
+    still; every row of the deployed stage runs on its placed live node
+    after the heal; K4, K3 and K1 launch, and K2 or K5; and, after both
+    servers stop, the card's allocated memory is within 64 MB of its
+    value before the phase. Prints each RPC's wall ms beside the
+    solver's ms, the heal's and the promotion's seconds and the phase's
+    seconds against its budget. Returns the phase's launch counts."""
+    import gc
+
+    from fleetflow_tpu_torch.chaos.runner import make_flow, node_slug
+    from fleetflow_tpu_torch.core.serialize import flow_to_dict
+    from fleetflow_tpu_torch.cp import ServerConfig, start
+    from fleetflow_tpu_torch.cp.protocol import ProtocolClient
+    from fleetflow_tpu_torch.obs.slo import get_engine, set_engine
+    from fleetflow_tpu_torch.runtime import DeployRequest, MockBackend
+    from fleetflow_tpu_torch.sched.gpu import GpuSolverScheduler
+    t_phase = time.perf_counter()
+    kit = heal_kit()
+    tls = wire_tls_check(start, ServerConfig, ProtocolClient, MockBackend,
+                         device)
+    print(f"[wire] tls {json.dumps(dict(tls, card=card))}", flush=True)
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    fallbacks = REGISTRY.get("fleet_placement_churn_fallbacks_total")
+    fb0, err0 = fallbacks.value(), wire_errors(REGISTRY)
+    engine0 = get_engine()
+    _ext.reset_launches()
+    meter = WireMeter(_ext, GpuSolverScheduler)
+    key0 = f"{flow.name}/prod"
+    rows: list = []
+
+    async def rpc(conn, label: str, channel: str, method: str,
+                  payload: dict, want=(), any_of: bool = False, **extra):
+        """One metered RPC: its wall, the solver's ms and launches."""
+        meter.take()
+        seen = dict(_ext.LAUNCHES)
+        t0 = time.perf_counter()
+        reply = await conn.request(channel, method, payload, timeout=600.0)
+        wall = (time.perf_counter() - t0) * 1e3
+        solves = meter.take()
+        launched = {k: v - seen[k] for k, v in _ext.LAUNCHES.items()
+                    if v != seen[k]}
+        row = dict(rpc=label, method=f"{channel}.{method}",
+                   wall_ms=round(wall, 3),
+                   reply_solve_ms=(round(reply["solve_ms"], 3)
+                                   if "solve_ms" in reply else None),
+                   solves=len(solves),
+                   solve_ms=round(sum(s[2] for s in solves), 3),
+                   sizes=sorted({f"{s[0]}x{s[1]}" for s in solves}),
+                   launches=launched, **extra, card=card)
+        print(f"[wire] {json.dumps(row)}", flush=True)
+        rows.append(row)
+        if want:
+            cp_expect_launches(label, launched, want, any_of=any_of,
+                               tag="wire")
+        return reply, solves
+
+    def check(svc, dead: set, solves: list, label: str) -> None:
+        cp_check(np, svc, verify, dev_name, dead,
+                 SimpleNamespace(results=[s[3] for s in solves]), label,
+                 card, tag="wire")
+
+    async def drive() -> dict:
+        out: dict = {}
+        primary = await start(
+            ServerConfig(auth_kind="token", auth_secret=WIRE_SECRET,
+                         self_heal=True, admission=True, collector=True,
+                         device=device, **WIRE_LEASE),
+            backend_factory=lambda: MockBackend(auto_pull=True))
+        svc = primary.state.placement
+        admin = primary.state.auth.issue("operator@chip-smoke",
+                                         ["admin:all"])
+        cli, cli_task = await ProtocolClient.connect(
+            primary.host, primary.port, identity="cli", token=admin)
+        wire = []
+        standby = None
+        stopped = False
+        try:
+            # [frontend]'s servers, as an operator registers them
+            t0 = time.perf_counter()
+            regs = await asyncio.gather(*(cli.request("server", "register", {
+                "slug": srv.name, "hostname": srv.name,
+                "capacity": {"cpu": srv.capacity.cpu,
+                             "memory": srv.capacity.memory,
+                             "disk": srv.capacity.disk},
+                "labels": {"tier": srv.labels.tier,
+                           "region": srv.labels.region,
+                           "class": srv.labels.clazz,
+                           "arch": srv.labels.arch,
+                           "extra": dict(srv.labels.extra)}})
+                for srv in pool.servers.values()))
+            row = dict(rpc=f"server.register x{len(regs)}",
+                       wall_ms=round((time.perf_counter() - t0) * 1e3, 3),
+                       card=card)
+            print(f"[wire] {json.dumps(row)}", flush=True)
+            rows.append(row)
+            await rpc(cli, f"node_events {len(regs)} up", "placement",
+                      "node_events", {"events": [
+                          {"slug": srv.name, "online": True}
+                          for srv in pool.servers.values()]})
+
+            fd = flow_to_dict(flow)
+            rep, solves = await rpc(
+                cli, f"solve {key0}", "placement", "solve",
+                {"flow": fd, "stage": "prod", "reserve": True},
+                want=CP_COLD, rows=len(flow.services))
+            if (not rep["feasible"] or rep["violations"]
+                    or rep["source"] != "gpu-anneal"):
+                raise AssertionError(f"[wire] solve: feasible "
+                                     f"{rep['feasible']}, violations "
+                                     f"{rep['violations']}, {rep['source']}")
+            ok, _ = await rpc(cli, f"commit {key0}", "placement", "commit",
+                              {"reservation": rep["reservation"]})
+            if not ok["ok"]:
+                raise AssertionError(f"[wire] commit refused: {ok}")
+            dead: set = set()
+            check(svc, dead, solves, f"solve {key0}")
+
+            counts: dict = {}
+            for node in rep["assignment"].values():
+                counts[node] = counts.get(node, 0) + 1
+            victim = max(sorted(counts), key=counts.get)
+            rng = np.random.default_rng(0)
+            alive = sorted(s for s in (srv.name for srv in
+                                       pool.servers.values())
+                           if s != victim)
+            burst = [str(x) for x in rng.choice(alive, kill, replace=False)]
+            for label, slugs in (("node_events one node", [victim]),
+                                 (f"node_events {kill} nodes", burst)):
+                dead |= set(slugs)
+                moved, solves = await rpc(
+                    cli, label, "placement", "node_events",
+                    {"events": [{"slug": s, "online": False}
+                                for s in slugs]},
+                    want=CP_WARM, any_of=True, events=len(slugs))
+                stages = [m["stage"] for m in moved["rescheduled"]]
+                if stages != [key0] or not all(
+                        m["feasible"] for m in moved["rescheduled"]):
+                    raise AssertionError(f"[wire] {label}: {moved}")
+                check(svc, dead, solves, label)
+
+            pt, _pl = svc.retained(key0)
+            row_i = int(np.flatnonzero((pt.port_ids >= 0).any(1))[0])
+            name = pt.service_names[row_i]
+            why, _ = await rpc(cli, f"explain {name}", "placement", "explain",
+                               {"stage": key0, "service": name})
+            if not why["chosen"]["feasible"] or why["source"] != "gpu-anneal":
+                raise AssertionError(f"[wire] explain: {why}")
+            slots, _ = await rpc(cli, "solver.slots", "health",
+                                 "solver.slots", {})
+            print(f"[wire] slots {json.dumps(dict(resident=[s['stage'] for s in slots['slots']], resident_bytes=slots['resident_bytes'], budget_bytes=slots['budget_bytes'], card=card))}",
+                  flush=True)
+
+            # streaming admission over the wire
+            names = [f"wire-arrival-{i:03d}" for i in range(arrivals)]
+            meter.take()
+            seen = dict(_ext.LAUNCHES)
+            t0 = time.perf_counter()
+            sub = await cli.request("deploy", "submit", {
+                "tenant": "t0", "stage": "prod", "flow": fd,
+                "arrivals": [{"name": n, "cpu": 0.25, "memory": 256.0,
+                              "disk": 512.0} for n in names]},
+                timeout=600.0)
+            submit_ms = (time.perf_counter() - t0) * 1e3
+            polls = 0
+            while True:
+                st = await cli.request("deploy", "admit_status", {})
+                polls += 1
+                if st["stats"]["admitted"] >= arrivals:
+                    break
+                if time.perf_counter() - t0 > WIRE_WAIT_S:
+                    raise AssertionError(f"[wire] admission: {st}")
+                await asyncio.sleep(0.05)
+            wall = (time.perf_counter() - t0) * 1e3
+            solves = meter.take()
+            launched = {k: v - seen[k] for k, v in _ext.LAUNCHES.items()
+                        if v != seen[k]}
+            live = set(svc.retained(key0)[1].assignment)
+            row = dict(rpc=f"deploy.submit {arrivals} arrivals",
+                       method="deploy.submit", submit_ms=round(submit_ms, 3),
+                       wall_ms=round(wall, 3), polls=polls,
+                       accepted=sub.get("accepted"), solves=len(solves),
+                       solve_ms=round(sum(s[2] for s in solves), 3),
+                       admitted=st["stats"]["admitted"],
+                       parked=st["parked"], launches=launched, card=card)
+            print(f"[wire] {json.dumps(row)}", flush=True)
+            rows.append(row)
+            if not set(names) <= live:
+                raise AssertionError(f"[wire] admitted rows missing: "
+                                     f"{sorted(set(names) - live)[:5]}")
+            cp_expect_launches(row["rpc"], launched, CP_WARM, any_of=True,
+                               tag="wire")
+            check(svc, dead, solves, row["rpc"])
+
+            # agents on the agent channel, a stage deployed onto them
+            slugs = [node_slug(i) for i in range(agents)]
+            fleet = HealAgents(kit, slugs, None,
+                               SimpleNamespace(advance=lambda s: None))
+            t0 = time.perf_counter()
+            wire.extend(await asyncio.gather(*(
+                WireAgent(fleet.agents[s]).connect(
+                    ProtocolClient, primary.host, primary.port,
+                    primary.state.auth.issue(s, ["write:agent"]))
+                for s in slugs)))
+            row = dict(rpc=f"agent.register x{agents}",
+                       wall_ms=round((time.perf_counter() - t0) * 1e3, 3),
+                       card=card)
+            print(f"[wire] {json.dumps(row)}", flush=True)
+            rows.append(row)
+            flow2 = make_flow(services, 1, slugs, WIRE_FLOW_SEED)
+            key1 = f"{flow2.name}/app0"
+            req = DeployRequest(flow=flow2, stage_name="app0")
+            dep, solves = await rpc(
+                cli, f"deploy.execute {key1}", "deploy", "execute",
+                {"request": req.to_dict()}, want=CP_COLD,
+                agents=len(slugs))
+            if dep["deployment"]["status"] != "succeeded":
+                raise AssertionError(f"[wire] deploy: {dep['deployment']}")
+            check(svc, dead, solves, f"deploy.execute {key1}")
+            bad = wire_misplaced(kit, svc, fleet, key1)
+            if bad:
+                raise AssertionError(f"[wire] deployed rows not running: "
+                                     f"{bad[:5]}")
+
+            # a heal: the busiest agent's session closes
+            counts = {}
+            for node in dep["deployment"]["placement"].values():
+                counts[node] = counts.get(node, 0) + 1
+            gone = max(sorted(counts), key=counts.get)
+            by_slug = {a.slug: a for a in wire}
+            rc = primary.state.reconverger
+            meter.take()
+            seen = dict(_ext.LAUNCHES)
+            t_kill = time.perf_counter()
+            await by_slug[gone].close()
+
+            def healed() -> bool:
+                entry = svc.retained(key1)
+                return (entry is not None
+                        and gone not in entry[1].assignment.values()
+                        and rc.debt() == 0 and not rc.parked_stage_keys()
+                        and not wire_misplaced(kit, svc, fleet, key1))
+            heal_s = await wire_until("heal", healed)
+            solves = meter.take()
+            launched = {k: v - seen[k] for k, v in _ext.LAUNCHES.items()
+                        if v != seen[k]}
+            dead.add(gone)
+            status = rc.status()
+            heals = [d for d in primary.state.store.list("deployments")
+                     if d.log.startswith("self-heal")]
+            row = dict(rpc=f"heal {gone}", heal_s=round(heal_s, 3),
+                       rows_moved=counts[gone], solves=len(solves),
+                       solve_ms=round(sum(s[2] for s in solves), 3),
+                       sizes=sorted({f"{s[0]}x{s[1]}" for s in solves}),
+                       redeliveries_ok=status["stats"].get(
+                           "redeliveries_ok"),
+                       heal_records=len(heals), launches=launched,
+                       card=card)
+            print(f"[wire] {json.dumps(row)}", flush=True)
+            rows.append(row)
+            if not heals:
+                raise AssertionError("[wire] heal: no self-heal record")
+            cp_expect_launches(row["rpc"], launched, CP_WARM, any_of=True,
+                               tag="wire")
+            check(svc, dead, solves, row["rpc"])
+            out["heal_s"] = heal_s
+
+            # a standby: catches up on the journal, promotes when the
+            # primary stops, and solves on a fresh scheduler
+            standby = await start(
+                ServerConfig(name="fleetflow-cp-standby",
+                             standby_of=f"{primary.host}:{primary.port}",
+                             standby_token=admin, auth_kind="token",
+                             auth_secret=WIRE_SECRET, device=device,
+                             **WIRE_STANDBY),
+                backend_factory=lambda: MockBackend(auto_pull=True))
+            seq = primary.state.store.seq
+            catch_s = await wire_until(
+                "standby catch-up", lambda: standby.state.store.seq >= seq)
+            out["errors_before_stop"] = wire_errors(REGISTRY)
+            await cli.close()
+            cli_task.cancel()
+            t0 = time.perf_counter()
+            await primary.stop()
+            stop_s = time.perf_counter() - t0
+            promote_s = await wire_until(
+                "promotion",
+                lambda: standby.state.replication_role == "primary")
+            stopped = True
+            for a in wire:
+                await a.close()
+            row = dict(rpc="promotion", catch_up_s=round(catch_s, 3),
+                       seq=seq, primary_stop_s=round(stop_s, 3),
+                       promote_s=round(promote_s, 3),
+                       epoch=standby.state.store.epoch, card=card)
+            print(f"[wire] {json.dumps(row)}", flush=True)
+            rows.append(row)
+            out["promote_s"] = promote_s
+            cli, cli_task = await ProtocolClient.connect(
+                standby.host, standby.port, identity="cli", token=admin)
+            rep, solves = await rpc(
+                cli, f"promoted solve {key0}", "placement", "solve",
+                {"flow": fd, "stage": "prod", "reserve": True},
+                want=CP_COLD, rows=len(flow.services))
+            if (not rep["feasible"] or rep["violations"]
+                    or rep["source"] != "gpu-anneal" or not solves):
+                raise AssertionError(f"[wire] promoted solve: feasible "
+                                     f"{rep['feasible']}, violations "
+                                     f"{rep['violations']}, {rep['source']}")
+            await rpc(cli, f"promoted commit {key0}", "placement", "commit",
+                      {"reservation": rep["reservation"]})
+            # the promoted service's other stages are the dead primary's
+            # committed book, rehydrated: the solve is the stage to hold
+            pt, pl = standby.state.placement.retained(key0)
+            raw = np.asarray(pl.raw)
+            on_dead = sorted(set(pl.assignment.values()) & dead)
+            if (verify(pt, raw)["total"] or (~pt.node_valid[raw]).any()
+                    or on_dead or pl.source != "gpu-anneal"
+                    or any(s[3].device != dev_name for s in solves)):
+                raise AssertionError(
+                    f"[wire] promoted solve: {pl.source}, on dead nodes "
+                    f"{on_dead[:5]}, devices "
+                    f"{[s[3].device for s in solves]}")
+            await cli.close()
+            cli_task.cancel()
+        finally:
+            for a in wire:
+                await a.close()
+            if standby is not None:
+                await standby.stop()
+            if not stopped:
+                await primary.stop()
+        return out
+
+    try:
+        out = asyncio.run(drive())
+    finally:
+        meter.close()
+        set_engine(engine0)
+    torch.cuda.synchronize()
+    gc.collect()
+    mem_after = torch.cuda.memory_allocated()
+    err1 = wire_errors(REGISTRY)
+    moved = fallbacks.value() - fb0
+    errors = {ch: err1[ch] - err0[ch] for ch in WIRE_CHANNELS
+              if err1[ch] != err0[ch]}
+    took = time.perf_counter() - t_phase
+    print(f"[wire] {json.dumps(dict(errors=errors, fallbacks=moved, memory_before=mem0, memory_after=mem_after, slack=WORLD_MEMORY_SLACK, card=card))}",
+          flush=True)
+    problems = []
+    if errors:
+        problems.append(f"request errors by channel {errors}")
+    if moved:
+        problems.append(f"{moved} churn fallbacks")
+    if abs(mem_after - mem0) > WORLD_MEMORY_SLACK:
+        problems.append(f"allocated memory {mem0} -> {mem_after}")
+    if problems:
+        raise AssertionError("[wire] " + "; ".join(problems))
+    launches = read_launches(torch, _ext, "wire", CP_COLD,
+                             off=("k6_greedy_scan",))
+    cp_expect_launches("wire", launches, CP_WARM, any_of=True, tag="wire")
+    print(f"[wire] {json.dumps(dict(phase_s=round(took, 3), budget_s=WIRE_BUDGET_S, over_budget=took > WIRE_BUDGET_S, heal_s=round(out['heal_s'], 3), promote_s=round(out['promote_s'], 3), rpcs=len(rows), launches=launches, card=card))}",
+          flush=True)
+    return launches
+
+
 def launches_by_size(name: str, total: int) -> dict:
     """A kernel's main-path launches by the fleet size they ran at; every
     phase's launches must have been tallied."""
@@ -4635,6 +5248,16 @@ def main() -> int:
     # [world]: every scenario of the chaos pack and the acceptance runs,
     # each world placing on the card
     by_phase["world"] = run_world_phase(torch, _ext, REGISTRY, card)
+    # [wire]: a control-plane server on a socket, its agents, a heal and
+    # a standby's promotion, every placement on the card; the [frontend]
+    # fleet parsed again ([cp]'s admission stream grew fe_flow in place)
+    wire_flow = core.parse_kdl_string(fleetgen.generate_fleet_kdl(
+        FRONTEND_FLEET["fleet"], FRONTEND_FLEET["n_services"],
+        seed=FRONTEND_FLEET["seed"],
+        n_nodes_hint=FRONTEND_FLEET["n_nodes_hint"],
+        port_base=FRONTEND_FLEET["port_base"]), cache=False)
+    by_phase["wire"] = run_wire_phase(torch, np, _ext, REGISTRY, verify,
+                                      str(dev), wire_flow, fe_pool, card)
     measure_device(recs)
     measure_k7_device(recs)
     measure_k5_device(recs)

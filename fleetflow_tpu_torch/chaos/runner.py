@@ -314,7 +314,7 @@ class ChaosReport:
     # replayable-repro contract hashes the causal event log, and the
     # capture is derived telemetry — its own `digest` key pins ITS
     # determinism separately (tests/test_collector.py,
-    # tests/test_torch_collector.py)
+    # tests/test_torch_tsdb.py)
     tsdb: Optional[dict] = None
 
     @property

@@ -46,6 +46,7 @@ from ..obs.metrics import REGISTRY
 from ..obs.slo import observe as slo_observe
 from ..sched import (GpuSolverScheduler, HostGreedyScheduler, Placement,
                      level_schedule, place_with_fallback)
+from ..sched.gpu import slot_limits
 from ..solver.resident import ProblemDelta
 from .models import PlacementRecord, Server
 from .store import Store
@@ -604,10 +605,14 @@ class PlacementService:
         """Device slot-manager occupancy (sched/gpu.py slots_status):
         per-stage resident tier/bytes/idle/evictions plus the byte
         budget — the `fleet solve slots` payload. The host greedy path
-        holds no slots."""
+        builds no scheduler and holds no slots: it reports the limits an
+        idle ``GpuSolverScheduler()`` would hold, as the reference's host
+        path reports its idle device scheduler's."""
         if self._sched_gpu is None:
-            return {"budget_bytes": 0, "max_slots": 0, "resident_bytes": 0,
-                    "bytes_drift": 0, "slots": [], "evicted": []}
+            max_slots, budget = slot_limits()
+            return {"budget_bytes": budget, "max_slots": max_slots,
+                    "resident_bytes": 0, "bytes_drift": 0, "slots": [],
+                    "evicted": []}
         return self._sched_gpu.slots_status()
 
     def retained(self, stage_key: str

@@ -7,7 +7,8 @@ mTLS (SURVEY.md §2.10 comms row; server.rs:101-162, cp_client.rs:18-105).
 This build keeps the exact message shapes over asyncio TCP, optionally
 wrapped in TLS from cp/cert.py:
 
-  frame    = 4-byte big-endian length ‖ utf-8 JSON body (1 MiB cap)
+  frame    = 4-byte big-endian length ‖ utf-8 JSON body (1 MiB cap in
+             the handshake, 16 MiB once a session is up)
   hello    = {"type":"hello","identity":str,"token":str|None,
               "channels":[...]}            client -> server, once
   welcome  = {"type":"welcome","server":str}
@@ -36,22 +37,29 @@ from ..obs import get_logger, kv
 log = get_logger("cp.protocol")
 
 __all__ = ["Connection", "ProtocolServer", "ProtocolClient", "RpcError",
-           "MAX_FRAME"]
+           "MAX_FRAME", "MAX_SESSION_FRAME"]
 
+# the reference's cap, and this port's for the pre-auth handshake: an
+# unauthenticated peer never makes the server buffer more than 1 MiB
 MAX_FRAME = 1 << 20
+# frames of an established session (a deliberate difference from the
+# reference's 1 MiB): a fleet of 10,000 services is ~1.8 MB of flow
+# dict, and placement.solve carries the whole flow in one request
+MAX_SESSION_FRAME = 16 << 20
 
 
 class RpcError(ControlPlaneError):
     pass
 
 
-async def read_frame(reader: asyncio.StreamReader) -> Optional[dict]:
+async def read_frame(reader: asyncio.StreamReader,
+                     limit: int = MAX_FRAME) -> Optional[dict]:
     try:
         header = await reader.readexactly(4)
     except (asyncio.IncompleteReadError, ConnectionResetError):
         return None
     size = int.from_bytes(header, "big")
-    if size > MAX_FRAME:
+    if size > limit:
         raise RpcError(f"frame too large: {size}")
     try:
         body = await reader.readexactly(size)
@@ -60,9 +68,9 @@ async def read_frame(reader: asyncio.StreamReader) -> Optional[dict]:
     return json.loads(body)
 
 
-def encode_frame(msg: dict) -> bytes:
+def encode_frame(msg: dict, limit: int = MAX_FRAME) -> bytes:
     body = json.dumps(msg, separators=(",", ":")).encode()
-    if len(body) > MAX_FRAME:
+    if len(body) > limit:
         raise RpcError(f"frame too large: {len(body)}")
     return len(body).to_bytes(4, "big") + body
 
@@ -106,7 +114,7 @@ class Connection:
     async def _send(self, msg: dict) -> None:
         if self._closed:
             raise RpcError("connection closed")
-        self.writer.write(encode_frame(msg))
+        self.writer.write(encode_frame(msg, MAX_SESSION_FRAME))
         await self.writer.drain()
 
     async def request(self, channel: str, method: str, payload: dict | None = None,
@@ -136,7 +144,7 @@ class Connection:
         handlers, events to event handlers. Returns on disconnect."""
         try:
             while True:
-                msg = await read_frame(self.reader)
+                msg = await read_frame(self.reader, MAX_SESSION_FRAME)
                 if msg is None:
                     break
                 t = msg.get("type")

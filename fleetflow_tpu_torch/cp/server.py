@@ -1,19 +1,18 @@
-"""Control-plane server state (the port's copy of
-``fleetflow_tpu/cp/server.py``, without the wire).
+"""Control-plane server bootstrap (the port's copy of
+``fleetflow_tpu/cp/server.py``).
 
 Analog of controlplane server.rs:82-197: store connect -> auth select ->
 AppState{store, auth, agent_registry, log_router, placement} -> register
-channels -> mesh CA load/gen + per-boot server cert -> listen. The port
-holds the configuration (`ServerConfig`), the state (`AppState`) and the
-builders a primary and a promoted standby share: the self-healing pair,
-the SLO engine, streaming admission, the collector and its sources, and
-the standby's promotion. `start`, `CpServerHandle` and the default
-backend and provider factories (the protocol server, its channel
-handlers, auth's token providers and the mesh CA) are not ported yet.
+channels -> mesh CA load/gen + per-boot server cert -> listen; a
+CpServerHandle supports graceful shutdown (server.rs CpServerHandle).
 
 The placement service solves on the card: `ServerConfig.use_gpu_solver`
 is on by default, as `PlacementService`'s `use_gpu` is (the reference's
-`use_tpu_solver` is off by default).
+`use_tpu_solver` is off by default), and `ServerConfig.device` names the
+card's device (`None`: the card, and `start` raises DeviceUnavailable
+before it listens when CUDA is absent; `"cpu"` runs the card scheduler's
+plain PyTorch versions). With `use_gpu_solver=False` the service runs the
+reference's host greedy path and `device` is not read.
 """
 
 from __future__ import annotations
@@ -26,17 +25,22 @@ import asyncio
 
 from .admission import AdmissionConfig, AdmissionController
 from .agent_registry import AgentRegistry
+from .auth import Claims, NoAuth, make_provider
 from .failure_detector import FailureDetector, LeaseConfig
 from .log_router import LogRouter
 from .placement import PlacementService
+from .protocol import ProtocolServer
 from .reconverge import ReconvergeConfig, Reconverger
-from .replication import (ReplicationConfig, Replicator, StandbyRunner)
+from .replication import (ReplicationConfig, Replicator, StandbyReplica,
+                          StandbyRunner)
+from .shards import ShardTable, shards_from_env
 from .store import Store
 from ..obs import get_logger, kv
 
 log = get_logger("cp.server")
 
-__all__ = ["ServerConfig", "AppState", "collector_sources"]
+__all__ = ["ServerConfig", "AppState", "CpServerHandle", "start",
+           "collector_sources"]
 
 @dataclass
 class ServerConfig:
@@ -52,6 +56,9 @@ class ServerConfig:
     auth_client_id: Optional[str] = None   # OAuth client for device flow
     tls_dir: Optional[str] = None      # mesh-CA dir; None = plaintext
     use_gpu_solver: bool = True
+    # the card scheduler's device: None = the card (no CUDA raises
+    # DeviceUnavailable at start), "cpu" = its plain PyTorch versions
+    device: Optional[str] = None
     master_key_env: bool = False       # load SecretBox from env
     # self-healing (cp/failure_detector.py + cp/reconverge.py): lease-
     # based failure detection driving automatic re-solve + redeploy.
@@ -156,6 +163,189 @@ class AppState:
     collector: Optional[object] = None
 
 
+class CpServerHandle:
+    def __init__(self, server: ProtocolServer, state: AppState,
+                 host: str, port: int, ca: Optional["MeshCa"]):
+        self.server = server
+        self.state = state
+        self.host = host
+        self.port = port
+        self.ca = ca
+
+    @property
+    def ca_pem(self) -> Optional[bytes]:
+        return self.ca.ca_pem if self.ca else None
+
+    async def stop(self) -> None:
+        if self.state.standby is not None:
+            self.state.standby.stop()
+        if self.state.reconverger is not None:
+            self.state.reconverger.stop()
+        if self.state.admission is not None:
+            self.state.admission.stop()
+        if self.state.collector is not None:
+            self.state.collector.stop()
+        await self.server.stop()
+        self.state.store.flush()
+
+
+def _default_server_provider_factory(name: str, **kw):
+    """Resolve a cloud ServerProvider by name (server_provider.rs enum
+    dispatch). Shells out to the provider CLI; raises on unknown names."""
+    if name == "sakura":
+        from ..cloud.sakura import SakuraServerProvider
+        return SakuraServerProvider(**kw)
+    if name == "aws":
+        from ..cloud.aws import AwsServerProvider
+        return AwsServerProvider(**kw)
+    raise ValueError(f"unknown server provider {name!r}")
+
+
+def _default_backend_factory():
+    """CP-local deploys (handlers/deploy.rs:470-507) use the local docker
+    daemon when reachable, the in-memory mock otherwise (tests/dev)."""
+    from ..runtime.backend import DockerCliBackend, MockBackend
+    docker = DockerCliBackend()
+    if docker.ping():
+        return docker
+    # dev mock: images materialize on pull, so deploys succeed end-to-end
+    return MockBackend(auto_pull=True)
+
+
+async def start(config: ServerConfig, *,
+                backend_factory: Optional[Callable] = None,
+                server_provider_factory: Optional[Callable] = None,
+                ssh_runner: Optional[Callable] = None,
+                deploy_sleep: Callable[[float], None] = time.sleep,
+                ) -> CpServerHandle:
+    """server.rs start:82-126. The placement service is built before
+    anything listens or spawns: on the card (`config.device` None)
+    without CUDA, start raises DeviceUnavailable."""
+    store = Store(config.db_path)
+    auth = make_provider(config.auth_kind, config.auth_secret,
+                         jwks=config.auth_jwks, issuer=config.auth_issuer,
+                         audience=config.auth_audience)
+
+    secret_box = None
+    if config.master_key_env:
+        from .crypto import SecretBox
+        secret_box = SecretBox.from_env()
+
+    shard_table = ShardTable(config.cp_shards or shards_from_env())
+    state = AppState(
+        store=store,
+        auth=auth,
+        agent_registry=AgentRegistry(shard_table=shard_table),
+        log_router=LogRouter(shard_table=shard_table),
+        placement=PlacementService(store, use_gpu=config.use_gpu_solver,
+                                   device=config.device),
+        name=config.name,
+        secret_box=secret_box,
+        backend_factory=backend_factory or _default_backend_factory,
+        server_provider_factory=(server_provider_factory
+                                 or _default_server_provider_factory),
+        ssh_runner=ssh_runner,
+        deploy_sleep=deploy_sleep,
+        auth_idp=({"issuer": config.auth_issuer,
+                   "client_id": config.auth_client_id,
+                   "audience": config.auth_audience}
+                  if (config.auth_kind in ("jwks", "auth0")
+                      and config.auth_issuer and config.auth_client_id)
+                  else None),
+    )
+
+    def authenticate(identity: str, token: Optional[str]):
+        """Returns the peer's Claims (stashed on the Connection for
+        per-method permission checks, handlers._need_perm) or False.
+        NoAuth returns True: no claims, handlers skip enforcement —
+        the reference's NoAuth '(everything is the anonymous admin)'."""
+        if isinstance(auth, NoAuth):
+            return True
+        try:
+            claims: Claims = auth.verify(token)
+            return claims if claims.sub else False
+        except Exception:
+            return False
+
+    ca: Optional["MeshCa"] = None
+    ssl_ctx = None
+    if config.tls_dir:
+        # lazy: cert.py needs the `cryptography` package, which plaintext
+        # deployments (and the chaos harness) must not require
+        from .cert import ensure_mesh_ca, server_ssl_context
+        ca = ensure_mesh_ca(config.tls_dir)
+        ssl_ctx = server_ssl_context(ca, common_name=config.name,
+                                     work_dir=config.tls_dir)
+
+    repl_config = ReplicationConfig(
+        ring_entries=config.replication_ring,
+        ping_interval_s=config.standby_ping_interval_s,
+        lease_s=config.standby_lease_s,
+        grace_s=config.standby_grace_s)
+
+    if config.standby_of:
+        # standby: stream the primary's journal, watch its lease, promote
+        # on death. No self-heal machinery until promotion — a standby
+        # must not issue verdicts about agents it doesn't serve.
+        state.replication_role = "standby"
+        host_s, _, port_s = config.standby_of.rpartition(":")
+        state.standby = StandbyRunner(
+            StandbyReplica(store), host_s, int(port_s),
+            identity=config.name, token=config.standby_token,
+            config=repl_config,
+            on_promote=lambda: _promote(state, config, repl_config))
+        state.standby.spawn()
+    else:
+        state.replicator = Replicator(
+            store, config=repl_config, loop=asyncio.get_running_loop())
+        state.agent_registry.epoch_source = lambda: store.epoch
+        _build_slo(state, config)
+        if config.self_heal:
+            _build_self_heal(state, config)
+        if config.admission:
+            _build_admission(state, config)
+        if config.collector:
+            _build_collector(state, config)
+
+    server = ProtocolServer(
+        name=config.name, authenticate=authenticate, ssl_context=ssl_ctx,
+        # the welcome frame advertises role + fencing epoch, so agents
+        # and CLIs can spot a zombie ex-primary at the handshake
+        welcome_extra=lambda: {"role": state.replication_role,
+                               "epoch": store.epoch})
+    from .handlers import register_all
+    register_all(server, state)
+
+    host, port = await server.start(config.host, config.port)
+    log.info("listening %s", kv(
+        host=host, port=port, name=config.name,
+        role=state.replication_role,
+        tls=bool(config.tls_dir), auth=config.auth_kind,
+        db=config.db_path or ":memory:",
+        solver=("gpu" if config.use_gpu_solver else "host"),
+        device=(config.device or "cuda") if config.use_gpu_solver else None))
+    return CpServerHandle(server, state, host, port, ca)
+
+
+def _watch(task: Optional[asyncio.Task], name: str) -> None:
+    """Log a background loop that ends by itself: a fault of the device
+    path ends the reconverger's, the admission drain's and the
+    collector's loops by design (retrying around a missing card or a
+    broken kernel would hide it), and the server goes on serving its
+    channels, so the ending must be visible."""
+    if task is None:
+        return
+
+    def ended(t: asyncio.Task) -> None:
+        if t.cancelled():
+            return
+        e = t.exception()
+        if e is not None:
+            log.error("%s loop ended %s", name,
+                      kv(error=f"{type(e).__name__}: {e}"))
+    task.add_done_callback(ended)
+
+
 def _build_self_heal(state: AppState, config: ServerConfig) -> None:
     """The self-healing pair + crash-recovery boot sequence, shared by
     primary start and standby promotion (crash-only design: recovery IS
@@ -182,7 +372,7 @@ def _build_self_heal(state: AppState, config: ServerConfig) -> None:
     # placed on them make the verdict a no-op.
     for s in state.store.list("servers"):
         state.failure_detector.prime(s.slug)
-    state.reconverger.spawn()
+    _watch(state.reconverger.spawn(), "reconverge")
 
 
 def _build_slo(state: AppState, config: ServerConfig) -> None:
@@ -203,6 +393,7 @@ def _build_admission(state: AppState, config: ServerConfig) -> None:
                                shed_age_s=config.admission_shed_age_s),
         store=state.store)
     state.admission.spawn()
+    _watch(state.admission._task, "admission")
 
 
 def collector_sources(state: AppState) -> list:
@@ -327,14 +518,24 @@ def _build_collector(state: AppState, config: ServerConfig) -> None:
         collector.add_source(src)
     state.collector = collector
     collector.spawn()
+    _watch(collector._task, "collector")
 
 
 def _promote(state: AppState, config: ServerConfig,
              repl_config: ReplicationConfig) -> None:
     """Standby -> primary flip (StandbyRunner.on_promote): open the
     gates, start shipping OUR journal to the next generation of
-    standbys, and pick up the dead primary's convergence debt."""
+    standbys, and pick up the dead primary's convergence debt. The
+    promoted primary solves on `config.device`, on a fresh scheduler."""
     state.replication_role = "primary"
+    # a fresh placement service on the configured solver and device: its
+    # committed book loads from the replicated placements table, so the
+    # promoted primary's next commit of a stage supersedes the dead
+    # primary's allocation instead of stacking on it (the reference keeps
+    # the service the standby built over its then-empty store)
+    state.placement = PlacementService(state.store,
+                                       use_gpu=config.use_gpu_solver,
+                                       device=config.device)
     state.replicator = Replicator(
         state.store, config=repl_config, loop=asyncio.get_running_loop())
     state.agent_registry.epoch_source = lambda: state.store.epoch

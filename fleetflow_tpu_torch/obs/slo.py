@@ -2,8 +2,8 @@
 (copy of ``fleetflow_tpu/obs/slo.py``; the control plane's observation
 points call it).
 
-ROADMAP item 4 asks for *SLO invariants instead of only safety
-invariants* — "the fleet converged" is necessary but not sufficient; the
+The control plane holds *SLO invariants besides its safety
+invariants*: "the fleet converged" is necessary but not sufficient; the
 operator's question is "did it converge FAST ENOUGH, consistently?".
 This module is where that question gets a checked answer:
 

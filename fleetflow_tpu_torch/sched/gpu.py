@@ -66,7 +66,7 @@ from ..solver.resident import ProblemDelta, ResidentProblem
 from ..solver.sharded import ShardedResident, sharded_route, solve_sharded
 from .base import Placement, level_schedule, record_placement
 
-__all__ = ["GpuSolverScheduler"]
+__all__ = ["GpuSolverScheduler", "slot_limits"]
 
 log = get_logger("sched.gpu")
 
@@ -123,6 +123,13 @@ def _env_int(name: str, default: int) -> int:
         return default
 
 
+def slot_limits() -> tuple[int, int]:
+    """(max_slots, budget_bytes) a scheduler built now takes by default:
+    FLEET_RESIDENT_STAGES and FLEET_RESIDENT_BYTES, else 8 and 256 MiB."""
+    return (_env_int("FLEET_RESIDENT_STAGES", 8),
+            _env_int("FLEET_RESIDENT_BYTES", _DEFAULT_BUDGET))
+
+
 class GpuSolverScheduler:
     def __init__(self, *, chains: Optional[int] = None, steps: int = 128,
                  seed: int = 0, device=None, bucket: Optional[bool] = None,
@@ -139,10 +146,9 @@ class GpuSolverScheduler:
         # stages keep a host snapshot for a warm re-admission
         self._slots: list[_StageSlot] = []
         self._evicted: dict[str, _EvictRecord] = {}
-        self._max_slots = _env_int("FLEET_RESIDENT_STAGES", 8)
-        if resident_bytes is None:
-            resident_bytes = _env_int("FLEET_RESIDENT_BYTES", _DEFAULT_BUDGET)
-        self._budget_bytes = int(resident_bytes)
+        self._max_slots, default_budget = slot_limits()
+        self._budget_bytes = int(default_budget if resident_bytes is None
+                                 else resident_bytes)
         # bounded: a control plane churning through unbounded stage keys
         # must not grow host memory forever
         self._max_evicted = max(4 * self._max_slots, 64)

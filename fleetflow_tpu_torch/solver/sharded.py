@@ -127,7 +127,7 @@ class Mesh:
             raise SolverError(
                 f"a mesh over {len(distinct)} distinct devices needs the "
                 f"multi-card sharded path (NCCL collectives, ROADMAP queue "
-                f"1 item 7b); every position of this port's mesh names one "
+                f"1 item 5); every position of this port's mesh names one "
                 f"device")
         self.axis_names = names
         self.shape = dict(zip(names, grid.shape))
@@ -1013,7 +1013,7 @@ def sharded_route(pt) -> Optional[Mesh]:
     axis. The devices are the visible cards: with one card there is
     nothing to route (as the reference with one chip), and a host of
     distinct cards stays on the single-card path until the multi-card
-    slice (ROADMAP queue 1 item 7b)."""
+    slice (ROADMAP queue 1 item 5)."""
     mode = os.environ.get("FLEET_SHARDED", "").strip().lower()
     if mode in ("0", "off", "false", "no"):
         return None

@@ -68,7 +68,7 @@ _PORTED = ("fleet_solver_", "fleet_sched_", "fleet_placement", "fleet_slo_",
            "fleet_agent_registrations_total", "fleet_agent_commands_total",
            "fleet_agent_command_errors_total", "fleet_obs_",
            "fleet_log_", "fleet_autoscaler_", "fleet_cloud_provider_",
-           "fleet_cp_request_", "fleet_world_")
+           "fleet_cp_request_", "fleet_world_", "fleet_plan_simulate_")
 
 
 def _import_port() -> None:

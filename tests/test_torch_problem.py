@@ -285,8 +285,9 @@ class TestConvert:
 class TestBoundaries:
     def test_package_imports_no_jax(self):
         """Every module of the port (the obs package, the front end, the
-        control plane, the runtime, lint, the cloud traits and the chaos
-        world among them) and chip_smoke.py
+        control plane and its wire, the runtime, lint, the cloud
+        providers, the registry's deploy and the chaos world among them)
+        and chip_smoke.py
         import in a fresh interpreter without
         jax or fleetflow_tpu entering sys.modules."""
         code = (
@@ -314,7 +315,12 @@ class TestBoundaries:
             "'cloud.provider', 'cp.log_router', 'cp.auth', 'cp.autoscaler', "
             "'cp.replication', 'cp.server', 'cp.handlers', 'chaos', "
             "'chaos.faults', 'chaos.injector', 'chaos.worldgen', "
-            "'chaos.invariants', 'chaos.runner', 'chaos.scenarios')}\n"
+            "'chaos.invariants', 'chaos.runner', 'chaos.scenarios', "
+            "'cp.crypto', 'cp.cert', 'cp.bench_agents', 'cloud.ssh', "
+            "'cloud.startup_scripts', 'cloud.sakura', 'cloud.aws', "
+            "'cloud.cloudflare', 'cloud.tailscale', 'registry', "
+            "'registry.model', 'registry.deploy', 'chaos.trace', "
+            "'chaos.simulate')}\n"
             "print(len(mods), bad, sorted(obs - set(mods)))\n"
             "sys.exit(1 if bad or len(mods) < 15 or obs - set(mods) "
             "else 0)\n")
@@ -323,6 +329,29 @@ class TestBoundaries:
         out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                              capture_output=True, text=True, timeout=120)
         assert out.returncode == 0, out.stdout + out.stderr
+
+    def test_solver_exports_every_counterpart(self):
+        """The port's solver package exports every name the reference's
+        package imports that has a counterpart here; the differences are
+        named: JAX's mesh axis, compile-arena statistics and transfer
+        guard have none, TorchProblem stands for DeviceProblem, and
+        `anneal` is the submodule, whose `anneal` is the function."""
+        import ast
+
+        import fleetflow_tpu_torch.solver as port_solver
+        from fleetflow_tpu_torch.solver import anneal as anneal_module
+        src = (REPO / "fleetflow_tpu" / "solver" / "__init__.py").read_text()
+        ref_names = {a.asname or a.name for node in ast.parse(src).body
+                     if isinstance(node, ast.ImportFrom) for a in node.names}
+        port_names = set(port_solver.__all__)
+        assert all(hasattr(port_solver, n) for n in port_names)
+        assert ref_names - port_names == {"CHAIN_AXIS", "DeviceProblem",
+                                          "staging_arena_stats",
+                                          "transfer_guard_ctx", "anneal"}
+        assert port_names - ref_names == {"TorchProblem"}
+        assert len(port_names) == 37
+        assert callable(anneal_module.anneal)
+        assert anneal_module.__name__ == "fleetflow_tpu_torch.solver.anneal"
 
     def test_scheduler_raises_without_cuda(self, monkeypatch):
         from fleetflow_tpu_torch.sched import GpuSolverScheduler

@@ -310,7 +310,7 @@ class TestMesh:
             ref_sh.tempering_mesh(2, 8, devices=jax.devices()[:8])
 
     def test_distinct_devices_raise(self):
-        with pytest.raises(SolverError, match="7b"):
+        with pytest.raises(SolverError, match="multi-card sharded path"):
             sh.Mesh(["cuda:0", "cuda:1"], (sh.SVC_AXIS,))
         with pytest.raises(SolverError):
             sh.tempering_mesh(2, 1, devices=["cpu", "cuda:0"])

@@ -358,9 +358,9 @@ def _state(pkg):
 
 def test_collector_sources_equal():
     """Each source's entries, over a state with a subscriber backlog and
-    no agents; the slot source is compared by name only (the reference's
-    host path reports its idle device scheduler's budget, the port's host
-    path builds no scheduler)."""
+    no agents; the port's host path builds no scheduler and reports the
+    limits an idle one would hold, as the reference's host path reports
+    its idle device scheduler's."""
     out = []
     for pkg in BOTH:
         state = _state(pkg)
@@ -369,10 +369,7 @@ def test_collector_sources_equal():
             state.log_router.publish_line("node001", "web", f"l{i}")
         rows = []
         for src in pkg.server.collector_sources(state):
-            entries = list(src(1000.0) or ())
-            if src.__name__ == "_slots":
-                entries = [e[0] for e in entries]
-            rows.append((src.__name__, entries))
+            rows.append((src.__name__, list(src(1000.0) or ())))
         out.append(rows)
     assert out[0] == out[1]
     assert [n for n, _ in out[1]] == ["_slo", "_admission", "_log_router",
@@ -384,6 +381,64 @@ def test_port_slots_source_reads_the_host_path():
     state = _state(PORT)
     (slots,) = [s for s in PORT.server.collector_sources(state)
                 if s.__name__ == "_slots"]
-    assert slots(0.0) == [("fleet_sched_resident_budget_bytes", {}, 0.0),
+    assert slots(0.0) == [("fleet_sched_resident_budget_bytes", {},
+                           float(256 << 20)),
                           ("fleet_sched_resident_bytes", {}, 0.0),
                           ("fleet_solver_resident_bytes_drift", {}, 0.0)]
+    assert state.placement.solver_slots() == {
+        "budget_bytes": 256 << 20, "max_slots": 8, "resident_bytes": 0,
+        "bytes_drift": 0, "slots": [], "evicted": []}
+
+
+@pytest.mark.parametrize("env,want", [
+    ({}, (8, 256 << 20)),
+    ({"FLEET_RESIDENT_STAGES": "3", "FLEET_RESIDENT_BYTES": "4096"},
+     (3, 4096))], ids=["defaults", "env"])
+def test_host_path_slots_equal_an_idle_scheduler(monkeypatch, env, want):
+    """The host path's limits are the ones GpuSolverScheduler() would
+    take, the environment's included (its slots_status, on the CPU)."""
+    from fleetflow_tpu_torch.sched.gpu import GpuSolverScheduler, slot_limits
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert slot_limits() == want
+    state = _state(PORT)
+    idle = GpuSolverScheduler(device="cpu").slots_status()
+    assert state.placement.solver_slots() == idle
+    assert (idle["max_slots"], idle["budget_bytes"]) == want
+
+
+# --------------------------------------------------------------------------
+# the chaos capture (tests/test_collector.py's TestChaosCapture) on both of
+# the port's paths
+# --------------------------------------------------------------------------
+
+_CAPTURE = dict(seed=11, services=20, nodes=4, stages=1, pool_min=0)
+
+
+class TestChaosCapture:
+    def test_host_path_capture_equals_the_reference(self):
+        """rolling-kill at 20x4x1 on the host path: the event digest and
+        the whole TSDB capture, series for series, equal the
+        reference's."""
+        from fleetflow_tpu import chaos as ref_chaos
+        from fleetflow_tpu_torch import chaos as port_chaos
+        ref = ref_chaos.run_scenario("rolling-kill", **_CAPTURE)
+        port = port_chaos.run_scenario("rolling-kill", use_gpu=False,
+                                       **_CAPTURE)
+        assert port.digest() == ref.digest()
+        assert port.tsdb == ref.tsdb
+        budget = [s for s in port.tsdb["series"]
+                  if s["name"] == "fleet_sched_resident_budget_bytes"]
+        assert budget and all(v == float(256 << 20)
+                              for s in budget for _, v in s["samples"])
+
+    def test_card_path_capture_repeats(self):
+        from fleetflow_tpu_torch import chaos as port_chaos
+        a = port_chaos.run_scenario("rolling-kill", device="cpu", **_CAPTURE)
+        b = port_chaos.run_scenario("rolling-kill", device="cpu", **_CAPTURE)
+        assert a.tsdb is not None and a.tsdb["series"]
+        assert a.tsdb["digest"] == b.tsdb["digest"] and a.tsdb == b.tsdb
+        assert "tsdb" in a.to_dict() and a.digest() == b.digest()
+        names = {s["name"] for s in a.tsdb["series"]}
+        assert "fleet_agents_connected" in names
+        assert all(n.startswith("fleet_") for n in names)
