@@ -184,6 +184,40 @@ each of which fails the run:
      than 64 MB from before; one line an RPC with its wall ms beside the
      solver's, the heal's and the promotion's seconds, and the phase's
      seconds against its 120 s budget;
+     ``[registry]``, after ``[wire]``: BASELINE config 4 built from a
+     registry, at the reference bench's pipeline shape
+     (bench.py:1070-1108): 8 fleetgen tenant fleets of 1,250 services as
+     project directories and a fleet-registry.kdl of 1,000 generated
+     servers, through ``find_registry``, ``parse_registry_file`` and
+     ``aggregate_fleets`` (a FlowCache, the default loader and stage
+     hash, FLEET_PARSE_WORKERS=4: a fork pool after CUDA is up) to one
+     instance, placed by ``GpuSolverScheduler``; fleet t0 regenerated 17
+     services short (bench.py:1191), re-aggregated through the same cache
+     (one fleet-stage missing, seven hitting) and re-placed with
+     ``reschedule`` on the same stage key, seeded by row name. Fails on a
+     violation, a source other than ``gpu-anneal``, a solve off the
+     card, a re-place not seeded by name, a warm move the edit did not
+     force, a row in no node slice or in two, K4, K3 or K1 not launched,
+     both of K2 and K5 not launched on the re-place, or the ``lower``
+     phase gauge unset; one line a step (rows, the pool's load ms,
+     ``lower_stage``'s ms, the aggregation's ms, the place ms, the
+     solver's ms, the warm seed's host ms, the cache, the launches) and
+     the phase's seconds against its 60 s budget;
+     ``[agent]``: 100 port ``Agent``s (each on its own MockBackend) behind
+     ``cp.start(ServerConfig(auth_kind="token", self_heal=True))`` on
+     127.0.0.1, registering and heartbeating; [wire]'s 1,000-service
+     stage deployed through ``deploy.execute``, each agent executing its
+     own slice; the busiest agent stopped and its rows healed onto the
+     survivors; a quadlet and a compose stage through a recording
+     systemctl and compose runner; ``container.restart``,
+     ``server.ping`` and the agent's ``status``. Fails on an RPC or
+     command error, a moved request-error or command-error counter, a
+     host fallback, a violation, a source other than ``gpu-anneal``, a
+     row not running on its placed live agent or an agent holding more
+     than its slice, units or a compose file other than the generators',
+     K1, K3 or K4 not launched or both of K2 and K5, or the card's memory
+     more than 64 MB from before; one line an RPC, the deploy's and the
+     heal's seconds and the phase's seconds against its 90 s budget;
      ``[device]``: K4's and K3's device-only ms and device launches a
      call at both sizes (K3 also at 8 lanes), from the kernel cases of
      ``fleetflow_tpu_torch/tools/k34_profile.py`` in a fresh interpreter,
@@ -4637,34 +4671,69 @@ class WireMeter:
             self.since = tally_size(self._ext, *self.last_size, self.since)
 
 
+class MeteredRpc:
+    """One metered RPC of phase `tag`: its wall, the solver's ms and
+    launches, printed as a line of the phase and kept in ``rows``."""
+
+    def __init__(self, meter: WireMeter, _ext, tag: str, card: str):
+        self.meter, self._ext, self.tag, self.card = meter, _ext, tag, card
+        self.rows: list = []
+
+    async def __call__(self, conn, label: str, channel: str, method: str,
+                       payload: dict, want=(), any_of: bool = False,
+                       **extra):
+        _ext = self._ext
+        self.meter.take()
+        seen = dict(_ext.LAUNCHES)
+        t0 = time.perf_counter()
+        reply = await conn.request(channel, method, payload, timeout=600.0)
+        wall = (time.perf_counter() - t0) * 1e3
+        solves = self.meter.take()
+        launched = {k: v - seen[k] for k, v in _ext.LAUNCHES.items()
+                    if v != seen[k]}
+        row = dict(rpc=label, method=f"{channel}.{method}",
+                   wall_ms=round(wall, 3),
+                   reply_solve_ms=(round(reply["solve_ms"], 3)
+                                   if "solve_ms" in reply else None),
+                   solves=len(solves),
+                   solve_ms=round(sum(s[2] for s in solves), 3),
+                   sizes=sorted({f"{s[0]}x{s[1]}" for s in solves}),
+                   launches=launched, **extra, card=self.card)
+        print(f"[{self.tag}] {json.dumps(row)}", flush=True)
+        self.rows.append(row)
+        if want:
+            cp_expect_launches(label, launched, want, any_of=any_of,
+                               tag=self.tag)
+        return reply, solves
+
+
 def wire_errors(REGISTRY) -> dict:
     """``fleet_cp_request_errors_total`` by channel."""
     errors = REGISTRY.get("fleet_cp_request_errors_total")
     return {ch: errors.value(channel=ch) for ch in WIRE_CHANNELS}
 
 
-def wire_misplaced(kit, svc, fleet: HealAgents, key: str) -> list:
+def wire_misplaced(container_name, svc, agents: dict, key: str) -> list:
     """Rows of stage `key` with no running container on the backend of the
-    agent its retained placement names."""
+    agent (`agents` by slug) its retained placement names."""
     project, _, stage = key.partition("/")
     bad = []
     for row, node in svc.retained(key)[1].assignment.items():
         base, _, idx = row.partition("#")
-        name = kit.container_name(project, stage, base)
-        info = fleet.agents[node].backend.inspect(
-            f"{name}-{idx}" if idx else name)
+        name = container_name(project, stage, base)
+        info = agents[node].backend.inspect(f"{name}-{idx}" if idx else name)
         if info is None or not info.running:
             bad.append((row, node))
     return bad
 
 
 async def wire_until(what: str, cond, timeout: float = WIRE_WAIT_S,
-                     every: float = 0.05) -> float:
+                     every: float = 0.05, tag: str = "wire") -> float:
     """Poll `cond()` until it holds; its seconds. Fails after `timeout`."""
     t0 = time.perf_counter()
     while not cond():
         if time.perf_counter() - t0 > timeout:
-            raise AssertionError(f"[wire] {what}: not after {timeout} s")
+            raise AssertionError(f"[{tag}] {what}: not after {timeout} s")
         await asyncio.sleep(every)
     return time.perf_counter() - t0
 
@@ -4774,33 +4843,8 @@ def run_wire_phase(torch, np, _ext, REGISTRY, verify, dev_name, flow, pool,
     _ext.reset_launches()
     meter = WireMeter(_ext, GpuSolverScheduler)
     key0 = f"{flow.name}/prod"
-    rows: list = []
-
-    async def rpc(conn, label: str, channel: str, method: str,
-                  payload: dict, want=(), any_of: bool = False, **extra):
-        """One metered RPC: its wall, the solver's ms and launches."""
-        meter.take()
-        seen = dict(_ext.LAUNCHES)
-        t0 = time.perf_counter()
-        reply = await conn.request(channel, method, payload, timeout=600.0)
-        wall = (time.perf_counter() - t0) * 1e3
-        solves = meter.take()
-        launched = {k: v - seen[k] for k, v in _ext.LAUNCHES.items()
-                    if v != seen[k]}
-        row = dict(rpc=label, method=f"{channel}.{method}",
-                   wall_ms=round(wall, 3),
-                   reply_solve_ms=(round(reply["solve_ms"], 3)
-                                   if "solve_ms" in reply else None),
-                   solves=len(solves),
-                   solve_ms=round(sum(s[2] for s in solves), 3),
-                   sizes=sorted({f"{s[0]}x{s[1]}" for s in solves}),
-                   launches=launched, **extra, card=card)
-        print(f"[wire] {json.dumps(row)}", flush=True)
-        rows.append(row)
-        if want:
-            cp_expect_launches(label, launched, want, any_of=any_of,
-                               tag="wire")
-        return reply, solves
+    rpc = MeteredRpc(meter, _ext, "wire", card)
+    rows = rpc.rows
 
     def check(svc, dead: set, solves: list, label: str) -> None:
         cp_check(np, svc, verify, dev_name, dead,
@@ -4964,7 +5008,8 @@ def run_wire_phase(torch, np, _ext, REGISTRY, verify, dev_name, flow, pool,
             if dep["deployment"]["status"] != "succeeded":
                 raise AssertionError(f"[wire] deploy: {dep['deployment']}")
             check(svc, dead, solves, f"deploy.execute {key1}")
-            bad = wire_misplaced(kit, svc, fleet, key1)
+            bad = wire_misplaced(kit.container_name, svc, fleet.agents,
+                                 key1)
             if bad:
                 raise AssertionError(f"[wire] deployed rows not running: "
                                      f"{bad[:5]}")
@@ -4986,7 +5031,8 @@ def run_wire_phase(torch, np, _ext, REGISTRY, verify, dev_name, flow, pool,
                 return (entry is not None
                         and gone not in entry[1].assignment.values()
                         and rc.debt() == 0 and not rc.parked_stage_keys()
-                        and not wire_misplaced(kit, svc, fleet, key1))
+                        and not wire_misplaced(kit.container_name, svc,
+                                               fleet.agents, key1))
             heal_s = await wire_until("heal", healed)
             solves = meter.take()
             launched = {k: v - seen[k] for k, v in _ext.LAUNCHES.items()
@@ -5109,6 +5155,595 @@ def run_wire_phase(torch, np, _ext, REGISTRY, verify, dev_name, flow, pool,
     print(f"[wire] {json.dumps(dict(phase_s=round(took, 3), budget_s=WIRE_BUDGET_S, over_budget=took > WIRE_BUDGET_S, heal_s=round(out['heal_s'], 3), promote_s=round(out['promote_s'], 3), rpcs=len(rows), launches=launches, card=card))}",
           flush=True)
     return launches
+
+
+REGISTRY_FLEETS = 8        # tenant fleets t0..t7 (bench.py:1070-1108)
+REGISTRY_SERVICES = 1_250  # services a fleet: BASELINE config 4's 10k
+REGISTRY_NODES = 1_000
+REGISTRY_TRIM = 17         # the churn shape: t0 with 17 fewer (bench.py:1191)
+REGISTRY_WORKERS = 4       # FLEET_PARSE_WORKERS: the fork pool of loaders
+REGISTRY_BUDGET_S = 60.0   # the phase's time on the card's host
+REGISTRY_DIR = os.path.join("fleetflow_tpu_torch", "_ext_build", "registry")
+
+
+def registry_fleet_text(fleetgen, i: int, services: int, nodes: int,
+                        trim: int = 0) -> str:
+    """Fleet t{i} of the reference bench's generated registry, `trim`
+    services short (its churn shape regenerates the fleet)."""
+    return fleetgen.generate_fleet_kdl(f"t{i}", services - trim,
+                                       seed=100 + i, n_nodes_hint=nodes,
+                                       port_base=10000 + i * services)
+
+
+def registry_write(fleetgen, root: str, services: int, nodes: int,
+                   fleets: int = REGISTRY_FLEETS) -> None:
+    """The fleets as project directories under `root` and a
+    fleet-registry.kdl beside them: one ``fleet`` node a fleet and the
+    generated server pool."""
+    lines = []
+    for i in range(fleets):
+        proj = os.path.join(root, f"t{i}")
+        os.makedirs(os.path.join(proj, ".fleetflow"), exist_ok=True)
+        with open(os.path.join(proj, ".fleetflow", "fleet.kdl"), "w") as f:
+            f.write(registry_fleet_text(fleetgen, i, services, nodes))
+        lines.append(f'fleet "t{i}" path="{os.path.abspath(proj)}"')
+    lines.append(fleetgen.generate_servers_kdl(nodes, seed=7))
+    with open(os.path.join(root, "fleet-registry.kdl"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def registry_slices_cover(np, index, pt, raw) -> int:
+    """``AggregateIndex.slices_for_node`` over every node covers every row
+    exactly once. Returns the nodes holding a slice."""
+    from collections import Counter
+    seen: Counter = Counter()
+    holding = 0
+    for node in pt.node_names:
+        slices = index.slices_for_node(pt, raw, node)
+        holding += bool(slices)
+        for (fleet, stage), names in slices.items():
+            seen.update((fleet, stage, n) for n in names)
+    if seen != Counter(index.rows) or sum(seen.values()) != pt.S:
+        raise AssertionError(f"[registry] node slices cover "
+                             f"{sum(seen.values())} rows of {pt.S}")
+    return holding
+
+
+def registry_unforced_moves(np, pt, index, before, after,
+                            edited: set) -> dict:
+    """The warm re-place's moves against `before`, row by row name. A row
+    is forced when it belongs to an edited fleet, `before` has no node for
+    it, or the node `before` gave it is invalid or ineligible for it or,
+    with the named rows alone on their nodes, over a capacity or holding a
+    conflict, or, where those rows break the spread rule, in a zone above
+    the emptiest one (only such a row can mend it). Returns the counts;
+    ``unforced`` must be 0."""
+    from fleetflow_tpu_torch.solver.repair import _group_counts, _unified_ids
+    node_idx = {n: j for j, n in enumerate(pt.node_names)}
+    mapped = np.array([node_idx.get(before.assignment.get(n), -1)
+                       for n in pt.service_names], dtype=np.int64)
+    named = mapped >= 0
+    at = np.where(named, mapped, 0)
+    load = np.zeros((pt.N, pt.demand.shape[1]))
+    np.add.at(load, at[named], pt.demand[named].astype(np.float64))
+    bad_node = (load > pt.capacity * (1 + 1e-6)).any(1)
+    ids = _unified_ids(pt)
+    G = int(ids.max(initial=-1)) + 1
+    if G:
+        bad_node |= (_group_counts(at[named], ids[named], pt.N, G)
+                     > 1).any(1)
+    edit = np.array([r[0] in edited for r in index.rows], dtype=bool)
+    forced = (~named | bad_node[at] | ~pt.node_valid[at]
+              | ~pt.eligible[np.arange(pt.S), at] | edit)
+    spread = 0
+    if pt.max_skew > 0:
+        zone = pt.node_topology
+        per = np.bincount(zone[at[named]], minlength=int(zone.max()) + 1)
+        if per.max() - per.min() > pt.max_skew:
+            spread = named & (per[zone[at]] > per.min())
+            forced |= spread
+            spread = int(spread.sum())
+    moved = named & (np.asarray(after.raw) != mapped)
+    return dict(moved=int(moved.sum()), kept=int((named & ~moved).sum()),
+                unnamed=int((~named).sum()), edited=int(edit.sum()),
+                forced=int(forced.sum()), bad_nodes=int(bad_node.sum()),
+                spread_forced=spread,
+                unforced=int((moved & ~forced).sum()))
+
+
+def run_registry_phase(torch, np, _ext, REGISTRY, dev_name, card,
+                       device=None, root=REGISTRY_DIR,
+                       services=REGISTRY_SERVICES, nodes=REGISTRY_NODES,
+                       trim=REGISTRY_TRIM, workers=REGISTRY_WORKERS,
+                       expect=CP_COLD) -> dict:
+    """[registry]: BASELINE config 4's multi-tenant instance from a
+    registry, placed on the card. REGISTRY_FLEETS fleetgen fleets of
+    `services` services (the reference bench's pipeline shape,
+    bench.py:1070-1108) as project directories under `root`, with a
+    fleet-registry.kdl of `nodes` generated servers; ``find_registry`` →
+    ``parse_registry_file`` → ``aggregate_fleets(reg, stages=prod,
+    cache=FlowCache())`` with the default loader and stage hash under
+    FLEET_PARSE_WORKERS=`workers` (a fork pool in a process that holds a
+    CUDA context) → ``GpuSolverScheduler().place``. Then fleet t0 is
+    regenerated `trim` services short, re-aggregated through the same
+    FlowCache (one fleet-stage missing, the others hitting) and re-placed
+    with ``reschedule`` on the same stage key, which seeds from the cold
+    placement by row name (``sched.gpu.seed_by_name``; its host ms timed
+    apart from the solve's).
+
+    Fails unless both placements have 0 violations (the host verify too),
+    source ``gpu-anneal``, solved on `dev_name`; the warm place moves no
+    row the edit did not force (registry_unforced_moves); the node slices
+    cover every row once; the kernels of `expect` launch, and K2 or K5 on
+    the warm re-place; ``fleet_frontend_phase_ms{phase="lower"}`` is set.
+    Prints the rows × nodes, the pool's load ms, ``lower_stage``'s ms, the
+    aggregation's ms (the gauge), the cold and warm place ms with the
+    solver's ``timings_ms`` and the warm seed's host ms, the cache stats
+    and the launches, and the phase's seconds against its budget.
+    Returns the phase's launch counts and numbers."""
+    import shutil
+
+    from fleetflow_tpu_torch.lower import fleetgen
+    from fleetflow_tpu_torch.registry import (aggregate_fleets,
+                                              find_registry,
+                                              parse_registry_file)
+    from fleetflow_tpu_torch.registry import aggregate as agg
+    from fleetflow_tpu_torch.registry.aggregate import FlowCache
+    from fleetflow_tpu_torch.sched import gpu as sched_gpu
+    from fleetflow_tpu_torch.solver.repair import verify
+    t_phase = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    registry_write(fleetgen, root, services, nodes)
+    fleets = [f"t{i}" for i in range(REGISTRY_FLEETS)]
+    gauge = REGISTRY.get("fleet_frontend_phase_ms")
+    gauge.set(-1.0, phase="lower")
+    timed: dict = {}
+
+    def timing(name, fn):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                timed[name] = timed.get(name, 0.0) + (
+                    time.perf_counter() - t0) * 1e3
+        return wrapped
+
+    def aggregate(reg, cache):
+        timed.clear()
+        pool, low = agg._parallel_load_rows, agg.lower_stage
+        agg._parallel_load_rows = timing("pool_load_ms", pool)
+        agg.lower_stage = timing("lower_ms", low)
+        try:
+            before = cache.stats()
+            t0 = time.perf_counter()
+            pt, index = aggregate_fleets(reg, stages={f: ["prod"]
+                                                      for f in fleets},
+                                         cache=cache)
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            agg._parallel_load_rows, agg.lower_stage = pool, low
+        after = cache.stats()
+        return pt, index, dict(
+            rows=[pt.S, pt.N], aggregate_ms=round(wall, 3),
+            gauge_lower_ms=round(gauge.value(phase="lower"), 3),
+            **{k: round(v, 3) for k, v in timed.items()},
+            hits=after["hits"] - before["hits"],
+            misses=after["misses"] - before["misses"])
+
+    def check(label, pt, placed, res):
+        host = verify(pt, np.asarray(placed.raw))
+        if (not placed.feasible or placed.violations or host["total"]
+                or placed.source != "gpu-anneal" or res.device != dev_name
+                or res.pre_repair_violations):
+            raise AssertionError(
+                f"[registry] {label}: feasible {placed.feasible}, "
+                f"violations {placed.violations} "
+                f"({res.pre_repair_violations} before the host repair), "
+                f"host {host}, {placed.source} on {res.device}")
+
+    _ext.reset_launches()
+    with env_set(FLEET_PARSE_WORKERS=str(workers)):
+        t0 = time.perf_counter()
+        path = find_registry(root)
+        reg = parse_registry_file(str(path))
+        reg_ms = (time.perf_counter() - t0) * 1e3
+        cache = FlowCache()
+        pt, index, cold_row = aggregate(reg, cache)
+    if cold_row["misses"] != len(fleets) or cold_row["gauge_lower_ms"] <= 0:
+        raise AssertionError(f"[registry] cold aggregation: {cold_row}")
+    def solver_ms(res):
+        return {k: round(v, 3) for k, v in res.timings_ms.items()}
+
+    sched = sched_gpu.GpuSolverScheduler(device=device)
+    t0 = time.perf_counter()
+    cold = sched.place(pt, stage="registry")
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    cold_res = sched.last_result
+    check("cold", pt, cold, cold_res)
+    holding = registry_slices_cover(np, index, pt, cold.raw)
+    cold_launch = dict(_ext.LAUNCHES)
+    cp_expect_launches("cold", cold_launch, expect, tag="registry")
+    print(f"[registry] {json.dumps(dict(step='cold', registry_ms=round(reg_ms, 3), **cold_row, solve_ms=round(cold_ms, 3), solver_ms=solver_ms(cold_res), sweeps=cold_res.steps, nodes_holding=holding, launches=cold_launch, card=card))}",
+          flush=True)
+    tally_size(_ext, pt.S, pt.N)
+
+    # the one-fleet edit: t0 regenerated `trim` services short
+    with open(os.path.join(root, "t0", ".fleetflow", "fleet.kdl"), "w") as f:
+        f.write(registry_fleet_text(fleetgen, 0, services, nodes, trim))
+    with env_set(FLEET_PARSE_WORKERS=str(workers)):
+        pt2, index2, warm_row = aggregate(reg, cache)
+    if warm_row["misses"] != 1 or warm_row["hits"] != len(fleets) - 1:
+        raise AssertionError(f"[registry] re-aggregation: {warm_row}")
+    seen = dict(_ext.LAUNCHES)
+    seeder = sched_gpu.seed_by_name
+    sched_gpu.seed_by_name = timing("host_seed_ms", seeder)
+    try:
+        t0 = time.perf_counter()
+        warm = sched.reschedule(pt2, stage="registry")
+        warm_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        sched_gpu.seed_by_name = seeder
+    seed_ms = timed.pop("host_seed_ms", None)
+    res = sched.last_result
+    check("warm", pt2, warm, res)
+    if seed_ms is None:
+        raise AssertionError("[registry] the warm re-place did not seed "
+                             "from the cold placement by row name")
+    launched = {k: v - seen[k] for k, v in _ext.LAUNCHES.items()
+                if v != seen[k]}
+    if expect:
+        cp_expect_launches("warm", launched, CP_WARM, any_of=True,
+                           tag="registry")
+    moves = registry_unforced_moves(np, pt2, index2, cold, warm, {"t0"})
+    if moves["unforced"]:
+        raise AssertionError(f"[registry] warm re-place: {moves}")
+    holding = registry_slices_cover(np, index2, pt2, warm.raw)
+    print(f"[registry] {json.dumps(dict(step='warm', **warm_row, solve_ms=round(warm_ms, 3), host_seed_ms=round(seed_ms, 3), solver_ms=solver_ms(res), sweeps=res.steps, pre_repair_violations=res.pre_repair_violations, **moves, nodes_holding=holding, cache=cache.stats(), launches=launched, card=card))}",
+          flush=True)
+    tally_size(_ext, pt2.S, pt2.N, seen)
+    del sched
+    launches = read_launches(torch, _ext, "registry", expect,
+                             off=("k6_greedy_scan",))
+    took = time.perf_counter() - t_phase
+    out = dict(phase_s=round(took, 3), budget_s=REGISTRY_BUDGET_S,
+               over_budget=took > REGISTRY_BUDGET_S, rows=[pt.S, pt.N],
+               parse_registry_ms=round(reg_ms, 3),
+               pool_load_ms=cold_row.get("pool_load_ms"),
+               lower_ms=cold_row.get("lower_ms"),
+               aggregate_ms=cold_row["aggregate_ms"],
+               cold_solve_ms=round(cold_ms, 3),
+               cold_solver_total_ms=round(cold_res.timings_ms["total_ms"], 3),
+               warm_aggregate_ms=warm_row["aggregate_ms"],
+               warm_solve_ms=round(warm_ms, 3),
+               warm_host_seed_ms=round(seed_ms, 3),
+               warm_solver_total_ms=round(res.timings_ms["total_ms"], 3),
+               cache=cache.stats(),
+               unforced=moves["unforced"], launches=launches, card=card)
+    print(f"[registry] {json.dumps(out)}", flush=True)
+    return out
+
+
+AGENT_BUDGET_S = 90.0      # the phase's time on the card's host
+AGENT_HEARTBEAT_S = 0.5    # each agent's heartbeat (the lease is 4 s)
+AGENT_MONITOR_S = 2.0      # each agent's inventory pass
+AGENT_SIDE_SERVICES = 10   # the quadlet and compose stages (no replicas)
+AGENT_DIR = os.path.join("fleetflow_tpu_torch", "_ext_build", "agent")
+
+
+def counter_total(counter) -> float:
+    """A counter's value summed over its label sets."""
+    return sum(float(line.rsplit(" ", 1)[1]) for line in counter.samples())
+
+
+class Recorder:
+    """A recording shell-out (systemctl, docker compose): every argv is
+    kept and answered with rc 0."""
+
+    def __init__(self, output: str = ""):
+        self.calls: list = []
+        self.output = output
+
+    def __call__(self, argv) -> tuple:
+        self.calls.append(list(argv))
+        return 0, self.output
+
+
+def run_agent_phase(torch, np, _ext, REGISTRY, verify, dev_name, card,
+                    device=None, agents=WIRE_AGENTS, services=WIRE_SERVICES,
+                    root=AGENT_DIR, expect=CP_COLD) -> dict:
+    """[agent]: real port agents behind a control-plane server that places
+    on the card. ``cp.start(ServerConfig(auth_kind="token", self_heal=True))``
+    on 127.0.0.1 with [wire]'s leases; `agents` ``Agent``s
+    (``AgentConfig(slug=node_slug(i), token=...)``, each on its own
+    ``MockBackend``) run their reconnect loops, register, heartbeat and
+    ship inventory. ``deploy.execute`` of [wire]'s `services`-service stage
+    (``chaos.runner.make_flow``) is placed on the card and fanned out; each
+    agent executes its own slice through ``_placement_from``. The busiest
+    agent stops; the reconverger re-places its rows on the card and
+    redeploys them onto the survivors. A ``backend "quadlet"`` stage and a
+    ``backend "compose"`` stage deploy onto one agent each, through a
+    recording systemctl and compose runner; ``container.restart``,
+    ``server.ping`` and the agent's ``status`` answer.
+
+    Fails unless every RPC and command answers without error,
+    ``fleet_cp_request_errors_total`` and ``fleet_agent_command_errors_total``
+    stand still, no host fallback is counted; every placement is
+    ``gpu-anneal`` on `dev_name` with 0 violations; every row of the
+    stage runs on the agent of its placed live node, each agent holding
+    its slice and nothing else, before and after the heal; the quadlet
+    units written equal ``build_stage_units``, the compose file
+    ``generate_compose_yaml``; the kernels of `expect` launch; and the
+    card's allocated memory after the server stops is within 64 MB of
+    its value before the phase. Prints each RPC, the deploy's and the
+    heal's seconds and the phase's seconds against its budget."""
+    import gc
+    import shutil
+
+    from fleetflow_tpu_torch.agent import Agent, AgentConfig
+    from fleetflow_tpu_torch.chaos.runner import make_flow, node_slug
+    from fleetflow_tpu_torch.core.model import Backend
+    from fleetflow_tpu_torch.cp import ServerConfig, handlers, start
+    from fleetflow_tpu_torch.cp.protocol import ProtocolClient
+    from fleetflow_tpu_torch.obs.slo import get_engine, set_engine
+    from fleetflow_tpu_torch.runtime import DeployRequest, MockBackend
+    from fleetflow_tpu_torch.runtime.compose import generate_compose_yaml
+    from fleetflow_tpu_torch.runtime.converter import container_name
+    from fleetflow_tpu_torch.runtime.quadlet import build_stage_units
+    from fleetflow_tpu_torch.sched.gpu import GpuSolverScheduler
+    del handlers     # imported for its request families, read below
+    t_phase = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    fallbacks = REGISTRY.get("fleet_placement_churn_fallbacks_total")
+    cmd_errors = REGISTRY.get("fleet_agent_command_errors_total")
+    heartbeats = REGISTRY.get("fleet_heartbeats_total")
+    fb0, err0 = fallbacks.value(), wire_errors(REGISTRY)
+    cmd0, hb0 = counter_total(cmd_errors), heartbeats.value()
+    engine0 = get_engine()
+    _ext.reset_launches()
+    meter = WireMeter(_ext, GpuSolverScheduler)
+    rpc = MeteredRpc(meter, _ext, "agent", card)
+    systemctl, compose = Recorder(), Recorder("Container started")
+
+    def check(svc, dead: set, solves: list, label: str) -> None:
+        cp_check(np, svc, verify, dev_name, dead,
+                 SimpleNamespace(results=[s[3] for s in solves]), label,
+                 card, tag="agent")
+
+    async def drive() -> dict:
+        out: dict = {}
+        handle = await start(
+            ServerConfig(auth_kind="token", auth_secret=WIRE_SECRET,
+                         self_heal=True, device=device, **WIRE_LEASE),
+            backend_factory=lambda: MockBackend(auto_pull=True))
+        svc, reg = handle.state.placement, handle.state.agent_registry
+        admin = handle.state.auth.issue("operator@chip-smoke", ["admin:all"])
+        cli, cli_task = await ProtocolClient.connect(
+            handle.host, handle.port, identity="cli", token=admin)
+        slugs = [node_slug(i) for i in range(agents)]
+        fleet: dict = {}
+        tasks: dict = {}
+        try:
+            t0 = time.perf_counter()
+            for s in slugs:
+                fleet[s] = Agent(
+                    AgentConfig(cp_host=handle.host, cp_port=handle.port,
+                                slug=s, token=handle.state.auth.issue(
+                                    s, ["write:agent"]),
+                                heartbeat_interval_s=AGENT_HEARTBEAT_S,
+                                monitor_interval_s=AGENT_MONITOR_S,
+                                reconnect_backoff_s=0.5,
+                                capacity=dict(WIRE_CAPACITY),
+                                deploy_base=os.path.join(root, "deploys", s),
+                                quadlet_unit_dir=os.path.join(root, "units",
+                                                              s)),
+                    backend=MockBackend(auto_pull=True),
+                    sleep=lambda d: None, systemctl=systemctl,
+                    compose_runner=compose)
+                tasks[s] = asyncio.ensure_future(fleet[s].run())
+            reg_s = await wire_until(
+                "agents registered",
+                lambda: all(reg.is_connected(s) for s in slugs), tag="agent")
+            await wire_until("heartbeats",
+                             lambda: heartbeats.value() - hb0 >= agents,
+                             tag="agent")
+            row = dict(rpc=f"agent.register x{agents}",
+                       wall_ms=round((time.perf_counter() - t0) * 1e3, 3),
+                       registered_ms=round(reg_s * 1e3, 3),
+                       heartbeats=heartbeats.value() - hb0, card=card)
+            print(f"[agent] {json.dumps(row)}", flush=True)
+            rpc.rows.append(row)
+
+            stopped: set = set()
+
+            def held(key: str) -> list:
+                """Live agents holding other than their slice's count."""
+                want: dict = {}
+                for node in svc.retained(key)[1].assignment.values():
+                    want[node] = want.get(node, 0) + 1
+                return [s for s in slugs if s not in stopped
+                        and len(fleet[s].backend.containers) != want.get(s, 0)]
+
+            # the stage, placed on the card and fanned out to its agents
+            flow = make_flow(services, 1, slugs, WIRE_FLOW_SEED)
+            key = f"{flow.name}/app0"
+            req = DeployRequest(flow=flow, stage_name="app0")
+            t0 = time.perf_counter()
+            dep, solves = await rpc(
+                cli, f"deploy.execute {key}", "deploy", "execute",
+                {"request": req.to_dict()}, want=expect, agents=agents)
+            out["deploy_s"] = time.perf_counter() - t0
+            if dep["deployment"]["status"] != "succeeded":
+                raise AssertionError(f"[agent] deploy: {dep['deployment']}")
+            dead: set = set()
+            check(svc, dead, solves, f"deploy.execute {key}")
+            bad = wire_misplaced(container_name, svc, fleet, key)
+            extra = held(key)
+            if bad or extra:
+                raise AssertionError(f"[agent] deployed rows not running: "
+                                     f"{bad[:5]}; agents off their slice "
+                                     f"{extra[:5]}")
+
+            # the heal: the busiest agent stops
+            counts: dict = {}
+            for node in dep["deployment"]["placement"].values():
+                counts[node] = counts.get(node, 0) + 1
+            gone = max(sorted(counts), key=counts.get)
+            rc = handle.state.reconverger
+            meter.take()
+            seen = dict(_ext.LAUNCHES)
+            fleet[gone].stop()
+            stopped.add(gone)
+            await asyncio.wait_for(tasks[gone], 30)
+
+            def healed() -> bool:
+                entry = svc.retained(key)
+                return (entry is not None
+                        and gone not in entry[1].assignment.values()
+                        and rc.debt() == 0 and not rc.parked_stage_keys()
+                        and not wire_misplaced(container_name, svc, fleet,
+                                                key))
+            heal_s = await wire_until("heal", healed, tag="agent")
+            solves = meter.take()
+            launched = {k: v - seen[k] for k, v in _ext.LAUNCHES.items()
+                        if v != seen[k]}
+            dead.add(gone)
+            heals = [d for d in handle.state.store.list("deployments")
+                     if d.log.startswith("self-heal")]
+            row = dict(rpc=f"heal {gone}", heal_s=round(heal_s, 3),
+                       rows_moved=counts[gone], solves=len(solves),
+                       solve_ms=round(sum(s[2] for s in solves), 3),
+                       heal_records=len(heals), launches=launched,
+                       card=card)
+            print(f"[agent] {json.dumps(row)}", flush=True)
+            rpc.rows.append(row)
+            if not heals or held(key):
+                raise AssertionError(f"[agent] heal: {len(heals)} records, "
+                                     f"agents off their slice {held(key)}")
+            if expect:
+                cp_expect_launches(row["rpc"], launched, CP_WARM,
+                                   any_of=True, tag="agent")
+            check(svc, dead, solves, row["rpc"])
+            out["heal_s"] = heal_s
+
+            # the quadlet and the compose backends, onto one agent each
+            live = [s for s in slugs if s != gone]
+            for kind, target in ((Backend.QUADLET, live[0]),
+                                 (Backend.COMPOSE, live[1])):
+                side = make_flow(AGENT_SIDE_SERVICES, 1, [target],
+                                 WIRE_FLOW_SEED)
+                side.name = f"{kind.value}fleet"
+                side.stages["app0"].backend = kind
+                skey = f"{side.name}/app0"
+                n_calls = len(systemctl.calls), len(compose.calls)
+                dep, solves = await rpc(
+                    cli, f"deploy.execute {skey}", "deploy", "execute",
+                    {"request": DeployRequest(
+                        flow=side, stage_name="app0").to_dict()})
+                if dep["deployment"]["status"] != "succeeded":
+                    raise AssertionError(f"[agent] {skey}: "
+                                         f"{dep['deployment']}")
+                check(svc, dead, solves, f"deploy.execute {skey}")
+                stage = side.stages["app0"]
+                if kind is Backend.QUADLET:
+                    unit_dir = os.path.join(root, "units", target)
+                    written = {}
+                    for name in sorted(os.listdir(unit_dir)):
+                        with open(os.path.join(unit_dir, name)) as f:
+                            written[name] = f.read()
+                    calls = systemctl.calls[n_calls[0]:]
+                    ok = (written == build_stage_units(side, stage)
+                          and ["daemon-reload"] in calls)
+                    what = dict(units=len(written), systemctl=len(calls))
+                else:
+                    path = os.path.join(root, "deploys", target, side.name,
+                                        "app0", ".fleetflow",
+                                        "compose.app0.yaml")
+                    with open(path) as f:
+                        text = f.read()
+                    calls = compose.calls[n_calls[1]:]
+                    ok = (text == generate_compose_yaml(side, stage)
+                          and calls and calls[0][-3:]
+                          == ["up", "-d", "--remove-orphans"])
+                    what = dict(compose_bytes=len(text), runs=len(calls))
+                print(f"[agent] {json.dumps(dict(backend=kind.value, agent=target, equal=bool(ok), **what, card=card))}",
+                      flush=True)
+                if not ok:
+                    raise AssertionError(f"[agent] {kind.value} stage on "
+                                         f"{target}: not what the "
+                                         f"generator writes ({what})")
+
+            # status and restart answer
+            target = live[2]
+            cname = sorted(fleet[target].backend.containers)[0]
+            got, _ = await rpc(cli, f"container.restart {cname}",
+                               "container", "restart",
+                               {"server": target, "container": cname})
+            pong, _ = await rpc(cli, f"server.ping {target}", "server",
+                                "ping", {"slug": target})
+            status = await reg.send_command(target, "status", {},
+                                            timeout=30.0)
+            names = {c["name"] for c in status["containers"]}
+            if (got["result"].get("restarted") != cname or not pong["ok"]
+                    or cname not in names):
+                raise AssertionError(f"[agent] restart {got}, ping {pong}, "
+                                     f"status {sorted(names)[:3]}")
+            out["errors_before_stop"] = wire_errors(REGISTRY)
+        finally:
+            for s, agent in fleet.items():
+                agent.stop()
+            for t in tasks.values():
+                try:
+                    await asyncio.wait_for(t, 30)
+                except BaseException:
+                    t.cancel()
+            await cli.close()
+            cli_task.cancel()
+            await handle.stop()
+        return out
+
+    try:
+        out = asyncio.run(drive())
+    finally:
+        meter.close()
+        set_engine(engine0)
+    torch.cuda.synchronize()
+    gc.collect()
+    mem_after = torch.cuda.memory_allocated()
+    err1 = wire_errors(REGISTRY)
+    moved = fallbacks.value() - fb0
+    cmd_moved = counter_total(cmd_errors) - cmd0
+    errors = {ch: err1[ch] - err0[ch] for ch in WIRE_CHANNELS
+              if err1[ch] != err0[ch]}
+    took = time.perf_counter() - t_phase
+    print(f"[agent] {json.dumps(dict(errors=errors, command_errors=cmd_moved, fallbacks=moved, memory_before=mem0, memory_after=mem_after, slack=WORLD_MEMORY_SLACK, card=card))}",
+          flush=True)
+    problems = []
+    if errors:
+        problems.append(f"request errors by channel {errors}")
+    if cmd_moved:
+        problems.append(f"{cmd_moved} agent command errors")
+    if moved:
+        problems.append(f"{moved} churn fallbacks")
+    if abs(mem_after - mem0) > WORLD_MEMORY_SLACK:
+        problems.append(f"allocated memory {mem0} -> {mem_after}")
+    if problems:
+        raise AssertionError("[agent] " + "; ".join(problems))
+    launches = read_launches(torch, _ext, "agent", expect,
+                             off=("k6_greedy_scan",))
+    if expect:
+        cp_expect_launches("agent", launches, CP_WARM, any_of=True,
+                           tag="agent")
+    summary = dict(phase_s=round(took, 3), budget_s=AGENT_BUDGET_S,
+                   over_budget=took > AGENT_BUDGET_S,
+                   deploy_s=round(out["deploy_s"], 3),
+                   heal_s=round(out["heal_s"], 3), agents=agents,
+                   rpcs=len(rpc.rows), launches=launches, card=card)
+    print(f"[agent] {json.dumps(summary)}", flush=True)
+    return summary
 
 
 def launches_by_size(name: str, total: int) -> dict:
@@ -5258,6 +5893,14 @@ def main() -> int:
         port_base=FRONTEND_FLEET["port_base"]), cache=False)
     by_phase["wire"] = run_wire_phase(torch, np, _ext, REGISTRY, verify,
                                       str(dev), wire_flow, fe_pool, card)
+    # [registry]: BASELINE config 4's 8-fleet instance aggregated from a
+    # registry and placed on the card, then a one-fleet edit re-placed warm
+    by_phase["registry"] = run_registry_phase(torch, np, _ext, REGISTRY,
+                                              str(dev), card)["launches"]
+    # [agent]: real port agents behind a control-plane server placing on
+    # the card: a deploy, a heal, the quadlet and compose backends
+    by_phase["agent"] = run_agent_phase(torch, np, _ext, REGISTRY, verify,
+                                        str(dev), card)["launches"]
     measure_device(recs)
     measure_k7_device(recs)
     measure_k5_device(recs)

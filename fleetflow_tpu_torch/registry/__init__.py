@@ -1,17 +1,20 @@
-"""Multi-fleet registry (the port's copy of ``fleetflow_tpu/registry``,
-its model and its cross-fleet deploy).
+"""Multi-fleet registry (the port's copy of ``fleetflow_tpu/registry``).
 
 Analog of fleetflow-registry (SURVEY.md §2.9): a `fleet-registry.kdl` that
-aggregates many fleets onto a shared server pool with deployment routes.
-The port holds the registry model and the route deploy (ssh to each
-route's server, the servers-sync payloads). The KDL parser
-(`parse_registry_file`, `parse_registry_string`), `find_registry` and the
-aggregation of every fleet x stage into one batched placement instance
-(`aggregate_fleets`) are not ported yet (ROADMAP queue 1 item 4).
+aggregates many fleets onto a shared server pool with deployment routes —
+plus the piece the reference points at but never builds: the aggregation
+of every registered fleet x stage into ONE batched placement instance (the
+10k-service scale axis of BASELINE config 4), which the card's
+`GpuSolverScheduler` places.
 """
 
 from .model import DeploymentRoute, FleetEntry, Registry
+from .parser import parse_registry_file, parse_registry_string
+from .discovery import find_registry
+from .aggregate import aggregate_fleets
 from .deploy import RouteResult, deploy_routes, sync_servers_payloads
 
-__all__ = ["Registry", "FleetEntry", "DeploymentRoute", "RouteResult",
-           "deploy_routes", "sync_servers_payloads"]
+__all__ = ["Registry", "FleetEntry", "DeploymentRoute",
+           "parse_registry_file", "parse_registry_string", "find_registry",
+           "aggregate_fleets", "RouteResult", "deploy_routes",
+           "sync_servers_payloads"]

@@ -1,13 +1,14 @@
-"""Runtime layer (the port's copy of ``fleetflow_tpu/runtime``: the
-converter, the container backends, the readiness waiter and the deploy
-engine).
+"""Runtime layer (L1; the port's copy of ``fleetflow_tpu/runtime``):
+execution engines.
 
 The deploy engine consumes a Placement from the scheduler layer and turns
 it into ordered container operations against a ContainerBackend (docker
 CLI shellout, or the in-memory mock the tests and the card's self-healing
-drive use). The reference's Quadlet and Compose generators, the port
-probes, the readiness checks and the static-site runtime are not ported
-yet (ROADMAP).
+drive use). The Quadlet (`quadlet.py`) and Compose (`compose.py`)
+generators are pure functions, testable without any runtime, beside the
+host-port probe (`ports.py`), the readiness checks (`readiness.py`) and
+the static-site runtime (`static_site.py`); the node agent executes its
+stages through them.
 """
 
 from .converter import ContainerConfig, container_name, network_name, \

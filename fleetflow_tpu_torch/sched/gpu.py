@@ -6,7 +6,9 @@ card across re-solves, and churn arrives as a ``ProblemDelta`` merged in
 place. A warm ``reschedule`` therefore uploads only the small node planes
 and the changed rows. Content drift a delta cannot express (a relowered
 fleet, new conflict ids, a changed shape) falls back to a cold staging that
-still warm-starts from the stage's last host assignment.
+still warm-starts from the stage's last host assignment, row by row name
+where the rows changed (a registry re-aggregation adds, drops and
+renumbers rows).
 
 Staging is bucketed by default (``bucket=None`` means on, as in the
 reference's scheduler; FLEET_BUCKET=0 turns it off everywhere): the
@@ -61,12 +63,13 @@ from ..lower.tensors import ProblemTensors
 from ..obs import get_logger, kv
 from ..obs.metrics import REGISTRY
 from ..solver.api import SolveResult, solve
+from ..solver.repair import _group_counts, _unified_ids, repair, verify
 from ..solver.multiplex import MuxEntry, solve_multiplexed
 from ..solver.resident import ProblemDelta, ResidentProblem
 from ..solver.sharded import ShardedResident, sharded_route, solve_sharded
 from .base import Placement, level_schedule, record_placement
 
-__all__ = ["GpuSolverScheduler", "slot_limits"]
+__all__ = ["GpuSolverScheduler", "seed_by_name", "slot_limits"]
 
 log = get_logger("sched.gpu")
 
@@ -99,6 +102,7 @@ class _StageSlot:
     through one scheduler, so resident reuse is per stage."""
     resident: ResidentProblem
     last_assignment: Optional[np.ndarray] = None   # host warm seed for cold fallback
+    last_names: Optional[tuple] = None             # its (service, node) names
     key: Optional[str] = None                      # the caller's stage key
     nbytes: int = 0                                # device bytes at admission
     last_used: float = 0.0                         # monotonic stamp (LRU)
@@ -114,6 +118,7 @@ class _EvictRecord:
     S: int                                         # real (unpadded) rows
     evictions: int = 1                             # times this key was evicted
     host_seed: Optional[np.ndarray] = field(default=None)
+    host_names: Optional[tuple] = None
 
 
 def _env_int(name: str, default: int) -> int:
@@ -121,6 +126,58 @@ def _env_int(name: str, default: int) -> int:
         return max(1, int(os.environ.get(name) or default))
     except ValueError:
         return default
+
+
+def seed_by_name(pt: ProblemTensors, assignment: np.ndarray,
+                 service_names, node_names) -> np.ndarray:
+    """A warm seed for `pt` from the assignment of an earlier lowering whose
+    rows and nodes were `service_names` and `node_names`: each row on the
+    node its name had. A row the old lowering lacks (or whose node `pt`
+    lacks) is placed as the fused pre-repair places a stranded row: on the
+    least-utilised valid eligible node where it fits without a conflict,
+    else the least-utilised eligible one. What the new lowering leaves in
+    violation where the rows kept their nodes (a changed row's port or
+    demand) goes through the host repair, which moves only rows on the
+    violating nodes where a clean node exists; the warm solve's exact gate
+    then decides."""
+    node_idx = {n: j for j, n in enumerate(pt.node_names)}
+    remap = np.array([node_idx.get(n, -1) for n in node_names],
+                     dtype=np.int32)
+    old_row = {n: i for i, n in enumerate(service_names)}
+    rows = np.fromiter((old_row.get(n, -1) for n in pt.service_names),
+                       dtype=np.int64, count=pt.S)
+    seed = np.full(pt.S, -1, dtype=np.int32)
+    named = rows >= 0
+    seed[named] = remap[np.asarray(assignment)[rows[named]]]
+    todo = np.flatnonzero(seed < 0)
+    placed = seed >= 0
+    demand = pt.demand.astype(np.float64)
+    cap = pt.capacity.astype(np.float64)
+    load = np.zeros_like(cap)
+    np.add.at(load, seed[placed], demand[placed])
+    ids = _unified_ids(pt)
+    G = int(ids.max(initial=-1)) + 1
+    used = _group_counts(seed[placed], ids[placed], pt.N, max(G, 1))
+    for s in todo:
+        own = ids[s][ids[s] >= 0]
+        ok = ((load + demand[s] <= cap * (1 + 1e-6)).all(1)
+              & (used[:, own].sum(1) == 0))
+        elig = pt.eligible[s] & pt.node_valid
+        util = (load / np.maximum(cap, 1e-6)).max(1)
+        score = np.where(ok & elig, util, np.where(elig, util + 1e6, np.inf))
+        j = int(np.argmin(score))
+        if not np.isfinite(score[j]):
+            j = int(np.argmax(pt.node_valid))
+        seed[s] = j
+        load[j] += demand[s]
+        used[j, own] += 1
+    if verify(pt, seed)["total"]:
+        seed = repair(pt, seed).assignment.astype(np.int32)
+    return seed
+
+
+def _same_names(a, b) -> bool:
+    return a is b or list(a) == list(b)
 
 
 def slot_limits() -> tuple[int, int]:
@@ -174,14 +231,16 @@ class GpuSolverScheduler:
                 self._evicted[slot.key] = _EvictRecord(
                     assignment=snap[0], feasible=snap[1],
                     S=slot.resident.prob.real_rows, evictions=count,
-                    host_seed=slot.last_assignment)
+                    host_seed=slot.last_assignment,
+                    host_names=slot.last_names)
             elif slot.last_assignment is not None:
                 # nothing committed on the card yet: keep the host seed so
                 # the fallback warm start survives eviction too
                 self._evicted[slot.key] = _EvictRecord(
                     assignment=np.empty(0, np.int32), feasible=False,
                     S=int(slot.last_assignment.shape[0]), evictions=count,
-                    host_seed=slot.last_assignment)
+                    host_seed=slot.last_assignment,
+                    host_names=slot.last_names)
             if len(self._evicted) > self._max_evicted:
                 # the oldest record falls off (dicts keep insertion order)
                 self._evicted.pop(next(iter(self._evicted)))
@@ -321,6 +380,7 @@ class GpuSolverScheduler:
         rec = self._evicted.get(stage) if warm and stage is not None else None
         if rec is not None and slot.last_assignment is None:
             slot.last_assignment = rec.host_seed
+            slot.last_names = rec.host_names
         if (rec is not None and rec.assignment.size and rec.S == pt.S
                 and rec.assignment.shape[0] == resident.prob.S):
             # the phantom rows go to the first valid node of the fleet as it
@@ -354,6 +414,7 @@ class GpuSolverScheduler:
     def _finalize(self, pt: ProblemTensors, res: SolveResult,
                   slot: _StageSlot, ms: float) -> Placement:
         slot.last_assignment = res.assignment
+        slot.last_names = (pt.service_names, pt.node_names)
         slot.last_used = time.monotonic()
         self.last_result = res
         if res.subsolve is not None and log.isEnabledFor(logging.DEBUG):
@@ -379,11 +440,15 @@ class GpuSolverScheduler:
     @staticmethod
     def _host_seed(pt, slot, warm: bool, resident_warm: bool):
         """A cold fallback of a warm request still warm-starts from the
-        stage's last host assignment when the shapes line up."""
-        if (warm and not resident_warm and slot.last_assignment is not None
-                and slot.last_assignment.shape[0] == pt.S):
+        stage's last host assignment: as it stands where the rows and nodes
+        kept their names, else row by row name (seed_by_name)."""
+        if not warm or resident_warm or slot.last_assignment is None:
+            return None
+        services, nodes = slot.last_names
+        if (_same_names(services, pt.service_names)
+                and _same_names(nodes, pt.node_names)):
             return slot.last_assignment
-        return None
+        return seed_by_name(pt, slot.last_assignment, services, nodes)
 
     def place(self, pt: ProblemTensors, *, warm_start: bool = False,
               delta: Optional[ProblemDelta] = None,

@@ -64,9 +64,8 @@ _PORTED = ("fleet_solver_", "fleet_sched_", "fleet_placement", "fleet_slo_",
            "fleet_frontend_", "fleet_store_", "fleet_admission_",
            "fleet_heartbeats_total", "fleet_replication_",
            "fleet_lease_", "fleet_reconverge_", "fleet_cp_shard_",
-           "fleet_deploy", "fleet_agents_connected",
-           "fleet_agent_registrations_total", "fleet_agent_commands_total",
-           "fleet_agent_command_errors_total", "fleet_obs_",
+           "fleet_deploy", "fleet_agents_connected", "fleet_agent_",
+           "fleet_registry_", "fleet_obs_",
            "fleet_log_", "fleet_autoscaler_", "fleet_cloud_provider_",
            "fleet_cp_request_", "fleet_world_", "fleet_plan_simulate_")
 

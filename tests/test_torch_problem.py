@@ -285,8 +285,9 @@ class TestConvert:
 class TestBoundaries:
     def test_package_imports_no_jax(self):
         """Every module of the port (the obs package, the front end, the
-        control plane and its wire, the runtime, lint, the cloud
-        providers, the registry's deploy and the chaos world among them)
+        control plane and its wire, the runtime and its unit generators,
+        lint, the cloud providers, the registry with its aggregation, the
+        build subsystem, the node agent and the chaos world among them)
         and chip_smoke.py
         import in a fresh interpreter without
         jax or fleetflow_tpu entering sys.modules."""
@@ -320,7 +321,12 @@ class TestBoundaries:
             "'cloud.startup_scripts', 'cloud.sakura', 'cloud.aws', "
             "'cloud.cloudflare', 'cloud.tailscale', 'registry', "
             "'registry.model', 'registry.deploy', 'chaos.trace', "
-            "'chaos.simulate')}\n"
+            "'chaos.simulate', 'registry.discovery', 'registry.parser', "
+            "'registry.aggregate', 'runtime.quadlet', 'runtime.compose', "
+            "'runtime.readiness', 'runtime.ports', 'runtime.static_site', "
+            "'build', 'build.resolver', 'build.context', 'build.auth', "
+            "'build.builder', 'agent', 'agent.guard', 'agent.monitor', "
+            "'agent.agent')}\n"
             "print(len(mods), bad, sorted(obs - set(mods)))\n"
             "sys.exit(1 if bad or len(mods) < 15 or obs - set(mods) "
             "else 0)\n")
@@ -352,6 +358,20 @@ class TestBoundaries:
         assert len(port_names) == 37
         assert callable(anneal_module.anneal)
         assert anneal_module.__name__ == "fleetflow_tpu_torch.solver.anneal"
+
+    @pytest.mark.parametrize("package", ["registry", "runtime", "build",
+                                         "agent"])
+    def test_host_packages_export_every_counterpart(self, package):
+        """The registry, runtime, build and agent packages export every
+        name the reference's package exports, and nothing else."""
+        import importlib
+        ref = importlib.import_module(f"fleetflow_tpu.{package}")
+        port = importlib.import_module(f"fleetflow_tpu_torch.{package}")
+        assert set(port.__all__) == set(ref.__all__)
+        assert all(hasattr(port, n) for n in port.__all__)
+        for name in port.__all__:
+            assert getattr(port, name).__module__.startswith(
+                "fleetflow_tpu_torch."), name
 
     def test_scheduler_raises_without_cuda(self, monkeypatch):
         from fleetflow_tpu_torch.sched import GpuSolverScheduler
