@@ -218,6 +218,23 @@ each of which fails the run:
      K1, K3 or K4 not launched or both of K2 and K5, or the card's memory
      more than 64 MB from before; one line an RPC, the deploy's and the
      heal's seconds and the phase's seconds against its 90 s budget;
+     ``[cli]``, after ``[agent]``: the operator's entry points, each on
+     the card: ``fleet solve`` of [frontend]'s fleet written as a project,
+     in this process and as ``python -m fleetflow_tpu_torch.cli``; the
+     ``fleetflowd`` daemon started with ``python -m
+     fleetflow_tpu_torch.daemon start`` (token auth, web, self-heal),
+     ``fleet cp login``, ``fleet cp registry sync``, a placement and its
+     commit and the busiest node down through ``CpClient``, ``fleet cp
+     placement state`` and ``explain``, ``GET /metrics``, ``fleet cp
+     daemon stop``; ``fleet cp registry solve`` of [registry]'s 8 fleets;
+     the MCP server's ``fleet_solve`` over stdio; ``fleet chaos run``
+     (``rolling-kill-selfheal``, ``diurnal-hotspot``) and ``fleet plan
+     simulate`` of the plan-simulate example. Fails on a nonzero exit, a
+     source other than ``gpu-anneal``, a violation, a row on a dead node,
+     a solve off the card, a step without K4, K3 and K1 (the daemon's
+     churn without K2 or K5), or a daemon that does not stop; one line a
+     step with its wall ms, the children's and this process's launches,
+     and the phase's seconds against its 120 s budget;
      ``[device]``: K4's and K3's device-only ms and device launches a
      call at both sizes (K3 also at 8 lanes), from the kernel cases of
      ``fleetflow_tpu_torch/tools/k34_profile.py`` in a fresh interpreter,
@@ -265,6 +282,7 @@ import logging
 import math
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -5746,6 +5764,509 @@ def run_agent_phase(torch, np, _ext, REGISTRY, verify, dev_name, card,
     return summary
 
 
+# [cli]: the operator's entry points, each reaching the card
+CLI_BUDGET_S = 120.0       # the phase's time on the card's host
+CLI_DIR = os.path.join("fleetflow_tpu_torch", "_ext_build", "cli")
+# the chaos scenarios' docstring sizing (chaos/scenarios.py)
+CLI_CHAOS = dict(services=60, nodes=10, stages=2)
+# the daemon's health sweep: the servers registered here run no agent and
+# send no heartbeat, so a sweep would read them offline
+CLI_HEALTH_S = 3600
+CLI_SOLVED = re.compile(r"^solved (\d+) services x (\d+) nodes via (\S+) in "
+                        r"([\d.]+)ms \(feasible=(\w+), violations=(\d+)\)$")
+
+
+def cli_run(cli_main, argv: list) -> tuple:
+    """`fleet argv` through the port's ``cli.main.main`` in this process:
+    (rc, stdout, stderr, wall ms)."""
+    import io
+    from contextlib import redirect_stderr, redirect_stdout
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(out), redirect_stderr(err):
+        rc = cli_main.main([str(a) for a in argv])
+    return rc, out.getvalue(), err.getvalue(), \
+        (time.perf_counter() - t0) * 1e3
+
+
+def cli_proc(module: str, argv: list, env: dict, stdin: str = "",
+             timeout: float = 300.0) -> tuple:
+    """`python -m module argv` as a child process: (rc, stdout, stderr,
+    wall ms)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", module,
+                          *[str(a) for a in argv]], input=stdin,
+                         capture_output=True, text=True, env=env,
+                         timeout=timeout)
+    return out.returncode, out.stdout, out.stderr, \
+        (time.perf_counter() - t0) * 1e3
+
+
+def child_launches(directory: str, pid: Optional[int] = None) -> dict:
+    """The launch counts the port's processes wrote into `directory` at
+    their exit (``FLEET_LAUNCH_DIR``), summed (only `pid`'s when given)."""
+    total = {k: 0 for k in KERNEL_NAMES}
+    for name in sorted(os.listdir(directory)) if os.path.isdir(directory) \
+            else []:
+        if not (name.startswith("launches-") and name.endswith(".json")):
+            continue
+        with open(os.path.join(directory, name)) as f:
+            doc = json.load(f)
+        if pid is None or doc["pid"] == pid:
+            for k in KERNEL_NAMES:
+                total[k] += doc["launches"].get(k, 0)
+    return total
+
+
+def cli_solved(tag: str, line: str, want_source: str) -> dict:
+    """A `fleet solve` head line: the card's source, feasible, 0
+    violations."""
+    m = CLI_SOLVED.match(line.strip())
+    if not m or m.group(3) != want_source or m.group(5) != "True" \
+            or m.group(6) != "0":
+        raise AssertionError(f"[cli] {tag}: {line!r}")
+    return dict(rows=int(m.group(1)), nodes=int(m.group(2)),
+                solve_ms=float(m.group(4)))
+
+
+def cli_check_assignment(np, verify, pt, assignment: dict, tag: str,
+                         dead: set = frozenset()) -> None:
+    """A printed assignment: every row of the stage on a live node of it,
+    0 violations by the host verify."""
+    if sorted(assignment) != sorted(pt.service_names):
+        raise AssertionError(f"[cli] {tag}: the assignment names "
+                             f"{len(assignment)} rows, the stage "
+                             f"{len(pt.service_names)}")
+    idx = {n: i for i, n in enumerate(pt.node_names)}
+    raw = np.array([idx[assignment[s]] for s in pt.service_names])
+    host = verify(pt, raw)
+    on_dead = sorted(set(assignment.values()) & set(dead))
+    if host["total"] or on_dead:
+        raise AssertionError(f"[cli] {tag}: host verify {host}, on dead "
+                             f"nodes {on_dead[:5]}")
+
+
+def cli_metric(text: str, name: str, **labels) -> float:
+    """A family's samples in a Prometheus exposition, summed over the label
+    sets that hold `labels`."""
+    total = 0.0
+    for line in text.splitlines():
+        if not line.startswith(name + "{") and \
+                not line.startswith(name + " "):
+            continue
+        head, value = line.rsplit(" ", 1)
+        have = dict(re.findall(r'(\w+)="([^"]*)"', head))
+        if all(have.get(k) == str(v) for k, v in labels.items()):
+            total += float(value)
+    return total
+
+
+def cli_tally(child: dict, counts: dict, size: tuple) -> None:
+    """Add a child process's launches to the phase and to the tally of
+    the fleet size it solved."""
+    tally = BY_SIZE.setdefault(size_label(*size), {})
+    for k in KERNEL_NAMES:
+        child[k] += counts[k]
+        tally[k] = tally.get(k, 0) + counts[k]
+
+
+def run_cli_phase(torch, np, _ext, REGISTRY, verify, dev_name, card,
+                  device=None, fleet=FRONTEND_FLEET,
+                  servers=FRONTEND_SERVERS, shape=FRONTEND_SHAPE,
+                  registry=None, registry_shape=(10_619, 1_000),
+                  chaos=CLI_CHAOS, root=CLI_DIR) -> dict:
+    """[cli]: the operator's entry points, each placing on the card.
+
+    1. ``fleet --project-root D solve -s prod --json`` on [frontend]'s
+       fleet written as a project (10,602 x 1,000), through the port's
+       ``cli.main.main`` in this process and again as ``python -m
+       fleetflow_tpu_torch.cli``; the printed assignment re-lowered and
+       held by the host verify.
+    2. ``python -m fleetflow_tpu_torch.daemon start`` (token auth, web and
+       self-heal on, no ``solver-device``: the card); ``fleet cp login
+       --secret``, ``fleet cp registry sync`` (the 1,000 servers), the
+       servers marked up and the fleet placed through ``CpClient``
+       (``placement.solve`` + ``commit``), the busiest node down (a churn
+       re-solve); ``fleet cp placement state`` and ``explain``; ``GET
+       /metrics`` before and after (``fleet_solver_solves_total`` of the
+       card's backend must rise); ``fleet cp daemon stop`` (SIGTERM), its
+       pid file gone.
+    3. ``fleet cp registry solve`` on [registry]'s 8-fleet registry
+       (10,619 x 1,000), with the daemon up.
+    4. ``python -m fleetflow_tpu_torch.cli --project-root D mcp`` over
+       stdio: ``initialize``, ``tools/list``, ``tools/call fleet_solve``.
+    5. ``fleet chaos run rolling-kill-selfheal --seed 7`` at its docstring
+       sizing with ``--record-trace``; ``fleet chaos run diurnal-hotspot``
+       recording the traffic the plan loop replays (a trace of
+       rolling-kill-selfheal carries no arrivals: a proposal replayed
+       against it is never placed, in the reference too), and ``fleet plan
+       simulate`` of ``examples/plan-simulate/flow.kdl`` against it.
+
+    The child processes write their launch counts at exit
+    (``FLEET_LAUNCH_DIR``); this process's solves are metered on
+    ``GpuSolverScheduler.place``. Fails on a nonzero exit, a source other
+    than ``gpu-anneal``, a violation, a row on a dead node, a solve off
+    `dev_name`, a step without K4, K3 and K1 (and the daemon's churn
+    without K2 or K5), a daemon that does not stop or leaves its pid
+    file. Prints each step's wall ms (beside the solver's ms where the
+    output carries it) and the phase's launches by kernel and seconds
+    against its budget. Returns the phase's launch counts."""
+    import shutil
+    import signal
+    import socket
+    import urllib.request
+
+    from fleetflow_tpu_torch.cli.client import CpClient
+    from fleetflow_tpu_torch.core.loader import \
+        load_project_from_root_with_stage
+    from fleetflow_tpu_torch.core.parser import parse_kdl_string
+    from fleetflow_tpu_torch.core.serialize import flow_to_dict
+    from fleetflow_tpu_torch.cp.auth import TokenAuth
+    from fleetflow_tpu_torch.lower import fleetgen
+    from fleetflow_tpu_torch.lower.tensors import lower_stage
+    from fleetflow_tpu_torch.sched.gpu import GpuSolverScheduler
+    # the module (the package's `main` attribute is the function)
+    cli_main = importlib.import_module("fleetflow_tpu_torch.cli.main")
+    registry = registry or dict(services=REGISTRY_SERVICES,
+                                nodes=REGISTRY_NODES, fleets=REGISTRY_FLEETS)
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.abspath(root)
+    shutil.rmtree(root, ignore_errors=True)
+    proj = os.path.join(root, "project")
+    os.makedirs(os.path.join(proj, ".fleetflow"))
+    fleet_text = fleetgen.generate_fleet_kdl(
+        fleet["fleet"], fleet["n_services"], seed=fleet["seed"],
+        n_nodes_hint=fleet["n_nodes_hint"], port_base=fleet["port_base"])
+    for fname, text in (("cloud.kdl", fleetgen.generate_servers_kdl(
+            servers["n"], seed=servers["seed"])), ("fleet.kdl", fleet_text)):
+        with open(os.path.join(proj, ".fleetflow", fname), "w") as f:
+            f.write(text)
+    reg_root = os.path.join(root, "registry")
+    registry_write(fleetgen, reg_root, registry["services"],
+                   registry["nodes"], fleets=registry["fleets"])
+    home = os.path.join(root, "home")
+    os.makedirs(home)
+    launch_root = os.path.join(root, "launches")
+    dev_args = [] if device is None else ["--device", str(device)]
+    backend = "gpu" if device is None else "cpu"
+    pt = lower_stage(load_project_from_root_with_stage(proj, "prod"), "prod")
+    if shape is not None and (pt.S, pt.N) != tuple(shape):
+        raise AssertionError(f"[cli] the project lowers to {pt.S}x{pt.N}")
+    child = {k: 0 for k in KERNEL_NAMES}
+    rows: list = []
+
+    def env_for(step: str) -> dict:
+        env = dict(os.environ, HOME=home, FLEET_CP_CA="",
+                   FLEET_LAUNCH_DIR=os.path.join(launch_root, step),
+                   PYTHONPATH=os.pathsep.join(
+                       [repo] + [p for p in os.environ.get(
+                           "PYTHONPATH", "").split(os.pathsep) if p]))
+        return env
+
+    def row(step: str, **fields) -> dict:
+        r = dict(step=step, **fields, card=card)
+        print(f"[cli] {json.dumps(r)}", flush=True)
+        rows.append(r)
+        return r
+
+    def solves_on_card(step: str, solves: list, at_least: int = 1):
+        if len(solves) < at_least:
+            raise AssertionError(f"[cli] {step}: {len(solves)} solves "
+                                 f"on the card scheduler")
+        for S, N, _ms, res in solves:
+            if res.device != dev_name or res.violations:
+                raise AssertionError(f"[cli] {step}: {S}x{N} solved on "
+                                     f"{res.device}, {res.violations} "
+                                     f"violations")
+
+    def in_proc(step: str, argv: list, want=None):
+        meter.take()
+        seen = dict(_ext.LAUNCHES)
+        rc, out, err, ms = cli_run(cli_main, argv)
+        torch.cuda.synchronize()
+        launched = {k: v - seen[k] for k, v in _ext.LAUNCHES.items()
+                    if v != seen[k]}
+        if rc != 0:
+            raise AssertionError(f"[cli] {step}: exit {rc}: {out[-2000:]}"
+                                 f"{err[-2000:]}")
+        solves = meter.take()
+        if want:
+            cp_expect_launches(step, launched, want, tag="cli")
+            solves_on_card(step, solves)
+        return out, ms, solves, launched
+
+    _ext.reset_launches()
+    meter = WireMeter(_ext, GpuSolverScheduler)
+    daemon_pid = None
+    cfg = os.path.join(root, "fleetflowd.kdl")
+    pid_file = os.path.join(root, "fleetflowd.pid")
+    try:
+        with env_set(HOME=home, FLEET_CP_CA="",
+                     FLEET_REGISTRY=os.path.join(reg_root,
+                                                 "fleet-registry.kdl")):
+            # 1. fleet solve, in this process and as a child process
+            argv = [*dev_args, "--project-root", proj, "solve", "-s", "prod",
+                    "--json"]
+            out, ms, solves, launched = in_proc("solve", argv, CP_COLD)
+            head, body = out.split("\n", 1)
+            got = cli_solved("solve", head, "gpu-anneal")
+            cli_check_assignment(np, verify, pt, json.loads(body), "solve")
+            row("fleet solve", wall_ms=round(ms, 3), **got,
+                launches=launched)
+            step_env = env_for("solve")
+            rc, out, err, ms = cli_proc("fleetflow_tpu_torch.cli", argv,
+                                        step_env)
+            if rc != 0:
+                raise AssertionError(f"[cli] python -m ...cli solve: exit "
+                                     f"{rc}: {err[-2000:]}")
+            head, body = out.split("\n", 1)
+            got = cli_solved("python -m ...cli solve", head, "gpu-anneal")
+            cli_check_assignment(np, verify, pt, json.loads(body),
+                                 "python -m ...cli solve")
+            counts = child_launches(step_env["FLEET_LAUNCH_DIR"])
+            cp_expect_launches("python -m ...cli solve", counts, CP_COLD,
+                               tag="cli")
+            cli_tally(child, counts, (pt.S, pt.N))
+            row("python -m fleetflow_tpu_torch.cli solve", wall_ms=round(
+                ms, 3), **got, launches={k: v for k, v in counts.items()
+                                         if v})
+
+            # 2. the daemon
+            ports = []
+            for _ in range(2):
+                with socket.socket() as sock:
+                    sock.bind(("127.0.0.1", 0))
+                    ports.append(sock.getsockname()[1])
+            cp_port, web_port = ports
+            ep = f"127.0.0.1:{cp_port}"
+            with open(cfg, "w") as f:
+                f.write(f'pid-file "{pid_file}"\n'
+                        f'log-file "{os.path.join(root, "fleetflowd.log")}"\n'
+                        f'listen "127.0.0.1" {cp_port}\n'
+                        f'web "127.0.0.1" {web_port}\n'
+                        'db "memory"\ntls-dir ""\n'
+                        f'auth "token" secret="{WIRE_SECRET}"\n'
+                        'self-heal #true lease=4 grace=1 interval=0.5\n'
+                        f'health-interval {CLI_HEALTH_S}\n'
+                        + (f'solver-device "{device}"\n' if device else ""))
+            daemon_env = env_for("daemon")
+            rc, out, err, ms = cli_proc("fleetflow_tpu_torch.daemon",
+                                        ["start", "-c", cfg], daemon_env)
+            if rc != 0 or "started fleetflowd (pid" not in out:
+                raise AssertionError(f"[cli] daemon start: exit {rc}: "
+                                     f"{out}{err[-2000:]}")
+            daemon_pid = int(out.split("pid ")[1].split(")")[0])
+            row("fleetflowd start", wall_ms=round(ms, 3), pid=daemon_pid)
+            out, ms, _, _ = in_proc("cp login", [
+                "cp", "--cp", ep, "login", "--secret", WIRE_SECRET,
+                "--email", "operator@chip-smoke"])
+            row("fleet cp login", wall_ms=round(ms, 3))
+            out, ms, _, _ = in_proc("cp registry sync", [
+                "cp", "--cp", ep, "registry", "sync"])
+            synced = out.count("synced ")
+            if synced != registry["nodes"]:
+                raise AssertionError(f"[cli] registry sync: {synced} "
+                                     f"servers")
+            row("fleet cp registry sync", wall_ms=round(ms, 3),
+                servers=synced)
+            token = TokenAuth(WIRE_SECRET).issue("scrape@chip-smoke",
+                                                 ["read:health"])
+
+            def scrape() -> str:
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{web_port}/metrics")
+                req.add_header("Authorization", f"Bearer {token}")
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    return r.read().decode()
+            solves0 = cli_metric(scrape(), "fleet_solver_solves_total",
+                                 backend=backend)
+            flow = parse_kdl_string(fleet_text, cache=False)
+            key = f"{flow.name}/prod"
+            with CpClient(ep) as cp:
+                t0 = time.perf_counter()
+                cp.request("placement", "node_events", {"events": [
+                    {"slug": s, "online": True} for s in pt.node_names]},
+                    timeout=600)
+                row("placement.node_events up", wall_ms=round(
+                    (time.perf_counter() - t0) * 1e3, 3), nodes=pt.N)
+                t0 = time.perf_counter()
+                rep = cp.request("placement", "solve", {
+                    "flow": flow_to_dict(flow), "stage": "prod",
+                    "reserve": True}, timeout=600)
+                ms = (time.perf_counter() - t0) * 1e3
+                if (not rep["feasible"] or rep["violations"]
+                        or rep["source"] != "gpu-anneal"):
+                    raise AssertionError(f"[cli] placement.solve: "
+                                         f"{ {k: rep.get(k) for k in ('feasible', 'violations', 'source')} }")
+                cli_check_assignment(np, verify, pt, rep["assignment"],
+                                     "placement.solve")
+                row("placement.solve", wall_ms=round(ms, 3),
+                    reply_solve_ms=round(rep["solve_ms"], 3), rows=pt.S)
+                ok = cp.request("placement", "commit",
+                                {"reservation": rep["reservation"]})
+                if not ok.get("ok"):
+                    raise AssertionError(f"[cli] commit: {ok}")
+                per: dict = {}
+                for node in rep["assignment"].values():
+                    per[node] = per.get(node, 0) + 1
+                victim = max(sorted(per), key=per.get)
+                t0 = time.perf_counter()
+                moved = cp.request("placement", "node_events", {"events": [
+                    {"slug": victim, "online": False}]}, timeout=600)
+                ms = (time.perf_counter() - t0) * 1e3
+                resched = moved["rescheduled"]
+                if [m["stage"] for m in resched] != [key] or not all(
+                        m["feasible"] for m in resched):
+                    raise AssertionError(f"[cli] node_events: {moved}")
+                row("placement.node_events busiest down",
+                    wall_ms=round(ms, 3), node=victim,
+                    rows_on_it=per[victim])
+            out, ms, _, _ = in_proc("cp placement state", [
+                "cp", "--cp", ep, "placement", "state"])
+            row("fleet cp placement state", wall_ms=round(ms, 3),
+                lines=len(out.splitlines()))
+            name = next(n for n, node in sorted(rep["assignment"].items())
+                        if node == victim)
+            out, ms, _, _ = in_proc("cp placement explain", [
+                "cp", "--cp", ep, "placement", "explain", "--stage", key,
+                "--service", name])
+            first = out.splitlines()[0] if out else ""
+            if ("NOT FEASIBLE" in out or " -> " not in first
+                    or first.split(" -> ")[1].split()[0] == victim):
+                raise AssertionError(f"[cli] explain {name}: {out[:500]}")
+            row("fleet cp placement explain", wall_ms=round(ms, 3),
+                service=name, line=first)
+            solves1 = cli_metric(scrape(), "fleet_solver_solves_total",
+                                 backend=backend)
+            if solves1 < solves0 + 2:
+                raise AssertionError(f"[cli] the daemon's fleet_solver_"
+                                     f"solves_total{{backend={backend}}} "
+                                     f"{solves0} -> {solves1}")
+            row("GET /metrics", solves_before=solves0, solves_after=solves1,
+                backend=backend)
+
+            # 3. fleet cp registry solve, the daemon up
+            out, ms, solves, launched = in_proc("cp registry solve", [
+                *dev_args, "cp", "--cp", ep, "registry", "solve"], CP_COLD)
+            want = (f"aggregate: {registry_shape[0]} services x "
+                    f"{registry_shape[1]} nodes feasible=True via "
+                    f"gpu-anneal") if registry_shape else \
+                "feasible=True via gpu-anneal"
+            if want not in out:
+                raise AssertionError(f"[cli] registry solve: {out!r}")
+            row("fleet cp registry solve", wall_ms=round(ms, 3),
+                line=out.strip(), solve_ms=round(sum(s[2] for s in solves),
+                                                 3), launches=launched)
+
+            # the daemon stops on SIGTERM and removes its pid file
+            out, ms, _, _ = in_proc("cp daemon stop", [
+                "cp", "daemon", "stop", "-c", cfg])
+            t0 = time.perf_counter()
+            while os.path.exists(pid_file) or not os.path.exists(
+                    os.path.join(daemon_env["FLEET_LAUNCH_DIR"],
+                                 f"launches-{daemon_pid}.json")):
+                if time.perf_counter() - t0 > 60:
+                    raise AssertionError("[cli] the daemon did not stop "
+                                         "within 60 s")
+                time.sleep(0.05)
+            daemon_pid = None
+            row("fleet cp daemon stop", wall_ms=round(
+                ms + (time.perf_counter() - t0) * 1e3, 3))
+            counts = child_launches(daemon_env["FLEET_LAUNCH_DIR"])
+            cp_expect_launches("fleetflowd", counts, CP_COLD, tag="cli")
+            cp_expect_launches("fleetflowd churn", counts, CP_WARM,
+                               any_of=True, tag="cli")
+            cli_tally(child, counts, (pt.S, pt.N))
+            row("fleetflowd launches", launches={k: v for k, v in
+                                                 counts.items() if v})
+
+            # 4. the MCP server over stdio
+            msgs = [{"jsonrpc": "2.0", "id": 1, "method": "initialize",
+                     "params": {}},
+                    {"jsonrpc": "2.0", "method": "notifications/initialized"},
+                    {"jsonrpc": "2.0", "id": 2, "method": "tools/list"},
+                    {"jsonrpc": "2.0", "id": 3, "method": "tools/call",
+                     "params": {"name": "fleet_solve",
+                                "arguments": {"stage": "prod"}}}]
+            step_env = env_for("mcp")
+            rc, out, err, ms = cli_proc(
+                "fleetflow_tpu_torch.cli",
+                [*dev_args, "--project-root", proj, "mcp"], step_env,
+                stdin="".join(json.dumps(m) + "\n" for m in msgs))
+            replies = [json.loads(ln) for ln in out.splitlines()]
+            if rc != 0 or [r.get("id") for r in replies] != [1, 2, 3]:
+                raise AssertionError(f"[cli] mcp: exit {rc}: {out[:500]}"
+                                     f"{err[-2000:]}")
+            res = replies[2]["result"]
+            doc = json.loads(res["content"][0]["text"])
+            if res.get("isError") or doc.get("source") != "gpu-anneal" \
+                    or doc.get("violations") or not doc.get("feasible"):
+                raise AssertionError(f"[cli] mcp fleet_solve: "
+                                     f"{str(res)[:500]}")
+            cli_check_assignment(np, verify, pt, doc["assignment"],
+                                 "mcp fleet_solve")
+            counts = child_launches(step_env["FLEET_LAUNCH_DIR"])
+            cp_expect_launches("mcp", counts, CP_COLD, tag="cli")
+            cli_tally(child, counts, (pt.S, pt.N))
+            row("mcp fleet_solve", wall_ms=round(ms, 3),
+                solve_ms=doc["solve_ms"], tools=len(
+                    replies[1]["result"]["tools"]),
+                launches={k: v for k, v in counts.items() if v})
+
+            # 5. chaos and the plan loop
+            size = ["--seed", "7", "--services", chaos["services"],
+                    "--nodes", chaos["nodes"], "--stages", chaos["stages"]]
+            for scenario in ("rolling-kill-selfheal", "diurnal-hotspot"):
+                trace = os.path.join(root, f"{scenario}.jsonl")
+                out, ms, solves, launched = in_proc(
+                    f"chaos run {scenario}",
+                    [*dev_args, "chaos", "run", "--scenario", scenario,
+                     *size, "--record-trace", trace], CP_COLD)
+                if "all invariants hold" not in out:
+                    raise AssertionError(f"[cli] chaos {scenario}: "
+                                         f"{out[-1000:]}")
+                digest = out.split("event-log digest ")[1].split()[0]
+                row(f"fleet chaos run {scenario}", wall_ms=round(ms, 3),
+                    solves=len(solves), solve_ms=round(sum(
+                        s[2] for s in solves), 3), digest=digest,
+                    launches=launched)
+            flow_kdl = os.path.join(repo, "examples", "plan-simulate",
+                                    "flow.kdl")
+            out, ms, solves, launched = in_proc("plan simulate", [
+                *dev_args, "plan", "simulate", flow_kdl, "--trace", trace],
+                CP_COLD)
+            if "proposal holds the recorded SLOs" not in out:
+                raise AssertionError(f"[cli] plan simulate: {out[-1000:]}")
+            row("fleet plan simulate", wall_ms=round(ms, 3),
+                solves=len(solves), launches=launched,
+                digest=out.split("report digest ")[1].split()[0])
+    finally:
+        meter.close()
+        if daemon_pid is not None:
+            try:
+                os.kill(daemon_pid, signal.SIGTERM)
+                t0 = time.perf_counter()
+                while os.path.exists(pid_file) and \
+                        time.perf_counter() - t0 < 30:
+                    time.sleep(0.1)
+                os.kill(daemon_pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+    launches = read_launches(torch, _ext, "cli", CP_COLD,
+                             off=("k6_greedy_scan",))
+    for k in KERNEL_NAMES:
+        launches[k] += child[k]
+    took = time.perf_counter() - t_phase
+    summary = dict(phase_s=round(took, 3), budget_s=CLI_BUDGET_S,
+                   over_budget=took > CLI_BUDGET_S, steps=len(rows),
+                   launches_in_process={k: v - child[k]
+                                        for k, v in launches.items()},
+                   launches_children=child, launches=launches, card=card)
+    print(f"[cli] {json.dumps(summary)}", flush=True)
+    return summary
+
+
 def launches_by_size(name: str, total: int) -> dict:
     """A kernel's main-path launches by the fleet size they ran at; every
     phase's launches must have been tallied."""
@@ -5901,6 +6422,10 @@ def main() -> int:
     # the card: a deploy, a heal, the quadlet and compose backends
     by_phase["agent"] = run_agent_phase(torch, np, _ext, REGISTRY, verify,
                                         str(dev), card)["launches"]
+    # [cli]: the operator's entry points (fleet solve in this process and
+    # as a child, the daemon, registry solve, MCP, chaos and the plan loop)
+    by_phase["cli"] = run_cli_phase(torch, np, _ext, REGISTRY, verify,
+                                    str(dev), card)["launches"]
     measure_device(recs)
     measure_k7_device(recs)
     measure_k5_device(recs)

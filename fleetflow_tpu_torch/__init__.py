@@ -20,6 +20,8 @@ Entry points (``sched.gpu.GpuSolverScheduler`` with ``place_many``,
 card unless the caller passes ``device="cpu"``; they never fall back.
 """
 
+__version__ = "0.1.0"
+
 __all__ = ["resolve_device"]
 
 

@@ -36,7 +36,10 @@ Every C entry point returns a ``cudaError_t`` (0 = success) taken from
 ``cudaGetLastError()`` right after its launches; :func:`check` raises on
 anything else. ``LAUNCHES`` counts the entry-point calls per kernel: a
 wrapper adds one where it launches its kernel and nowhere else, so a run can
-show which kernels the main path went through.
+show which kernels the main path went through. A process started with
+``FLEET_LAUNCH_DIR`` set writes its counts to
+``$FLEET_LAUNCH_DIR/launches-<pid>.json`` when it exits, so a driver can read
+those of a CLI, MCP or daemon process it started.
 
 ``fleet_solver_compile_events_total`` (the reference's name) counts the
 port's only compiles: each kernel library and host library this process
@@ -189,6 +192,23 @@ _torch = None                           # see _torch_module
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _write_launches(directory: str) -> None:
+    """At exit: this process's launch counts as JSON (FLEET_LAUNCH_DIR)."""
+    import json
+    import sys
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"launches-{os.getpid()}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump({"pid": os.getpid(), "argv": sys.argv[1:],
+                   "launches": dict(LAUNCHES)}, f)
+    os.replace(path + ".tmp", path)
+
+
+if os.environ.get("FLEET_LAUNCH_DIR"):
+    import atexit
+    atexit.register(_write_launches, os.environ["FLEET_LAUNCH_DIR"])
 
 
 def check_inputs(name: str, *tensors: Optional[torch.Tensor],

@@ -19,14 +19,17 @@ __all__ = ["Placement", "Scheduler", "level_schedule",
            "GpuSolverScheduler", "pick_scheduler"]
 
 
-def pick_scheduler(S: int, N: int, *, prefer_gpu: bool = True) -> Scheduler:
+def pick_scheduler(S: int, N: int, *, prefer_gpu: bool = True,
+                   device=None) -> Scheduler:
     """Default backend policy, by instance size only (the reference's
     thresholds): single-node or tiny instances run the host greedy placer,
     fleet-scale host instances the C++ placer, the card's solver the rest.
-    GpuSolverScheduler raises without a card; nothing here falls back."""
+    `device` is the card solver's (None: the card; "cpu" its plain
+    versions). GpuSolverScheduler raises without a card; nothing here
+    falls back."""
     if not prefer_gpu or N <= 1 or S * N < 512:
         if S * N >= 50_000:
             from ..native import NativeGreedyScheduler
             return NativeGreedyScheduler()
         return HostGreedyScheduler()
-    return GpuSolverScheduler()
+    return GpuSolverScheduler(device=device)

@@ -12,8 +12,8 @@ reference's, on the CPU.
 
 The tests of test_auth_idp.py that go through ``daemon.web.WebServer`` or
 ``cli`` (TestWebRoutePermissions, the REST half of
-TestCrossSurfaceVocabulary, TestDeviceFlow, TestBrowserDeviceLogin) wait
-for those packages (ROADMAP).
+TestCrossSurfaceVocabulary, TestBrowserDeviceLogin; TestDeviceFlow) are in
+tests/test_torch_daemon.py and tests/test_torch_cli.py.
 """
 
 from __future__ import annotations

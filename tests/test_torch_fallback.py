@@ -168,6 +168,30 @@ def test_pick_scheduler_matches_reference(prefer, monkeypatch):
         ref = ref_pick(S, N, prefer_tpu=prefer)
         port = pick_scheduler(S, N, prefer_gpu=prefer)
         assert type(port).__name__ == names[type(ref).__name__], (S, N)
+        # device= names the card solver's device and changes no choice
+        named = pick_scheduler(S, N, prefer_gpu=prefer, device="cpu")
+        assert type(named) is type(port), (S, N)
+        if isinstance(named, GpuSolverScheduler):
+            assert named.device == CPU
+
+
+def test_pick_scheduler_device_reaches_the_card_solver(monkeypatch):
+    """Without a card, device="cpu" builds the card solver on the host
+    (its plain versions); device=None raises, and so does a device that
+    names CUDA."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for S, N in GRID:
+        ref = type(ref_pick(S, N)).__name__
+        sched = pick_scheduler(S, N, device="cpu")
+        if ref == "TpuSolverScheduler":
+            assert isinstance(sched, GpuSolverScheduler)
+            assert sched.device == CPU
+            for dev in (None, "cuda", "cuda:0"):
+                with pytest.raises(SolverError):
+                    pick_scheduler(S, N, device=dev)
+        else:
+            assert type(sched).__name__ == ref
+            assert type(pick_scheduler(S, N)).__name__ == ref
 
 
 def test_pick_scheduler_never_falls_back(monkeypatch):

@@ -13,8 +13,9 @@
   flags;
 - the reference's span, rule-engine and diagnostics cases on both.
 
-The reference's CLI cases (TestCliLint) are not mirrored: the port has no
-``cli/`` yet (ROADMAP queue 1, item 4).
+- the reference's CLI cases (TestCliLint) through both packages' ``fleet
+  lint``/``fleet validate``: the same exit code, stdout and stderr (the
+  project's path normalised).
 """
 
 from __future__ import annotations
@@ -357,3 +358,77 @@ class TestDiagnostics:
                 int(fields["severity"] == "error"),
                 int(fields["severity"] == "warning"))
         assert out[1] == out[0]
+
+
+# --------------------------------------------------------------------------
+# the CLI (test_lint.py's TestCliLint), through both packages' `fleet`
+# --------------------------------------------------------------------------
+
+_BAD = ('service "x" { image "i"; depends_on "nope" }\n'
+        'stage "local" { service "x" }\n')
+_WARN = ('service "imageless" { env { A "1" } }\n'
+         'stage "local" { service "imageless" }\n')
+
+
+def _fleet_both(root, argv, capsys):
+    """(rc, stdout, stderr) of `fleet --project-root root argv` in each
+    package, the project's path normalised."""
+    out = []
+    for pkg in ("fleetflow_tpu", "fleetflow_tpu_torch"):
+        main = importlib.import_module(f"{pkg}.cli.main").main
+        capsys.readouterr()
+        rc = main(["--project-root", str(root), *argv])
+        cap = capsys.readouterr()
+        out.append((rc, cap.out.replace(str(root), "<dir>"),
+                    cap.err.replace(str(root), "<dir>")))
+    assert out[1] == out[0]
+    return out[1]
+
+
+class TestCliLint:
+    def test_clean_project_exits_zero(self, project, capsys):
+        rc, out, _ = _fleet_both(project[0], ["lint"], capsys)
+        assert rc == 0 and "config valid" in out
+
+    def test_broken_project_exits_one_with_spans(self, project, capsys):
+        root, write = project
+        write("services/bad.kdl", _BAD)
+        rc, _, err = _fleet_both(root, ["lint"], capsys)
+        assert rc == 1 and "FF002" in err and "services/bad.kdl:1" in err
+
+    def test_json_format(self, project, capsys):
+        root, write = project
+        write("services/bad.kdl", _BAD)
+        rc, out, _ = _fleet_both(root, ["lint", "--format", "json"], capsys)
+        doc = json.loads(out)
+        assert rc == 1 and doc["ok"] is False and doc["errors"] == 1
+        d = doc["diagnostics"][0]
+        assert d["code"] == "FF002" and d["severity"] == "error"
+        assert d["file"].endswith("services/bad.kdl") and d["line"] == 1
+
+    def test_sarif_format(self, project, capsys):
+        root, write = project
+        write("services/bad.kdl", _BAD)
+        rc, out, _ = _fleet_both(root, ["lint", "--format", "sarif"],
+                                 capsys)
+        assert rc == 1 and json.loads(out)["version"] == "2.1.0"
+
+    def test_strict_promotes_warnings(self, project, capsys):
+        root, write = project
+        write("services/warn.kdl", _WARN)
+        assert _fleet_both(root, ["lint"], capsys)[0] == 0
+        assert _fleet_both(root, ["lint", "--strict"], capsys)[0] == 1
+
+    def test_validate_delegates_to_lint(self, project, capsys):
+        root, write = project
+        write("services/bad.kdl", _BAD)
+        rc, _, err = _fleet_both(root, ["validate"], capsys)
+        assert rc == 1 and "FF002" in err
+
+    @pytest.mark.parametrize("fmt", ["text", "json", "sarif"])
+    def test_missing_config(self, tmp_path, capsys, fmt):
+        rc, out, _ = _fleet_both(tmp_path, ["lint", "--format", fmt], capsys)
+        assert rc == 2
+        if fmt == "json":
+            doc = json.loads(out)
+            assert doc["ok"] is False and "reason" in doc

@@ -287,8 +287,9 @@ class TestBoundaries:
         """Every module of the port (the obs package, the front end, the
         control plane and its wire, the runtime and its unit generators,
         lint, the cloud providers, the registry with its aggregation, the
-        build subsystem, the node agent and the chaos world among them)
-        and chip_smoke.py
+        build subsystem, the node agent, the chaos world, the daemon, the
+        CLI and the MCP server among them, their ``__main__`` modules
+        included, which import without running) and chip_smoke.py
         import in a fresh interpreter without
         jax or fleetflow_tpu entering sys.modules."""
         code = (
@@ -326,7 +327,11 @@ class TestBoundaries:
             "'runtime.readiness', 'runtime.ports', 'runtime.static_site', "
             "'build', 'build.resolver', 'build.context', 'build.auth', "
             "'build.builder', 'agent', 'agent.guard', 'agent.monitor', "
-            "'agent.agent')}\n"
+            "'agent.agent', 'daemon', 'daemon.__main__', 'daemon.config', "
+            "'daemon.daemon', 'daemon.health', 'daemon.pidfile', "
+            "'daemon.web', 'cli', 'cli.__main__', 'cli.client', "
+            "'cli.device_flow', 'cli.main', 'cli.self_update', "
+            "'cli.utils', 'cli.wizard', 'mcp', 'mcp.server')}\n"
             "print(len(mods), bad, sorted(obs - set(mods)))\n"
             "sys.exit(1 if bad or len(mods) < 15 or obs - set(mods) "
             "else 0)\n")
