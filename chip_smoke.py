@@ -235,6 +235,20 @@ each of which fails the run:
      churn without K2 or K5), or a daemon that does not stop; one line a
      step with its wall ms, the children's and this process's launches,
      and the phase's seconds against its 120 s budget;
+     ``[audit]``, after ``[cli]``: the launch contracts of the six hot
+     dispatches (``fleetflow_tpu_torch/analysis/auditor.py`` over
+     ``solver/contracts.py``) on the card, once at full width (the
+     headline fleet staged at 10,848 x 1,000, 8 lanes of 2,000 x 200,
+     the sharded fleet on a 1x8 mesh), then ``fleet audit all --strict``
+     through ``cli.main.main`` in this process (exit 0), whose own audit
+     at the audit tiers (the pinned golden's cases) is read back and
+     must equal ``analysis/launch_contract.json``: the merges write their
+     planes in place, the warm dispatches keep their seeds and make no
+     upload in their profiler range, nothing is built at a later tier,
+     each dispatch launches its kernels and no other. One line a
+     dispatch and tier (planes written in place, uploads, downloads and
+     syncs in its range, CUDA-event ms, kernels launched, the card) and
+     the phase's seconds against its 45 s budget;
      ``[device]``: K4's and K3's device-only ms and device launches a
      call at both sizes (K3 also at 8 lanes), from the kernel cases of
      ``fleetflow_tpu_torch/tools/k34_profile.py`` in a fresh interpreter,
@@ -956,8 +970,13 @@ def size_label(S: int, N: int) -> str:
 def tally_size(_ext, S: int, N: int, since: Optional[dict] = None) -> dict:
     """Add the launches since the counts `since` (since they were zeroed
     when None) to the tally of the S x N fleet. Returns the counts now."""
+    return tally_label(_ext, size_label(S, N), since)
+
+
+def tally_label(_ext, label: str, since: Optional[dict] = None) -> dict:
+    """tally_size under `label` (a phase that ran several fleets)."""
     now = dict(_ext.LAUNCHES)
-    tally = BY_SIZE.setdefault(size_label(S, N), {})
+    tally = BY_SIZE.setdefault(label, {})
     for k in KERNEL_NAMES:
         tally[k] = tally.get(k, 0) + now[k] - (since or {}).get(k, 0)
     return now
@@ -999,54 +1018,13 @@ def run_main_path(torch, np, pkg_main, pt, dev_name):
     return launches
 
 
-def h2d_in_range(prof, name: str) -> tuple[int, int, list]:
-    """(ranges, device operations, host-to-device copies as (host op,
-    device event) names) of the work that host code inside the
-    torch.profiler ranges called `name` put on the card (each device event
-    is linked to the host op that launched it)."""
-    roots = [e for e in prof.events() if e.name == name
-             and str(e.device_type).endswith("CPU")]
-    ops, h2d = 0, []
-    stack = list(roots)
-    while stack:
-        ev = stack.pop()
-        for k in ev.kernels:
-            ops += 1
-            if "HtoD" in k.name:
-                h2d.append((ev.name, k.name))
-        stack.extend(ev.cpu_children)
-    return len(roots), ops, h2d
-
-
-PROBES = ("chip_smoke.h2d_probe", "chip_smoke.h2d_probe_after")
-
-
-def profiled(torch, run):
-    """run() under torch.profiler, between two probe ranges that each
-    upload one small tensor (they show that the count sees such a copy).
-    Returns (run's result, profiler)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from fleetflow_tpu_torch.obs import CUDA_TRACE_LEAD_S
-    dev = torch.device("cuda", 0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # one kernel, a sync and the lead first: the device tracing goes
-        # live some ms after the profile is entered, and the records of
-        # what ran before are lost
-        torch.zeros(1, device=dev).add_(1)
-        torch.cuda.synchronize()
-        time.sleep(CUDA_TRACE_LEAD_S)
-        with record_function(PROBES[0]):
-            torch.tensor([1, 2, 3], device=dev)
-        torch.cuda.synchronize()
-        out = run()
-        torch.cuda.synchronize()
-        with record_function(PROBES[1]):
-            torch.tensor([4, 5, 6], device=dev)
-        torch.cuda.synchronize()
-    return out, prof
+def auditor():
+    """The port's launch auditor (fleetflow_tpu_torch/analysis/auditor.py),
+    which holds the torch.profiler helpers every no-upload check here
+    shares: PROBES, h2d_in_range, host_traffic_in_range, profiled and
+    probe_seen."""
+    from fleetflow_tpu_torch.analysis import auditor as mod
+    return mod
 
 
 def trace_times(prof, range_name: str) -> dict:
@@ -1055,7 +1033,7 @@ def trace_times(prof, range_name: str) -> dict:
     host-to-device copy's device record."""
     host = {n: [round(e.time_range.start, 1) for e in prof.events()
                 if e.name == n and str(e.device_type).endswith("CPU")]
-            for n in PROBES + (range_name,)}
+            for n in auditor().PROBES + (range_name,)}
     device = [e for e in prof.events()
               if not str(e.device_type).endswith("CPU")]
     return dict(host=host, device_records=len(device),
@@ -1065,33 +1043,11 @@ def trace_times(prof, range_name: str) -> dict:
                             if "HtoD" in e.name][:6])
 
 
-def probe_seen(prof, range_name: str):
-    """(name, h2d_in_range) of the probe that shows this trace would have
-    seen a copy in the dispatch, or None. The first probe shows it: it
-    ran before the dispatch. Late in a long process the profiler can lose
-    every device record up to some point after that probe (on an H100 it
-    lost them up to the traced run's first launches). Then the second
-    probe shows that the trace links copies, and a device record linked
-    to a host op that began before the dispatch's host range shows that
-    the kept records reach back before the dispatch (one stream: the card
-    runs the ops in launch order)."""
-    first, after = (h2d_in_range(prof, p) for p in PROBES)
-    if first[0] == 1 and first[2]:
-        return PROBES[0], first
-    start = [e.time_range.start for e in prof.events()
-             if e.name == range_name and str(e.device_type).endswith("CPU")]
-    if after[0] == 1 and after[2] and len(start) == 1 and any(
-            e.kernels and e.time_range.start < start[0]
-            for e in prof.events() if str(e.device_type).endswith("CPU")):
-        return PROBES[1], after
-    return None
-
-
 def check_no_h2d(prof, range_name: str, tag: str) -> None:
     """The card made no host-to-device copy in the `range_name` range (a
     warm dispatch), and a probe's upload was seen (probe_seen)."""
-    seen = probe_seen(prof, range_name)
-    warm = h2d_in_range(prof, range_name)
+    seen = auditor().probe_seen(prof, range_name)
+    warm = auditor().h2d_in_range(prof, range_name)
     if seen is None:
         raise AssertionError(f"the host-to-device count missed the probes' "
                              f"uploads: {trace_times(prof, range_name)}")
@@ -1116,12 +1072,13 @@ def no_h2d_in_dispatch(attempt, range_name: str, tag: str,
     traced, up to `tries`; the run fails if none saw a probe."""
     for i in range(tries):
         prof = attempt(i)
-        if probe_seen(prof, range_name) is not None:
+        if auditor().probe_seen(prof, range_name) is not None:
             check_no_h2d(prof, range_name, tag)
             return
-        warm = h2d_in_range(prof, range_name)
+        warm = auditor().h2d_in_range(prof, range_name)
         print(f"[{tag}] trace {i + 1} of {tries} missed the probes' "
-              f"uploads ({[h2d_in_range(prof, p) for p in PROBES]}; "
+              f"uploads ({[auditor().h2d_in_range(prof, p)
+                           for p in auditor().PROBES]}; "
               f"{range_name}: {warm[0]} ranges, {warm[1]} device "
               f"operations, {len(warm[2])} copies; "
               f"{json.dumps(trace_times(prof, range_name))}); another "
@@ -1142,7 +1099,7 @@ def warm_h2d_check(torch, np, sched, pt, ProblemDelta, record) -> None:
         load = np.bincount(sched.last_result.assignment, minlength=pt.N)
         valid[int(np.argmax(np.where(valid, load, -1)))] = False
         pt = dataclasses.replace(pt, node_valid=valid.copy())
-        placed, prof = profiled(torch, lambda: sched.reschedule(
+        placed, prof = auditor().profiled(lambda: sched.reschedule(
             pt, delta=ProblemDelta(node_valid=valid.copy())))
         record("warm_one_more_node_down_profiled" + (f":{i}" if i else ""),
                placed, pt)
@@ -1431,7 +1388,7 @@ def run_default_phase(torch, np, pkg_main, lower, dev_name, S=N_SERVICES,
         valid = valid.copy()
         valid[busiest(np, prev, valid, 1)] = False
         pt = dataclasses.replace(pt, node_valid=valid)
-        placed, prof = profiled(torch, lambda: sched.reschedule(
+        placed, prof = auditor().profiled(lambda: sched.reschedule(
             pt, delta=ProblemDelta(node_valid=valid)))
         row = record("kill1_profiled" + (f":{i}" if i else ""), placed, pt,
                      subsolve=sched.last_result.subsolve)
@@ -2506,7 +2463,7 @@ def run_mux_phase(torch, np, mods, fleet, dev_name, tenant_fleet):
             entries = [multiplex.MuxEntry(pt=cur, resident=rp,
                                           seed=300 + 8 * k + i)
                        for i, (cur, rp) in enumerate(built)]
-            res, prof = profiled(torch, lambda: multiplex.solve_multiplexed(
+            res, prof = auditor().profiled(lambda: multiplex.solve_multiplexed(
                 entries, steps=MUX_STEPS, device=dev))
             for i, (got, (cur, _rp)) in enumerate(zip(res, built)):
                 lane_contract(cur, got, dev_name, f"profiled lane {i}")
@@ -3293,7 +3250,7 @@ def run_sharded_phase(torch, np, mods, lower, dev, recs):
         box = {}
 
         def under_profiler(solve_burst):
-            out, box["prof"] = profiled(torch, solve_burst)
+            out, box["prof"] = auditor().profiled(solve_burst)
             return out
 
         burst("burst_profiled" + (f":{i}" if i else ""), 90 + i,
@@ -6267,6 +6224,155 @@ def run_cli_phase(torch, np, _ext, REGISTRY, verify, dev_name, card,
     return summary
 
 
+AUDIT_BUDGET_S = 45.0       # the phase's time on the card's host
+# the kernels each audited dispatch launches (PERF.md, the kernel table):
+# (always, and K1 when the warm anneal sweeps — a lane that is feasible
+# after the fused pre-repair exits before its first sweep)
+AUDIT_KERNELS = {
+    "resident.merge": ((), ()), "sharded.merge": ((), ()),
+    "refine.warm": (("k2_prerepair", "k3_rebuild"), ("k1_sweep",)),
+    "mux.anneal": (("k2_prerepair", "k3_rebuild"), ("k1_sweep",)),
+    "subsolve.localized": (("k2_prerepair", "k3_rebuild", "k5_subsolve"),
+                           ("k1_sweep",)),
+    "sharded.anneal": (("k3_rebuild", "k7_sharded_sweep"), ()),
+}
+
+
+def audit_fleets(lower, headline, mux_fleet):
+    """The full-width audit's fleets as this run already made them (the
+    generator's arguments matched exactly): the headline fleet, the
+    sharded fleet and the mux leg's stages; any other is generated."""
+    tenants = dict(seed=0, n_tenants=8, port_fraction=0.2,
+                   volume_fraction=0.1)
+
+    def make(S, N, kw):
+        if kw == tenants and (S, N) == (N_SERVICES, N_NODES):
+            return headline
+        if kw == tenants and (S, N) == SHARDED_SHAPE:
+            return sharded_fleet(lower, SHARDED_SHAPE)
+        if set(kw) == {"seed", "port_fraction", "volume_fraction"} and \
+                (kw["port_fraction"], kw["volume_fraction"]) == (0.3, 0.2):
+            return mux_fleet(S, N, kw["seed"])
+        return lower.synthetic_problem(S, N, **kw)
+    return make
+
+
+def run_audit_phase(torch, _ext, card, dev, fleet=None) -> dict:
+    """[audit]: the launch contracts of the hot dispatches on the card
+    (fleetflow_tpu_torch/analysis/auditor.py over solver/contracts.py).
+
+    1. ``audit_kernels()`` at full width (resident.merge, refine.warm and
+       subsolve.localized on the headline fleet staged at 10,848 x 1,000,
+       mux.anneal at 8 lanes of 2,000 x 200, sharded.merge and
+       sharded.anneal at SHARDED_SHAPE on a 1x8 mesh; `fleet` hands it
+       the fleets this run already made).
+    2. ``fleet audit all --strict --baseline <the port's ledger>`` through
+       ``cli.main.main`` in this process (the card): exit 0. Its own
+       ``audit_kernels()`` at AUDIT_TIERS (the pinned golden's cases) is
+       read back through a spy, and its report must equal
+       analysis/launch_contract.json.
+
+    Both reports: every intrinsic check holds — the merges write their
+    planes in place, the warm dispatches keep their seeds and make no
+    upload in their profiler range, nothing is built at a later tier,
+    every output is on the card — all six contracts are audited at every
+    tier, and each dispatch launches its kernels (AUDIT_KERNELS) and no
+    other. One line per dispatch and tier: the planes written in place,
+    the uploads, downloads and syncs in its range, its CUDA-event ms, the
+    kernels it launched and the card.
+
+    Launches are tallied under "audit full" and "audit cli": each runs
+    several fleets."""
+    from fleetflow_tpu_torch.analysis import auditor
+    from fleetflow_tpu_torch.analysis.baseline import default_baseline_path
+    from fleetflow_tpu_torch.solver.contracts import (AUDIT_TIERS,
+                                                      audit_scale,
+                                                      hot_path_kernels)
+    cli_main = importlib.import_module("fleetflow_tpu_torch.cli.main")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    with open(auditor.default_contract_path(), encoding="utf-8") as f:
+        pinned = json.load(f)
+    names = [c.name for c in hot_path_kernels()]
+
+    since = dict(_ext.LAUNCHES)
+    t0 = time.perf_counter()
+    full = auditor.audit_kernels(device=dev,
+                                 scale=audit_scale("full", fleet))
+    full_s = time.perf_counter() - t0
+    tally_label(_ext, "audit full", since)
+
+    since = dict(_ext.LAUNCHES)
+    reports: list = []
+    real = auditor.audit_kernels
+
+    def spy(*args, **kw):
+        reports.append(real(*args, **kw))
+        return reports[-1]
+
+    auditor.audit_kernels = spy
+    try:
+        rc, out, err, cli_ms = cli_run(cli_main, [
+            "audit", "all", "--strict", "--baseline",
+            default_baseline_path()])
+    finally:
+        auditor.audit_kernels = real
+    tally_label(_ext, "audit cli", since)
+    if rc != 0 or "audit all clean" not in out or len(reports) != 1:
+        raise AssertionError(f"[audit] fleet audit all --strict: rc {rc}, "
+                             f"{len(reports)} audits: {out[-2000:]} "
+                             f"{err[-2000:]}")
+    tiers = reports[0]
+    drift = auditor.contract_diff(tiers, pinned)
+    if drift:
+        raise AssertionError(f"[audit] drift from launch_contract.json: "
+                             f"{drift}")
+
+    rows = []
+    for report, n_tiers in ((tiers, len(AUDIT_TIERS)), (full, 1)):
+        scale = report["_scale"]
+        if report.violations or report["_device"] != str(dev):
+            raise AssertionError(f"[audit] {scale} on {report['_device']}: "
+                                 f"{report.violations}")
+        audited = {k: list(e["tiers"]) for k, e in report["kernels"].items()}
+        if list(audited) != names or any(len(t) != n_tiers
+                                         for t in audited.values()):
+            raise AssertionError(f"[audit] {scale}: audited {audited}")
+        for name, entry in report["kernels"].items():
+            for tier, rec in entry["tiers"].items():
+                t = rec["host_traffic"]
+                always, maybe = AUDIT_KERNELS[name]
+                if not set(always) <= set(rec["launches"]) \
+                        <= set(always + maybe):
+                    raise AssertionError(
+                        f"[audit] {name}@{tier} launched {rec['launches']}, "
+                        f"expected {always} and maybe {maybe}")
+                row = dict(dispatch=name, tier=tier, scale=scale,
+                           in_place=rec["in_place"], kept=rec["kept"],
+                           h2d=len(t["h2d"]), d2h=len(t["d2h"]),
+                           syncs=t["syncs"], device_ops=t["ops"],
+                           ms=round(rec["ms"], 3), launches=rec["launches"],
+                           builds=rec["builds"], card=card)
+                rows.append(row)
+                print(f"[audit] {json.dumps(row)}", flush=True)
+    print(f"[audit] full width: {len(names)} dispatches in {full_s:.3f} s "
+          f"({json.dumps(full['_seconds'])}); fleet audit all --strict: "
+          f"rc 0 in {cli_ms:.1f} ms, its tiers' audit "
+          f"{json.dumps(tiers['_seconds'])} equal to launch_contract.json; "
+          f"{out.strip().splitlines()[-1]}; {err.strip()}", flush=True)
+    launches = read_launches(
+        torch, _ext, "audit",
+        ("k1_sweep", "k2_prerepair", "k3_rebuild", "k4_greedy",
+         "k5_subsolve", "k7_sharded_sweep"), off=("k6_greedy_scan",))
+    took = time.perf_counter() - t_phase
+    summary = dict(phase_s=round(took, 3), budget_s=AUDIT_BUDGET_S,
+                   over_budget=took > AUDIT_BUDGET_S, cases=len(rows),
+                   full_s=round(full_s, 3), cli_ms=round(cli_ms, 3),
+                   launches=launches, card=card)
+    print(f"[audit] {json.dumps(summary)}", flush=True)
+    return summary
+
 def launches_by_size(name: str, total: int) -> dict:
     """A kernel's main-path launches by the fleet size they ran at; every
     phase's launches must have been tallied."""
@@ -6426,6 +6532,11 @@ def main() -> int:
     # as a child, the daemon, registry solve, MCP, chaos and the plan loop)
     by_phase["cli"] = run_cli_phase(torch, np, _ext, REGISTRY, verify,
                                     str(dev), card)["launches"]
+    # [audit]: the launch contracts of the six hot dispatches on the card
+    # (in place, kept seeds, no upload, no build at a later tier) and
+    # `fleet audit all --strict` in this process
+    by_phase["audit"] = run_audit_phase(
+        torch, _ext, card, dev, audit_fleets(lower, pt, fleet))["launches"]
     measure_device(recs)
     measure_k7_device(recs)
     measure_k5_device(recs)

@@ -13,8 +13,10 @@ The verbs that place (`solve`, `chaos run`, `plan simulate`, `mcp`'s
 `--device` names the card solver's device (default: the card; `cpu` runs
 its plain PyTorch versions), and a missing card is an error (exit 1),
 never a quiet placement on the host. `--host` asks for the host placer.
-The `audit` verbs (the reference's JAX compile-contract and hygiene
-analysis) are not part of this package.
+The `audit` verbs (kernels, hygiene, dataflow, all) analyse the port's
+own code: `audit kernels` and `audit all` run the hot dispatches on the
+same `--device` (`fleet --device cpu audit all` runs them on the plain
+versions, and without a card the default is an error, exit 1).
 """
 
 from __future__ import annotations
@@ -663,6 +665,291 @@ def cmd_validate(args) -> int:
     # plus everything the solver could never tell it (spans, codes, the
     # structural rule set)
     return _run_lint(args, fmt="text", strict=False)
+
+
+def _baseline_args(q) -> None:
+    """Attach the shared accepted-findings-ledger flags (hygiene,
+    dataflow and the `all` aggregate read the same file)."""
+    q.add_argument("--baseline", metavar="FILE",
+                   help="accepted-findings ledger (rule+path+function keys "
+                        "with counts; the port's is fleetflow_tpu_torch/"
+                        "analysis/audit_baseline.json); matched findings "
+                        "are suppressed, stale entries reported")
+    q.add_argument("--update-baseline", action="store_true",
+                   help="regenerate the baseline file from the current "
+                        "findings (defaults to the port's ledger when "
+                        "--baseline is not given)")
+
+
+def cmd_audit(args) -> int:
+    """Static analysis over the CODEBASE (not the fleet config): the
+    launch-contract auditor (which runs the hot dispatches on the
+    top-level --device: the card by default, `cpu` for the plain
+    versions) and the host-sync/async hygiene and dataflow passes."""
+    if args.audit_cmd == "kernels":
+        return _audit_kernels(args)
+    if args.audit_cmd == "dataflow":
+        return _audit_dataflow(args)
+    if args.audit_cmd == "all":
+        return _audit_all(args)
+    return _audit_hygiene(args)
+
+
+def _pkg_root() -> str:
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _audit_rel() -> str:
+    """Diagnostic paths are relative to the checkout holding the package,
+    whatever the working directory: the baseline's keys stay stable."""
+    return os.path.dirname(_pkg_root())
+
+
+def _audit_kernels(args) -> int:
+    """Run every registered hot dispatch and hold the run to the pinned
+    launch contract: in-place writes, kept inputs, output dtypes and
+    devices, kernel builds across tiers, the declared host knobs, and on
+    the card no upload inside a warm dispatch.
+
+    Exit contract: 0 = contract holds, 1 = violations or contract drift
+    (or no card without --device cpu: ``error: ...``), 2 = contract file
+    missing/unreadable (run with --update to create)."""
+    from ..analysis.auditor import (audit_kernels, contract_diff,
+                                    default_contract_path, render_contract)
+    contract_path = args.contract or default_contract_path()
+    report = audit_kernels(device=args.device)
+    for v in report.violations:
+        print(f"audit: VIOLATION {v}", file=sys.stderr)
+    if report["_host_traffic"] != "measured":
+        print(f"audit: host traffic {report['_host_traffic']}",
+              file=sys.stderr)
+    if args.update:
+        if report.violations:
+            print("audit: refusing to pin a contract with live "
+                  "violations", file=sys.stderr)
+            return 1
+        with open(contract_path, "w", encoding="utf-8") as f:
+            f.write(render_contract(report))
+        print(f"audit: contract written to {contract_path}")
+        return 0
+    try:
+        with open(contract_path, encoding="utf-8") as f:
+            pinned = json.load(f)
+    except (OSError, ValueError) as e:
+        print(f"audit: cannot read contract file {contract_path}: {e}\n"
+              f"       (generate it with `fleet audit kernels --update`)",
+              file=sys.stderr)
+        return 2
+    drift = contract_diff(report, pinned)
+    for d in drift:
+        print(f"audit: CONTRACT DRIFT {d}", file=sys.stderr)
+    if report.violations or drift:
+        print(f"audit: {len(report.violations)} violation(s), "
+              f"{len(drift)} contract drift(s). If the change is "
+              f"intentional, regenerate with `fleet audit kernels "
+              f"--update` and review the golden diff.", file=sys.stderr)
+        return 1
+    n = sum(len(k["tiers"]) for k in report["kernels"].values())
+    print(f"launch contract holds: {len(report['kernels'])} dispatch(es) "
+          f"x {n} case(s) on {report['_device']}, 0 violations, 0 drift")
+    return 0
+
+
+def _audit_baseline(diags, args):
+    """Accepted-findings ledger plumbing shared by hygiene, dataflow and
+    the `all` aggregate. ``--update-baseline`` regenerates the ledger
+    from the current findings; ``--baseline FILE`` suppresses accepted
+    ones (count-capped per rule+path+function, stale entries reported).
+
+    Returns ``(kept, forced_exit)`` — ``forced_exit`` is None unless the
+    baseline itself settles the run: 0 after a write, 2 when the ledger
+    is unreadable."""
+    from ..analysis import (apply_baseline, default_baseline_path,
+                            load_baseline, write_baseline)
+    path = getattr(args, "baseline", None)
+    if getattr(args, "update_baseline", False):
+        path = path or default_baseline_path()
+        b = write_baseline(diags, path)
+        print(f"audit: baseline written to {path} "
+              f"({sum(b.entries.values())} accepted finding(s))")
+        return [], 0
+    if not path:
+        return diags, None
+    try:
+        base = load_baseline(path)
+    except (OSError, ValueError) as e:
+        print(f"audit: cannot read baseline {path}: {e}", file=sys.stderr)
+        return diags, 2
+    kept, suppressed, stale = apply_baseline(diags, base)
+    if suppressed:
+        print(f"audit: {suppressed} accepted finding(s) suppressed by "
+              f"{path}", file=sys.stderr)
+    for rule, p, fn in stale:
+        print(f"audit: stale baseline entry {rule} {p}:"
+              f"{fn or '<module>'} — the code it excused is gone; drop "
+              f"it (--update-baseline)", file=sys.stderr)
+    return kept, None
+
+
+def _emit_audit(diags, args, *, tool: str, label: str) -> int:
+    """Shared tail of the source-analysis audits: render in the chosen
+    format and apply the exit contract (0 clean, 1 findings at the
+    gating severity)."""
+    from ..lint import Severity, severity_counts
+    errors, warnings = severity_counts(diags)
+    failing = bool(errors or (args.strict and warnings))
+    if args.format == "json":
+        print(json.dumps({
+            "ok": not failing, "errors": errors, "warnings": warnings,
+            "diagnostics": [d.to_dict() for d in diags]}, indent=2))
+        return 1 if failing else 0
+    if args.format == "sarif":
+        from ..lint.sarif import to_sarif
+        print(json.dumps(to_sarif(diags, tool=tool), indent=2))
+        return 1 if failing else 0
+    for d in diags:
+        stream = sys.stderr if d.severity is Severity.ERROR else sys.stdout
+        print(d.format(), file=stream)
+    if failing:
+        print(f"{label}: {errors} error(s), {warnings} warning(s)",
+              file=sys.stderr)
+        return 1
+    print(f"{label} clean ({errors} error(s), {warnings} warning(s))")
+    return 0
+
+
+def _audit_hygiene(args) -> int:
+    """Run the FJ001-FJ006 hygiene rules over solver/ and cp/ (or
+    explicit paths). Exit 0 = clean (warnings allowed unless --strict),
+    1 = findings at the gating severity, 2 = unreadable baseline."""
+    from ..analysis import hygiene_lint_paths
+    roots = args.paths or [os.path.join(_pkg_root(), "solver"),
+                           os.path.join(_pkg_root(), "cp")]
+    diags = hygiene_lint_paths(roots, rel_to=_audit_rel())
+    diags, forced = _audit_baseline(diags, args)
+    if forced is not None:
+        return forced
+    return _emit_audit(diags, args, tool="fleet-audit-hygiene",
+                       label="hygiene")
+
+
+def _audit_dataflow(args) -> int:
+    """Run the FJ007, FJ008 and FJ010 interprocedural rules over the whole
+    package (or explicit paths): host views read after an in-place write,
+    tensors reaching host control flow and deep host syncs under hot
+    dispatches. Exit 0 = clean, 1 = findings at the gating severity, 2 =
+    internal error (parse failure, unreadable baseline)."""
+    from ..analysis import dataflow_lint_paths
+    roots = args.paths or [_pkg_root()]
+    try:
+        diags = dataflow_lint_paths(roots, rel_to=_audit_rel())
+    except (OSError, SyntaxError, RecursionError) as e:
+        print(f"audit: dataflow pass failed: {e}", file=sys.stderr)
+        return 2
+    diags, forced = _audit_baseline(diags, args)
+    if forced is not None:
+        return forced
+    return _emit_audit(diags, args, tool="fleet-audit-dataflow",
+                       label="dataflow")
+
+
+def _kernel_audit_diags(args):
+    """Run the launch-contract auditor and express its outcome as
+    Diagnostic records so `fleet audit all` can merge all three passes
+    into one report / one SARIF document. Returns ``(diags,
+    internal_error)`` — internal_error mirrors _audit_kernels' exit-2
+    leg. A missing card is not an internal error: DeviceUnavailable
+    propagates (``error: ...``, exit 1)."""
+    from ..lint.diagnostics import Diagnostic, Severity
+    diags, internal = [], False
+    try:
+        from ..analysis.auditor import (audit_kernels, contract_diff,
+                                        default_contract_path)
+        contract_path = getattr(args, "contract", None) \
+            or default_contract_path()
+        report = audit_kernels(device=args.device)
+        for v in report.violations:
+            diags.append(Diagnostic(
+                code="FK001", severity=Severity.ERROR, message=str(v),
+                rule="launch-contract-violation", stage="audit-kernels"))
+        try:
+            with open(contract_path, encoding="utf-8") as f:
+                pinned = json.load(f)
+        except (OSError, ValueError) as e:
+            print(f"audit: cannot read contract file {contract_path}: "
+                  f"{e}", file=sys.stderr)
+            return diags, True
+        for d in contract_diff(report, pinned):
+            diags.append(Diagnostic(
+                code="FK002", severity=Severity.ERROR, message=str(d),
+                rule="launch-contract-drift", stage="audit-kernels",
+                file=os.path.relpath(contract_path, _audit_rel()),
+                hint="if intentional: fleet audit kernels --update"))
+    except SolverError:
+        raise
+    except Exception as e:  # a dispatch that cannot run at all
+        print(f"audit: kernels pass failed: {e}", file=sys.stderr)
+        internal = True
+    return diags, internal
+
+
+def _audit_all(args) -> int:
+    """Aggregate gate: kernels + hygiene + dataflow in one invocation
+    with one merged exit contract (0 = every pass clean, 1 = findings at
+    the gating severity, 2 = any pass hit an internal error) and — under
+    --format sarif — ONE combined SARIF document, one run per pass."""
+    from ..analysis import dataflow_lint_paths, hygiene_lint_paths
+    from ..lint import Severity, severity_counts
+    pkg_root = _pkg_root()
+
+    kdiags, internal_error = _kernel_audit_diags(args)
+    hdiags = hygiene_lint_paths([os.path.join(pkg_root, "solver"),
+                                 os.path.join(pkg_root, "cp")],
+                                rel_to=_audit_rel())
+    try:
+        ddiags = dataflow_lint_paths([pkg_root], rel_to=_audit_rel())
+    except (OSError, SyntaxError, RecursionError) as e:
+        print(f"audit: dataflow pass failed: {e}", file=sys.stderr)
+        ddiags, internal_error = [], True
+
+    diags, forced = _audit_baseline(kdiags + hdiags + ddiags, args)
+    if forced is not None:
+        return forced
+
+    errors, warnings = severity_counts(diags)
+    failing = bool(errors or (args.strict and warnings))
+    exit_code = 2 if internal_error else (1 if failing else 0)
+    if args.format == "json":
+        print(json.dumps({
+            "ok": exit_code == 0, "errors": errors, "warnings": warnings,
+            "internal_error": internal_error,
+            "diagnostics": [d.to_dict() for d in diags]}, indent=2))
+        return exit_code
+    if args.format == "sarif":
+        from ..lint.sarif import to_sarif
+        kset = {id(d) for d in kdiags}
+        hset = {id(d) for d in hdiags}
+        doc = to_sarif([d for d in diags if id(d) in kset],
+                       tool="fleet-audit-kernels")
+        for part, tool in (
+                ([d for d in diags if id(d) in hset],
+                 "fleet-audit-hygiene"),
+                ([d for d in diags if id(d) not in kset
+                  and id(d) not in hset], "fleet-audit-dataflow")):
+            doc["runs"] += to_sarif(part, tool=tool)["runs"]
+        print(json.dumps(doc, indent=2))
+        return exit_code
+    for d in diags:
+        stream = sys.stderr if d.severity is Severity.ERROR else sys.stdout
+        print(d.format(), file=stream)
+    if exit_code:
+        print(f"audit all: {errors} error(s), {warnings} warning(s)"
+              + (", internal error" if internal_error else ""),
+              file=sys.stderr)
+        return exit_code
+    print(f"audit all clean: kernels + hygiene + dataflow "
+          f"({errors} error(s), {warnings} warning(s))")
+    return 0
 
 
 def cmd_solve(args) -> int:
@@ -1935,6 +2222,62 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--strict", action="store_true",
                    help="treat warnings as errors (exit 1)")
     p.set_defaults(fn=cmd_lint)
+
+    p = sub.add_parser("audit", help="static analysis of the CODEBASE: "
+                       "launch contracts of the hot dispatches (run on "
+                       "--device) + host-sync/async hygiene and dataflow")
+    auds = p.add_subparsers(dest="audit_cmd", required=True)
+    q = auds.add_parser("kernels", help="run the hot dispatches and check "
+                        "their in-place/keep/upload/build contracts against "
+                        "the pinned launch contract")
+    q.add_argument("--contract",
+                   help="contract file (default: fleetflow_tpu_torch/"
+                        "analysis/launch_contract.json)")
+    q.add_argument("--update", action="store_true",
+                   help="regenerate the contract file from this tree "
+                        "(review the diff: every change is a host knob, an "
+                        "in-place write or an output)")
+    q.set_defaults(fn=cmd_audit)
+    q = auds.add_parser("hygiene", help="FJ001+ AST rules over solver/ "
+                        "and cp/ (host syncs in hot dispatches, blocking "
+                        "calls in async handlers, awaits under the store "
+                        "lock)")
+    q.add_argument("paths", nargs="*",
+                   help="files/dirs to lint (default: solver/ and cp/)")
+    q.add_argument("--format", choices=["text", "json", "sarif"],
+                   default="text")
+    q.add_argument("--strict", action="store_true",
+                   help="treat warnings as errors (exit 1)")
+    _baseline_args(q)
+    q.set_defaults(fn=cmd_audit)
+    q = auds.add_parser("dataflow", help="FJ007/FJ008/FJ010 "
+                        "interprocedural rules over the whole package: "
+                        "host views read after an in-place write, tensors "
+                        "in host control flow and deep host syncs under "
+                        "hot dispatches")
+    q.add_argument("paths", nargs="*",
+                   help="files/dirs to analyze (default: the whole "
+                        "fleetflow_tpu_torch package, so cross-module "
+                        "calls resolve)")
+    q.add_argument("--format", choices=["text", "json", "sarif"],
+                   default="text")
+    q.add_argument("--strict", action="store_true",
+                   help="treat warnings as errors (exit 1)")
+    _baseline_args(q)
+    q.set_defaults(fn=cmd_audit)
+    q = auds.add_parser("all", help="aggregate gate: kernels + hygiene + "
+                        "dataflow in one invocation, one merged exit "
+                        "contract (0 clean / 1 findings / 2 internal "
+                        "error) and one combined SARIF document")
+    q.add_argument("--format", choices=["text", "json", "sarif"],
+                   default="text")
+    q.add_argument("--strict", action="store_true",
+                   help="treat warnings as errors (exit 1)")
+    q.add_argument("--contract",
+                   help="launch contract file (default: fleetflow_tpu_"
+                        "torch/analysis/launch_contract.json)")
+    _baseline_args(q)
+    q.set_defaults(fn=cmd_audit)
 
     p = sub.add_parser("validate", help="load config + check placements "
                                         "(delegates to `fleet lint`)")

@@ -485,7 +485,7 @@ class TestParser:
     def test_help_and_missing_command(self, capsys):
         out = _help(PORT_ROOT, ["--help"], capsys)
         assert "fleetflow-tpu" in out and "--device" in out
-        assert "audit" not in out
+        assert "audit" in out
         with pytest.raises(SystemExit):
             cli(PORT_ROOT).main([])
 
@@ -507,6 +507,16 @@ class TestParser:
         assert "--host" in port and "--host" not in ref
         port_flags = set(re.findall(r"--[a-z-]+", port))
         assert port_flags - set(re.findall(r"--[a-z-]+", ref)) == {"--host"}
+
+    @pytest.mark.parametrize("verb", ["kernels", "hygiene", "dataflow",
+                                      "all"])
+    def test_audit_flags_are_the_references(self, verb, capsys):
+        """The audit verbs take the reference's flags but
+        `--allow-skips`: no contract needs more devices than one card."""
+        port = _help(PORT_ROOT, ["audit", verb, "--help"], capsys)
+        ref = _help(REF_ROOT, ["audit", verb, "--help"], capsys)
+        flags = set(re.findall(r"--[a-z-]+", ref)) - {"--allow-skips"}
+        assert set(re.findall(r"--[a-z-]+", port)) == flags
 
     def test_solve_help_names_the_gpu(self, capsys):
         out = _help(PORT_ROOT, ["--help"], capsys)

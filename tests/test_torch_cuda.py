@@ -1244,3 +1244,28 @@ def test_k7_launcher_reused_then_rebuilt_after_a_merge(dev):
     moved += sweeps(4, [0.1, 0.13])
     assert _ext.LAUNCHES["k7_sharded_sweep"] == 8
     assert moved > 0
+
+
+def test_launch_audit_on_the_card(dev):
+    """The launch audit (analysis/auditor.audit_kernels) on the card at
+    the audit tiers: no violation — no upload inside a warm dispatch's
+    profiler range, the merges write their planes in place, the seeds
+    are kept, nothing is built at a later tier — the report equal to the
+    pinned golden, and every dispatch's host traffic measured."""
+    import json
+
+    from fleetflow_tpu_torch.analysis.auditor import (audit_kernels,
+                                                      contract_diff,
+                                                      default_contract_path)
+    torch.use_deterministic_algorithms(False)
+    report = audit_kernels(device=dev)
+    assert report.violations == []
+    with open(default_contract_path(), encoding="utf-8") as f:
+        assert contract_diff(report, json.load(f)) == []
+    for name, entry in report["kernels"].items():
+        for tier, rec in entry["tiers"].items():
+            t = rec["host_traffic"]
+            assert t is not None and t["ranges"] == 1 and t["ops"] > 0, \
+                (name, tier)
+            if not name.endswith(".merge"):
+                assert t["h2d"] == [], (name, tier)

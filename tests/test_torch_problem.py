@@ -288,7 +288,8 @@ class TestBoundaries:
         control plane and its wire, the runtime and its unit generators,
         lint, the cloud providers, the registry with its aggregation, the
         build subsystem, the node agent, the chaos world, the daemon, the
-        CLI and the MCP server among them, their ``__main__`` modules
+        CLI, the MCP server, the static-analysis package and the
+        launch-contract registry among them, their ``__main__`` modules
         included, which import without running) and chip_smoke.py
         import in a fresh interpreter without
         jax or fleetflow_tpu entering sys.modules."""
@@ -331,7 +332,10 @@ class TestBoundaries:
             "'daemon.daemon', 'daemon.health', 'daemon.pidfile', "
             "'daemon.web', 'cli', 'cli.__main__', 'cli.client', "
             "'cli.device_flow', 'cli.main', 'cli.self_update', "
-            "'cli.utils', 'cli.wizard', 'mcp', 'mcp.server')}\n"
+            "'cli.utils', 'cli.wizard', 'mcp', 'mcp.server', 'analysis', "
+            "'analysis.auditor', 'analysis.baseline', 'analysis.callgraph', "
+            "'analysis.dataflow', 'analysis.hygiene', 'analysis.jitspec', "
+            "'solver.contracts')}\n"
             "print(len(mods), bad, sorted(obs - set(mods)))\n"
             "sys.exit(1 if bad or len(mods) < 15 or obs - set(mods) "
             "else 0)\n")
@@ -340,6 +344,23 @@ class TestBoundaries:
         out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                              capture_output=True, text=True, timeout=120)
         assert out.returncode == 0, out.stdout + out.stderr
+
+    def test_analysis_imports_no_torch(self):
+        """`import fleetflow_tpu_torch.analysis` (the source passes) pulls
+        neither torch nor numpy, as the reference's pulls no jax; the
+        auditor's names load on first use."""
+        code = ("import sys\n"
+                "import fleetflow_tpu_torch.analysis as a\n"
+                "a.hygiene_lint_source('x = 1\\n')\n"
+                "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+                "('torch', 'numpy', 'jax', 'fleetflow_tpu')))\n"
+                "print(callable(a.audit_kernels), 'torch' in sys.modules)\n")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(REPO)
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.splitlines() == ["[]", "True False"]
 
     def test_solver_exports_every_counterpart(self):
         """The port's solver package exports every name the reference's
