@@ -139,6 +139,28 @@ each of which fails the run:
      on these stagings, from each one's winner;
  12. ``[dryrun]``: ``entry.dryrun_multichip(8)`` on 8 positions of the
      card (K1 and K3 for the chain layout, K7 for the two sharded ones);
+     ``[ranks]``, after ``[dryrun]``: 4 worker processes (this script
+     with ``--ranks-worker DIR``), each a rank of a gloo process group on
+     the card (``parallel.init_multihost(device="cuda:0",
+     backend="gloo")``), their launches read back through
+     FLEET_LAUNCH_DIR: a 2x2 tempered ``anneal_sharded`` of the sharded
+     fleet across the ranks, 8 sweeps from a one-card 2x2 K7 run's
+     initial state with its recorded draws, the assignment and every
+     replica plane bit-equal to that run's, each sweep's event ms by
+     entry point and collective; ``solve_sharded`` over the 2x2 ranks,
+     cold and three warm bursts (one node down, 5% down, 64 arrivals into
+     phantom rows), 0 violations, nothing on a dead node, one assignment
+     on every rank, no counted upload and no host-to-device copy in a
+     warm ``fleet.sharded`` range but gloo's pinned staging, each rank's
+     peak allocation beside its shard's ``per_device_bytes``; at the
+     headline fleet ``solve(mesh=parallel.chain_mesh(), chains=8)`` and
+     ``GpuSolverScheduler(mesh=)`` cold and one node down equal to the
+     one-card solves bit for bit; K7's cross-rank entry points (elect,
+     apply, reduce) must launch, with K3, K4 and K1, and are held against
+     their plain versions on CPU copies of every 2x2 position's inputs
+     (max |err| 0) and timed; NCCL is not exercised (one card); the
+     phase's seconds against its 90 s budget
+     (``fleetflow_tpu_torch/tools/ranks_probe.py`` runs it alone);
      ``[heal]``, after the other phases: the control plane's
      self-healing loop at ``[cp]``'s width. Both stages solved and
      committed on a fresh store, deployed on 1,000 in-process agents
@@ -263,7 +285,8 @@ each of which fails the run:
  13. print the per-kernel JSON line (launches also by fleet size; K1 and
      K2 with each size's ms and their phases, K6 with its microseconds a
      step, K6 and K7 with their phases, K7 with each staging's device
-     ms), the
+     ms, K7's three cross-rank entry points with the [ranks] workers'
+     launches), the
      card line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -297,6 +320,7 @@ import math
 import os
 import random
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -314,7 +338,8 @@ ARRIVALS = 64              # id-free services arriving into phantom rows
 ROLLING_KILLS = 8
 BURSTS = ("kill1", "arrive", "kill3", "depart", "arrive", "kill3")
 KERNEL_NAMES = ("k1_sweep", "k2_prerepair", "k3_rebuild", "k4_greedy",
-                "k5_subsolve", "k6_greedy_scan", "k7_sharded_sweep")
+                "k5_subsolve", "k6_greedy_scan", "k7_sharded_sweep",
+                "k7_rank_elect", "k7_rank_apply", "k7_rank_reduce")
 # the sharded phases' fleets: the reference bench's sharded child (ragged,
 # so it pads) and its XL record (docs/profiles/r5-xl-sharded.md)
 SHARDED_SHAPE = (9_997, 1_000)
@@ -3323,6 +3348,622 @@ def run_dryrun_phase(torch, _ext, dryrun_multichip):
                          ("k1_sweep", "k3_rebuild", "k7_sharded_sweep"),
                          off=("k2_prerepair", "k4_greedy", "k5_subsolve",
                               "k6_greedy_scan"), size=(64, 8))
+
+
+# -- [ranks]: the ranks of a process group sharing the card --------------------
+
+RANKS_N = 4                # worker processes, each a rank on the one card
+RANKS_BUDGET_S = 90.0      # the phase's time on the card's host
+RANKS_RENDEZVOUS_S = 60.0  # init_multihost's rendezvous timeout
+RANKS_TIMEOUT_S = 300.0    # the workers' whole run
+RANKS_SWEEPS = 8           # check 1: sweeps of the 2x2 tempered anneal
+RANKS_CHAINS = 8           # check 3: solve(mesh=) chains
+RANKS_SCHED_CHAINS = 4     # check 3: the scheduler's chains, one a rank
+RANKS_DIR = os.path.join("fleetflow_tpu_torch", "_ext_build", "ranks")
+RANK_ENTRIES = ("k7_rank_elect", "k7_rank_apply", "k7_rank_reduce")
+RANK_REPLACES = {"k7_rank_elect": "fleetflow_tpu/solver/sharded.py:468",
+                 "k7_rank_apply": "fleetflow_tpu/solver/sharded.py:487",
+                 "k7_rank_reduce": "fleetflow_tpu/solver/sharded.py:497"}
+RANK_ENV = ("FLEET_COORD", "FLEET_NUM_PROCS", "FLEET_PROC_ID", "RANK",
+            "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK")
+
+
+class RecordedDraws:
+    """A draw object that records what the one-card run drew (with the hot
+    masks it was handed), or replays such a record on a rank: the rank's
+    position's hot mask must be the recorded one (it walks the recorded
+    path)."""
+
+    def __init__(self, inner=None, record=None, position=None, device=None):
+        self.inner, self.position, self.device = inner, position, device
+        self.props = [] if record is None else list(record["proposals"])
+        self.swaps = [] if record is None else list(record["exchange"])
+
+    def proposals(self, sweep, hot, N, M):
+        if self.inner is not None:
+            out = self.inner.proposals(sweep, hot, N, M)
+            self.props.append((hot.cpu(), *(x.cpu() for x in out)))
+            return out
+        want_hot, s, b, u = self.props.pop(0)
+        r, d = self.position
+        if not bool((hot[r, d].cpu() == want_hot[r, d]).all()):
+            raise AssertionError(f"[ranks] sweep {sweep}: position ({r}, "
+                                 f"{d}) left the recorded path")
+        return tuple(x.to(self.device) for x in (s, b, u))
+
+    def exchange(self, R, device):
+        if self.inner is not None:
+            u = self.inner.exchange(R, device)
+            self.swaps.append(u.cpu())
+            return u
+        return self.swaps.pop(0).to(device)
+
+    def record(self) -> dict:
+        return {"proposals": self.props, "exchange": self.swaps}
+
+
+def to_device(torch, obj, dev):
+    """A TorchProblem or ChainState with its tensors on `dev`."""
+    if isinstance(obj, tuple):
+        return type(obj)(*(t.to(dev) for t in obj))
+    from fleetflow_tpu_torch.solver.problem import TENSOR_FIELDS
+    return dataclasses.replace(obj, **{
+        n: t.to(dev) for n, t in zip(TENSOR_FIELDS, obj.tensors())
+        if t is not None})
+
+
+def ranks_worker(directory: str) -> int:
+    """One rank of [ranks] (``chip_smoke.py --ranks-worker DIR`` with the
+    FLEET_* rendezvous in its environment): joins the group on the card
+    with gloo, finds the kernels built, runs the three checks' main path
+    and writes DIR/result-<rank>.pt; its launch counts go to
+    FLEET_LAUNCH_DIR at its exit."""
+    import numpy as np
+    import torch
+
+    from fleetflow_tpu_torch import _ext, parallel
+    from fleetflow_tpu_torch.sched import GpuSolverScheduler
+    from fleetflow_tpu_torch.solver import collectives, sharded, sharded_ranks
+    from fleetflow_tpu_torch.solver.api import solve
+    from fleetflow_tpu_torch.solver.resident import ProblemDelta
+
+    t_start = time.perf_counter()
+    case = torch.load(os.path.join(directory, "case.pt"), weights_only=False)
+    dev = torch.device(case["device"])
+    parallel.init_multihost(device=dev, backend="gloo",
+                            timeout=RANKS_RENDEZVOUS_S)
+    w = parallel.world()
+    build_s = _ext.build() if dev.type == "cuda" else 0.0
+    out = {"rank": w.rank, "build_s": build_s, "steps_ms": {},
+           "init_s": time.perf_counter() - t_start}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["steps_ms"][name] = (time.perf_counter() - t0) * 1e3
+        return res
+
+    # 1. the 2x2 tempered anneal from the one-card run's state and draws
+    mesh = sharded.tempering_mesh(2, 2)
+    r, d = mesh.position
+    a = case["anneal"]
+    lp = sharded.shard_problem(to_device(torch, a["prob"], dev), mesh)
+    S_loc = lp.S
+    one = a["init_state"]
+    st = type(one)(one.assignment[r:r + 1, d * S_loc:(d + 1) * S_loc]
+                   .to(dev).contiguous(),
+                   *(t[r:r + 1].to(dev).contiguous() for t in one[1:]))
+    sharded_ranks.SWEEP_EVENTS = events = []
+    collectives.reset_stats()
+    try:
+        res = step("anneal", lambda: sharded.anneal_sharded(
+            lp, None, draws=RecordedDraws(record=a["record"],
+                                          position=(r, d), device=dev),
+            init_state=st, mesh=mesh, steps=RANKS_SWEEPS, t0=0.1, block=4,
+            n_real=a["n_real"], return_stats=True))
+    finally:
+        sharded_ranks.SWEEP_EVENTS = None
+    torch.cuda.synchronize()
+    sweeps = [{name: marks[i - 1][1].elapsed_time(ev)
+               for i, (name, ev) in enumerate(marks) if i}
+              for marks in events]
+    out["anneal"] = dict(assignment=res.assignment.cpu(),
+                         planes=[t.cpu() for t in st], sweeps=sweeps,
+                         swaps=(res.swap_attempts, int(res.swap_accepts)),
+                         collectives={k: list(v) for k, v
+                                      in collectives.STATS.items()})
+
+    # 2. solve_sharded cold and three warm bursts
+    pt = case["fleet"]
+    rp = sharded.ShardedResident(pt, mesh=mesh)
+    solves = []
+
+    def record(label, res, pt_now):
+        solves.append(dict(
+            label=label, assignment=res.assignment, violations=res.violations,
+            pre=res.pre_repair_violations, moves=res.moves_repaired,
+            h2d=res.warm_h2d_copies, sweeps=res.steps,
+            on_dead=int((~pt_now.node_valid[res.assignment]).sum()),
+            device=res.device, tempering=res.tempering,
+            timings=dict(res.timings_ms)))
+
+    prev = step("sharded_cold", lambda: sharded.solve_sharded(
+        pt, resident=rp, steps=64, block=4, seed=0))
+    record("cold", prev, pt)
+    rng = np.random.default_rng(23)
+    for i, kind in enumerate(("kill1", "kill5pct", "arrive64")):
+        valid = pt.node_valid.copy()
+        if kind == "kill1":
+            valid[busiest(np, prev.assignment, valid, 1)] = False
+            cur, delta = dataclasses.replace(pt, node_valid=valid), \
+                ProblemDelta(node_valid=valid.copy())
+        elif kind == "kill5pct":
+            live = np.flatnonzero(valid)
+            valid[rng.choice(live, int(0.05 * pt.N), replace=False)] = False
+            cur, delta = dataclasses.replace(pt, node_valid=valid), \
+                ProblemDelta(node_valid=valid.copy())
+        else:
+            cur, d_kw = with_arrivals(np, pt, ARRIVALS, rng)
+            delta = ProblemDelta(**d_kw)
+            if not rp.compatible(cur, delta):
+                raise AssertionError("[ranks] the arrivals do not fit the "
+                                     "phantom rows")
+        rp.apply_delta(cur, delta)
+        prev = step(f"sharded_{kind}", lambda cur=cur: sharded.solve_sharded(
+            cur, resident=rp, resident_warm=True, steps=64, block=4,
+            seed=1 + i))
+        record(kind, prev, cur)
+        pt = cur
+    # one more one-node burst under torch.profiler on rank 0 (its warm
+    # dispatch range read for host-to-device copies)
+    valid = pt.node_valid.copy()
+    valid[busiest(np, prev.assignment, valid, 1)] = False
+    cur = dataclasses.replace(pt, node_valid=valid)
+    rp.apply_delta(cur, ProblemDelta(node_valid=valid.copy()))
+
+    def burst():
+        return sharded.solve_sharded(cur, resident=rp, resident_warm=True,
+                                     steps=64, block=4, seed=9)
+
+    if w.rank == 0:
+        prev, prof = auditor().profiled(burst, dev)
+        seen = auditor().probe_seen(prof, sharded.SHARDED_RANGE)
+        traffic = auditor().host_traffic_in_range(prof, sharded.SHARDED_RANGE)
+        out["profiled"] = dict(seen=None if seen is None else seen[0],
+                               ranges=traffic["ranges"], ops=traffic["ops"],
+                               h2d=traffic["h2d"])
+    else:
+        prev = burst()
+    record("profiled", prev, cur)
+    out["sharded"] = solves
+    out["memory"] = dict(
+        max_allocated=torch.cuda.max_memory_allocated(dev),
+        per_device_bytes=sum(sharded.per_device_bytes(
+            rp.prob, rp.mesh, state=True).values()))
+
+    # 3. the chain mesh at the headline: solve(mesh=), then the scheduler
+    hl = case["headline"]
+    mesh4 = parallel.chain_mesh()
+    res = step("chain_solve", lambda: solve(hl, mesh=mesh4,
+                                            chains=RANKS_CHAINS, seed=0))
+    out["chain"] = dict(assignment=res.assignment, stats=res.stats,
+                        soft=res.soft, steps=res.steps, device=res.device,
+                        accepted=res.accepted_moves)
+    sched = GpuSolverScheduler(mesh=mesh4, chains=RANKS_SCHED_CHAINS)
+    first = step("sched_cold", lambda: sched.place(hl, stage="t0"))
+    valid = hl.node_valid.copy()
+    valid[busiest(np, first.raw, valid, 1)] = False
+    again = step("sched_kill1", lambda: sched.reschedule(
+        dataclasses.replace(hl, node_valid=valid),
+        delta=ProblemDelta(node_valid=valid.copy()), stage="t0"))
+    out["sched"] = [dict(raw=p.raw, feasible=p.feasible, soft=p.soft,
+                         source=p.source, violations=p.violations)
+                    for p in (first, again)]
+    out["seconds"] = time.perf_counter() - t_start
+    torch.cuda.synchronize()
+    path = os.path.join(directory, f"result-{w.rank}.pt")
+    torch.save(out, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    parallel.shutdown()
+    return 0
+
+
+def rank_entry_bytes(prob, M: int, T: int, G: int, Gc1: int, D: int,
+                     applied: int, touched: int) -> dict:
+    """(bytes, operations) each cross-rank entry point must move and do
+    for one position of this run (`applied` moves touching `touched`
+    nodes): elect reads its M proposals' rows (as a K7 proposal) and the
+    topology counts and writes (4, M) ints; apply reads the (4, M) ints
+    and the slots of the targets, and for each applied move its demand
+    and id rows, writes its row and the touched nodes' partial rows and
+    integer deltas; reduce reads the summed deltas and, for each touched
+    node, the D gathered partials, writes the planes the deltas moved and
+    resets the slots, the partial and the deltas."""
+    K, Kc = prob.conflict_ids.shape[1], prob.coloc_ids.shape[1]
+    N = prob.N
+    per_prop = sweep_prop_bytes(K, Kc, prob.preferred is not None)
+    elect = (M * per_prop + 4.0 * T + 16.0 * M, M * 120.0)
+    apply = (16.0 * M + 4.0 * M
+             + applied * (12.0 + 4.0 * (K + Kc) + 4.0)
+             + touched * (12.0 + 4.0 * (K + Kc + 2)), applied * 24.0)
+    delta_ints = N * G + N * Gc1 + T + N
+    reduce = (4.0 * delta_ints + touched * (12.0 * D + 24.0)
+              + 2 * 4.0 * applied * (K + Kc + 2) + 4.0 * N + 12.0 * N,
+              touched * 3.0 * D)
+    return dict(zip(RANK_ENTRIES, (elect, apply, reduce)))
+
+
+def check_rank_entries(torch, mods, a: dict, dev) -> dict:
+    """K7's cross-rank entry points against their plain versions at the
+    shapes [ranks]' main path gives them: every position of the 2x2 mesh
+    over the sharded fleet, its shard and its replica's state from the
+    one-card run's initial state, the recorded draws of its first three
+    sweeps, the collectives done by hand (the slots' MIN over a
+    replica's shards, the partials in shard order, the deltas summed).
+    Each entry point's outputs must equal its plain version's on CPU
+    copies of the same inputs (max |err| 0); each is timed with CUDA
+    events (and its plain version on the card) on position (0, 0)'s
+    inputs of the first sweep. Returns each entry point's record."""
+    sharded, sr, anneal = mods
+    prob = to_device(torch, a["prob"], dev)
+    R = D = 2
+    S_loc = prob.S // D
+    one = a["init_state"]
+    M = max(8, min(256, S_loc // 2))
+    both = {}
+    for r in range(R):
+        for d in range(D):
+            pos = sr.RankPosition(r, d, R, D, prob.S, d * S_loc)
+            lp = sr.shard_rows(dataclasses.replace(prob, n_real=a["n_real"]),
+                               pos)
+            st = anneal.ChainState(
+                one.assignment[r:r + 1, d * S_loc:(d + 1) * S_loc]
+                .to(dev).contiguous(),
+                *(t[r:r + 1].to(dev).contiguous() for t in one[1:]))
+            st_c = anneal.ChainState(*(t.cpu() for t in st))
+            lp_c = to_device(torch, lp, "cpu")
+            both[r, d] = (pos, (lp, st, sr.rank_scratch(lp, st, M)),
+                          (lp_c, st_c, sr.rank_scratch(lp_c, st_c, M)))
+    err = {name: 0.0 for name in RANK_ENTRIES}
+    first = None
+    sched = sharded._Schedule(0.1, 1e-3, RANKS_SWEEPS, 1.3, R, True)
+    applied = touched = 0
+
+    def same(name, x, y):
+        if x.dtype.is_floating_point:
+            err[name] = max(err[name], max_err(torch, x.cpu(), y))
+        if not torch.equal(x.cpu(), y):
+            raise AssertionError(f"[ranks] {name} differs from its plain "
+                                 f"version: max |err| {max_err(torch, x.cpu(), y)}")
+
+    for i in range(3):
+        _hot, s_all, b_all, u_all = a["record"]["proposals"][i]
+        for (r, d), (pos, k, c) in both.items():
+            temp = sched.temps(i)[r]
+            args = (s_all[r, d].to(dev).contiguous(),
+                    b_all[r, d].to(dev).contiguous(),
+                    u_all[r, d].to(dev).contiguous())
+            if first is None:
+                first = dict(pos=pos, k=tuple(
+                    anneal.ChainState(*(t.clone() for t in x))
+                    if isinstance(x, anneal.ChainState) else x for x in k),
+                    args=args, temp=temp)
+            sr.sharded_elect(*k, pos, *args, temp)
+            sr.sharded_elect_plain(*c, pos, *(x.cpu() for x in args), temp)
+            same("k7_rank_elect", k[2].slots, c[2].slots)
+            same("k7_rank_elect", k[2].cand, c[2].cand)
+        for r in range(R):
+            for side in (1, 2):
+                slots = torch.stack([both[r, d][side][2].slots
+                                     for d in range(D)]).min(0).values
+                for d in range(D):
+                    both[r, d][side][2].slots.copy_(slots)
+        for (r, d), (pos, k, c) in both.items():
+            sr.sharded_apply(*k, pos)
+            sr.sharded_apply_plain(*c, pos)
+            for name in ("deltas", "partial", "applied"):
+                same("k7_rank_apply", getattr(k[2], name),
+                     getattr(c[2], name))
+            same("k7_rank_apply", k[1].assignment, c[1].assignment)
+            applied += int(c[2].applied[0])
+            N = prob.N
+            touched += int((c[2].deltas[-N:] > 0).sum())
+        for r in range(R):
+            for side in (1, 2):
+                parts = torch.stack([both[r, d][side][2].partial
+                                     for d in range(D)])
+                deltas = torch.stack([both[r, d][side][2].deltas
+                                      for d in range(D)]).sum(0)
+                for d in range(D):
+                    pos, lss = both[r, d][0], both[r, d][side]
+                    lss[2].deltas.copy_(deltas)
+                    (sr.sharded_reduce if side == 1
+                     else sr.sharded_reduce_plain)(*lss, pos, parts)
+        for (r, d), (pos, k, c) in both.items():
+            for x, y in zip(k[1], c[1]):
+                same("k7_rank_reduce", x, y)
+    if applied == 0:
+        raise AssertionError("[ranks] the entry points applied no move")
+
+    # timing on position (0, 0)'s first-sweep inputs, each entry point from
+    # the state the one before it leaves
+    pos, (lp, st0, _sc), args, temp = (first["pos"], first["k"],
+                                       first["args"], first["temp"])
+    gathered = torch.zeros((D, lp.N, 3), dtype=torch.float32, device=dev)
+
+    def fresh():
+        st = anneal.ChainState(*(t.clone() for t in st0))
+        return lp, st, sr.rank_scratch(lp, st, M)
+
+    def elected():
+        k = fresh()
+        sr.sharded_elect(*k, pos, *args, temp)
+        return k
+
+    def applied_():
+        k = elected()
+        sr.sharded_apply(*k, pos)
+        return k
+
+    recs = {}
+    runs = {
+        "k7_rank_elect": (lambda *k: sr.sharded_elect(*k, pos, *args, temp),
+                          lambda *k: sr.sharded_elect_plain(*k, pos, *args,
+                                                            temp), fresh),
+        "k7_rank_apply": (lambda *k: sr.sharded_apply(*k, pos),
+                          lambda *k: sr.sharded_apply_plain(*k, pos),
+                          elected),
+        "k7_rank_reduce": (lambda *k: sr.sharded_reduce(*k, pos, gathered),
+                           lambda *k: sr.sharded_reduce_plain(*k, pos,
+                                                              gathered),
+                           applied_),
+    }
+    per = rank_entry_bytes(lp, M, st0.topo.shape[-1], st0.used.shape[-1],
+                           st0.coloc.shape[-1], D,
+                           applied // (3 * R * D) or 1,
+                           touched // (3 * R * D) or 1)
+    for name, (kernel, plain, setup) in runs.items():
+        ms = cuda_ms(torch, kernel, setup=setup, reps=20)
+        plain_ms = cuda_ms(torch, plain, setup=setup, reps=5)
+        t_bytes, t_ops = per[name]
+        bound, by = bound_of(t_bytes, t_ops)
+        recs[name] = dict(
+            name=name, route="cuda",
+            source="fleetflow_tpu_torch/csrc/k7_sharded_sweep.cu",
+            replaces=RANK_REPLACES[name], max_abs_err=err[name], ms=ms,
+            plain_ms=plain_ms, library_ms=None, bytes=t_bytes, ops=t_ops)
+        print(f"[ranks] {name}: S/D {lp.S} (global {prob.S}), N {lp.N}, M "
+              f"{M}: 3 sweeps of every 2x2 position equal to the plain "
+              f"version on the CPU (max |err| {err[name]}); {ms:.4f} ms, "
+              f"plain on the card {plain_ms:.3f} ms, bound {bound:.3g} ms "
+              f"({by})", flush=True)
+    return recs
+
+
+def run_ranks_phase(torch, np, mods, lower, dev, card, pt_headline, recs):
+    """[ranks]: RANKS_N worker processes (this script with
+    --ranks-worker), each a rank of a gloo process group on the one card,
+    placing on it. (1) a 2x2 tempered anneal_sharded of the sharded fleet
+    across the ranks, RANKS_SWEEPS sweeps from the one-card 2x2 run's
+    initial state with its recorded draws: the assignment and every
+    replica plane bit-equal to that run's, each sweep's event ms by entry
+    point and collective; (2) solve_sharded over the 2x2 ranks, cold and
+    three warm bursts (one node down, 5% down, 64 arrivals into phantom
+    rows), each feasible with nothing on a dead node and no host repair,
+    every rank the same assignment, no counted upload in a warm dispatch
+    and no host-to-device copy in a warm fleet.sharded range but the
+    collectives' staging (rank 0 traced), each rank's peak allocation
+    beside its shard's per_device_bytes; (3) at the headline fleet,
+    solve(mesh=chain_mesh(), chains=8) equal bit for bit to the one-card
+    solve, and GpuSolverScheduler(mesh=) cold and one node down equal to
+    the one-card scheduler's (sub-solve off). Every rank's launches come
+    through FLEET_LAUNCH_DIR; the three cross-rank entry points, K3, K4
+    and K1 must launch. Then the entry points against their plain
+    versions (check_rank_entries). NCCL is not exercised: one card."""
+    (_ext, sharded, sr, problem, buckets, greedy, anneal, solve,
+     GpuSolverScheduler, verify, ProblemDelta) = mods
+    t_phase = time.perf_counter()
+    os.makedirs(RANKS_DIR, exist_ok=True)
+    launch_dir = os.path.join(RANKS_DIR, "launches")
+    for folder in (RANKS_DIR, launch_dir):
+        os.makedirs(folder, exist_ok=True)
+        for name in os.listdir(folder):
+            if name.endswith((".pt", ".json", ".tmp")):
+                os.remove(os.path.join(folder, name))
+    pt = sharded_fleet(lower, SHARDED_SHAPE)
+    # (1)'s one-card run: the partitioned seed over 2 shards, its state,
+    # its draws recorded
+    prob, orig = buckets.pad_problem(problem.prepare_problem(pt, dev), 2)
+    prob = dataclasses.replace(prob, n_real=orig)
+    seed = torch.tensor(buckets.pad_assignment(
+        greedy.partitioned_seed(pt, 2), prob.S, pt.node_valid), device=dev)
+    st = anneal.chain_states_from_assignment(
+        prob, seed.reshape(1, -1).expand(2, -1).contiguous())
+    init_state = anneal.ChainState(*(t.to("cpu", copy=True) for t in st))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    rec = RecordedDraws(inner=sharded.TorchDraws(gen))
+    one = sharded.anneal_sharded(
+        prob, None, draws=rec, init_state=st,
+        mesh=sharded.tempering_mesh(2, 2, devices=[dev] * 4),
+        steps=RANKS_SWEEPS, t0=0.1, block=4, return_stats=True)
+    want_anneal = (one.assignment.cpu(), [t.cpu() for t in st])
+    anneal_case = dict(prob=to_device(torch, prob, "cpu"), n_real=orig,
+                       init_state=init_state, record=rec.record())
+    # (3)'s one-card side
+    want_chain = solve(pt_headline, device=dev, chains=RANKS_CHAINS, seed=0)
+    with subsolve_off():
+        sched = GpuSolverScheduler(chains=RANKS_SCHED_CHAINS, device=dev)
+        first = sched.place(pt_headline, stage="t0")
+        valid = pt_headline.node_valid.copy()
+        valid[busiest(np, first.raw, valid, 1)] = False
+        again = sched.reschedule(
+            dataclasses.replace(pt_headline, node_valid=valid),
+            delta=ProblemDelta(node_valid=valid.copy()), stage="t0")
+    want_sched = (first, again)
+    torch.save(dict(anneal=anneal_case, fleet=pt, headline=pt_headline,
+                    device=str(dev)), os.path.join(RANKS_DIR, "case.pt"))
+    t_ready = time.perf_counter()
+
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k not in RANK_ENV}
+    env.update(FLEET_COORD=f"127.0.0.1:{port}",
+               FLEET_NUM_PROCS=str(RANKS_N), FLEET_LAUNCH_DIR=launch_dir)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ranks-worker",
+         RANKS_DIR], env=dict(env, FLEET_PROC_ID=str(i)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(RANKS_N)]
+    deadline = time.perf_counter() + RANKS_TIMEOUT_S
+    logs = [""] * RANKS_N
+    try:
+        for i, p in enumerate(procs):
+            logs[i] = p.communicate(
+                timeout=max(deadline - time.perf_counter(), 1.0))[0]
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"[ranks] the workers ran past "
+                             f"{RANKS_TIMEOUT_S} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    t_workers = time.perf_counter() - t_ready
+    bad = [(i, p.returncode, logs[i][-4000:]) for i, p in enumerate(procs)
+           if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"[ranks] workers failed: {bad}")
+    results = [torch.load(os.path.join(RANKS_DIR, f"result-{i}.pt"),
+                          weights_only=False) for i in range(RANKS_N)]
+    counts = child_launches(launch_dir)
+    need = (*RANK_ENTRIES, "k3_rebuild", "k4_greedy", "k1_sweep")
+    if any(counts[k] == 0 for k in need) or \
+            counts["k7_sharded_sweep"] or _ext.LAUNCHES["k7_sharded_sweep"]:
+        raise AssertionError(f"[ranks] launches {counts}: expected all of "
+                             f"{need}, not the one-card K7")
+    print(f"[ranks] launches {json.dumps(counts)} (the {RANKS_N} ranks, "
+          f"through FLEET_LAUNCH_DIR)", flush=True)
+    tally = BY_SIZE.setdefault(size_label(*SHARDED_SHAPE), {})
+    for k in KERNEL_NAMES:
+        tally[k] = tally.get(k, 0) + counts[k]
+
+    # (1)
+    for res in results:
+        got = res["anneal"]
+        if not torch.equal(got["assignment"], want_anneal[0]):
+            raise AssertionError(f"[ranks] rank {res['rank']}: the 2x2 "
+                                 f"anneal's assignment differs from the "
+                                 f"one-card run's")
+        r, d = divmod(res["rank"], 2)
+        S_loc = prob.S // 2
+        planes = got["planes"]
+        if not torch.equal(planes[0][0], want_anneal[1][0][
+                r, d * S_loc:(d + 1) * S_loc]) or not all(
+                torch.equal(x[0], y[r])
+                for x, y in zip(planes[1:], want_anneal[1][1:])):
+            raise AssertionError(f"[ranks] rank {res['rank']}: a replica "
+                                 f"plane differs from the one-card run's")
+        for i, ms in enumerate(got["sweeps"]):
+            print(f"[ranks] anneal rank {res['rank']} sweep {i}: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()),
+                  flush=True)
+        print(f"[ranks] anneal rank {res['rank']}: {RANKS_SWEEPS} sweeps "
+              f"bit-equal to the one-card 2x2 K7 run (assignment, load, "
+              f"occupancy, topology), swaps {got['swaps']}, collectives "
+              f"(calls, host ms) {json.dumps(got['collectives'])}",
+              flush=True)
+    # (2)
+    for res in results:
+        for row, base in zip(res["sharded"], results[0]["sharded"]):
+            if not np.array_equal(row["assignment"], base["assignment"]):
+                raise AssertionError(f"[ranks] {row['label']}: ranks 0 and "
+                                     f"{res['rank']} differ")
+            if row["violations"] or row["pre"] or row["moves"] or \
+                    row["on_dead"] or row["device"] != str(dev):
+                raise AssertionError(f"[ranks] {row['label']} on rank "
+                                     f"{res['rank']}: {row}")
+            if row["label"] != "cold" and row["h2d"]:
+                raise AssertionError(f"[ranks] {row['label']}: "
+                                     f"{row['h2d']} uploads in the warm "
+                                     f"dispatch")
+        mem = res["memory"]
+        print(f"[ranks] sharded rank {res['rank']}: max_memory_allocated "
+              f"{mem['max_allocated']} B, per_device_bytes of its shard "
+              f"{mem['per_device_bytes']} B", flush=True)
+    fleet_now = None
+    for row in results[0]["sharded"]:
+        print(f"[ranks] sharded {row['label']}: sweeps {row['sweeps']}, "
+              f"swaps {row['tempering']['swap_accepts']}/"
+              f"{row['tempering']['swap_attempts']}, 0 violations, "
+              f"checksum {int(np.asarray(row['assignment'], np.int64).sum())}"
+              f" on every rank; timings_ms "
+              f"{json.dumps({k: round(v, 3) for k, v in row['timings'].items()})}",
+              flush=True)
+        fleet_now = row
+    prof = results[0]["profiled"]
+    # gloo carries a CUDA tensor through pinned host buffers: its copy
+    # back is a pinned-to-device copy; the resident state's uploads (numpy
+    # to the card) are pageable ones
+    other = [c for c in prof["h2d"] if "Pinned -> Device" not in c[1]]
+    if prof["seen"] is None or prof["ranges"] != 1 or prof["ops"] == 0:
+        raise AssertionError(f"[ranks] the traced warm burst saw no probe "
+                             f"or no dispatch: {prof}")
+    if other:
+        raise AssertionError(f"[ranks] host-to-device copies in "
+                             f"{sharded.SHARDED_RANGE} outside the "
+                             f"collectives: {other}")
+    print(f"[ranks] warm {sharded.SHARDED_RANGE} under torch.profiler on "
+          f"rank 0: {prof['ops']} device operations linked to it, 0 "
+          f"host-to-device copies but gloo's pinned staging of the "
+          f"collectives ({len(prof['h2d'])} linked: "
+          f"{sorted(set(prof['h2d']))}), 0 counted uploads of the resident "
+          f"state; probe {prof['seen']}; last solve {fleet_now['label']}",
+          flush=True)
+    # (3)
+    for res in results:
+        got = res["chain"]
+        if not (np.array_equal(got["assignment"], want_chain.assignment)
+                and got["stats"] == want_chain.stats
+                and got["soft"] == want_chain.soft
+                and got["steps"] == want_chain.steps
+                and got["accepted"] == want_chain.accepted_moves):
+            raise AssertionError(f"[ranks] rank {res['rank']}: solve(mesh=) "
+                                 f"differs from the one-card solve")
+        for p, q in zip(res["sched"], want_sched):
+            if not (np.array_equal(p["raw"], q.raw) and p["soft"] == q.soft
+                    and p["feasible"] and p["violations"] == 0
+                    and p["source"] == "gpu-anneal"):
+                raise AssertionError(f"[ranks] rank {res['rank']}: the mesh "
+                                     f"scheduler differs from the one-card "
+                                     f"scheduler")
+    print(f"[ranks] chain mesh {RANKS_N} ranks at "
+          f"{pt_headline.S}x{pt_headline.N}: solve(chains={RANKS_CHAINS}) "
+          f"bit-equal to the one-card solve ({want_chain.steps} sweeps, "
+          f"{want_chain.stats['total']} violations, soft "
+          f"{want_chain.soft!r}); GpuSolverScheduler(mesh=) cold and one "
+          f"node down equal to the one-card scheduler's", flush=True)
+    for res in results:
+        print(f"[ranks] rank {res['rank']}: started in {res['init_s']:.1f} "
+              f"s (build {res['build_s']:.1f} s), steps wall ms "
+              f"{json.dumps({k: round(v, 3) for k, v in res['steps_ms'].items()})}",
+              flush=True)
+    recs.update(check_rank_entries(torch, (sharded, sr, anneal), anneal_case,
+                                   dev))
+    print(f"[ranks] NCCL not exercised: this host has one card and NCCL "
+          f"takes one rank a card; the {RANKS_N} ranks ran over gloo on it",
+          flush=True)
+    took = time.perf_counter() - t_phase
+    print(f"[ranks] phase {took:.1f} s (the workers {t_workers:.1f} s) of "
+          f"its {RANKS_BUDGET_S:.0f} s budget"
+          + (" -- OVER BUDGET" if took > RANKS_BUDGET_S else "")
+          + f"; {card}", flush=True)
+    return counts
 
 
 def small_agreement(torch, lower, solve):
@@ -6387,6 +7028,8 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         return fail("CUDA is not available")
+    if sys.argv[1:2] == ["--ranks-worker"]:
+        return ranks_worker(sys.argv[2])
     try:
         from fleetflow_tpu_torch import _ext
         from fleetflow_tpu_torch.entry import dryrun_multichip, entry
@@ -6397,7 +7040,8 @@ def main() -> int:
                                                relax_problem)
         from fleetflow_tpu_torch.solver import (anneal, api, buckets, greedy,
                                                 kernels, multiplex, problem,
-                                                sharded, subsolve)
+                                                sharded, sharded_ranks,
+                                                subsolve)
         from fleetflow_tpu_torch.solver.api import solve
         from fleetflow_tpu_torch.solver.repair import verify
         from fleetflow_tpu_torch.solver.resident import (ProblemDelta,
@@ -6501,6 +7145,13 @@ def main() -> int:
                           for k, v in k7_layouts.items()})
     k7["max_abs_err"] = max(v["max_abs_err"] for v in k7["layouts"].values())
     by_phase["dryrun"] = run_dryrun_phase(torch, _ext, dryrun_multichip)
+    # [ranks]: 4 ranks of a gloo group on the card (the sharded anneal and
+    # solve across ranks, the chain mesh); their launches come back
+    # through FLEET_LAUNCH_DIR
+    by_phase["ranks"] = run_ranks_phase(
+        torch, np, (_ext, sharded, sharded_ranks, problem, buckets, greedy,
+                    anneal, solve, GpuSolverScheduler, verify, ProblemDelta),
+        lower, dev, card, pt, recs)
     # [heal] drives the main path last: ~3 minutes of host work and ~10 GB
     # of request payloads before [sharded] left its torch.profiler traces
     # without the device records that reach back before the dispatch

@@ -34,7 +34,8 @@ K3 and K5 list a node's rows and sum their demand in row order
 
 Every C entry point returns a ``cudaError_t`` (0 = success) taken from
 ``cudaGetLastError()`` right after its launches; :func:`check` raises on
-anything else. ``LAUNCHES`` counts the entry-point calls per kernel: a
+anything else. ``LAUNCHES`` counts the entry-point calls per kernel (and
+per entry point of :data:`ENTRY_POINTS`, K7's cross-rank form): a
 wrapper adds one where it launches its kernel and nowhere else, so a run can
 show which kernels the main path went through. A process started with
 ``FLEET_LAUNCH_DIR`` set writes its counts to
@@ -66,8 +67,9 @@ from .obs.metrics import REGISTRY
 if TYPE_CHECKING:
     import torch
 
-__all__ = ["KERNELS", "HOST_LIBS", "HOST_EXTS", "LAUNCHES", "MAX_LANES", "Lanes",
-           "ProblemArgs", "SweepArgs", "K7Args", "lanes_arg", "build",
+__all__ = ["KERNELS", "ENTRY_POINTS", "HOST_LIBS", "HOST_EXTS", "LAUNCHES",
+           "MAX_LANES", "Lanes", "ProblemArgs", "SweepArgs", "K7Args",
+           "K7RankArgs", "lanes_arg", "build",
            "library", "host_library", "host_extension", "launch", "raise_on", "raise_error",
            "reset_launches", "check_inputs", "M_COMPILE_EVENTS"]
 
@@ -89,6 +91,13 @@ KERNELS = {
     "k6_greedy_scan": "k6_greedy_scan.cu",
     "k7_sharded_sweep": "k7_sharded_sweep.cu",
 }
+# entry points counted under names of their own: K7's cross-rank form is
+# three launches a sweep (elect, apply, reduce) in K7's library
+ENTRY_POINTS = {
+    "k7_rank_elect": "k7_sharded_sweep",
+    "k7_rank_apply": "k7_sharded_sweep",
+    "k7_rank_reduce": "k7_sharded_sweep",
+}
 _HEADERS = ("common.cuh", "sweep_delta.cuh", "node_rows.cuh")
 # host library name -> C++ sources (plain C ABI, built with g++)
 HOST_LIBS = {
@@ -106,7 +115,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-lineinfo")
 
-LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+LAUNCHES: dict[str, int] = {name: 0 for name in (*KERNELS, *ENTRY_POINTS)}
 
 # the lane ladder's cap (solver/multiplex.py): FF_MAX_LANES in common.cuh
 MAX_LANES = 16
@@ -164,6 +173,24 @@ class K7Args(ctypes.Structure):
                 ("partial", ctypes.c_void_p), ("grid", ctypes.c_int),
                 ("threads", ctypes.c_int), ("H", ctypes.c_int),
                 ("smem", ctypes.c_longlong)]
+
+
+class K7RankArgs(ctypes.Structure):
+    """``K7RankStatic`` of ``csrc/k7_sharded_sweep.cu``: one rank's shard
+    (its rows, the global padded S, its real rows), the shard count, its
+    shard, the proposals a sweep, its replica's node state, the scratch
+    between the three entry points, and the launch shape ``ff_k7r_bind``
+    fills; passed by pointer."""
+    _fields_ = [("p", ProblemArgs), ("D", ctypes.c_int), ("d", ctypes.c_int),
+                ("M", ctypes.c_int), ("assignment", ctypes.c_void_p),
+                ("load", ctypes.c_void_p), ("used", ctypes.c_void_p),
+                ("coloc", ctypes.c_void_p), ("topo", ctypes.c_void_p),
+                ("slots", ctypes.c_void_p), ("cand", ctypes.c_void_p),
+                ("partial", ctypes.c_void_p), ("deltas", ctypes.c_void_p),
+                ("threads", ctypes.c_int), ("H", ctypes.c_int),
+                ("reduce_grid", ctypes.c_int),
+                ("smem_elect", ctypes.c_longlong),
+                ("smem_apply", ctypes.c_longlong)]
 
 
 def lanes_arg(n_real, sticky_w=None, temp=None, active=None) -> Lanes:
@@ -388,7 +415,9 @@ def host_extension(name: str):
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, building all kernels first use."""
+    """The loaded library of kernel `name` (or of an entry point of
+    :data:`ENTRY_POINTS`), building all kernels first use."""
+    name = ENTRY_POINTS.get(name, name)
     lib = _libs.get(name)
     if lib is None:
         build()

@@ -482,6 +482,255 @@ __global__ void __launch_bounds__(kThreads) k7_sweep_kernel(
 #endif
 }
 
+
+// -- the cross-rank form: one position a rank, three launches a sweep --------
+//
+// On a mesh of ranks (fleetflow_tpu_torch/parallel.py, one process a
+// position, each on its own device or several sharing one card) a rank
+// holds its shard's (S/D, ·) rows, its replica's node state once, and the
+// two grid barriers of the cooperative kernel above become collectives
+// between three launches (solver/sharded_ranks.py drives them):
+//   elect  the position's proposals against the pre-sweep state, each
+//          service's lowest accepted proposal its candidate (the hashed
+//          service table), each candidate's rank m + M·d posted into the
+//          (N,) election slots with atomicMin;
+//          -> all_reduce(MIN) of the slots over the replica's ranks;
+//   apply  the candidates whose rank won their target node: the shard's
+//          assignment, the integer deltas of the occupancy and topology
+//          planes and the touched-node counts (N·G | N·Gc1 | T | N, integer
+//          atomics, order-free), and the position's (N, 3) load partial in
+//          the cooperative kernel's order (the compacted departure walk:
+//          a node's departures in proposal order, then its arrival, from
+//          0.0);
+//          -> all_gather of the partials and all_reduce(SUM) of the integer
+//          deltas over the replica's ranks;
+//   reduce the gathered partials summed in shard order into the load of
+//          every node some shard touched, the integer deltas added to the
+//          planes, and the slots, the partial and the deltas reset to
+//          their resting values (INT_MAX, 0, 0).
+// The composition equals sharded_step_plain (sharded.py) bit for bit: the
+// same move delta, winner rules, rank encoding and float order. In the
+// shard's Problem the planes are indexed by shard-local row, p.S is the
+// GLOBAL padded S (the move delta divides the preference and colocation
+// terms by it) and p.n_real the shard's real rows (phantoms are a suffix
+// of the global rows, so a prefix of each shard's real). elect and apply
+// are one block (the position is one cooperative block above); reduce is
+// a grid over the node planes. Latency-bound, like the cooperative form.
+
+struct K7RankStatic {
+  Problem p;
+  int D, d, M;       // shards, this rank's shard, proposals a sweep
+  int* assignment;   // (S/D,)
+  float* load;       // (N, 3) the replica's node state
+  int* used;         // (N, G)
+  int* coloc;        // (N, Gc1)
+  int* topo;         // (T,)
+  int* slots;        // (N,) election slots, INT_MAX at rest
+  int* cand;         // (4, M) service, source, target, standing
+  float* partial;    // (N, 3) this position's load delta, 0 at rest
+  int* deltas;       // N·G | N·Gc1 | T | N touched, 0 at rest
+  int threads, H, reduce_grid;
+  long long smem_elect, smem_apply;
+};
+
+__global__ void __launch_bounds__(kThreads) k7r_elect_kernel(
+    K7RankStatic a, float temp, const int* __restrict__ s_loc,
+    const int* __restrict__ b_idx, const float* __restrict__ u) {
+  const Problem& p = a.p;
+  const int M = a.M, H = a.H;
+  extern __shared__ int sm[];
+  int* skey = sm;        // H: service table keys
+  int* sval = sm + H;    // H: lowest accepted index of the service
+  __shared__ float red_v[32];
+  __shared__ int red_i[32];
+  const unsigned smask = H - 1;
+  int* c_s = a.cand;
+  int* c_a = c_s + M;
+  int* c_b = c_a + M;
+  int* c_st = c_b + M;
+  for (int x = threadIdx.x; x < H; x += blockDim.x) {
+    skey[x] = -1;
+    sval[x] = M;
+  }
+  int tmax = 0, tmin = 0;
+  if (p.max_skew > 0) block_topo_range(a.topo, p.T, tmax, tmin, red_v, red_i);
+  const float t = fmaxf(temp, 1e-8f);
+  for (int m = threadIdx.x; m < M; m += blockDim.x) {
+    const int s = s_loc[m], b = b_idx[m];
+    const int src = a.assignment[s];
+    const float delta = move_delta(p, a.load, a.used, a.coloc, a.topo, tmax,
+                                   tmin, s, src, b);
+    const bool accept =
+        ((delta < 0.f) || (u[m] < expf(-delta / t))) && (src != b);
+    c_s[m] = s;
+    c_a[m] = src;
+    c_b[m] = b;
+    c_st[m] = accept ? kAccepted : kRejected;
+  }
+  __syncthreads();
+  for (int m = threadIdx.x; m < M; m += blockDim.x)
+    if (c_st[m] == kAccepted)
+      atomicMin(&sval[table_slot(skey, smask, c_s[m], true)], m);
+  __syncthreads();
+  for (int m = threadIdx.x; m < M; m += blockDim.x)
+    if (c_st[m] == kAccepted &&
+        sval[table_slot(skey, smask, c_s[m], false)] == m) {
+      c_st[m] = kCandidate;
+      atomicMin(&a.slots[c_b[m]], m + M * a.d);
+    }
+}
+
+__global__ void __launch_bounds__(kThreads) k7r_apply_kernel(K7RankStatic a,
+                                                             int* applied_out) {
+  const Problem& p = a.p;
+  const int M = a.M, H = a.H, N = p.N;
+  extern __shared__ int sm[];
+  int* s_sm = sm;              // M: the proposal's service
+  int* a_sm = sm + M;          // M: its node before the sweep
+  int* b_sm = sm + 2 * M;      // M: its target
+  int* st_sm = sm + 3 * M;     // M: its standing
+  int* nkey = sm + 4 * M;      // 2H: node table keys
+  int* ntgt = nkey + 2 * H;    // 2H: the applied arrival
+  int* ndep = ntgt + 2 * H;    // 2H: lowest applied proposal departing
+  int* ncnt = ndep + 2 * H;    // 2H: applied proposals departing
+  int* dep_m = ncnt + 2 * H;   // M: the applied departures, compacted
+  int* dep_a = dep_m + M;      // M: their sources
+  int* dep_pos = dep_a + M;    // M: a proposal's place among them
+  float* d_sm = reinterpret_cast<float*>(dep_pos + M);  // 3M: demand
+  __shared__ int red_i[32];
+  __shared__ int n_applied;
+  const unsigned nmask = 2 * H - 1;
+  int* dused = a.deltas;
+  int* dcoloc = dused + (size_t)N * p.G;
+  int* dtopo = dcoloc + (size_t)N * p.Gc1;
+  int* touched = dtopo + p.T;
+  for (int m = threadIdx.x; m < M; m += blockDim.x) {
+    const int s = a.cand[m];
+    s_sm[m] = s;
+    a_sm[m] = a.cand[M + m];
+    b_sm[m] = a.cand[2 * M + m];
+    st_sm[m] = a.cand[3 * M + m];
+    for (int k = 0; k < 3; ++k) d_sm[m * 3 + k] = p.demand[(size_t)s * 3 + k];
+  }
+  for (int x = threadIdx.x; x < 2 * H; x += blockDim.x) {
+    nkey[x] = -1;
+    ntgt[x] = M;
+    ndep[x] = M;
+    ncnt[x] = 0;
+  }
+  if (threadIdx.x == 0) n_applied = 0;
+  __syncthreads();
+  int mine = 0;
+  for (int m = threadIdx.x; m < M; m += blockDim.x) {
+    if (st_sm[m] == kCandidate && a.slots[b_sm[m]] == m + M * a.d) {
+      st_sm[m] = kApplied;
+      const int h = table_slot(nkey, nmask, a_sm[m], true);
+      atomicMin(&ndep[h], m);
+      atomicAdd(&ncnt[h], 1);
+      ntgt[table_slot(nkey, nmask, b_sm[m], true)] = m;
+      ++mine;
+    } else {
+      a_sm[m] = -1;
+    }
+  }
+  if (mine) atomicAdd(&n_applied, mine);
+  __syncthreads();
+  const int n_dep = compact_applied(st_sm, a_sm, M, dep_m, dep_a, dep_pos,
+                                    red_i);
+  for (int m = threadIdx.x; m < M; m += blockDim.x) {
+    if (st_sm[m] != kApplied) continue;
+    const int s = s_sm[m], src = a_sm[m], b = b_sm[m];
+    for (int k = 0; k < p.K; ++k) {
+      const int id = p.cids[(size_t)s * p.K + k];
+      if (id < 0) continue;
+      atomicSub(&dused[(size_t)src * p.G + id], 1);
+      atomicAdd(&dused[(size_t)b * p.G + id], 1);
+    }
+    for (int k = 0; k < p.Kc; ++k) {
+      const int id = p.colids[(size_t)s * p.Kc + k];
+      if (id < 0) continue;
+      atomicSub(&dcoloc[(size_t)src * p.Gc1 + id], 1);
+      atomicAdd(&dcoloc[(size_t)b * p.Gc1 + id], 1);
+    }
+    if (s < p.n_real) {
+      atomicSub(&dtopo[p.ntopo[src]], 1);
+      atomicAdd(&dtopo[p.ntopo[b]], 1);
+    }
+    a.assignment[s] = b;
+    touched[src] = 1;
+    touched[b] = 1;
+    // the position's partial of the touched nodes, as the cooperative
+    // kernel's walk: the lowest applied departure from a node walks the
+    // applied departures from its own on, then adds the arrival
+    const int ha = table_slot(nkey, nmask, src, false);
+    if (ndep[ha] == m) {
+      float l[3] = {0.f, 0.f, 0.f};
+      for (int j = dep_pos[m], left = ncnt[ha]; left > 0; ++j) {
+        if (dep_a[j] != src) continue;
+        const float* dd = d_sm + dep_m[j] * 3;
+        for (int k = 0; k < 3; ++k) l[k] = l[k] + (-dd[k]);
+        --left;
+      }
+      if (ntgt[ha] < M)
+        for (int k = 0; k < 3; ++k) l[k] = l[k] + d_sm[ntgt[ha] * 3 + k];
+      for (int k = 0; k < 3; ++k) a.partial[(size_t)src * 3 + k] = l[k];
+    }
+    const int hb = table_slot(nkey, nmask, b, false);
+    if (ndep[hb] == M)  // an arrival where nothing leaves
+      for (int k = 0; k < 3; ++k)
+        a.partial[(size_t)b * 3 + k] = 0.f + d_sm[m * 3 + k];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) applied_out[0] = n_applied;
+  (void)n_dep;
+}
+
+__global__ void k7r_reduce_kernel(K7RankStatic a,
+                                  const float* __restrict__ gathered) {
+  const Problem& p = a.p;
+  const int N = p.N, D = a.D;
+  int* dused = a.deltas;
+  int* dcoloc = dused + (size_t)N * p.G;
+  int* dtopo = dcoloc + (size_t)N * p.Gc1;
+  int* touched = dtopo + p.T;
+  const size_t stride = (size_t)N * 3;
+  for (size_t n = grid_tid(); n < (size_t)N; n += grid_stride()) {
+    if (touched[n] > 0) {
+      const float* p0 = gathered + n * 3;
+      float s0 = p0[0], s1 = p0[1], s2 = p0[2];
+      for (int q = 1; q < D; ++q) {
+        const float* pq = p0 + q * stride;
+        s0 = s0 + pq[0];
+        s1 = s1 + pq[1];
+        s2 = s2 + pq[2];
+      }
+      float* ld = a.load + n * 3;
+      ld[0] = ld[0] + s0;
+      ld[1] = ld[1] + s1;
+      ld[2] = ld[2] + s2;
+      touched[n] = 0;
+    }
+    a.slots[n] = INT_MAX;
+    a.partial[n * 3] = a.partial[n * 3 + 1] = a.partial[n * 3 + 2] = 0.f;
+  }
+  const size_t nu = (size_t)N * p.G, nc = (size_t)N * p.Gc1;
+  for (size_t i = grid_tid(); i < nu; i += grid_stride())
+    if (dused[i]) {
+      a.used[i] += dused[i];
+      dused[i] = 0;
+    }
+  for (size_t i = grid_tid(); i < nc; i += grid_stride())
+    if (dcoloc[i]) {
+      a.coloc[i] += dcoloc[i];
+      dcoloc[i] = 0;
+    }
+  for (size_t i = grid_tid(); i < (size_t)p.T; i += grid_stride())
+    if (dtopo[i]) {
+      a.topo[i] += dtopo[i];
+      dtopo[i] = 0;
+    }
+}
+
 }  // namespace
 
 // sizeof(K7Static): the wrapper's ctypes mirror must match it
@@ -541,5 +790,78 @@ FF_EXPORT int ff_k7_sweep(const void* args, FFLanes lanes, const int* s_loc,
       (const void*)k7_sweep_kernel, dim3(a.grid), dim3(a.threads), kargs,
       (size_t)a.smem, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sizeof(K7RankStatic): the wrapper's ctypes mirror must match it
+FF_EXPORT int ff_k7r_static_size() {
+  return static_cast<int>(sizeof(K7RankStatic));
+}
+
+// Check a K7RankStatic (the wrapper's _ext.K7RankArgs) and fill its launch
+// shape: a block of a thread a proposal (at most 256), the service table
+// size H, the reduce's grid and the two blocks' dynamic shared memory
+// (elect 2H ints, apply 10M + 8H). Called once per bound launcher.
+FF_EXPORT int ff_k7r_bind(void* args) {
+  K7RankStatic* a = static_cast<K7RankStatic*>(args);
+  if (a->D < 1 || a->d < 0 || a->d >= a->D || a->M < 1 || a->p.N < 1 ||
+      a->p.S % a->D != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int H = 1;
+  while (H < 2 * a->M) H <<= 1;
+  int threads = ((a->M + 31) / 32) * 32;
+  if (threads > kThreads) threads = kThreads;
+  const size_t elect = (size_t)2 * H * sizeof(int);
+  const size_t apply = ((size_t)10 * a->M + (size_t)8 * H) * sizeof(int);
+  cudaError_t e = cudaSuccess;
+  if (elect > 48 * 1024)
+    e = cudaFuncSetAttribute(k7r_elect_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)elect);
+  if (e == cudaSuccess && apply > 48 * 1024)
+    e = cudaFuncSetAttribute(k7r_apply_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)apply);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  long long work = (long long)a->p.N * (a->p.G > a->p.Gc1 ? a->p.G : a->p.Gc1);
+  if (work < a->p.T) work = a->p.T;
+  a->threads = threads;
+  a->H = H;
+  a->reduce_grid = ff_blocks(work, 256);
+  a->smem_elect = static_cast<long long>(elect);
+  a->smem_apply = static_cast<long long>(apply);
+  return 0;
+}
+
+// elect: the (M,) shard-local services, targets and uniforms of this
+// position at temperature `temp`; posts the candidates into the slots.
+FF_EXPORT int ff_k7r_elect(const void* args, float temp, const int* s_loc,
+                           const int* b_idx, const float* u,
+                           cudaStream_t stream) {
+  const K7RankStatic a = *static_cast<const K7RankStatic*>(args);
+  if (a.threads < 1) return static_cast<int>(cudaErrorInvalidValue);
+  k7r_elect_kernel<<<1, a.threads, (size_t)a.smem_elect, stream>>>(
+      a, temp, s_loc, b_idx, u);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// apply: the candidates that won their node, against the reduced slots;
+// `applied` gets the position's applied moves (one int).
+FF_EXPORT int ff_k7r_apply(const void* args, int* applied,
+                           cudaStream_t stream) {
+  const K7RankStatic a = *static_cast<const K7RankStatic*>(args);
+  if (a.threads < 1) return static_cast<int>(cudaErrorInvalidValue);
+  k7r_apply_kernel<<<1, a.threads, (size_t)a.smem_apply, stream>>>(a,
+                                                                   applied);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// reduce: `gathered` is the (D, N, 3) partials of the replica's shards in
+// shard order; the deltas hold the summed integer deltas.
+FF_EXPORT int ff_k7r_reduce(const void* args, const float* gathered,
+                            cudaStream_t stream) {
+  const K7RankStatic a = *static_cast<const K7RankStatic*>(args);
+  if (a.reduce_grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  k7r_reduce_kernel<<<a.reduce_grid, 256, 0, stream>>>(a, gathered);
   return static_cast<int>(cudaGetLastError());
 }

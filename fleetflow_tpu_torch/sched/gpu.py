@@ -44,6 +44,12 @@ stage's slot holds a ``ShardedResident`` and solves through
 ``solve_sharded``; slot matching keys on the mesh, so a routing flip
 never hands a sharded staging to the single-device solve or back.
 
+``GpuSolverScheduler(mesh=parallel.chain_mesh())`` spreads every solve's
+chains over the ranks of a process group (``solve(mesh=)``; every rank
+runs the same scheduler calls and gets the same placements): the sharded
+route is then off, and the mesh's stages solve one by one, never batched
+into the multiplexer.
+
 The scheduler runs on the card: ``GpuSolverScheduler()`` raises when CUDA
 is absent, and the CPU is used only when the caller passes device="cpu".
 """
@@ -190,9 +196,12 @@ def slot_limits() -> tuple[int, int]:
 class GpuSolverScheduler:
     def __init__(self, *, chains: Optional[int] = None, steps: int = 128,
                  seed: int = 0, device=None, bucket: Optional[bool] = None,
-                 resident_bytes: Optional[int] = None):
-        # device=None is the card and raises without CUDA (no fallback)
-        self.device = resolve_device(device)
+                 resident_bytes: Optional[int] = None, mesh=None):
+        # device=None is the card (the mesh's rank device with a mesh) and
+        # raises without CUDA (no fallback)
+        self.mesh = mesh
+        self.device = (mesh.device if mesh is not None and device is None
+                       else resolve_device(device))
         self.chains = chains
         self.steps = steps
         self.seed = seed
@@ -382,7 +391,7 @@ class GpuSolverScheduler:
             slot.last_assignment = rec.host_seed
             slot.last_names = rec.host_names
         if (rec is not None and rec.assignment.size and rec.S == pt.S
-                and rec.assignment.shape[0] == resident.prob.S):
+                and rec.assignment.shape[0] == resident.padded_S):
             # the phantom rows go to the first valid node of the fleet as it
             # is now, as a delta merge re-parks them: the node they sat on
             # may have died while the stage was evicted
@@ -409,7 +418,7 @@ class GpuSolverScheduler:
                                  seed=self.seed)
         return solve(pt, prob=rp.prob, chains=self.chains, steps=self.steps,
                      seed=self.seed, init_assignment=init, bucket=rp.bucket,
-                     resident=rp, resident_warm=resident_warm)
+                     resident=rp, resident_warm=resident_warm, mesh=self.mesh)
 
     def _finalize(self, pt: ProblemTensors, res: SolveResult,
                   slot: _StageSlot, ms: float) -> Placement:
@@ -437,6 +446,11 @@ class GpuSolverScheduler:
         record_placement(placement)
         return placement
 
+    def _route(self, pt):
+        """The sharded route's mesh for `pt`; none on a chain mesh (the
+        caller chose to spread chains)."""
+        return sharded_route(pt) if self.mesh is None else None
+
     @staticmethod
     def _host_seed(pt, slot, warm: bool, resident_warm: bool):
         """A cold fallback of a warm request still warm-starts from the
@@ -457,7 +471,7 @@ class GpuSolverScheduler:
         churn of a warm reschedule; `stage` keys the resident slot."""
         t0 = time.perf_counter()
         slot, resident_warm = self._stage(pt, delta, warm_start, stage,
-                                          mesh=sharded_route(pt))
+                                          mesh=self._route(pt))
         res = self._solve_one(pt, slot, resident_warm,
                               self._host_seed(pt, slot, warm_start,
                                               resident_warm))
@@ -480,7 +494,7 @@ class GpuSolverScheduler:
                 warm = bool(req.get("warm_start"))
                 slot, resident_warm = self._stage(
                     req["pt"], req.get("delta"), warm, req.get("stage"),
-                    mesh=sharded_route(req["pt"]))
+                    mesh=self._route(req["pt"]))
                 staged.append((req["pt"], slot, resident_warm, warm))
             placements = self._solve_staged(requests, staged, t0)
         finally:
@@ -493,10 +507,10 @@ class GpuSolverScheduler:
     def _solve_staged(self, requests: list[dict], staged: list,
                       t0: float) -> list[Placement]:
         results: list = [None] * len(staged)
-        # the resident-warm stages without a mesh batch; sharded ones solve
-        # alone
+        # the resident-warm stages without a mesh batch; sharded ones and
+        # those on a chain mesh solve alone
         mux_idx = [i for i, (_pt, s, rw, _w) in enumerate(staged)
-                   if rw and s.resident.mesh is None]
+                   if rw and s.resident.mesh is None and self.mesh is None]
         if len(mux_idx) >= 2:
             entries = [MuxEntry(pt=staged[i][0],
                                 resident=staged[i][1].resident,

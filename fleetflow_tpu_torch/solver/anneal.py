@@ -28,6 +28,13 @@ a leading lane axis: K1 and K2 then take lane-stacked states (L, C, ...)
 in one launch, and ``anneal_adaptive_lanes`` runs the adaptive loop of
 every lane at once, each lane exiting on its own. The solo anneal is its
 one-lane case.
+
+On a chain mesh (``solve(mesh=)``, the ranks of a process group) each rank
+anneals its :class:`ChainSlice` of the C chains: it draws the whole chain
+set's proposals from the one generator and keeps its own chains' rows
+(:func:`draw_proposals` with ``on_mesh``), so its chains walk exactly as
+they do in a one-card anneal of all C; the adaptive exit is agreed over
+the ranks once a block.
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ __all__ = ["ChainState", "TRACE_COLS", "W_CAP", "W_CONF", "W_ELIG", "W_SKEW",
            "default_proposals_per_step",
            "backend_proposals_per_step", "anneal_states",
            "anneal_adaptive_states", "anneal_adaptive_lanes",
-           "solve_trace_blocks", "temperature"]
+           "solve_trace_blocks", "temperature", "ChainSlice"]
 
 W_CAP = 1e3     # per-unit overflow mass (normalized units)
 W_CONF = 1e4    # per conflicting co-placement
@@ -73,6 +80,18 @@ def solve_trace_blocks(default: int = 16) -> int:
     except ValueError:
         v = default
     return max(0, min(v, 512))
+
+
+class ChainSlice(NamedTuple):
+    """A rank's chains on a chain mesh: rows [c0, c0 + per) of C, and the
+    mesh's collectives group (``collectives.Group``)."""
+    group: object
+    c0: int
+    C: int
+
+    @property
+    def per(self) -> int:
+        return self.C // self.group.size
 
 
 class ChainState(NamedTuple):
@@ -301,13 +320,20 @@ def state_soft_score(prob: TorchProblem, st: ChainState) -> torch.Tensor:
 # -- K1: one parallel-Metropolis sweep -------------------------------------
 
 def draw_proposals(prob: TorchProblem, st: ChainState,
-                   gen: torch.Generator, M: int):
+                   gen: torch.Generator, M: int,
+                   on_mesh: Optional[ChainSlice] = None):
     """Draw one sweep's proposals for every chain: (s_idx (C,M) i32, b_idx
     (C,M) i32, u (C,M) f32). The first M//2 services are drawn
     categorically, weight 1 on services sitting on an overloaded,
     conflicted, ineligible or invalid node and e^-30 elsewhere (the
     reference's logits 0 / -30); the rest uniformly. Targets are uniform
-    nodes, u is uniform on [0, 1)."""
+    nodes, u is uniform on [0, 1).
+
+    With `on_mesh` the state holds a rank's chains of a chain mesh: the
+    whole chain set's proposals are drawn (the other chains' rows weighted
+    as cold; a row's draws depend on that row's weights only) and this
+    rank's rows are returned, as a one-card draw of all C would give
+    them."""
     C = st.assignment.shape[0]
     dev = st.assignment.device
     over_node = (st.load > prob.capacity * CAP_TOL).any(-1)       # (C, N)
@@ -318,6 +344,11 @@ def draw_proposals(prob: TorchProblem, st: ChainState,
     svc_bad = (~eligible_lookup(prob.eligible, rows, a)
                | ~prob.node_valid[a])
     hot = torch.gather(hot_node, 1, a) | svc_bad                  # (C, S)
+    if on_mesh is not None:
+        full = torch.zeros((on_mesh.C, prob.S), dtype=torch.bool,
+                           device=dev)
+        full[on_mesh.c0:on_mesh.c0 + C] = hot
+        hot, C = full, on_mesh.C
     weights = torch.where(hot, 1.0, float(np.exp(-30.0))).to(torch.float32)
     half = M // 2
     parts = []
@@ -330,6 +361,10 @@ def draw_proposals(prob: TorchProblem, st: ChainState,
     b_idx = torch.randint(0, prob.N, (C, M), generator=gen, device=dev,
                           dtype=torch.int32)
     u = torch.rand((C, M), generator=gen, device=dev, dtype=torch.float32)
+    if on_mesh is not None:
+        mine = slice(on_mesh.c0, on_mesh.c0 + on_mesh.per)
+        return (s_idx[mine].contiguous(), b_idx[mine].contiguous(),
+                u[mine].contiguous())
     return s_idx, b_idx, u
 
 
@@ -644,16 +679,18 @@ def temperature(t0: float, t1: float, max_steps: int, i: int) -> float:
 def anneal_states(prob: TorchProblem, init_assignments: torch.Tensor,
                   gen: torch.Generator, steps: int = 2000, t0: float = 1.0,
                   t1: float = 1e-3,
-                  proposals_per_step: Optional[int] = None) -> ChainState:
+                  proposals_per_step: Optional[int] = None,
+                  on_mesh: Optional[ChainSlice] = None) -> ChainState:
     """Fixed-budget anneal: `steps` sweeps on C chains; returns each
-    chain's FINAL state (no best-ever tracking)."""
+    chain's FINAL state (no best-ever tracking). `on_mesh`: the chains are
+    a rank's slice of a chain mesh."""
     C, S = init_assignments.shape
     M = (proposals_per_step if proposals_per_step is not None
          else default_proposals_per_step(S))
     states = chain_states_from_assignment(prob, init_assignments)
     sweep = sweep_launcher(prob, states, M)
     for i in range(steps):
-        s_idx, b_idx, u = draw_proposals(prob, states, gen, M)
+        s_idx, b_idx, u = draw_proposals(prob, states, gen, M, on_mesh)
         sweep(s_idx, b_idx, u, [temperature(t0, t1, steps, i)])
     return states
 
@@ -714,6 +751,37 @@ def anneal_adaptive_states(prob: TorchProblem, init_assignments: torch.Tensor,
     return best[0], viol[0], soft[0], sweeps[0], accepted[0], telem[0]
 
 
+def _agree_seen(seen: torch.Tensor,
+                on_mesh: Optional[ChainSlice]) -> torch.Tensor:
+    """(L,) "some chain saw a feasible state", over every rank's chains
+    of a chain mesh (a MIN of the unseen flags), so every rank exits
+    alike; as it is without a mesh."""
+    if on_mesh is None:
+        return seen
+    from .collectives import all_min_
+    return all_min_((~seen).to(torch.int32), on_mesh.group) == 0
+
+
+def _mesh_chain_rows(on_mesh: ChainSlice, rows: list, viol0, soft0):
+    """A chain mesh's telemetry, read once after the loop: every rank's
+    recorded per-chain columns gathered into the whole chain set and
+    reduced as a one-card anneal reduces its rows (in place in `rows`);
+    returns the whole set's initial (violations, soft), (1, C) each."""
+    from .collectives import all_gather
+    recorded = rows[0]
+    mine = torch.stack([viol0[0], soft0[0]]
+                       + [r for _e, _t, dev_row in recorded
+                          for r in dev_row])
+    every = all_gather(mine, on_mesh.group)          # (W, 2 + 4B, C/W)
+    whole = every.permute(1, 0, 2).reshape(mine.shape[0], on_mesh.C)
+    for k, (end, temp, _) in enumerate(recorded):
+        bv, bs, v, acc = whole[2 + 4 * k:6 + 4 * k]
+        recorded[k] = (end, temp, torch.stack([
+            bv.min(), _lead_soft(bv[None], bs[None])[0], v.min(),
+            acc.sum()]))
+    return whole[0:1], whole[1:2]
+
+
 def _stack(parts: list) -> torch.Tensor:
     """torch.stack, as a view when there is one part."""
     return parts[0].unsqueeze(0) if len(parts) == 1 else torch.stack(parts)
@@ -731,7 +799,8 @@ def anneal_adaptive_lanes(prob: TorchProblem, states: ChainState,
                           max_steps: int, block: int,
                           proposals_per_step: int,
                           exit_on_feasible_init: bool = False,
-                          trace_blocks: int = 0, live: Optional[list] = None):
+                          trace_blocks: int = 0, live: Optional[list] = None,
+                          on_mesh: Optional[ChainSlice] = None):
     """The adaptive anneal of L lanes of a lane-stacked problem at once
     (the multiplexer's vmapped while_loop), from the lane-stacked state
     `states` (L, C, ...), which it updates in place.
@@ -748,8 +817,16 @@ def anneal_adaptive_lanes(prob: TorchProblem, states: ChainState,
 
     Returns (best (L, C, S), best_viol (L, C), best_soft (L, C), sweeps
     [L ints], accepted (L, C), [L telemetry dicts]), each lane as
-    :func:`anneal_adaptive_states` returns it."""
+    :func:`anneal_adaptive_states` returns it.
+
+    With `on_mesh` (one lane) the states are a rank's chains of a chain
+    mesh:
+    the exit is agreed over the mesh once a block (any chain of any rank
+    saw a feasible state) and the telemetry reads every rank's chains;
+    the per-chain returns are this rank's."""
     L, C, S = states.assignment.shape
+    if on_mesh is not None and (L != 1 or C != on_mesh.per):
+        raise ValueError("a chain mesh runs one lane of its rank's chains")
     M = proposals_per_step
     live = [True] * L if live is None else [bool(x) for x in live]
     dev = states.assignment.device
@@ -778,7 +855,7 @@ def anneal_adaptive_lanes(prob: TorchProblem, states: ChainState,
     viol0, soft0 = scores(live)
     best_assign = states.assignment.clone()
     best_viol, best_soft = viol0.clone(), soft0.clone()
-    seen = viol0.min(1).values == 0
+    seen = _agree_seen(viol0.min(1).values == 0, on_mesh)
     accepted = torch.zeros((L, C), dtype=torch.int32, device=dev)
     rows: list = [[] for _ in range(L)]
     ran = [0] * L
@@ -791,7 +868,8 @@ def anneal_adaptive_lanes(prob: TorchProblem, states: ChainState,
             sweep = b * block + j
             temps = [temperature(t0s[i], t1s[i], max_steps, sweep)
                      for i in range(L)]
-            draws = [draw_proposals(views[i], states.lane(i), gens[i], M)
+            draws = [draw_proposals(views[i], states.lane(i), gens[i], M,
+                                    on_mesh)
                      if active[i] else idle for i in range(L)]
             s_idx, b_idx, u = (_stack([d[k] for d in draws])
                                for k in range(3))
@@ -812,20 +890,30 @@ def anneal_adaptive_lanes(prob: TorchProblem, states: ChainState,
             # host numbers stay on the host; the device half of the row is
             # read once, after the loop (no extra sync, no upload)
             end = (b + 1) * block
-            dev_rows = torch.stack([best_viol.min(1).values,
-                                    _lead_soft(best_viol, best_soft),
-                                    viol.min(1).values,
-                                    accepted.sum(1).to(torch.float32)], 1)
+            if on_mesh is not None:
+                # the per-chain columns, reduced over every rank's chains
+                # after the loop
+                dev_rows = torch.stack([best_viol, best_soft, viol,
+                                        accepted.to(torch.float32)], 1)
+            else:
+                dev_rows = torch.stack([best_viol.min(1).values,
+                                        _lead_soft(best_viol, best_soft),
+                                        viol.min(1).values,
+                                        accepted.sum(1).to(torch.float32)],
+                                       1)
             for i in range(L):
                 if active[i]:
                     rows[i].append((float(end), temperature(
                         t0s[i], t1s[i], max_steps, end - 1), dev_rows[i]))
         b += 1
+        seen = _agree_seen(seen, on_mesh)
         seen_h = seen.tolist()
         for i in range(L):
             if active[i]:
                 ran[i] += 1
                 active[i] = not seen_h[i]
+    if on_mesh is not None:
+        viol0, soft0 = _mesh_chain_rows(on_mesh, rows, viol0, soft0)
     init_v = viol0.min(1).values
     init_s = _lead_soft(viol0, soft0)
     telemetry = [{

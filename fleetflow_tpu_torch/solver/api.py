@@ -20,7 +20,10 @@ full path above when there is no plan or the gate rejects its result.
 stages at once (the tenant multiplexer, solver/multiplex.py); a solo solve
 is its one-lane case. :func:`solve` first asks the sharded route
 (solver/sharded.py) whether the instance takes the service-axis sharded
-path; the chain-sharded mesh of the reference is the chain axis here.
+path. ``solve(mesh=)`` is the reference's chain-sharded mesh: the chains
+spread over the ranks of a process group (``parallel.chain_mesh``), each
+rank annealing its share of them on its card, equal to the one-card solve
+of all the chains bit for bit.
 
 Observability, as the reference's: the solver's metric families on the
 port's ``obs.metrics.REGISTRY`` (the reference's names, labels and HELP),
@@ -54,7 +57,7 @@ from ..obs.metrics import REGISTRY, SOLVE_SECONDS_BUCKETS
 from ..obs.trace import (current_span_id, current_trace_id, flight_recorder,
                          new_span_id, new_trace_id, record_span_event)
 from . import subsolve as _sub
-from .anneal import (TRACE_COLS, anneal_adaptive_lanes,
+from .anneal import (TRACE_COLS, ChainSlice, anneal_adaptive_lanes,
                      anneal_states, backend_proposals_per_step,
                      chain_states_from_assignment, prerepair_state_counted,
                      solve_trace_blocks, state_soft_score,
@@ -249,12 +252,14 @@ def _refine(prob: TorchProblem, seed_assignment: torch.Tensor,
             adaptive: bool, anneal_block: int,
             proposals_per_step: int, fused_prerepair: bool,
             prerepair_moves: int, skip_feasible_polish: bool,
-            trace_blocks: int):
+            trace_blocks: int, on_mesh: Optional[ChainSlice] = None):
     """Everything after the seed, on the device: stickiness, fused
     pre-repair, chain fan-out, anneal, chain pick and the exact gate.
     Returns (winner (S,) i32, stats dict of 0-dim tensors, soft 0-dim,
     sweeps_run int, accepted 0-dim, telemetry dict). The adaptive anneal
-    is one lane of :func:`_refine_lanes`."""
+    is one lane of :func:`_refine_lanes`. `on_mesh`: this rank's chains
+    of a chain mesh (the winner, stats and telemetry are the whole
+    set's, the same on every rank)."""
     if adaptive:
         winners, stats, soft, sweeps, accepted, telem = _refine_lanes(
             prob.as_lanes(), seed_assignment[None], [gen], [t0], [t1],
@@ -264,7 +269,7 @@ def _refine(prob: TorchProblem, seed_assignment: torch.Tensor,
             fused_prerepair=fused_prerepair,
             prerepair_moves=prerepair_moves,
             skip_feasible_polish=skip_feasible_polish,
-            trace_blocks=trace_blocks)
+            trace_blocks=trace_blocks, on_mesh=on_mesh)
         return (winners[0], {k: v[0] for k, v in stats.items()}, soft[0],
                 sweeps[0], accepted[0], telem[0])
     # the fixed-budget anneal: `steps` sweeps, each chain's final state
@@ -280,17 +285,54 @@ def _refine(prob: TorchProblem, seed_assignment: torch.Tensor,
         seed_assignment = st0.assignment[0]
     inits = make_chain_inits(prob_a, seed_assignment, chains, gen,
                              perturb_frac=0.0 if warm else 0.08)
+    if on_mesh is not None:
+        inits = inits[on_mesh.c0:on_mesh.c0 + on_mesh.per]
     states = anneal_states(prob_a, inits, gen, steps=steps, t0=t0, t1=t1,
-                           proposals_per_step=proposals_per_step)
+                           proposals_per_step=proposals_per_step,
+                           on_mesh=on_mesh)
     viol_c = state_violation_stats(prob_a, states)["total"]
     soft_c = state_soft_score(prob_a, states)
+    if on_mesh is not None:
+        viol_c, soft_c = _mesh_pick_rows(on_mesh, viol_c[None],
+                                         soft_c[None])
+        viol_c, soft_c = viol_c[0], soft_c[0]
     best = torch.argmin(torch.where(viol_c == viol_c.min(), soft_c,
                                     torch.full_like(soft_c, float("inf"))))
-    winner = states.assignment[best]
+    if on_mesh is not None:
+        winner = _mesh_winner(on_mesh, states.assignment[None],
+                              best.reshape(1))[0]
+    else:
+        winner = states.assignment[best]
     stats, soft = exact_stats_and_soft(prob, winner)
     accepted = torch.full((), -1, dtype=torch.int32, device=dev)
     return winner, stats, soft, steps, accepted, {
         "prerepair_moves": prerepair_applied[0]}
+
+
+def _mesh_pick_rows(on_mesh: ChainSlice, viol_c: torch.Tensor,
+                    soft_c: torch.Tensor):
+    """Every rank's (violations, soft) of its chains, (L, C/W) each,
+    gathered into the whole set's (L, C) in chain order."""
+    from .collectives import all_gather
+    every = all_gather(torch.stack([viol_c, soft_c]), on_mesh.group)
+    whole = every.permute(1, 2, 0, 3).reshape(2, viol_c.shape[0], on_mesh.C)
+    return whole[0], whole[1]
+
+
+def _mesh_winner(on_mesh: ChainSlice, best_c: torch.Tensor,
+                 best: torch.Tensor) -> torch.Tensor:
+    """(L, S): chain `best[l]` of the whole set, sent by the rank that
+    holds it (`best_c` is this rank's (L, C/W, S)). The broadcast from a
+    device index is an integer sum in which every other rank adds zeros:
+    the host never reads the pick."""
+    from .collectives import all_sum_int_
+    L, per, S = best_c.shape
+    owner = torch.div(best, per, rounding_mode="floor")
+    row = (best - owner * per).clamp(0, per - 1)
+    mine = torch.gather(best_c, 1, row[:, None, None].expand(L, 1, S))[:, 0]
+    held = (owner == on_mesh.group.index)[:, None]
+    return all_sum_int_(torch.where(held, mine, 0).to(torch.int32),
+                        on_mesh.group)
 
 
 def _refine_lanes(prob: TorchProblem, seeds: torch.Tensor, gens: list,
@@ -298,7 +340,8 @@ def _refine_lanes(prob: TorchProblem, seeds: torch.Tensor, gens: list,
                   steps: int, warm: bool, anneal_block: int,
                   proposals_per_step: int, fused_prerepair: bool,
                   prerepair_moves: int, skip_feasible_polish: bool,
-                  trace_blocks: int, live: Optional[list] = None):
+                  trace_blocks: int, live: Optional[list] = None,
+                  on_mesh: Optional[ChainSlice] = None):
     """The adaptive :func:`_refine` over a leading lane axis: the
     multiplexer's dispatch (the reference vmaps ``_refine`` over K
     same-tier lanes, ``multiplex._mux_refine``). `prob` is lane-stacked
@@ -309,7 +352,13 @@ def _refine_lanes(prob: TorchProblem, seeds: torch.Tensor, gens: list,
     lane's result equals the solo refine of its stage with its generator.
     Lanes not in `live` (the ladder's padding) never sweep and are not
     gated. Returns (winners (L, S), stats dict of (L,) tensors, soft (L,),
-    sweeps [L ints], accepted (L,), [L telemetry dicts])."""
+    sweeps [L ints], accepted (L,), [L telemetry dicts]).
+
+    `on_mesh` (one lane): this rank anneals its chains of a chain mesh;
+    it draws the chain starts of the whole set and keeps its own, the
+    pick gathers every chain's (violations, soft) and the winner comes
+    from the rank that holds it, and every rank gates it (K3): the
+    result is the one-card refine's of all `chains`, on every rank."""
     L, S = seeds.shape
     live = [True] * L if live is None else [bool(x) for x in live]
     if warm:
@@ -328,13 +377,16 @@ def _refine_lanes(prob: TorchProblem, seeds: torch.Tensor, gens: list,
             prob_a, st0, prerepair_moves)
         seeds = st0.assignment[:, 0]
         # warm chains start from the repaired state itself
-        init_states = st0.expand_lanes(chains)
+        init_states = st0.expand_lanes(
+            chains if on_mesh is None else on_mesh.per)
     # each lane draws its chain starts from its own generator, first, as
     # the solo refine does (a fused prologue's chains start from the
     # repaired state, but the draws still advance the generator)
     inits = [make_chain_inits(prob_a.lane(i), seeds[i], chains, gens[i],
                               perturb_frac=0.0 if warm else 0.08)
              if live[i] else seeds[i].expand(chains, S) for i in range(L)]
+    if on_mesh is not None:
+        inits = [x[on_mesh.c0:on_mesh.c0 + on_mesh.per] for x in inits]
     if init_states is None:
         init_states = chain_states_from_assignment(
             prob_a, torch.stack(inits) if L > 1 else inits[0][None])
@@ -343,15 +395,23 @@ def _refine_lanes(prob: TorchProblem, seeds: torch.Tensor, gens: list,
             prob_a, init_states, gens, t0s, t1s, max_steps=steps,
             block=anneal_block, proposals_per_step=proposals_per_step,
             exit_on_feasible_init=skip_feasible_polish,
-            trace_blocks=trace_blocks, live=live)
+            trace_blocks=trace_blocks, live=live, on_mesh=on_mesh)
+    accepted = accepted_c.sum(1)
+    if on_mesh is not None:
+        from .collectives import all_sum_int_
+        viol_c, soft_c = _mesh_pick_rows(on_mesh, viol_c, soft_c)
+        accepted = all_sum_int_(accepted.to(torch.int32), on_mesh.group)
     # lexicographic (violations, soft): among each lane's least-violating
     # chains the best soft wins
     least = viol_c == viol_c.min(1, keepdim=True).values
     best = torch.argmin(torch.where(least, soft_c,
                                     torch.full_like(soft_c, float("inf"))),
                         dim=1)
-    winners = torch.gather(best_c, 1,
-                           best[:, None, None].expand(L, 1, S))[:, 0]
+    if on_mesh is not None:
+        winners = _mesh_winner(on_mesh, best_c, best)
+    else:
+        winners = torch.gather(best_c, 1,
+                               best[:, None, None].expand(L, 1, S))[:, 0]
     soft_pick = torch.gather(soft_c, 1, best[:, None])[:, 0]
     # a warm exit before any sweep applied nothing: the carried state IS
     # the prologue's scratch-built state, so a feasible count there is
@@ -379,7 +439,7 @@ def _refine_lanes(prob: TorchProblem, seeds: torch.Tensor, gens: list,
     telems = [dict(t, prerepair_moves=prerepair_applied[i])
               for i, t in enumerate(telems)]
     return (winners, {k: stats[:, j] for j, k in enumerate(STAT_KEYS)},
-            torch.stack(softs), sweeps, accepted_c.sum(1), telems)
+            torch.stack(softs), sweeps, accepted, telems)
 
 
 def _set_kwargs(fn, values: dict) -> dict:
@@ -395,13 +455,15 @@ def _set_kwargs(fn, values: dict) -> dict:
     return out
 
 
-def _solve_device(device=None, prob=None, resident=None, **_):
+def _solve_device(device=None, prob=None, resident=None, mesh=None, **_):
     """The device a solve call runs on, as solve() resolves it (the card
     when nothing names one), for profile_trace's CUDA activity."""
     if resident is not None:
         return resident.device
     if prob is not None:
         return prob.device
+    if mesh is not None:
+        return mesh.device
     return torch.device("cuda" if device is None else device)
 
 
@@ -482,7 +544,7 @@ def solve(pt: ProblemTensors, *, device=None,
           resident: Optional[ResidentProblem] = None,
           resident_warm: bool = False,
           seed_impl: Optional[str] = None,
-          prerepair: Optional[bool] = None) -> SolveResult:
+          prerepair: Optional[bool] = None, mesh=None) -> SolveResult:
     """Solve a placement instance end to end.
 
     `device` defaults to the card (raises without CUDA); a `resident` or a
@@ -522,11 +584,21 @@ def solve(pt: ProblemTensors, *, device=None,
     under FLEET_SHARDED=1) with a mesh of >= 2 positions available solves
     through the mesh-resident sharded path (solver/sharded.solve_sharded)
     instead; explicit staging kwargs (prob, resident), and any knob that
-    path does not speak set away from its default, keep the call here."""
-    from .sharded import maybe_solve_sharded
-    routed = maybe_solve_sharded(pt, **_set_kwargs(solve, locals()))
-    if routed is not None:
-        return routed
+    path does not speak set away from its default, keep the call here.
+
+    `mesh` (``parallel.chain_mesh()``, the ranks of a process group)
+    spreads the chains over the ranks, the reference's chain-sharded
+    mesh: every rank calls solve with the same arguments, runs
+    `chains` / ranks of the chains on its card (the problem and the seed
+    replicated), and returns the same result, equal bit for bit to the
+    one-card solve of all `chains` with the same `seed`. `chains` must be
+    a multiple of the mesh's size (None: the backend's default rounded up
+    to one); a solve on a mesh takes no sub-solve and no sharded route."""
+    if mesh is None:
+        from .sharded import maybe_solve_sharded
+        routed = maybe_solve_sharded(pt, **_set_kwargs(solve, locals()))
+        if routed is not None:
+            return routed
     if seed_impl is not None and seed_impl not in SEED_IMPLS:
         raise ValueError(f"seed_impl must be 'scan', 'batched', "
                          f"'native', 'partitioned' or None, "
@@ -537,8 +609,25 @@ def solve(pt: ProblemTensors, *, device=None,
         dev = resident.device
     elif prob is not None:
         dev = prob.device
+    elif mesh is not None:
+        dev = mesh.device
     else:
         dev = resolve_device(device)
+    on_mesh = None
+    if mesh is not None:
+        if len(mesh.axis_names) != 1:
+            raise ValueError(f"solve(mesh=): a 1-D chain mesh, got "
+                             f"{mesh.shape}")
+        W = mesh.size
+        if chains is None:
+            base = 1 if dev.type == "cpu" else 2
+            chains = W * -(-base // W)
+        if chains % W:
+            raise ValueError(f"chains={chains} must be a multiple of the "
+                             f"mesh's {W} positions")
+        if mesh.ranks is not None and W > 1:
+            group = mesh.my_groups()["mesh"]
+            on_mesh = ChainSlice(group, group.index * (chains // W), chains)
     if chains is None:
         chains = 1 if dev.type == "cpu" else 2
     resident_warm = bool(resident is not None and resident_warm
@@ -652,7 +741,7 @@ def solve(pt: ProblemTensors, *, device=None,
 
     t_anneal = t()
     sub_plan = None
-    if resident_warm and fused and adaptive:
+    if resident_warm and fused and adaptive and mesh is None:
         # the host planner: the closure and its compact id lists
         t_plan = t()
         sub_plan = resident.take_active_plan()
@@ -718,7 +807,7 @@ def solve(pt: ProblemTensors, *, device=None,
                 prerepair_moves=prerepair_moves,
                 skip_feasible_polish=bool(resident_warm and adaptive
                                           and fused),
-                trace_blocks=trace_blocks)
+                trace_blocks=trace_blocks, on_mesh=on_mesh)
         if resident is not None:
             uploads += resident.h2d_copies - h2d0
     if resident is not None:

@@ -183,6 +183,17 @@ class ResidentProblem:
         self._pending_churn = False
         _M_REUSE.inc(outcome="cold")
 
+    @property
+    def padded_S(self) -> int:
+        """The padded row count of the staging (a mesh of ranks holds one
+        shard of it on each rank)."""
+        return self.prob.S
+
+    @property
+    def real_rows(self) -> int:
+        """The staging's real rows (the rest are phantoms)."""
+        return self.prob.real_rows
+
     def _expected_padded_S(self, pt) -> int:
         """The padded S a cold staging of `pt` would produce."""
         return bucket_size(pt.S, growth=self.cfg.growth,
@@ -205,7 +216,7 @@ class ResidentProblem:
             return False
         if pt.S != old.S:
             return self._arrivals_compatible(pt, delta, old)
-        if self.bucket and self._expected_padded_S(pt) != self.prob.S:
+        if self.bucket and self._expected_padded_S(pt) != self.padded_S:
             return False
         same = (pt.port_ids is old.port_ids
                 and pt.volume_ids is old.volume_ids
@@ -231,7 +242,7 @@ class ResidentProblem:
         cold-stages."""
         if delta is None or delta.n_real != pt.S or pt.S <= old.S:
             return False
-        if not self.bucket or self._expected_padded_S(pt) != self.prob.S:
+        if not self.bucket or self._expected_padded_S(pt) != self.padded_S:
             return False
         if delta.demand_rows is None or delta.eligible_rows is None:
             return False
@@ -326,7 +337,7 @@ class ResidentProblem:
                     first_valid=first_valid)
         if self._mirror is not None:
             # the same re-park on the host mirror keeps it an exact copy
-            self._mirror[self.prob.real_rows:] = first_valid
+            self._mirror[self.real_rows:] = first_valid
         self.pt = pt
         self._valid_fp = up["valid_np"].copy()
         self._cap_fp = up["cap_np"].copy()
@@ -365,11 +376,16 @@ class ResidentProblem:
         re-admission after eviction
         (`warm=False`) is staging."""
         padded = pad_assignment(np.asarray(assignment, dtype=np.int32),
-                                self.prob.S, np.asarray(node_valid))
-        self.assignment = self.upload(padded, torch.int32)
+                                self.padded_S, np.asarray(node_valid))
+        self.assignment = self._upload_assignment(padded)
         self._mirror = padded.copy()
         if warm:
             _M_HOST_XFER.inc()
+
+    def _upload_assignment(self, padded: np.ndarray) -> torch.Tensor:
+        """The device seed of a padded host assignment (one counted
+        upload)."""
+        return self.upload(padded, torch.int32)
 
     def record_warm_fallback(self) -> None:
         """A warm attempt had to cold-stage: problem tensors crossed the
@@ -422,7 +438,7 @@ class ResidentProblem:
         previous placement was feasible). Clears the pending churn."""
         if padded is not None:
             arr = np.asarray(padded, dtype=np.int32)
-            if self.prob is not None and arr.shape[0] == self.prob.S:
+            if self.prob is not None and arr.shape[0] == self.padded_S:
                 self._mirror = arr.copy()
         if feasible is not None:
             self._mirror_feasible = bool(feasible)

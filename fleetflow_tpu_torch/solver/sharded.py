@@ -1,4 +1,4 @@
-"""Service-axis sharded anneal on one card (port of ``solver/sharded.py``).
+"""Service-axis sharded anneal (port of ``solver/sharded.py``).
 
 The reference shards the PROBLEM over the ``svc`` axis of a device mesh:
 each mesh position owns S/D services (its slice of demand, conflict ids,
@@ -10,22 +10,30 @@ and ``psum``s of the applied state deltas. A ``replica`` axis adds
 parallel tempering: each replica anneals the whole problem at its own
 temperature and neighbouring replicas exchange configurations.
 
-This port runs a mesh whose positions all name ONE device (the reference
-runs the same path on a mesh of virtual devices whenever it has fewer
-chips than the mesh). A shard is then a view of the padded (S, ·) planes,
-read as (D, S/D, ·); the replicated node state is held once per replica,
-(R, ...) like K1's chains; and one sweep of every position is kernel K7
-(``csrc/k7_sharded_sweep.cu``): the shards are thread blocks, the ``pmin``
-a global ``atomicMin``, the ``psum`` a reduction over the shard blocks in
-shard order, and the replica exchange an index over the replica axis. Its
-plain PyTorch version is :func:`sharded_step_plain`. A mesh over distinct
-cards (collectives over NCCL) is not built here: it raises SolverError.
+A :class:`Mesh` of this port takes one of two forms.
+
+* Positions that all name ONE device (the reference runs the same path on
+  a mesh of virtual devices whenever it has fewer chips than the mesh). A
+  shard is then a view of the padded (S, ·) planes, read as (D, S/D, ·);
+  the replicated node state is held once per replica, (R, ...) like K1's
+  chains; and one sweep of every position is kernel K7
+  (``csrc/k7_sharded_sweep.cu``): the shards are thread blocks, the
+  ``pmin`` a global ``atomicMin``, the ``psum`` a reduction over the shard
+  blocks in shard order, and the replica exchange an index over the
+  replica axis. Its plain PyTorch version is :func:`sharded_step_plain`.
+* Positions that are the RANKS of a process group
+  (``parallel.init_multihost``), one process a position, each on its own
+  card (NCCL) or several sharing one (gloo). Each rank holds its shard's
+  rows and its replica's node state, and a sweep is K7's cross-rank form
+  (elect, apply, reduce) with ``collectives.py``'s MIN, gather and integer
+  SUM between the launches; see ``solver/sharded_ranks.py``.
 
 The block loops, best-ever tracking, the exchange rounds and the scores
-are plain PyTorch driven from the host, one K7 launch a sweep and one host
-sync a block. The winner's exact stats come from a K3 rebuild of the whole
-padded assignment (service order), so its load differs from the
-reference's per-shard-then-psum rebuild by float32 rounding only.
+are plain PyTorch driven from the host, one K7 launch (three on ranks) a
+sweep and one host sync a block. On one device the winner's exact stats
+come from a K3 rebuild of the whole padded assignment (service order), so
+its load differs from the reference's per-shard-then-psum rebuild by
+float32 rounding only; on ranks they come from that per-shard rebuild.
 
 Proposals come from a ``torch.Generator`` (:class:`TorchDraws`) or from
 any object with the same two methods, the one seam through which the
@@ -58,7 +66,7 @@ from .anneal import (W_CAP, W_CONF, W_ELIG, W_SKEW, ChainState,
 from .buckets import pad_problem
 from .kernels import CAP_TOL, k3_rebuild
 from .problem import TorchProblem, eligible_lookup
-from .resident import ResidentProblem, merge_delta
+from .resident import ProblemDelta, ResidentProblem, merge_delta
 
 log = get_logger("solver.sharded")
 
@@ -107,13 +115,26 @@ def visible_devices() -> list:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def _is_rank(x) -> bool:
+    return isinstance(x, (int, np.integer)) and not isinstance(x, bool)
+
+
 class Mesh:
     """A named grid of mesh positions (the reference's
     ``jax.sharding.Mesh``): `devices` is a nested sequence shaped like
-    `axis_names`, each entry a device or its name. Every position must
-    name the SAME device: the positions then share one card (or the CPU),
-    and the shard axis becomes K7's thread blocks. A mesh over distinct
-    devices raises SolverError."""
+    `axis_names`. Two forms:
+
+    * every entry an int: the RANKS of the process group
+      (``parallel.init_multihost``), one position a rank, each rank on its
+      own device (``device`` is this rank's); the collectives run over the
+      group (``solver/collectives.py``) and ``position`` is this rank's
+      place in the grid (None when it holds none);
+    * every entry a device (or its name) and all the SAME device: the
+      positions share it, and the shard axis becomes K7's thread blocks.
+
+    A mesh over distinct devices raises SolverError: positions on distinct
+    devices are ranks, each process joining the group with
+    ``parallel.init_multihost``."""
 
     def __init__(self, devices, axis_names):
         names = tuple(axis_names)
@@ -121,20 +142,70 @@ class Mesh:
         if grid.ndim != len(names):
             raise ValueError(f"a mesh of axes {names} needs a "
                              f"{len(names)}-d device grid, got {grid.shape}")
-        flat = [torch.device(x) for x in grid.reshape(-1)]
-        distinct = list(dict.fromkeys(flat))
-        if len(distinct) != 1:
-            raise SolverError(
-                f"a mesh over {len(distinct)} distinct devices needs the "
-                f"multi-card sharded path (NCCL collectives, ROADMAP queue "
-                f"1 item 5); every position of this port's mesh names one "
-                f"device")
+        flat = list(grid.reshape(-1))
         self.axis_names = names
         self.shape = dict(zip(names, grid.shape))
+        self.ranks: Optional[np.ndarray] = None
+        self.position: Optional[tuple] = None
+        if flat and all(_is_rank(x) for x in flat):
+            from .. import parallel
+            w = parallel.world()
+            ranks = [int(x) for x in flat]
+            if len(set(ranks)) != len(ranks) or not all(
+                    0 <= r < w.size for r in ranks):
+                raise SolverError(
+                    f"a mesh of ranks {ranks} in a group of {w.size} (each "
+                    f"rank once; a group comes from "
+                    f"parallel.init_multihost)")
+            self.ranks = np.array(ranks, dtype=np.int64).reshape(grid.shape)
+            where = np.argwhere(self.ranks == w.rank)
+            if len(where):
+                self.position = tuple(int(i) for i in where[0])
+            self.device = (w.device if w.device is not None
+                           else _own_device())
+            self._groups = None
+            return
+        dev = [torch.device(x) for x in flat]
+        distinct = list(dict.fromkeys(dev))
+        if len(distinct) != 1:
+            raise SolverError(
+                f"a mesh over {len(distinct)} distinct devices: positions on "
+                f"distinct devices are the ranks of a process group, one "
+                f"process a card (parallel.init_multihost, then "
+                f"parallel.chain_mesh() or tempering_mesh())")
         self.device = distinct[0]
 
+    @property
+    def size(self) -> int:
+        return int(np.prod(list(self.shape.values())))
+
+    def groups(self) -> Optional[dict]:
+        """The collectives' groups of this rank (a mesh of ranks): "svc"
+        (its replica's ranks in shard order), "replica" (its shard's ranks
+        in replica order) and "mesh" (every position). Made on first use
+        by every rank of the process group in the same order, those that
+        hold no position included (for them it returns None)."""
+        if self.ranks is None:
+            raise SolverError("a one-device mesh has no rank groups")
+        if self._groups is None:
+            from . import collectives
+            from .. import parallel
+            self._groups = collectives.groups_of(self.ranks,
+                                                 parallel.world().rank)
+        return self._groups
+
+    def my_groups(self) -> dict:
+        """:meth:`groups` for a rank that holds a position; raises
+        SolverError for one that holds none."""
+        groups = self.groups()
+        if groups is None:
+            raise SolverError("this rank holds no position of the mesh")
+        return groups
+
     def _key(self):
-        return (self.axis_names, tuple(self.shape.values()), self.device)
+        ranks = None if self.ranks is None else tuple(self.ranks.reshape(-1))
+        return (self.axis_names, tuple(self.shape.values()), self.device,
+                ranks)
 
     def __eq__(self, other) -> bool:
         return isinstance(other, Mesh) and self._key() == other._key()
@@ -143,17 +214,35 @@ class Mesh:
         return hash(self._key())
 
     def __repr__(self) -> str:
+        if self.ranks is not None:
+            return (f"Mesh({self.shape}, ranks={self.ranks.tolist()}, "
+                    f"device={self.device})")
         return f"Mesh({self.shape}, device={self.device})"
+
+
+def _own_device() -> torch.device:
+    """This process's device for a mesh of the one rank there is without a
+    group: the card (no fallback)."""
+    from ..device import resolve_device
+    return resolve_device(None)
+
+
+def _group_devices() -> Optional[list]:
+    """The ranks of the process group, when it has two or more."""
+    from .. import parallel
+    w = parallel.world()
+    return list(range(w.size)) if w.size >= 2 else None
 
 
 def tempering_mesh(replicas: int = 1, svc_shards: Optional[int] = None,
                    devices=None) -> Mesh:
     """The (replica, svc) mesh of the tempered sharded solve: `replicas`
     annealing lanes, each sharding the service axis `svc_shards` ways.
-    `devices` (default: the visible cards) lists one device per position;
-    every one must be the same device."""
+    `devices` lists one position each: by default the ranks of the process
+    group when there is one (two or more ranks), else the visible cards
+    (positions on one device must all name it)."""
     if devices is None:
-        devices = visible_devices()
+        devices = _group_devices() or visible_devices()
     devices = list(devices)
     replicas = max(int(replicas), 1)
     if svc_shards is None:
@@ -206,10 +295,13 @@ class ShardedStats(NamedTuple):
 
 
 def shard_problem(prob: TorchProblem, mesh: Mesh) -> TorchProblem:
-    """Check that `prob` can run on its mesh: S divides over the svc axis
-    and the problem lies on the mesh's device. The positions share that
-    device, so a shard is a view of the (S, ·) planes (read as (D, S/D,
-    ·)) and nothing is copied: returns `prob` itself."""
+    """Place the padded `prob` on its mesh; S must divide over the svc
+    axis and the problem lie on the mesh's device. On a one-device mesh
+    the positions share that device, so a shard is a view of the (S, ·)
+    planes (read as (D, S/D, ·)) and nothing is copied: returns `prob`
+    itself. On a mesh of ranks this rank keeps only its shard's rows
+    [d·S/D, (d+1)·S/D) of the (S, ·) planes, the node planes whole
+    (``sharded_ranks.shard_rows``)."""
     D = mesh.shape[SVC_AXIS]
     if prob.S % D:
         raise ValueError(f"S={prob.S} must divide over {D} shards "
@@ -217,6 +309,9 @@ def shard_problem(prob: TorchProblem, mesh: Mesh) -> TorchProblem:
     if prob.device != mesh.device:
         raise ValueError(f"the problem lies on {prob.device}, the mesh on "
                          f"{mesh.device}")
+    if mesh.ranks is not None:
+        from .sharded_ranks import rank_position, shard_rows
+        return shard_rows(prob, rank_position(mesh, prob.S // D))
     return prob
 
 
@@ -231,8 +326,10 @@ def per_device_bytes(prob: TorchProblem, mesh: Mesh, *,
     plane whole. `state=True` adds the anneal's working state a position
     holds (``state_*``): its replica's node state and two S/D assignment
     buffers. On one card the positions share the device: its real total is
-    ``torch.cuda.memory_allocated``."""
-    D = mesh.shape[SVC_AXIS]
+    ``torch.cuda.memory_allocated``. On a mesh of ranks `prob` is the
+    rank's shard (:func:`shard_problem`), whose planes are already S/D
+    rows."""
+    D = 1 if mesh.ranks is not None else mesh.shape[SVC_AXIS]
     out: dict[str, int] = {}
     names = ("demand", "capacity", "conflict_ids", "coloc_ids", "eligible",
              "node_valid", "node_topology", "preferred", "sticky_prev")
@@ -636,6 +733,12 @@ def anneal_sharded(prob: TorchProblem, init_assignment: torch.Tensor,
                    draws=None, init_state: Optional[ChainState] = None):
     """One annealing pass with the service axis sharded over `mesh`.
 
+    On a mesh of ranks `prob` is this rank's shard (:func:`shard_problem`)
+    and the pass runs across the ranks (``solver/sharded_ranks.py``: K7's
+    elect, apply and reduce with the collectives between them); the
+    arguments and the result are the same, the padded winner gathered on
+    every rank. `init_state` is then the rank's one-replica state.
+
     init_assignment: (S,) int32 on the mesh's device, S a multiple of the
     svc axis (pad_problem handles ragged S). Returns the refined (S,)
     assignment; `return_sweeps=True` returns (assignment, sweeps run);
@@ -661,6 +764,20 @@ def anneal_sharded(prob: TorchProblem, init_assignment: torch.Tensor,
     has_rep = REPLICA_AXIS in mesh.shape
     n_rep = mesh.shape[REPLICA_AXIS] if has_rep else 1
     S, N = prob.S, prob.N
+    if mesh.ranks is not None:
+        from .sharded_ranks import anneal_ranks
+        M = proposals_per_step or max(8, min(256, S // 2))
+        if draws is None:
+            if gen is None:
+                gen = torch.Generator(device=prob.device)
+                gen.manual_seed(0)
+            draws = TorchDraws(gen)
+        return anneal_ranks(
+            prob, init_assignment, draws, mesh=mesh, steps=steps, t0=t0,
+            t1=t1, M=M, adaptive=adaptive, block=block, n_real=n_real,
+            ladder=ladder, exchange_every=exchange_every,
+            return_sweeps=return_sweeps, return_stats=return_stats,
+            trace_blocks=trace_blocks, init_state=init_state)
     shard_problem(prob, mesh)
     M = proposals_per_step or max(8, min(256, (S // D) // 2))
     if n_real is not None:
@@ -789,8 +906,10 @@ def anneal_sharded(prob: TorchProblem, init_assignment: torch.Tensor,
 
 # -- mesh-resident sharded state: the pod path's warm re-solve -----------------
 
-# the sharded merge: a shard is a view of the (S, ·) planes, so each row
-# lands in its own shard through the one in-place merge
+# the sharded merge: on one device a shard is a view of the (S, ·)
+# planes, so each row lands in its own shard through the one in-place
+# merge; on a mesh of ranks each rank merges its own rows into its shard
+# (ShardedResident.merge_inputs keeps them) and its replicated node planes
 merge_sharded = merge_delta
 
 
@@ -800,7 +919,12 @@ class ShardedResident(ResidentProblem):
     mesh's device (each shard a view), the last padded winner kept across
     bursts, churn merged in place (:func:`merge_sharded`). The per-burst
     uploads (masks, capacity, rows) happen at delta time; a warm dispatch
-    copies nothing from the host."""
+    copies nothing from the host.
+
+    On a mesh of ranks each rank holds its shard (:func:`shard_problem`,
+    ``prob.S`` its S/D rows, ``prob.n_real`` its real ones) and its rows of
+    the winner; :attr:`padded_S` and :attr:`real_rows` stay global, and a
+    merge writes the rank's own rows and its node planes."""
 
     # the sharded anneal sweeps the whole problem; churn-localized
     # sub-solves are a single-device path (solver/subsolve.py)
@@ -808,7 +932,24 @@ class ShardedResident(ResidentProblem):
 
     def __init__(self, pt, *, mesh: Mesh, bucket: bool = True, cfg=None):
         self.mesh = mesh
+        self._n_real = int(pt.S)
         super().__init__(pt, mesh.device, bucket=bucket, cfg=cfg)
+
+    def _position(self):
+        from .sharded_ranks import rank_position
+        return rank_position(self.mesh, self.prob.S)
+
+    @property
+    def padded_S(self) -> int:
+        if self.mesh.ranks is not None:
+            return self.prob.S * self.mesh.shape[SVC_AXIS]
+        return self.prob.S
+
+    @property
+    def real_rows(self) -> int:
+        if self.mesh.ranks is not None:
+            return self._n_real
+        return self.prob.real_rows
 
     def _expected_padded_S(self, pt) -> int:
         # the bucket tier, rounded up so it divides over the svc axis
@@ -818,8 +959,50 @@ class ShardedResident(ResidentProblem):
 
     def cold_stage(self, pt) -> None:
         super().cold_stage(pt)
+        self._n_real = int(pt.S)
         prob, _ = pad_problem(self.prob, self.mesh.shape[SVC_AXIS])
         self.prob = shard_problem(prob, self.mesh)
+
+    def merge_inputs(self, pt, delta: Optional[ProblemDelta] = None) -> dict:
+        if self.mesh.ranks is not None and delta is not None:
+            pos = self._position()
+            lo, hi = pos.row0, pos.row0 + pos.S_loc
+
+            def own(rows):
+                if rows is None:
+                    return None
+                idx = np.asarray(rows[0], dtype=np.int64)
+                keep = (idx >= lo) & (idx < hi)
+                return idx[keep] - lo, np.asarray(rows[1])[keep]
+
+            delta = dataclasses.replace(
+                delta, demand_rows=own(delta.demand_rows),
+                eligible_rows=own(delta.eligible_rows))
+        return super().merge_inputs(pt, delta)
+
+    def apply_delta(self, pt, delta: Optional[ProblemDelta] = None) -> float:
+        if self.mesh.ranks is not None and delta is not None \
+                and delta.n_real is not None:
+            from .sharded_ranks import local_real
+            self._n_real = int(delta.n_real)
+            delta = dataclasses.replace(
+                delta, n_real=local_real(delta.n_real, self._position()))
+        return super().apply_delta(pt, delta)
+
+    def _upload_assignment(self, padded: np.ndarray) -> torch.Tensor:
+        if self.mesh.ranks is not None:
+            pos = self._position()
+            padded = padded[pos.row0:pos.row0 + pos.S_loc]
+        return super()._upload_assignment(padded)
+
+    def adopt(self, assignment: torch.Tensor) -> None:
+        """Keep the padded winner as the next warm seed (a rank keeps its
+        shard's rows of the gathered winner)."""
+        if self.mesh.ranks is not None and \
+                assignment.shape[0] != self.prob.S:
+            pos = self._position()
+            assignment = assignment[pos.row0:pos.row0 + pos.S_loc].clone()
+        self.assignment = assignment
 
 
 def _host_seed(pt, parts: int) -> np.ndarray:
@@ -835,6 +1018,20 @@ def _host_seed(pt, parts: int) -> np.ndarray:
                            pt.volume_ids, pt.anti_ids,
                            strategy=pt.strategy.value)
     return np.asarray(seed, np.int32)
+
+
+def _agree_on_seed(seed_np: np.ndarray, mesh: Mesh, dev) -> None:
+    """Every rank of `mesh` staged the same host seed (a checksum gathered
+    over the mesh); raises SolverError when they differ."""
+    import zlib
+
+    from . import collectives
+    crc = zlib.crc32(np.ascontiguousarray(seed_np, dtype=np.int32).tobytes())
+    mine = torch.tensor([crc & 0x7FFFFFFF], dtype=torch.int32, device=dev)
+    every = collectives.all_gather(mine, mesh.my_groups()["mesh"]).reshape(-1)
+    if bool((every != mine).any()):
+        raise SolverError(f"the ranks staged different host seeds: "
+                          f"checksums {every.tolist()}")
 
 
 def _env_float(name: str, default: float) -> float:
@@ -868,7 +1065,11 @@ def solve_sharded(pt, *, resident: ShardedResident,
     0.1). `ladder` (FLEET_TEMPER_LADDER, default 1.3) is the temperature
     ratio of neighbouring replicas, `exchange_every`
     (FLEET_TEMPER_EXCHANGE, default 1) the blocks between exchange
-    rounds."""
+    rounds.
+
+    On a mesh of ranks every rank calls this with the same arguments: each
+    stages the same host seed (checked by a checksum over the mesh), runs
+    its position of the anneal, and returns the same SolveResult."""
     from .api import SolveResult, count_solve
     from .repair import repair, soft_score_host, verify
 
@@ -900,6 +1101,8 @@ def solve_sharded(pt, *, resident: ShardedResident,
             t0 = min(t0, 0.1)
         else:
             seed_np = _host_seed(pt, D)
+        if mesh.ranks is not None:
+            _agree_on_seed(seed_np, mesh, dev)
         # pads to the mesh's rows, phantoms on the first valid node
         rp.adopt_host(seed_np, pt.node_valid, warm=False)
         seed_assignment = rp.assignment
@@ -981,11 +1184,11 @@ def solve_sharded(pt, *, resident: ShardedResident,
         feasible=stats["total"] == 0, moves_repaired=moves,
         pre_repair_violations=pre_repair, timings_ms=timings,
         chains=n_rep, steps=int(res.sweeps),
-        proposals_per_step=max(8, min(256, (prob.S // D) // 2)),
+        proposals_per_step=max(8, min(256, (rp.padded_S // D) // 2)),
         accepted_moves=-1, telemetry=telemetry,
         warm_h2d_copies=uploads if warm else 0, device=str(dev),
-        bucket={"orig_S": pt.S, "padded_S": prob.S,
-                "pad_waste": round(1.0 - pt.S / prob.S, 4)},
+        bucket={"orig_S": pt.S, "padded_S": rp.padded_S,
+                "pad_waste": round(1.0 - pt.S / rp.padded_S, 4)},
         tempering={"replicas": n_rep, "ladder": float(ladder),
                    "exchange_every": int(exchange_every),
                    "swap_attempts": att, "swap_accepts": acc})
@@ -994,7 +1197,7 @@ def solve_sharded(pt, *, resident: ShardedResident,
     count_solve(out, pt, warm=warm, resident_warm=warm)
     if log.isEnabledFor(logging.INFO):
         log.info("solve_sharded %s", kv(
-            S=pt.S, N=pt.N, padded=prob.S, mesh=f"{n_rep}x{D}",
+            S=pt.S, N=pt.N, padded=rp.padded_S, mesh=f"{n_rep}x{D}",
             sweeps=int(res.sweeps), swaps=f"{acc}/{att}" if att else None,
             violations=int(stats["total"]), pre_repair=pre_repair,
             repaired=moves or None, warm=warm or None,
@@ -1004,16 +1207,22 @@ def solve_sharded(pt, *, resident: ShardedResident,
 
 # -- routing: when does a solve take the sharded path? -------------------------
 
+_ONE_CARD_NOTED = False
+
+
 def sharded_route(pt) -> Optional[Mesh]:
     """Whether `pt` takes the sharded path, and on what mesh.
     `FLEET_SHARDED=0` disables, `=1` forces; otherwise instances with
-    S·N >= FLEET_SHARDED_MIN_CELLS (default 5e7) route when >= 2 devices
-    are visible. FLEET_SHARDED_REPLICAS picks the tempering replicas
-    (default 2 with >= 4 devices, else 1); the rest shard the service
-    axis. The devices are the visible cards: with one card there is
-    nothing to route (as the reference with one chip), and a host of
-    distinct cards stays on the single-card path until the multi-card
-    slice (ROADMAP queue 1 item 5)."""
+    S·N >= FLEET_SHARDED_MIN_CELLS (default 5e7) route when a mesh of >= 2
+    positions exists. FLEET_SHARDED_REPLICAS picks the tempering replicas
+    (default 2 with >= 4 positions, else 1); the rest shard the service
+    axis. The positions are the ranks of the process group
+    (``parallel.init_multihost``) when it has two or more; without a group
+    they are the visible devices, which route only when they all name one
+    device. A process that sees several cards but joined no group stays
+    on one card (PyTorch runs one process a card; the reference's single
+    controller drives every chip) and says so once in the log."""
+    global _ONE_CARD_NOTED
     mode = os.environ.get("FLEET_SHARDED", "").strip().lower()
     if mode in ("0", "off", "false", "no"):
         return None
@@ -1021,9 +1230,21 @@ def sharded_route(pt) -> Optional[Mesh]:
     thresh = _env_int("FLEET_SHARDED_MIN_CELLS", 50_000_000)
     if not force and pt.S * pt.N < thresh:
         return None
-    devs = [torch.device(d) for d in visible_devices()]
-    if len(devs) < 2 or len(set(devs)) > 1:
-        return None
+    ranks = _group_devices()
+    if ranks is not None:
+        devs = ranks
+    else:
+        devs = [torch.device(d) for d in visible_devices()]
+        if len(devs) < 2:
+            return None
+        if len(set(devs)) > 1:
+            if not _ONE_CARD_NOTED:
+                _ONE_CARD_NOTED = True
+                log.info("sharded route %s", kv(
+                    cards=len(devs), group=None,
+                    path="one card (join a process group with "
+                         "parallel.init_multihost to shard across cards)"))
+            return None
     want = _env_int("FLEET_SHARDED_REPLICAS", 0)
     if want <= 0:
         replicas = 2 if len(devs) >= 4 else 1
@@ -1032,7 +1253,13 @@ def sharded_route(pt) -> Optional[Mesh]:
         if replicas != want:
             log.warning("FLEET_SHARDED_REPLICAS=%d clamped to %d (only %d "
                         "devices visible)", want, replicas, len(devs))
-    return tempering_mesh(replicas, len(devs) // replicas, devices=devs)
+    mesh = tempering_mesh(replicas, len(devs) // replicas, devices=devs)
+    if mesh.ranks is not None and mesh.position is None:
+        log.info("sharded route %s", kv(
+            mesh=f"{replicas}x{len(devs) // replicas}",
+            path="this rank holds no position; one card"))
+        return None
+    return mesh
 
 
 # solve() kwargs the sharded path speaks; any other pins the call to the

@@ -29,7 +29,10 @@ services, and with every node full from the first service on; K7 with
 many winners leaving three crowded nodes from every shard at T = 1, with
 a service drawn many times in one position, M not a multiple of 32 and
 D = 1, 5 and 8, and its bound launcher reused over sweeps and built again
-after a merge, its loads bit-equal to the plain version on the CPU.
+after a merge, its loads bit-equal to the plain version on the CPU; K7's
+cross-rank entry points (elect, apply, reduce) for every position of 1 x 8
+and 2 x 4 meshes against their plain versions on the CPU, entry point by
+entry point.
 
 Every test needs a CUDA card and skips without one. On the card (which has
 no JAX, so the repository's conftest cannot load):
@@ -506,7 +509,7 @@ def test_main_path_on_the_card(dev):
             assert sched.last_result.subsolve["outcome"] == "localized"
     # every kernel of the path launched (K6 seeds only solve(seed_impl=
     # "scan"), which the scheduler does not take; K7 is the sharded path)
-    off = ("k6_greedy_scan", "k7_sharded_sweep")
+    off = ("k6_greedy_scan", "k7_sharded_sweep", *_ext.ENTRY_POINTS)
     assert all(v > 0 for k, v in _ext.LAUNCHES.items()
                if k not in off), _ext.LAUNCHES
     assert all(_ext.LAUNCHES[k] == 0 for k in off)
@@ -1127,6 +1130,96 @@ def test_k6_best_effort_every_node_full(dev, N):
     prob = prepare_problem(pt, dev)
     out = _k6_against_plain(dev, pt, prob)
     assert len(set(out.tolist())) > 1
+
+
+@pytest.mark.parametrize("layout", [(1, 8), (2, 4)])
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_k7_rank_entry_points_match_plain(dev, layout, strategy):
+    """K7's cross-rank entry points (elect, apply, reduce) for every
+    position of an R x D mesh on the card, the collectives between them
+    done by hand (MIN of the slots over a replica's shards, the partials
+    stacked in shard order, the integer deltas summed), against their
+    plain versions on CPU copies: each entry point's outputs equal (the
+    slots and the proposals' standing, the deltas, partials and applied
+    counts, the reduced planes, loads bit-equal), three sweeps, from hot
+    random replica states at T = 1 and 0.01, one launch each a call."""
+    from fleetflow_tpu_torch.solver import sharded, sharded_ranks as sr
+    R, D = layout
+    _pt, prob = _problem(dev, S=2000, N=200, strategy=strategy,
+                         packed=strategy != "fill_lowest",
+                         preferred=strategy == "pack_into_dedicated",
+                         skew=3 if strategy == "fill_lowest" else 0,
+                         n_real=1990)
+    whole = _sharded_state(dev, prob, R, 4)
+    S_loc = prob.S // D
+    M = max(8, min(256, S_loc // 2))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    draws = sharded.TorchDraws(gen)
+    both = {}
+    for r in range(R):
+        for d in range(D):
+            pos = sr.RankPosition(r, d, R, D, prob.S, d * S_loc)
+            lp = sr.shard_rows(prob, pos)
+            st = anneal.ChainState(
+                whole.assignment[r:r + 1, d * S_loc:(d + 1) * S_loc]
+                .clone(), *(t[r:r + 1].clone() for t in whole[1:]))
+            st_c = anneal.ChainState(*(t.cpu() for t in st))
+            both[r, d] = (pos, (lp, st, sr.rank_scratch(lp, st, M)),
+                          (_on_cpu(lp), st_c, sr.rank_scratch(lp, st_c, M)))
+    applied = 0
+    for i, temp in enumerate((1.0, 0.01, 0.01)):
+        s_all, b_all, u_all = draws.proposals(
+            i, sharded._hot(prob, whole, D), prob.N, M)
+        for (r, d), (pos, k, c) in both.items():
+            n0 = _ext.LAUNCHES["k7_rank_elect"]
+            sr.sharded_elect(*k, pos, s_all[r, d].contiguous(),
+                             b_all[r, d].contiguous(),
+                             u_all[r, d].contiguous(), temp)
+            assert _ext.LAUNCHES["k7_rank_elect"] == n0 + 1
+            sr.sharded_elect_plain(*c, pos, s_all[r, d].cpu(),
+                                   b_all[r, d].cpu(), u_all[r, d].cpu(), temp)
+            assert torch.equal(k[2].slots.cpu(), c[2].slots)
+            assert torch.equal(k[2].cand.cpu(), c[2].cand)
+        for r in range(R):
+            for side in (1, 2):
+                slots = torch.stack([both[r, d][side][2].slots
+                                     for d in range(D)]).min(0).values
+                for d in range(D):
+                    both[r, d][side][2].slots.copy_(slots)
+        for (r, d), (pos, k, c) in both.items():
+            sr.sharded_apply(*k, pos)
+            sr.sharded_apply_plain(*c, pos)
+            for name in ("deltas", "partial", "applied"):
+                assert torch.equal(getattr(k[2], name).cpu(),
+                                   getattr(c[2], name)), name
+            assert torch.equal(k[1].assignment.cpu(), c[1].assignment)
+            applied += int(c[2].applied[0])
+        for r in range(R):
+            for side in (1, 2):
+                parts = torch.stack([both[r, d][side][2].partial
+                                     for d in range(D)])
+                deltas = torch.stack([both[r, d][side][2].deltas
+                                      for d in range(D)]).sum(0)
+                for d in range(D):
+                    pos, lp_st_sc = both[r, d][0], both[r, d][side]
+                    lp_st_sc[2].deltas.copy_(deltas)
+                    reduce = (sr.sharded_reduce if side == 1
+                              else sr.sharded_reduce_plain)
+                    reduce(*lp_st_sc, pos, parts)
+        for (r, d), (pos, k, c) in both.items():
+            for x, y in zip(k[1], c[1]):
+                assert torch.equal(x.cpu(), y)
+            assert int(k[2].deltas.abs().sum()) == 0
+            assert bool((k[2].slots == 2**31 - 1).all())
+            assert bool((k[2].partial == 0).all())
+        # the next sweep's hot mask reads the replicas' state
+        for r in range(R):
+            whole.assignment[r] = torch.cat([both[r, d][1][1].assignment[0]
+                                             for d in range(D)])
+            for t, u_ in zip(whole[1:], both[r, 0][1][1][1:]):
+                t[r] = u_[0]
+    assert applied > 0
 
 
 def _k7_against_cpu(prob, st_k, s_loc, b_idx, u, temps, sweep=None):

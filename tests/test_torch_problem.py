@@ -289,8 +289,10 @@ class TestBoundaries:
         lint, the cloud providers, the registry with its aggregation, the
         build subsystem, the node agent, the chaos world, the daemon, the
         CLI, the MCP server, the static-analysis package and the
-        launch-contract registry among them, their ``__main__`` modules
-        included, which import without running) and chip_smoke.py
+        launch-contract registry, the ranks (``parallel``, the
+        collectives and the sharded anneal across ranks) among them, their
+        ``__main__`` modules included, which import without running) and
+        chip_smoke.py
         import in a fresh interpreter without
         jax or fleetflow_tpu entering sys.modules."""
         code = (
@@ -335,7 +337,8 @@ class TestBoundaries:
             "'cli.utils', 'cli.wizard', 'mcp', 'mcp.server', 'analysis', "
             "'analysis.auditor', 'analysis.baseline', 'analysis.callgraph', "
             "'analysis.dataflow', 'analysis.hygiene', 'analysis.jitspec', "
-            "'solver.contracts')}\n"
+            "'solver.contracts', 'parallel', 'solver.collectives', "
+            "'solver.sharded_ranks')}\n"
             "print(len(mods), bad, sorted(obs - set(mods)))\n"
             "sys.exit(1 if bad or len(mods) < 15 or obs - set(mods) "
             "else 0)\n")

@@ -293,6 +293,94 @@ class TestStep:
             sh.sharded_step_apply(tp, st, s.long(), s, u, [1.0])
 
 
+class TestRankEntryPoints:
+    @pytest.mark.parametrize("packed", [True, False])
+    @pytest.mark.parametrize("layout", [(1, 8), (2, 4)])
+    def test_composed_equal_the_plain_sweep(self, layout, packed):
+        """K7's cross-rank entry points (plain versions), one per position
+        with the collectives done by hand (MIN of the slots over the
+        replica's shards, the partials stacked in shard order, the integer
+        deltas summed), equal sharded_step_plain bit for bit over three
+        sweeps: every position's replica state, the assignment shards and
+        the applied counts."""
+        from fleetflow_tpu_torch.solver import sharded_ranks as sr
+        R, D = layout
+        _dp, tp, _, _ = staged_pair(200, 16, 8, packed=packed, coloc=True,
+                                    max_skew=3, domains=4,
+                                    preferred=not packed)
+        tpp, orig = port_pad(tp, D)
+        tpp.n_real = orig
+        S_loc = tpp.S // D
+        rng = np.random.default_rng(8)
+        a0 = torch.tensor(rng.integers(0, 16, (R, tpp.S)), dtype=torch.int32)
+        whole = sh.chain_states_from_assignment(tpp, a0)
+        gen = torch.Generator().manual_seed(8)
+        M = 25
+        pos = {(r, d): sr.RankPosition(r, d, R, D, tpp.S, d * S_loc)
+               for r in range(R) for d in range(D)}
+        lp = {d: sr.shard_rows(tpp, pos[0, d]) for d in range(D)}
+        mine = {}
+        for (r, d), p in pos.items():
+            st = sh.ChainState(
+                whole.assignment[r:r + 1, d * S_loc:(d + 1) * S_loc].clone(),
+                *(t[r:r + 1].clone() for t in whole[1:]))
+            mine[r, d] = (st, sr.rank_scratch(lp[d], st, M))
+        for sweep in range(3):
+            s_loc, b_idx, u = sh.TorchDraws(gen).proposals(
+                sweep, sh._hot(tpp, whole, D), 16, M)
+            temps = [5.0 / (1 + sweep)] * R
+            _, applied = sh.sharded_step_plain(tpp, whole, s_loc, b_idx, u,
+                                               temps)
+            for (r, d), (st, sc) in mine.items():
+                sr.sharded_elect(lp[d], st, sc, pos[r, d], s_loc[r, d],
+                                 b_idx[r, d], u[r, d], temps[r])
+            for r in range(R):
+                slots = torch.stack([mine[r, d][1].slots
+                                     for d in range(D)]).min(0).values
+                for d in range(D):
+                    mine[r, d][1].slots.copy_(slots)
+            for (r, d), (st, sc) in mine.items():
+                sr.sharded_apply(lp[d], st, sc, pos[r, d])
+                assert int(sc.applied[0]) == int(applied[r, d])
+            for r in range(R):
+                parts = torch.stack([mine[r, d][1].partial
+                                     for d in range(D)])
+                deltas = torch.stack([mine[r, d][1].deltas
+                                      for d in range(D)]).sum(0)
+                for d in range(D):
+                    st, sc = mine[r, d]
+                    sc.deltas.copy_(deltas)
+                    sr.sharded_reduce(lp[d], st, sc, pos[r, d], parts)
+                    assert int(sc.deltas.abs().sum()) == 0
+                    assert int(sc.partial.abs().sum()) == 0
+                    assert bool((sc.slots == 2**31 - 1).all())
+            for (r, d), (st, _sc) in mine.items():
+                assert torch.equal(
+                    st.assignment[0],
+                    whole.assignment[r, d * S_loc:(d + 1) * S_loc])
+                for f in ("load", "used", "coloc", "topo"):
+                    assert torch.equal(getattr(st, f)[0],
+                                       getattr(whole, f)[r]), (f, r, d)
+        assert int(applied.sum()) > 0
+
+    def test_shard_rows_and_local_real(self):
+        from fleetflow_tpu_torch.solver import sharded_ranks as sr
+        _dp, tp, _, _ = staged_pair(61, 8, 3)
+        tpp, orig = port_pad(tp, 4)
+        tpp.n_real = orig
+        S_loc = tpp.S // 4
+        for d in range(4):
+            p = sr.RankPosition(0, d, 1, 4, tpp.S, d * S_loc)
+            lp = sr.shard_rows(tpp, p)
+            assert lp.S == S_loc and lp.N == tpp.N
+            assert torch.equal(lp.demand, tpp.demand[d * S_loc:
+                                                     (d + 1) * S_loc])
+            assert lp.capacity is tpp.capacity
+            assert lp.real_rows == sr.local_real(orig, p) == \
+                min(max(orig - d * S_loc, 0), S_loc)
+        assert sr.local_real(None, p) == S_loc
+
+
 class TestMesh:
     @pytest.mark.parametrize("shape", [(1, 8), (2, 4), (4, 2), (8, 1),
                                        (2, None), (3, None)])
@@ -309,15 +397,35 @@ class TestMesh:
         with pytest.raises(ValueError):
             ref_sh.tempering_mesh(2, 8, devices=jax.devices()[:8])
 
-    def test_distinct_devices_raise(self):
-        with pytest.raises(SolverError, match="multi-card sharded path"):
+    def test_distinct_devices_raise(self, monkeypatch):
+        """A mesh over distinct devices without a group raises, naming
+        init_multihost; over a group's ranks it builds (this rank's
+        position, its device, the reference's shapes)."""
+        with pytest.raises(SolverError, match="init_multihost"):
             sh.Mesh(["cuda:0", "cuda:1"], (sh.SVC_AXIS,))
-        with pytest.raises(SolverError):
+        with pytest.raises(SolverError, match="init_multihost"):
             sh.tempering_mesh(2, 1, devices=["cpu", "cuda:0"])
+        with pytest.raises(SolverError, match="init_multihost"):
+            sh.Mesh([0, 1], (sh.SVC_AXIS,))
         assert sh.Mesh(CPU8, (sh.SVC_AXIS,)) == sh.Mesh(
             [torch.device("cpu")] * 8, (sh.SVC_AXIS,))
         assert sh.Mesh(CPU8, (sh.SVC_AXIS,)) != sh.tempering_mesh(
             1, 8, devices=CPU8)
+        from fleetflow_tpu_torch import parallel
+        monkeypatch.setattr(parallel, "world", lambda: parallel.World(
+            2, 4, torch.device("cpu"), "gloo"))
+        flat = sh.Mesh([0, 1, 2, 3], (sh.SVC_AXIS,))
+        assert flat.position == (2,) and flat.device == torch.device("cpu")
+        assert flat.shape == {sh.SVC_AXIS: 4} and flat.size == 4
+        temp = sh.tempering_mesh(2, 2)
+        assert temp.shape == {sh.REPLICA_AXIS: 2, sh.SVC_AXIS: 2}
+        assert temp.ranks.tolist() == [[0, 1], [2, 3]]
+        assert temp.position == (1, 0) and temp != flat
+        assert sh.Mesh([0, 1], (sh.SVC_AXIS,)).position is None
+        with pytest.raises(SolverError):
+            sh.Mesh([0, 4], (sh.SVC_AXIS,))
+        with pytest.raises(SolverError):
+            sh.Mesh([1, 1], (sh.SVC_AXIS,))
 
     def test_swap_criterion_matches_reference(self):
         rng = np.random.default_rng(0)
@@ -579,12 +687,26 @@ class TestRouting:
 
     @pytest.mark.parametrize("cards", [1, 2, 4])
     def test_route_stays_off_on_cards(self, cards, monkeypatch):
-        """Visible cards: one has nothing to route, distinct cards wait for
-        the multi-card slice."""
+        """Visible cards without a group: one has nothing to route, and a
+        process that sees several stays on one card (one process a card).
+        A group of 2 or 4 ranks routes over them, on the reference's mesh
+        shape over as many devices."""
+        from fleetflow_tpu_torch import parallel
         monkeypatch.setenv("FLEET_SHARDED", "1")
         monkeypatch.setattr(sh, "visible_devices", lambda: [
             torch.device("cuda", i) for i in range(cards)])
         assert sh.sharded_route(synthetic_problem(73, 12, seed=1)) is None
+        _need_devices(8)
+        monkeypatch.setattr(parallel, "world", lambda: parallel.World(
+            0, cards, torch.device("cpu"), "gloo"))
+        devs = jax.devices()[:cards]
+        monkeypatch.setattr(ref_sh.jax, "devices", lambda *a, **k: devs)
+        ref = ref_sh.sharded_route(ref_synthetic(73, 12, seed=1))
+        port = sh.sharded_route(synthetic_problem(73, 12, seed=1))
+        assert (ref is None) == (port is None) == (cards == 1)
+        if port is not None:
+            assert dict(ref.shape) == port.shape
+            assert port.ranks.reshape(-1).tolist() == list(range(cards))
 
     def test_scheduler_routes_and_reuses_delta(self, monkeypatch):
         from fleetflow_tpu_torch.sched import GpuSolverScheduler
