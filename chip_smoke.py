@@ -15,7 +15,8 @@ each of which fails the run:
      n_tenants=8, port_fraction=0.2, volume_fraction=0.1), and time both
      with CUDA events (K4 and K3 also on the 2000x200 mux tier's
      staging; ``[k6_scan]``: K6 also at 2000x200 with pack,
-     fill_lowest and a best-effort instance, and at 512 x 3,000 with a
+     fill_lowest and a best-effort instance, the same instance in strict
+     mode (``best_effort=False``), and at 512 x 3,000 with a
      preference plane (more nodes than a block has threads), each size
      with its microseconds a step; K1 timed at T = 1 and T = 1e-3); then
      K1-K3 with a lane axis,
@@ -105,6 +106,28 @@ each of which fails the run:
      lowering to the same tensors; every stage of ``examples/`` loaded
      with the pool, lowered and placed (production's keeps its quota,
      fallback and spread);
+     ``[options]``, after ``[frontend]`` (30 s budget): the solver's
+     options beside the main path. (a) Five rounds, each of a fresh pair
+     of ``GpuSolverScheduler()``s on the headline fleet, each a cold place
+     and three bursts (one node down, 5% down, 64 arrivals into phantom
+     rows): A reschedules with ``overlap_host_work`` set to
+     ``lower_stage`` of ``[frontend]``'s flow (a re-lowering of one
+     fleet), B without it, the order alternating by burst and round; A
+     equals B bit for bit, the callable ran once a burst,
+     ``overlap_host_ms`` is in A's timings and outside its
+     ``subsolve_ms``; each burst prints A's and B's wall, the re-lowering
+     alone and the hidden ms (B + re-lowering - A, and B +
+     ``overlap_host_ms`` - A), then each burst's median, least and
+     greatest over the rounds. (b) ``solve_sharded`` cold on the sharded
+     fleet over a 1x8 mesh with and without the callable (equal), and
+     with ``proposals_per_step=128`` beside the default (the width
+     reported). (c) ``do_repair=False`` on ``[fallback]``'s blocked
+     instance through ``solve``, ``solve_multiplexed`` (2 lanes) and
+     ``solve_sharded``: violations above 0 and equal to the host verify,
+     0 moves, and the ``do_repair=True`` result the host repair of that
+     assignment; through ``solve`` also a 2-sweep hot fixed budget
+     (T = 5), whose repair must move rows and leave fewer violations than
+     the unrepaired result;
      ``[cp]``: the control plane's placement path on ``[frontend]``'s
      fleet and servers. A ``Store`` of the 1,000 servers (online, with
      the KDL's capacities and labels); ``PlacementService(store)`` (the
@@ -2734,16 +2757,17 @@ def check_k6(torch, np, pkg, dev):
     each size's kernel ms and microseconds a step. Returns K6's record."""
     greedy, problem, lower = pkg
 
-    def case(label, pt):
+    def case(label, pt, best_effort=True):
         """Check K6 against its plain version; the plain run's CUDA-event
         ms (one run: ~10,000 steps of small launches at the headline
         size)."""
         prob = problem.prepare_problem(pt, dev)
         order = scan_order(torch, np, greedy, problem, pt, prob, dev)
-        got = greedy.greedy_place(prob, order)
+        got = greedy.greedy_place(prob, order, best_effort)
         out = []
         plain = cuda_ms(torch, lambda: out.append(
-            greedy.greedy_place_plain(prob, order)), reps=1, warmup=0)
+            greedy.greedy_place_plain(prob, order, best_effort)), reps=1,
+            warmup=0)
         if not torch.equal(got, out[0]):
             raise AssertionError(f"K6 {label}: assignment differs in "
                                  f"{int((got != out[0]).sum())} services")
@@ -2767,6 +2791,27 @@ def check_k6(torch, np, pkg, dev):
         small[strategy] = round(cuda_ms(
             torch, lambda: greedy.greedy_place(prob2, order2)), 3)
         steps[f"2000x200 {strategy}"] = small[strategy] * 1e3 / order2.shape[0]
+    # strict mode on the best-effort instance: a service that fits nowhere
+    # goes to node 0, with no best-effort pass
+    prob_s, order_s, plain_s = case("2000 x 200 strict", pt2,
+                                    best_effort=False)
+    strict_ms = cuda_ms(torch, lambda: greedy.greedy_place(
+        prob_s, order_s, best_effort=False))
+    on0 = int((greedy.greedy_place(prob_s, order_s, best_effort=False)
+               == 0).sum())
+    small["strict"] = round(strict_ms, 3)
+    steps["2000x200 strict"] = strict_ms * 1e3 / order_s.shape[0]
+    ids_s = int((prob_s.conflict_ids >= 0).sum())
+    strict_bound = bound_of(
+        tensor_bytes(torch, prob_s.demand, prob_s.conflict_ids, order_s,
+                     prob_s.eligible, prob_s.node_valid, prob_s.capacity,
+                     prob_s.preferred) + 4.0 * prob_s.S,
+        prob_s.S * prob_s.N * 30.0 + ids_s * prob_s.N)
+    strict = dict(case="2000x200 at 45% capacity, best_effort=False",
+                  ms=strict_ms, plain_ms=plain_s, bound_ms=strict_bound[0],
+                  bound_by=strict_bound[1], on_node0=on0,
+                  max_abs_err=0.0)
+    print(f"[k6_scan] strict {json.dumps(strict)}", flush=True)
     # more nodes than a block has threads: each thread owns three
     pt3 = lower.synthetic_problem(512, 3000, seed=2, n_tenants=3)
     pref = np.random.default_rng(2).random((512, 3000)).astype(np.float32)
@@ -2789,7 +2834,7 @@ def check_k6(torch, np, pkg, dev):
         source="fleetflow_tpu_torch/csrc/k6_greedy_scan.cu",
         replaces="fleetflow_tpu/solver/greedy.py:58",
         max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None,
-        small_ms=small, us_per_step=steps,
+        small_ms=small, us_per_step=steps, strict=strict,
         # per step: ~30 float32 operations a node (as K4's count) plus one
         # add per valid conflict id a node
         ops=S * N * 30.0 + ids * N,
@@ -2948,6 +2993,17 @@ def run_seeds_phase(torch, np, mods, pt, dev_name):
                          size=(pt.S, pt.N))
 
 
+def blocked_fleet(lower):
+    """[fallback]'s 2000x200 stage: every 8th service may use only 10
+    nodes, all of them down, so no placement is feasible."""
+    pt = lower.synthetic_problem(2000, 200, seed=11, n_tenants=1)
+    elig, valid = pt.eligible.copy(), pt.node_valid.copy()
+    elig[::8] = False
+    elig[::8, :10] = True
+    valid[:10] = False
+    return dataclasses.replace(pt, eligible=elig, node_valid=valid)
+
+
 def run_fallback_phase(torch, np, mods, lower, dev_name):
     """[fallback]: place_with_fallback over GpuSolverScheduler() with a
     stage key, on a 2000x200 stage whose every 8th service may use only 10
@@ -2956,13 +3012,7 @@ def run_fallback_phase(torch, np, mods, lower, dev_name):
     pick_scheduler at three sizes. Returns the launch counts."""
     (_ext, GpuSolverScheduler, place_with_fallback, relax_problem,
      pick_scheduler, verify) = mods
-    pt = lower.synthetic_problem(2000, 200, seed=11, n_tenants=1)
-    elig, valid = pt.eligible.copy(), pt.node_valid.copy()
-    elig[::8] = False
-    elig[::8, :10] = True
-    valid[:10] = False
-    pt = dataclasses.replace(pt, eligible=elig, node_valid=valid,
-                             relax_order=["tier"])
+    pt = dataclasses.replace(blocked_fleet(lower), relax_order=["tier"])
     sched = GpuSolverScheduler()
     torch.cuda.synchronize()
     _ext.reset_launches()
@@ -2991,6 +3041,219 @@ def run_fallback_phase(torch, np, mods, lower, dev_name):
     picks[f"{N_SERVICES}x{N_NODES} prefer_gpu=False"] = type(pick_scheduler(
         N_SERVICES, N_NODES, prefer_gpu=False)).__name__
     print(f"[fallback] pick_scheduler {json.dumps(picks)}", flush=True)
+    return launches
+
+
+OPTIONS_BUDGET_S = 30.0     # the phase's time on the card's host
+OPTIONS_WIDTH = 128         # [options] (b)'s proposal width
+OPTIONS_ROUNDS = 5          # (a): each burst this many times
+# (c)'s hot fixed budget: two sweeps at T = 5 leave capacity and conflict
+# violations that the host repair moves away
+OPTIONS_HOT = dict(steps=2, adaptive=False, t0=5.0)
+
+
+def options_bursts(np, pt, first, ProblemDelta):
+    """[options] (a)'s churn after a cold place `first`: one node down,
+    5% of the nodes down, 64 arrivals into phantom rows. Yields (label,
+    fleet, delta)."""
+    rng = np.random.default_rng(0)
+    valid = pt.node_valid.copy()
+    valid[int(np.bincount(first, minlength=pt.N).argmax())] = False
+    pt = dataclasses.replace(pt, node_valid=valid.copy())
+    yield "one_node_down", pt, ProblemDelta(node_valid=valid.copy())
+    alive = np.flatnonzero(valid)
+    valid[rng.choice(alive, int(0.05 * pt.N), replace=False)] = False
+    pt = dataclasses.replace(pt, node_valid=valid.copy())
+    yield "5pct_nodes_down", pt, ProblemDelta(node_valid=valid.copy())
+    pt, delta_kw = with_arrivals(np, pt, ARRIVALS, rng)
+    yield "arrivals", pt, ProblemDelta(node_valid=valid.copy(), **delta_kw)
+
+
+def spread(np, values) -> dict:
+    """The median, least and greatest of `values` (ms)."""
+    return dict(median=round(float(np.median(values)), 3),
+                min=round(min(values), 3), max=round(max(values), 3))
+
+
+def unrepaired(np, res, pt, verify, repaired, repair, label: str,
+               moves: bool = False) -> dict:
+    """[options] (c)'s check of a ``do_repair=False`` result `res` and the
+    ``do_repair=True`` result `repaired` of the same call; with `moves`
+    the repair must move rows and leave fewer violations."""
+    host = verify(pt, res.assignment)
+    if not (res.violations > 0 and res.violations == host["total"]
+            and res.moves_repaired == 0 and not res.feasible
+            and res.pre_repair_violations == res.violations):
+        raise AssertionError(f"[options] {label} do_repair=False: "
+                             f"violations {res.violations}, host {host}, "
+                             f"moves {res.moves_repaired}")
+    rr = repair(pt, res.assignment)
+    if not (np.array_equal(repaired.assignment, rr.assignment)
+            and repaired.moves_repaired == rr.moves):
+        raise AssertionError(f"[options] {label}: do_repair=True is not the "
+                             f"host repair of the device winner")
+    if moves and not (repaired.moves_repaired > 0
+                      and repaired.violations < res.violations):
+        raise AssertionError(f"[options] {label}: the repair moved "
+                             f"{repaired.moves_repaired} rows, violations "
+                             f"{res.violations} -> {repaired.violations}")
+    return dict(solve=label, violations=res.violations,
+                repaired_violations=repaired.violations,
+                repair_moves=rr.moves)
+
+
+def run_options_phase(torch, np, mods, lower, dev, flow, pool, card):
+    """[options]: the solver options beside the main path (see the module
+    docstring): (a) overlap_host_work on the scheduler, OPTIONS_ROUNDS
+    rounds of the same bursts, (b) the sharded path's callable and
+    proposal width, (c) do_repair=False through solve, solve_multiplexed
+    and solve_sharded. Returns the launch counts."""
+    (_ext, GpuSolverScheduler, ProblemDelta, verify, solve, repair,
+     ResidentProblem, multiplex, sharded) = mods
+    dev_name = str(dev)
+    t_phase = time.perf_counter()
+    nodes = list(pool.servers.values())
+    relowered = []
+
+    def relower():
+        relowered.append(lower.lower_stage(flow, "prod", nodes=nodes))
+
+    pt = lower.synthetic_problem(N_SERVICES, N_NODES, seed=0, n_tenants=8,
+                                 port_fraction=0.2, volume_fraction=0.1)
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    # (a) the pipeline's overlap case on the scheduler: each round a fresh
+    # pair from the same cold place, so a burst is the same work in every
+    # round; A first on even (burst + round), B first on odd
+    rows = []
+    for rnd in range(OPTIONS_ROUNDS):
+        a, b = GpuSolverScheduler(), GpuSolverScheduler()
+        cold_a, cold_b = a.place(pt), b.place(pt)
+        if not np.array_equal(cold_a.raw, cold_b.raw):
+            raise AssertionError("[options] the two cold places differ")
+        check_solve(a.last_result, pt, verify, dev_name, "[options] cold")
+        for i, (label, cur, delta) in enumerate(options_bursts(
+                np, pt, cold_a.raw, ProblemDelta)):
+            walls = {}
+            calls = len(relowered)
+            for who in (("a", "b") if (i + rnd) % 2 == 0 else ("b", "a")):
+                kw = dict(overlap_host_work=relower) if who == "a" else {}
+                sched = a if who == "a" else b
+                t0 = time.perf_counter()
+                placed = sched.reschedule(cur, delta=delta, **kw)
+                walls[who] = ((time.perf_counter() - t0) * 1e3, placed,
+                              sched.last_result)
+            t0 = time.perf_counter()
+            lower.lower_stage(flow, "prod", nodes=nodes)
+            relower_ms = (time.perf_counter() - t0) * 1e3
+            (wall_a, pa, ra), (wall_b, pb, rb) = walls["a"], walls["b"]
+            for res in (ra, rb):
+                check_solve(res, cur, verify, dev_name, f"[options] {label}")
+            t = ra.timings_ms
+            if len(relowered) != calls + 1:
+                raise AssertionError(f"[options] {label}: the callable ran "
+                                     f"{len(relowered) - calls} times")
+            if not np.array_equal(pa.raw, pb.raw):
+                raise AssertionError(f"[options] {label}: A and B differ in "
+                                     f"{int((pa.raw != pb.raw).sum())} rows")
+            if ("overlap_host_ms" not in t
+                    or "overlap_host_ms" in rb.timings_ms
+                    or t.get("subsolve_ms", 0.0) + t["overlap_host_ms"]
+                    > t["anneal_ms"]):
+                raise AssertionError(f"[options] {label}: timings {t}")
+            rows.append(dict(
+                round=rnd, burst=label, order="".join(walls),
+                wall_a_ms=round(wall_a, 3), wall_b_ms=round(wall_b, 3),
+                relower_ms=round(relower_ms, 3),
+                hidden_ms=round(wall_b + relower_ms - wall_a, 3),
+                overlap_host_ms=round(t["overlap_host_ms"], 3),
+                # the same with the re-lowering's time inside A's call,
+                # which varies less than a second lowering's
+                hidden_in_call_ms=round(
+                    wall_b + t["overlap_host_ms"] - wall_a, 3),
+                subsolve=(ra.subsolve or {}).get("outcome"),
+                subsolve_ms=round(t.get("subsolve_ms", 0.0), 3),
+                sweeps=ra.steps))
+            print(f"[options] {json.dumps(rows[-1])}", flush=True)
+    if len({(x.S, x.N) for x in relowered}) != 1:
+        raise AssertionError("[options] the re-lowerings differ in shape")
+    bursts = {}
+    for label in dict.fromkeys(r["burst"] for r in rows):
+        mine = [r for r in rows if r["burst"] == label]
+        bursts[label] = {k: spread(np, [r[k] for r in mine]) for k in (
+            "wall_a_ms", "wall_b_ms", "relower_ms", "overlap_host_ms",
+            "hidden_ms", "hidden_in_call_ms")}
+        print(f"[options] {json.dumps(dict(burst=label, rounds=len(mine), **bursts[label]))}",
+              flush=True)
+    since = tally_size(_ext, pt.S, pt.N)
+
+    # (b) the sharded path: the callable and the proposal width
+    spt = sharded_fleet(lower, SHARDED_SHAPE)
+    mesh = sharded.Mesh([dev] * 8, (sharded.SVC_AXIS,))
+    out = {}
+    for tag, kw in (("plain", {}), ("overlap", dict(overlap_host_work=relower)),
+                    ("width", dict(proposals_per_step=OPTIONS_WIDTH))):
+        rp = sharded.ShardedResident(spt, mesh=mesh)
+        t0 = time.perf_counter()
+        res = sharded.solve_sharded(spt, resident=rp, steps=64, block=4,
+                                    seed=0, **kw)
+        torch.cuda.synchronize()
+        out[tag] = res
+        sharded_solve_row(res, spt, verify, dev_name, f"sharded_{tag}",
+                          (time.perf_counter() - t0) * 1e3, tag="options",
+                          width=res.proposals_per_step)
+    if not (np.array_equal(out["plain"].assignment, out["overlap"].assignment)
+            and out["plain"].soft == out["overlap"].soft
+            and "overlap_host_ms" in out["overlap"].timings_ms):
+        raise AssertionError("[options] solve_sharded with the callable "
+                             "differs from the call without it")
+    if (out["width"].proposals_per_step != OPTIONS_WIDTH
+            or out["plain"].proposals_per_step == OPTIONS_WIDTH):
+        raise AssertionError(f"[options] widths "
+                             f"{out['plain'].proposals_per_step}, "
+                             f"{out['width'].proposals_per_step}")
+    since = tally_size(_ext, spt.S, spt.N, since)
+
+    # (c) do_repair=False on the blocked instance: the adaptive anneal
+    # (whose winner keeps only the stranded rows, which the repair cannot
+    # move either) and the hot fixed budget (which the repair must mend)
+    bpt = blocked_fleet(lower)
+    rows_c = []
+    for tag, kw in (("", {}), (" hot fixed", OPTIONS_HOT)):
+        rows_c.append(unrepaired(
+            np, solve(bpt, seed=0, do_repair=False, **kw), bpt, verify,
+            solve(bpt, seed=0, **kw), repair, f"solve(){tag}",
+            moves=bool(kw)))
+
+    def lanes(do_repair):
+        entries = []
+        for seed in (0, 1):
+            rp = ResidentProblem(bpt, dev)
+            solve(bpt, prob=rp.prob, resident=rp, seed=seed, bucket=rp.bucket)
+            entries.append(multiplex.MuxEntry(pt=bpt, resident=rp, seed=seed))
+        return multiplex.solve_multiplexed(entries, do_repair=do_repair,
+                                           device=dev)
+
+    for j, (res, fixed) in enumerate(zip(lanes(False), lanes(True))):
+        if res.telemetry is not None and res.telemetry["path"] != "mux":
+            raise AssertionError("[options] the lanes did not batch")
+        rows_c.append(unrepaired(np, res, bpt, verify, fixed, repair,
+                                 f"solve_multiplexed lane {j}"))
+    res, fixed = (sharded.solve_sharded(
+        bpt, resident=sharded.ShardedResident(bpt, mesh=mesh), steps=64,
+        block=4, seed=0, do_repair=flag) for flag in (False, True))
+    rows_c.append(unrepaired(np, res, bpt, verify, fixed, repair,
+                             "solve_sharded 1x8"))
+    for row in rows_c:
+        print(f"[options] {json.dumps(row)}", flush=True)
+    tally_size(_ext, bpt.S, bpt.N, since)
+    launches = read_launches(torch, _ext, "options",
+                             ("k1_sweep", "k2_prerepair", "k3_rebuild",
+                              "k4_greedy", "k7_sharded_sweep"),
+                             off=("k6_greedy_scan",))
+    took = time.perf_counter() - t_phase
+    print(f"[options] {json.dumps(dict(phase_s=round(took, 3), budget_s=OPTIONS_BUDGET_S, over_budget=took > OPTIONS_BUDGET_S, rounds=OPTIONS_ROUNDS, hidden_ms={k: v['hidden_ms']['median'] for k, v in bursts.items()}, hidden_in_call_ms={k: v['hidden_in_call_ms']['median'] for k, v in bursts.items()}, relower_ms={k: v['relower_ms']['median'] for k, v in bursts.items()}, card=card))}",
+          flush=True)
     return launches
 
 
@@ -3177,7 +3440,7 @@ def check_k7(torch, np, mods, lower, dev):
 
 
 def sharded_solve_row(res, pt_now, verify, dev_name: str, label: str,
-                      wall_ms: float, **extra) -> dict:
+                      wall_ms: float, tag: str = "sharded", **extra) -> dict:
     """A [sharded] solve checked as every phase's are (feasible, the host
     verify agrees, no host repair, nothing on a dead node, on the card),
     and its report line."""
@@ -3191,7 +3454,7 @@ def sharded_solve_row(res, pt_now, verify, dev_name: str, label: str,
                padded_S=res.bucket["padded_S"],
                warm_h2d_copies=res.warm_h2d_copies, **extra,
                timings_ms={k: round(v, 3) for k, v in t.items()})
-    print(f"[sharded] {json.dumps(row)}", flush=True)
+    print(f"[{tag}] {json.dumps(row)}", flush=True)
     return row
 
 
@@ -7043,7 +7306,7 @@ def main() -> int:
                                                 sharded, sharded_ranks,
                                                 subsolve)
         from fleetflow_tpu_torch.solver.api import solve
-        from fleetflow_tpu_torch.solver.repair import verify
+        from fleetflow_tpu_torch.solver.repair import repair, verify
         from fleetflow_tpu_torch.solver.resident import (ProblemDelta,
                                                          ResidentProblem)
         from fleetflow_tpu_torch import core
@@ -7131,6 +7394,12 @@ def main() -> int:
                     place_with_fallback, relax_problem, core, serialize,
                     fleetgen, lower, native_kdl, parsecache,
                     explain_assignment), str(dev))
+    # [options]: overlap_host_work re-lowering [frontend]'s flow, the
+    # sharded width, do_repair=False
+    by_phase["options"] = run_options_phase(
+        torch, np, (_ext, GpuSolverScheduler, ProblemDelta, verify, solve,
+                    repair, ResidentProblem, multiplex, sharded), lower, dev,
+        fe_flow, fe_pool, card)
     by_phase["cp"] = run_cp_phase(
         torch, np, (_ext, cp_models, Store, cp_placement,
                     AdmissionController, AdmissionConfig, REGISTRY, verify,
@@ -7213,7 +7482,7 @@ def main() -> int:
             "plain_ms", "bound_ms",
             "bound_by", "library_ms", "device_ms", "device_launches",
             "sizes", "device", "lanes", "phases", "small_ms", "us_per_step",
-            "layouts", "entries", "uploads", "device_tier")
+            "strict", "layouts", "entries", "uploads", "device_tier")
             if k in r})
     print(f"[done] {time.perf_counter() - t0:.1f} s after the build started",
           flush=True)

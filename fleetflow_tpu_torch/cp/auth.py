@@ -7,7 +7,7 @@ cached JWKS document, the reference's production path (auth.rs:26-38
 Auth0Verifier: JWKS cache + semaphore, Claims with permissions). Claims
 carry email + permissions like the reference's; a token is obtained either
 by minting (shared secret) or via the OAuth Device Flow against the
-external IdP (the CLI's device flow, not ported yet).
+external IdP (the CLI's device flow, ``cli/device_flow.py``).
 
 HS256 JWT is implemented inline (HMAC-SHA256 + base64url): no external
 deps, and the token format stays interoperable with standard tooling — a

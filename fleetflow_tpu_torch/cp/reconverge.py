@@ -45,8 +45,9 @@ what makes `rolling-kill-selfheal` a deterministic, digest-reproducible
 scenario.
 
 The reconverger reads three attributes of its `state`: `store`,
-`placement` and `agent_registry` (`HealState`). The server's `AppState`
-holds them; it is not ported yet, so any holder of the three serves.
+`placement` and `agent_registry` (`HealState`). Any holder of the three
+serves: the server's `AppState` (`cp/server.py`) is one, which `start`
+hands it.
 """
 
 from __future__ import annotations

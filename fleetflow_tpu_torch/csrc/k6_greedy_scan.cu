@@ -13,8 +13,11 @@
 // node is ok, the first argmax of the best-effort score
 //   -(overflow * 1e3 + n_conf * 1e3) + score
 // masked with `- 1e15` (not -inf) where the node is not eligible and valid,
-// as the reference masks it. The winner's load, occupancy and assignment
-// are committed before the next service is scored.
+// as the reference masks it. With best_effort 0 (the reference's
+// greedy_place(best_effort=False)) a service with no ok node goes to node
+// 0, the first argmax of an all -1e30 row, with no second pass. The
+// winner's load, occupancy and assignment are committed before the next
+// service is scored.
 //
 // Bound: latency. The S steps are strictly sequential, each a few
 // operations a node; the function's roofline is its operation count (~30
@@ -52,7 +55,9 @@
 //     saying whether any of its nodes was ok; one __syncthreads publishes
 //     them, and every warp then reduces the 32 slots itself, so all
 //     threads know the winner and its owner commits it. A step with no ok
-//     node takes a second pass and barrier for the best-effort argmax. The
+//     node takes a second pass and barrier for the best-effort argmax
+//     (none in strict mode: every node's key is then that of -1e30, and
+//     the first argmax is already node 0). The
 //     score keys order the floats as a float compare does (-0 equals +0),
 //     so ties go to the lower node whatever the order of the reduction.
 //
@@ -91,6 +96,7 @@ struct Scan {
   const unsigned char* valid;
   const float* pref;
   int strategy;
+  int best_effort;   // 0: a service with no ok node goes to node 0
   const int* order;
   int n_order;
   int* assignment;
@@ -435,7 +441,9 @@ __global__ void __launch_bounds__(kThreads, 1) k6_scan(Scan p) {
     __syncthreads();
     bool feasible;
     int w = static_cast<int>(block_best<kOne>(slots[i & 1], feasible));
-    if (!feasible) {
+    // the flag and `feasible` are the same in every thread: the barrier
+    // below is taken by all or by none
+    if (!feasible && p.best_effort) {
       // no ok node anywhere: the first argmax of the best-effort score
       key = 0u;
       node = 0xffffffffu;
@@ -568,7 +576,8 @@ FF_EXPORT int ff_k6_greedy_scan(int S, int N, int G, const float* demand,
                                 const float* cap, const int* cids, int K,
                                 const void* elig, int packed, int stride,
                                 const unsigned char* valid, const float* pref,
-                                int strategy, const int* order, int n_order,
+                                int strategy, int best_effort,
+                                const int* order, int n_order,
                                 int* assignment, int* scratch,
                                 cudaStream_t stream) {
   if (N < 1 || G < 0 || K < 0 || n_order < 0 || n_order > S)
@@ -576,7 +585,7 @@ FF_EXPORT int ff_k6_greedy_scan(int S, int N, int G, const float* demand,
   const Layout l = layout_of(N, G, K);
   int* bits = scratch + l.counts_ints;
   Scan p{S, N, G, K, l.Gw, demand, cap, cids, elig, packed, stride, valid,
-         pref, strategy, order, n_order, assignment, scratch,
+         pref, strategy, best_effort, order, n_order, assignment, scratch,
          l.shared_bits ? nullptr : reinterpret_cast<unsigned*>(bits),
          l.one ? nullptr : reinterpret_cast<float4*>(bits + l.bits_ints)};
   cudaError_t e;

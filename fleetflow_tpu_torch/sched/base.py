@@ -51,6 +51,12 @@ class Placement:
     solve_ms: float = 0.0
     raw: np.ndarray | None = field(default=None, repr=False)  # (S,) node idx
 
+    def services_on(self, node: str) -> list[str]:
+        """Rows assigned to `node`, in level-schedule order."""
+        order = {name: i for i, lvl in enumerate(self.levels) for name in lvl}
+        mine = [s for s, n in self.assignment.items() if n == node]
+        return sorted(mine, key=lambda s: (order.get(s, 0), s))
+
     def node_levels(self, node: str) -> list[list[str]]:
         """The level schedule restricted to one node (what that node's
         executor runs, wave by wave: the deploy engine's slice)."""

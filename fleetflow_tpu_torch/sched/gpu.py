@@ -407,7 +407,8 @@ class GpuSolverScheduler:
         return slot, resident_warm
 
     def _solve_one(self, pt: ProblemTensors, slot: _StageSlot,
-                   resident_warm: bool, init: Optional[np.ndarray]):
+                   resident_warm: bool, init: Optional[np.ndarray],
+                   overlap_host_work=None):
         # the slot's own staging decides the path (sharded or not) and
         # whether the solve is padded, not a fresh read of the environment
         rp = slot.resident
@@ -415,10 +416,12 @@ class GpuSolverScheduler:
             return solve_sharded(pt, resident=rp,
                                  resident_warm=resident_warm,
                                  init_assignment=init, steps=self.steps,
-                                 seed=self.seed)
+                                 seed=self.seed,
+                                 overlap_host_work=overlap_host_work)
         return solve(pt, prob=rp.prob, chains=self.chains, steps=self.steps,
                      seed=self.seed, init_assignment=init, bucket=rp.bucket,
-                     resident=rp, resident_warm=resident_warm, mesh=self.mesh)
+                     resident=rp, resident_warm=resident_warm, mesh=self.mesh,
+                     overlap_host_work=overlap_host_work)
 
     def _finalize(self, pt: ProblemTensors, res: SolveResult,
                   slot: _StageSlot, ms: float) -> Placement:
@@ -465,16 +468,20 @@ class GpuSolverScheduler:
         return seed_by_name(pt, slot.last_assignment, services, nodes)
 
     def place(self, pt: ProblemTensors, *, warm_start: bool = False,
-              delta: Optional[ProblemDelta] = None,
+              delta: Optional[ProblemDelta] = None, overlap_host_work=None,
               stage: Optional[str] = None) -> Placement:
         """Solve `pt` on the scheduler's device. `delta` is the structured
-        churn of a warm reschedule; `stage` keys the resident slot."""
+        churn of a warm reschedule; `stage` keys the resident slot.
+        `overlap_host_work` (a zero-argument callable) runs host work, such
+        as re-lowering a changed fleet, while the solve is in flight on the
+        card (see :func:`solve`)."""
         t0 = time.perf_counter()
         slot, resident_warm = self._stage(pt, delta, warm_start, stage,
                                           mesh=self._route(pt))
         res = self._solve_one(pt, slot, resident_warm,
                               self._host_seed(pt, slot, warm_start,
-                                              resident_warm))
+                                              resident_warm),
+                              overlap_host_work=overlap_host_work)
         return self._finalize(pt, res, slot, (time.perf_counter() - t0) * 1e3)
 
     def place_many(self, requests: list[dict]) -> list[Placement]:
@@ -532,7 +539,9 @@ class GpuSolverScheduler:
 
     def reschedule(self, pt: ProblemTensors, *,
                    delta: Optional[ProblemDelta] = None,
+                   overlap_host_work=None,
                    stage: Optional[str] = None) -> Placement:
         """Warm re-solve after churn: only churn-forced moves happen, and
         with a resident slot the warm seed never leaves the device."""
-        return self.place(pt, warm_start=True, delta=delta, stage=stage)
+        return self.place(pt, warm_start=True, delta=delta,
+                          overlap_host_work=overlap_host_work, stage=stage)

@@ -209,6 +209,14 @@ class SolveResult:
     tempering: Optional[dict] = None
 
     @property
+    def acceptance_rate(self) -> float:
+        """Accepted / proposed, or -1.0 when acceptance was not tracked."""
+        proposed = self.steps * self.chains * self.proposals_per_step
+        if self.accepted_moves < 0 or proposed <= 0:
+            return -1.0
+        return self.accepted_moves / proposed
+
+    @property
     def violations(self) -> int:
         return int(self.stats["total"])
 
@@ -442,6 +450,14 @@ def _refine_lanes(prob: TorchProblem, seeds: torch.Tensor, gens: list,
             torch.stack(softs), sweeps, accepted, telems)
 
 
+def run_overlap(work, timings: dict) -> None:
+    """Run a solve's `overlap_host_work` (a zero-argument callable) and
+    time it as ``timings["overlap_host_ms"]``; its exception propagates."""
+    t_ov = time.perf_counter()
+    work()
+    timings["overlap_host_ms"] = (time.perf_counter() - t_ov) * 1e3
+
+
 def _set_kwargs(fn, values: dict) -> dict:
     """The keyword-only arguments of `fn` that a call set away from their
     defaults, read from the call's `values` (its locals())."""
@@ -531,7 +547,7 @@ def record_solve(res: "SolveResult", pt: ProblemTensors, *, steps: int,
 @_profiled
 def solve(pt: ProblemTensors, *, device=None,
           chains: Optional[int] = None, steps: int = DEFAULT_STEPS,
-          seed: int = 0,
+          seed: int = 0, do_repair: bool = True,
           prob: Optional[TorchProblem] = None,
           init_assignment: Optional[np.ndarray] = None,
           t0: float = 1.0, t1: float = 1e-3,
@@ -544,7 +560,8 @@ def solve(pt: ProblemTensors, *, device=None,
           resident: Optional[ResidentProblem] = None,
           resident_warm: bool = False,
           seed_impl: Optional[str] = None,
-          prerepair: Optional[bool] = None, mesh=None) -> SolveResult:
+          prerepair: Optional[bool] = None, mesh=None,
+          overlap_host_work=None) -> SolveResult:
     """Solve a placement instance end to end.
 
     `device` defaults to the card (raises without CUDA); a `resident` or a
@@ -593,7 +610,20 @@ def solve(pt: ProblemTensors, *, device=None,
     replicated), and returns the same result, equal bit for bit to the
     one-card solve of all `chains` with the same `seed`. `chains` must be
     a multiple of the mesh's size (None: the backend's default rounded up
-    to one); a solve on a mesh takes no sub-solve and no sharded route."""
+    to one); a solve on a mesh takes no sub-solve and no sharded route.
+
+    `do_repair=False` turns off the host repair backstop: the host verify
+    still runs, and the result (and the resident's warm seed) is the
+    device winner with its violations. `overlap_host_work`, a zero-argument
+    callable, runs once on the calling thread after the solve's last
+    launch and before the first host read of its result, so host work
+    (re-lowering a changed fleet) overlaps what is still in flight on the
+    card: after the sub-solve's launches when one ran (its time is then
+    left out of ``subsolve_ms``), else after the refine's. Its time is
+    ``timings_ms["overlap_host_ms"]``; an exception from it propagates.
+    On the full path the resident has then already adopted the winner; on
+    the sub-solve branch it still holds its seed (the callable runs before
+    the gate's read, and the sub-solve's commit does not write into it)."""
     if mesh is None:
         from .sharded import maybe_solve_sharded
         routed = maybe_solve_sharded(pt, **_set_kwargs(solve, locals()))
@@ -782,10 +812,17 @@ def solve(pt: ProblemTensors, *, device=None,
                     else backend_proposals_per_step(sub_plan.tier, dev)),
                 trace_blocks=trace_blocks)
         uploads += resident.h2d_copies - h2d0
+        if overlap_host_work is not None:
+            # the gate's read below waits for the sub-solve: the host work
+            # runs now, while its launches are in flight, and once a call
+            run_overlap(overlap_host_work, timings)
+            overlap_host_work = None
         # the exact full-problem gate rules: feasible commits the scattered
         # result; otherwise the full path re-runs from the untouched seed
         sub_feasible = float(dstats["total"]) == 0
-        timings["subsolve_ms"] = (t() - t_sub) * 1e3
+        # disjoint phases: the overlapped host work is not sub-solve time
+        timings["subsolve_ms"] = ((t() - t_sub) * 1e3
+                                  - timings.get("overlap_host_ms", 0.0))
         _sub.record_subsolve_ms(timings["subsolve_ms"])
         outcome = "localized" if sub_feasible else "fallback_infeasible"
         _sub.record_outcome(outcome)
@@ -812,6 +849,10 @@ def solve(pt: ProblemTensors, *, device=None,
             uploads += resident.h2d_copies - h2d0
     if resident is not None:
         resident.adopt(winner)
+    if overlap_host_work is not None:
+        # host work while the refine's launches are in flight, before the
+        # fetch below waits for them
+        run_overlap(overlap_host_work, timings)
     # one fetch of the scalars, one of the assignment; np.array(copy=True)
     # because a CPU tensor's numpy view shares storage with the resident
     # seed, which the next merge updates in place
@@ -843,7 +884,7 @@ def solve(pt: ProblemTensors, *, device=None,
         stats = verify(pt, assignment)
         moves = 0
         pre_repair = int(stats["total"])
-        if stats["total"] > 0:
+        if do_repair and stats["total"] > 0:
             rr: RepairResult = repair(pt, assignment)
             assignment, stats, moves = rr.assignment, rr.stats, rr.moves
             if resident is not None and moves:

@@ -6,8 +6,10 @@ Kernel K6, :func:`greedy_place`, is the per-service first-fit-decreasing
 scan: one step per service in `order`, each scoring all N nodes against
 the running state (conflicts, capacity fit, eligibility, validity, the
 strategy score and the optional preference), taking the first argmax among
-the feasible nodes, or the best-effort argmax when none is feasible, and
-committing it. It replaces ``fleetflow_tpu/solver/greedy.py::greedy_place``.
+the feasible nodes, or the best-effort argmax when none is feasible (with
+``best_effort=False``, node 0: the reference's argmax of an all-``_NEG``
+row), and committing it. It replaces
+``fleetflow_tpu/solver/greedy.py::greedy_place``.
 On a CUDA tensor it launches ``csrc/k6_greedy_scan.cu``; on a CPU tensor it
 runs :func:`greedy_place_plain`.
 
@@ -68,8 +70,8 @@ def placement_order(demand: np.ndarray, dep_depth: np.ndarray,
     return np.lexsort((dep_depth, -weight)).astype(np.int32)
 
 
-def greedy_place_plain(prob: TorchProblem,
-                       order: torch.Tensor) -> torch.Tensor:
+def greedy_place_plain(prob: TorchProblem, order: torch.Tensor,
+                       best_effort: bool = True) -> torch.Tensor:
     """Plain PyTorch version of K6; see :func:`greedy_place`. The
     reference's scan step by step, in its float32 expressions."""
     N, G = prob.N, prob.G
@@ -104,13 +106,14 @@ def greedy_place_plain(prob: TorchProblem,
             score = lowest
         if prob.preferred is not None:
             score = score + prob.preferred[s] * 0.5
-        best_ok = torch.argmax(torch.where(ok, score, neg))
-        over = torch.clamp(new_load - cap, min=0.0)
-        overflow = (over[:, 0] + over[:, 1]) + over[:, 2]
-        fb = -(overflow * 1e3 + n_conf.to(torch.float32) * 1e3) + score
-        fb_ok = elig_s & prob.node_valid
-        best_fb = torch.argmax(torch.where(fb_ok, fb, fb - 1e15))
-        node = torch.where(ok.any(), best_ok, best_fb)
+        node = torch.argmax(torch.where(ok, score, neg))
+        if best_effort:
+            over = torch.clamp(new_load - cap, min=0.0)
+            overflow = (over[:, 0] + over[:, 1]) + over[:, 2]
+            fb = -(overflow * 1e3 + n_conf.to(torch.float32) * 1e3) + score
+            fb_ok = elig_s & prob.node_valid
+            best_fb = torch.argmax(torch.where(fb_ok, fb, fb - 1e15))
+            node = torch.where(ok.any(), node, best_fb)
         load.index_add_(0, node.view(1), d[None, :])
         used.view(-1).index_add_(0, node * G + safe,
                                  valid_ids.to(torch.int32))
@@ -118,16 +121,17 @@ def greedy_place_plain(prob: TorchProblem,
     return assignment
 
 
-def greedy_place(prob: TorchProblem, order: torch.Tensor) -> torch.Tensor:
+def greedy_place(prob: TorchProblem, order: torch.Tensor,
+                 best_effort: bool = True) -> torch.Tensor:
     """K6: place services one at a time in `order` ((S,) i32), each on the
-    first best feasible node of its strategy score, or best-effort (least
-    overflow, fewest conflicts) when no node is feasible; returns the (S,)
-    int32 assignment."""
+    first best feasible node of its strategy score, or, when no node is
+    feasible, best-effort (least overflow, fewest conflicts), or with
+    `best_effort=False` node 0; returns the (S,) int32 assignment."""
     if order.dim() != 1 or order.shape[0] > prob.S:
         raise ValueError(f"order has shape {tuple(order.shape)}, expected "
                          f"at most ({prob.S},)")
     if order.device.type == "cpu":
-        return greedy_place_plain(prob, order)
+        return greedy_place_plain(prob, order, best_effort)
     if order.dtype != torch.int32 or prob.demand.shape[1] != 3:
         raise ValueError("greedy_place: order must be int32, R=3")
     if prob.lanes:
@@ -149,7 +153,7 @@ def greedy_place(prob: TorchProblem, order: torch.Tensor) -> torch.Tensor:
         "k6_greedy_scan", "ff_k6_greedy_scan", dev,
         S, N, G, prob.demand, prob.capacity, prob.conflict_ids, K,
         prob.eligible, int(prob.eligible_packed), prob.eligible.shape[1],
-        prob.node_valid, prob.preferred, prob.strategy,
+        prob.node_valid, prob.preferred, prob.strategy, int(best_effort),
         order, order.shape[0], assignment, scratch)
     return assignment
 

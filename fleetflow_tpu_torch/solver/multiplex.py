@@ -169,7 +169,7 @@ def _tier_key(e: MuxEntry) -> tuple:
 def solve_multiplexed(entries: list[MuxEntry], *,
                       chains: Optional[int] = None,
                       steps: int = DEFAULT_STEPS, anneal_block: int = 1,
-                      warm_block: int = 1,
+                      warm_block: int = 1, do_repair: bool = True,
                       device=None) -> list[SolveResult]:
     """Solve a set of resident-warm stages, batching same-tier groups into
     single dispatches of at most FLEET_MUX_MAX lanes. Returns one
@@ -177,8 +177,10 @@ def solve_multiplexed(entries: list[MuxEntry], *,
     the serial resident-warm ``solve`` path, with the same results.
     Every solve here is warm, so the adaptive exit is checked every
     min(`warm_block`, `anneal_block`) sweeps, batched or serial.
-    `device` is the card unless the caller names the CPU (raises without
-    CUDA); every entry's staging must lie on it."""
+    `do_repair=False` turns off the host repair backstop of every lane,
+    batched or serial, as :func:`solve`'s does. `device` is the card
+    unless the caller names the CPU (raises without CUDA); every entry's
+    staging must lie on it."""
     dev = resolve_device(device)
     for e in entries:
         if e.resident.device != dev:
@@ -203,14 +205,15 @@ def solve_multiplexed(entries: list[MuxEntry], *,
             continue
         for at in range(0, len(idxs), cap):
             _solve_batch(entries, idxs[at:at + cap], results, chains=chains,
-                         steps=steps, block=min(warm_block, anneal_block))
+                         steps=steps, block=min(warm_block, anneal_block),
+                         do_repair=do_repair)
 
     for i in serial:
         e = entries[i]
         _M_MUX_LANES.inc(kind="serial")
         results[i] = solve(
             e.pt, prob=e.resident.prob, chains=chains, steps=steps,
-            seed=e.seed, t0=e.t0, t1=e.t1,
+            seed=e.seed, do_repair=do_repair, t0=e.t0, t1=e.t1,
             migration_weight=e.migration_weight, anneal_block=anneal_block,
             warm_block=warm_block, bucket=e.resident.bucket,
             resident=e.resident, resident_warm=_eligible(e))
@@ -218,7 +221,8 @@ def solve_multiplexed(entries: list[MuxEntry], *,
 
 
 def _solve_batch(entries: list[MuxEntry], idxs: list[int], results: list,
-                 *, chains: int, steps: int, block: int) -> None:
+                 *, chains: int, steps: int, block: int,
+                 do_repair: bool = True) -> None:
     t = time.perf_counter
     t_start = t()
     compiles0 = _ext.M_COMPILE_EVENTS.value()
@@ -306,7 +310,7 @@ def _solve_batch(entries: list[MuxEntry], idxs: list[int], results: list,
             # truth, repair backstop, warm re-upload, as the solo path
             stats = verify(e.pt, assignment)
             pre_repair = int(stats["total"])
-            if stats["total"] > 0:
+            if do_repair and stats["total"] > 0:
                 rr: RepairResult = repair(e.pt, assignment)
                 assignment, stats, moves = rr.assignment, rr.stats, rr.moves
                 if moves:

@@ -1052,8 +1052,10 @@ def solve_sharded(pt, *, resident: ShardedResident,
                   resident_warm: bool = False, init_assignment=None,
                   steps: int = 64, seed: int = 0, t0: float = 1.0,
                   t1: float = 1e-3, adaptive: bool = True, block: int = 8,
+                  proposals_per_step: Optional[int] = None,
                   ladder: Optional[float] = None,
-                  exchange_every: Optional[int] = None):
+                  exchange_every: Optional[int] = None,
+                  do_repair: bool = True, overlap_host_work=None):
     """End-to-end solve through the mesh-resident sharded path: the
     sharded anneal (with parallel tempering over the replica axis), exact
     stats, the host verify/repair backstop and a SolveResult.
@@ -1065,12 +1067,15 @@ def solve_sharded(pt, *, resident: ShardedResident,
     0.1). `ladder` (FLEET_TEMPER_LADDER, default 1.3) is the temperature
     ratio of neighbouring replicas, `exchange_every`
     (FLEET_TEMPER_EXCHANGE, default 1) the blocks between exchange
-    rounds.
+    rounds. `proposals_per_step` is a position's proposal width (None:
+    max(8, min(256, padded rows / shards / 2))). `do_repair` and
+    `overlap_host_work` are :func:`solve`'s: the callable runs after the
+    resident adopts the winner, before the fetch.
 
     On a mesh of ranks every rank calls this with the same arguments: each
     stages the same host seed (checked by a checksum over the mesh), runs
     its position of the anneal, and returns the same SolveResult."""
-    from .api import SolveResult, count_solve
+    from .api import SolveResult, count_solve, run_overlap
     from .repair import repair, soft_score_host, verify
 
     t = time.perf_counter
@@ -1116,13 +1121,17 @@ def solve_sharded(pt, *, resident: ShardedResident,
     h2d0 = rp.h2d_copies
     with torch.profiler.record_function(SHARDED_RANGE):
         res = anneal_sharded(
-            prob, seed_assignment, gen, steps=steps, t0=t0, t1=t1, mesh=mesh,
-            adaptive=adaptive, block=block, ladder=float(ladder),
-            exchange_every=int(exchange_every), return_stats=True,
-            trace_blocks=trace_blocks)
+            prob, seed_assignment, gen, steps=steps, t0=t0, t1=t1,
+            proposals_per_step=proposals_per_step, mesh=mesh,
+            adaptive=adaptive, block=block,
+            ladder=float(ladder), exchange_every=int(exchange_every),
+            return_stats=True, trace_blocks=trace_blocks)
     uploads = rp.h2d_copies - h2d0
     # the padded winner stays resident as the next warm seed
     rp.adopt(res.assignment)
+    if overlap_host_work is not None:
+        # host work while the anneal's last launches are in flight
+        run_overlap(overlap_host_work, timings)
     # one fetch of the scalars and telemetry, one of the assignment; a
     # copy, because on the CPU the numpy view would share storage with the
     # resident seed that the next merge updates in place
@@ -1146,7 +1155,7 @@ def solve_sharded(pt, *, resident: ShardedResident,
     else:
         stats = {k: int(v) for k, v in verify(pt, assignment).items()}
         pre_repair = int(stats["total"])
-        if stats["total"] > 0:
+        if do_repair and stats["total"] > 0:
             rr = repair(pt, assignment)
             assignment, moves = rr.assignment, rr.moves
             stats = {k: int(v) for k, v in rr.stats.items()}
@@ -1184,7 +1193,8 @@ def solve_sharded(pt, *, resident: ShardedResident,
         feasible=stats["total"] == 0, moves_repaired=moves,
         pre_repair_violations=pre_repair, timings_ms=timings,
         chains=n_rep, steps=int(res.sweeps),
-        proposals_per_step=max(8, min(256, (rp.padded_S // D) // 2)),
+        proposals_per_step=(proposals_per_step
+                            or max(8, min(256, (rp.padded_S // D) // 2))),
         accepted_moves=-1, telemetry=telemetry,
         warm_h2d_copies=uploads if warm else 0, device=str(dev),
         bucket={"orig_S": pt.S, "padded_S": rp.padded_S,
@@ -1266,7 +1276,7 @@ def sharded_route(pt) -> Optional[Mesh]:
 # single-device pipeline (a knob this path would silently drop must not
 # route)
 _ROUTED_KW = {"steps", "seed", "init_assignment", "t0", "t1", "adaptive",
-              "prob", "resident"}
+              "do_repair", "overlap_host_work", "prob", "resident"}
 
 
 def maybe_solve_sharded(pt, **kw):
@@ -1289,4 +1299,6 @@ def maybe_solve_sharded(pt, **kw):
         pt, resident=rp, steps=steps, seed=kw.get("seed", 0),
         init_assignment=kw.get("init_assignment"),
         t0=kw.get("t0", 1.0), t1=kw.get("t1", 1e-3),
-        adaptive=kw.get("adaptive", True))
+        adaptive=kw.get("adaptive", True),
+        do_repair=kw.get("do_repair", True),
+        overlap_host_work=kw.get("overlap_host_work"))

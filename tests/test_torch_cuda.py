@@ -941,6 +941,32 @@ def test_k6_best_effort_matches_plain(dev, case):
     assert torch.equal(out, greedy.greedy_place_plain(prob, order))
 
 
+# strict mode's shapes: one node a thread (N <= 1,024) in each strategy,
+# and more nodes than a block has threads, with a preference plane
+K6_STRICT = [(2000, 200, s, False) for s in STRATEGIES] + [
+    (512, 3000, "spread_across_pool", True)]
+
+
+@pytest.mark.parametrize("S,N,strategy,preferred", K6_STRICT,
+                         ids=[f"{c[0]}x{c[1]}-{c[2]}" for c in K6_STRICT])
+def test_k6_strict_matches_plain(dev, S, N, strategy, preferred):
+    """best_effort=False at 45% of the capacity: a service with no feasible
+    node goes to node 0 (no best-effort pass), in one launch, equal to the
+    plain version; the best-effort launch still places otherwise."""
+    pt, _ = _problem(dev, S=S, N=N, strategy=strategy, preferred=preferred)
+    pt = dataclasses.replace(
+        pt, capacity=(pt.capacity * np.float32(0.45)).astype(np.float32))
+    prob = prepare_problem(pt, dev)
+    order = _scan_order(pt, prob, dev)
+    _ext.reset_launches()
+    out = greedy.greedy_place(prob, order, best_effort=False)
+    assert _ext.LAUNCHES["k6_greedy_scan"] == 1
+    assert torch.equal(out, greedy.greedy_place_plain(prob, order,
+                                                      best_effort=False))
+    be = greedy.greedy_place(prob, order)
+    assert int((out == 0).sum()) > int((be == 0).sum())
+
+
 def test_k6_raises_on_bad_input(dev):
     _, prob = _problem(dev)
     with pytest.raises(ValueError):

@@ -484,6 +484,25 @@ def test_chain_mesh_solve_equals_one_process(ranks_run, ranks, variant):
         assert want["steps"] == 24
 
 
+def test_options_across_ranks(ranks_run):
+    """overlap_host_work on a rank mesh and on a chain mesh: each rank
+    calls its own callable once, the result is every rank's and, on the
+    chain mesh, the one-process solve's; solve_sharded's proposal width
+    reaches the ranks and is reported."""
+    _case, expect, results = ranks_run
+    first = results[0]["options"]
+    want = expect["chain"]["adaptive"]
+    for r in results:
+        o = r["options"]
+        assert o["calls"] == [r["rank"]] and o["overlap"]
+        assert o["width"] == 16 and o["stats"]["total"] == 0
+        assert np.array_equal(o["assignment"], first["assignment"])
+        c = r["chain_overlap"]
+        assert c["calls"] == [r["rank"]] and c["overlap"]
+        assert np.array_equal(c["assignment"], want["assignment"])
+        assert c["soft"] == want["soft"] and c["steps"] == want["steps"]
+
+
 def test_scheduler_on_the_chain_mesh(ranks_run):
     _case, expect, results = ranks_run
     for r in results:

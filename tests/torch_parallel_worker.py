@@ -138,6 +138,16 @@ def run(out_dir: str) -> dict:
                             stats=x.stats)
                        for x in (cold, warm)]
     out["contract_valid"] = valid
+    # the options across the ranks: each rank's own callable, once, and a
+    # proposal width of 16 a position
+    calls = []
+    pt_o = synthetic_problem(*c["shape"], seed=c["seed"], n_tenants=3)
+    o = sh.solve_sharded(pt_o, resident=sh.ShardedResident(pt_o, mesh=mesh),
+                         steps=64, seed=c["seed"], proposals_per_step=16,
+                         overlap_host_work=lambda: calls.append(w.rank))
+    out["options"] = dict(calls=calls, assignment=o.assignment,
+                          width=o.proposals_per_step, stats=o.stats,
+                          overlap="overlap_host_ms" in o.timings_ms)
 
     # the chain mesh: 2 ranks (ranks 2 and 3 hold no position, but make
     # the group with the others) and all 4
@@ -157,6 +167,13 @@ def run(out_dir: str) -> dict:
                 steps=res.steps, accepted=res.accepted_moves,
                 telemetry=res.telemetry, chains=res.chains)
     out["chain"] = chains
+    ccalls = []
+    res = solve(pt, mesh=mesh4, chains=s["chains"], seed=s["seed"],
+                overlap_host_work=lambda: ccalls.append(w.rank),
+                **s["variants"]["adaptive"])
+    out["chain_overlap"] = dict(calls=ccalls, assignment=res.assignment,
+                                soft=res.soft, steps=res.steps,
+                                overlap="overlap_host_ms" in res.timings_ms)
 
     # GpuSolverScheduler on the 4-rank chain mesh: a cold place and a
     # one-node-down reschedule
