@@ -181,7 +181,12 @@ each of which fails the run:
      one-card solves bit for bit; K7's cross-rank entry points (elect,
      apply, reduce) must launch, with K3, K4 and K1, and are held against
      their plain versions on CPU copies of every 2x2 position's inputs
-     (max |err| 0) and timed; NCCL is not exercised (one card); the
+     (max |err| 0), on three recorded sweeps and on the adversarial
+     draws (``rank_adversarial_draws``: one service, one target node,
+     all rejected, the shard's rows once each at the widest M the bind
+     takes), then timed as ``anneal_ranks`` launches them (one bound
+     launcher, 30 sweeps: event, device and host ms); NCCL is not
+     exercised (one card); the
      phase's seconds against its 90 s budget
      (``fleetflow_tpu_torch/tools/ranks_probe.py`` runs it alone);
      ``[heal]``, after the other phases: the control plane's
@@ -3843,7 +3848,10 @@ def rank_entry_bytes(prob, M: int, T: int, G: int, Gc1: int, D: int,
     and id rows, writes its row and the touched nodes' partial rows and
     integer deltas; reduce reads the summed deltas and, for each touched
     node, the D gathered partials, writes the planes the deltas moved and
-    resets the slots, the partial and the deltas."""
+    resets the slots, the partial and the deltas. The clustered elect and
+    apply read and write the same inputs and outputs; their own scratch
+    (elect's `first`, at rest before and after; apply's list in shared
+    memory) is no input or output of the function and is not counted."""
     K, Kc = prob.conflict_ids.shape[1], prob.coloc_ids.shape[1]
     N = prob.N
     per_prop = sweep_prop_bytes(K, Kc, prob.preferred is not None)
@@ -3858,41 +3866,170 @@ def rank_entry_bytes(prob, M: int, T: int, G: int, Gc1: int, D: int,
     return dict(zip(RANK_ENTRIES, (elect, apply, reduce)))
 
 
+RANK_ADVERSARIAL = ("one_service", "one_target", "all_rejected",
+                    "full_width")
+RANK_HOT_TEMP = 50.0       # the adversarial sweeps' temperature
+RANK_TIMED_SWEEPS = 30     # sweeps of one bound launcher, timed
+RANK_PROBE = 1 << 15       # rank_widest's bisection: M in [1, this]
+
+
+def rank_adversarial_draws(torch, case: str, assignment, D: int, N: int,
+                           M: int, gen):
+    """(s_loc, b_idx, u), each (R, D, M) on the device of `assignment`
+    (the (R, S) replicas' assignment, S = D shards of S/D rows), of a case
+    on which K7's cross-rank election and apply could go wrong; u uniform
+    from `gen` (a generator on that device):
+      one_service   every proposal of a position names one service (one
+                    candidate out of many accepted proposals)
+      one_target    every proposal targets node N // 2 (many candidates
+                    for one slot in every position; the lowest rank over
+                    the shards wins it)
+      all_rejected  every proposal targets its service's own node
+                    (rejected: nothing is a candidate, nothing applied)
+      full_width    each position proposes its shard's last M rows once
+                    each, in a random order (M <= S/D; with M = S/D every
+                    row, the phantom rows among them), targets uniform."""
+    R, S = assignment.shape
+    S_loc = S // D
+    dev = assignment.device
+    shape = (R, D, M)
+    u = torch.rand(shape, generator=gen, device=dev)
+    b = torch.randint(0, N, shape, generator=gen, device=dev,
+                      dtype=torch.int32)
+    s = torch.randint(0, S_loc, shape, generator=gen, device=dev,
+                      dtype=torch.int32)
+    if case == "one_service":
+        s = torch.randint(0, S_loc, (R, D, 1), generator=gen, device=dev,
+                          dtype=torch.int32).expand(shape)
+    elif case == "one_target":
+        b = torch.full(shape, N // 2, dtype=torch.int32, device=dev)
+    elif case == "all_rejected":
+        rows = s.long() + (torch.arange(D, device=dev) * S_loc).view(1, D, 1)
+        b = torch.gather(assignment.long(), 1, rows.reshape(R, -1)).reshape(
+            shape).to(torch.int32)
+    elif case == "full_width":
+        if M > S_loc:
+            raise ValueError(f"full_width: M {M} > S/D {S_loc}")
+        s = torch.stack([S_loc - M + torch.randperm(M, generator=gen,
+                                                    device=dev)
+                         for _ in range(R * D)]).reshape(shape).to(
+                             torch.int32)
+    else:
+        raise ValueError(f"unknown case {case!r}")
+    return s.contiguous(), b.contiguous(), u.contiguous()
+
+
+def rank_widest(sr, lp, st, pos, hi: int = RANK_PROBE) -> int:
+    """The widest M ff_k7r_bind takes for the shard `lp` and its state
+    `st` on the card: a bisection over binds in [1, hi] (a refusal raises
+    KernelError; the binds are monotone in M)."""
+    from fleetflow_tpu_torch.core.errors import KernelError
+    ok, bad = 0, hi + 1
+    while bad - ok > 1:
+        mid = (ok + bad) // 2
+        try:
+            sr.rank_sweep(lp, st, pos, mid)
+        except KernelError:
+            bad = mid
+        else:
+            ok = mid
+    return ok
+
+
+def rank_positions(torch, sr, anneal, prob, n_real, one, R: int, D: int,
+                   M: int, dev) -> dict:
+    """{(r, d): (position, (shard, state, scratch) on `dev`, the same on
+    the CPU)} of an R x D mesh over `prob`, each position's state its rows
+    of the (R, S) replica state `one`."""
+    S_loc = prob.S // D
+    both = {}
+    for r in range(R):
+        for d in range(D):
+            pos = sr.RankPosition(r, d, R, D, prob.S, d * S_loc)
+            lp = sr.shard_rows(dataclasses.replace(prob, n_real=n_real), pos)
+            st = anneal.ChainState(
+                one.assignment[r:r + 1, d * S_loc:(d + 1) * S_loc]
+                .to(dev, copy=True).contiguous(),
+                *(t[r:r + 1].to(dev, copy=True).contiguous()
+                  for t in one[1:]))
+            st_c = anneal.ChainState(*(t.to("cpu", copy=True) for t in st))
+            lp_c = to_device(torch, lp, "cpu")
+            both[r, d] = (pos, (lp, st, sr.rank_scratch(lp, st, M)),
+                          (lp_c, st_c, sr.rank_scratch(lp_c, st_c, M)))
+    return both
+
+
+def rank_sweep_vs_plain(torch, sr, both: dict, R: int, D: int, draws,
+                        temps, same) -> tuple:
+    """One cross-rank sweep of every position, the entry points on the
+    card and their plain versions on the CPU copies, the collectives done
+    by hand (the slots' MIN over a replica's shards, the partials in
+    shard order, the deltas summed); `same(name, card, cpu)` compares
+    each entry point's outputs. Returns (applied, touched) over the
+    positions."""
+    s_all, b_all, u_all = draws
+    applied = touched = 0
+    for (r, d), (pos, k, c) in both.items():
+        args = tuple(x[r, d].contiguous() for x in (s_all, b_all, u_all))
+        sr.sharded_elect(*k, pos, *args, temps[r])
+        sr.sharded_elect_plain(*c, pos, *(x.cpu() for x in args), temps[r])
+        same("k7_rank_elect", k[2].slots, c[2].slots)
+        same("k7_rank_elect", k[2].cand, c[2].cand)
+        same("k7_rank_elect", k[2].first, c[2].first)
+    for r in range(R):
+        for side in (1, 2):
+            slots = torch.stack([both[r, d][side][2].slots
+                                 for d in range(D)]).min(0).values
+            for d in range(D):
+                both[r, d][side][2].slots.copy_(slots)
+    for (r, d), (pos, k, c) in both.items():
+        sr.sharded_apply(*k, pos)
+        sr.sharded_apply_plain(*c, pos)
+        for name in ("deltas", "partial", "applied"):
+            same("k7_rank_apply", getattr(k[2], name), getattr(c[2], name))
+        same("k7_rank_apply", k[1].assignment, c[1].assignment)
+        applied += int(c[2].applied[0])
+        N = c[0].N
+        touched += int((c[2].deltas[-N:] > 0).sum())
+    for r in range(R):
+        for side in (1, 2):
+            parts = torch.stack([both[r, d][side][2].partial
+                                 for d in range(D)])
+            deltas = torch.stack([both[r, d][side][2].deltas
+                                  for d in range(D)]).sum(0)
+            for d in range(D):
+                pos, lss = both[r, d][0], both[r, d][side]
+                lss[2].deltas.copy_(deltas)
+                (sr.sharded_reduce if side == 1
+                 else sr.sharded_reduce_plain)(*lss, pos, parts)
+    for (r, d), (pos, k, c) in both.items():
+        for x, y in zip(k[1], c[1]):
+            same("k7_rank_reduce", x, y)
+    return applied, touched
+
+
 def check_rank_entries(torch, mods, a: dict, dev) -> dict:
     """K7's cross-rank entry points against their plain versions at the
     shapes [ranks]' main path gives them: every position of the 2x2 mesh
     over the sharded fleet, its shard and its replica's state from the
     one-card run's initial state, the recorded draws of its first three
-    sweeps, the collectives done by hand (the slots' MIN over a
-    replica's shards, the partials in shard order, the deltas summed).
-    Each entry point's outputs must equal its plain version's on CPU
-    copies of the same inputs (max |err| 0); each is timed with CUDA
-    events (and its plain version on the card) on position (0, 0)'s
-    inputs of the first sweep. Returns each entry point's record."""
+    sweeps, then from the same state one sweep of each adversarial case
+    (RANK_ADVERSARIAL at RANK_HOT_TEMP; full_width at M = S/D, every row
+    of the shard once, the phantom row among them, or at the widest M the
+    bind takes if that is less), the collectives done by hand. Each entry point's outputs must equal its
+    plain version's on CPU copies of the same inputs (max |err| 0). Each
+    entry point is then timed as anneal_ranks launches it
+    (tools/k7r_profile.py's entry_times on position (0, 0)), its plain
+    version on the card with CUDA events. Returns each entry point's
+    record."""
     sharded, sr, anneal = mods
     prob = to_device(torch, a["prob"], dev)
     R = D = 2
     S_loc = prob.S // D
     one = a["init_state"]
     M = max(8, min(256, S_loc // 2))
-    both = {}
-    for r in range(R):
-        for d in range(D):
-            pos = sr.RankPosition(r, d, R, D, prob.S, d * S_loc)
-            lp = sr.shard_rows(dataclasses.replace(prob, n_real=a["n_real"]),
-                               pos)
-            st = anneal.ChainState(
-                one.assignment[r:r + 1, d * S_loc:(d + 1) * S_loc]
-                .to(dev).contiguous(),
-                *(t[r:r + 1].to(dev).contiguous() for t in one[1:]))
-            st_c = anneal.ChainState(*(t.cpu() for t in st))
-            lp_c = to_device(torch, lp, "cpu")
-            both[r, d] = (pos, (lp, st, sr.rank_scratch(lp, st, M)),
-                          (lp_c, st_c, sr.rank_scratch(lp_c, st_c, M)))
     err = {name: 0.0 for name in RANK_ENTRIES}
-    first = None
     sched = sharded._Schedule(0.1, 1e-3, RANKS_SWEEPS, 1.3, R, True)
-    applied = touched = 0
 
     def same(name, x, y):
         if x.dtype.is_floating_point:
@@ -3901,59 +4038,52 @@ def check_rank_entries(torch, mods, a: dict, dev) -> dict:
             raise AssertionError(f"[ranks] {name} differs from its plain "
                                  f"version: max |err| {max_err(torch, x.cpu(), y)}")
 
+    both = rank_positions(torch, sr, anneal, prob, a["n_real"], one, R, D,
+                          M, dev)
+    applied = touched = 0
     for i in range(3):
         _hot, s_all, b_all, u_all = a["record"]["proposals"][i]
-        for (r, d), (pos, k, c) in both.items():
-            temp = sched.temps(i)[r]
-            args = (s_all[r, d].to(dev).contiguous(),
-                    b_all[r, d].to(dev).contiguous(),
-                    u_all[r, d].to(dev).contiguous())
-            if first is None:
-                first = dict(pos=pos, k=tuple(
-                    anneal.ChainState(*(t.clone() for t in x))
-                    if isinstance(x, anneal.ChainState) else x for x in k),
-                    args=args, temp=temp)
-            sr.sharded_elect(*k, pos, *args, temp)
-            sr.sharded_elect_plain(*c, pos, *(x.cpu() for x in args), temp)
-            same("k7_rank_elect", k[2].slots, c[2].slots)
-            same("k7_rank_elect", k[2].cand, c[2].cand)
-        for r in range(R):
-            for side in (1, 2):
-                slots = torch.stack([both[r, d][side][2].slots
-                                     for d in range(D)]).min(0).values
-                for d in range(D):
-                    both[r, d][side][2].slots.copy_(slots)
-        for (r, d), (pos, k, c) in both.items():
-            sr.sharded_apply(*k, pos)
-            sr.sharded_apply_plain(*c, pos)
-            for name in ("deltas", "partial", "applied"):
-                same("k7_rank_apply", getattr(k[2], name),
-                     getattr(c[2], name))
-            same("k7_rank_apply", k[1].assignment, c[1].assignment)
-            applied += int(c[2].applied[0])
-            N = prob.N
-            touched += int((c[2].deltas[-N:] > 0).sum())
-        for r in range(R):
-            for side in (1, 2):
-                parts = torch.stack([both[r, d][side][2].partial
-                                     for d in range(D)])
-                deltas = torch.stack([both[r, d][side][2].deltas
-                                      for d in range(D)]).sum(0)
-                for d in range(D):
-                    pos, lss = both[r, d][0], both[r, d][side]
-                    lss[2].deltas.copy_(deltas)
-                    (sr.sharded_reduce if side == 1
-                     else sr.sharded_reduce_plain)(*lss, pos, parts)
-        for (r, d), (pos, k, c) in both.items():
-            for x, y in zip(k[1], c[1]):
-                same("k7_rank_reduce", x, y)
+        got = rank_sweep_vs_plain(
+            torch, sr, both, R, D, tuple(x.to(dev) for x in (s_all, b_all,
+                                                              u_all)),
+            sched.temps(i), same)
+        applied += got[0]
+        touched += got[1]
     if applied == 0:
         raise AssertionError("[ranks] the entry points applied no move")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    whole = one.assignment.to(dev)
+    pos0, (lp0, st0, _sc0), _cpu0 = both[0, 0]
+    widest = rank_widest(sr, lp0, st0, pos0)
+    print(f"[ranks] the widest M ff_k7r_bind takes at S/D {S_loc}: "
+          f"{widest}", flush=True)
+    for case in RANK_ADVERSARIAL:
+        width = min(S_loc, widest) if case == "full_width" else M
+        pb = rank_positions(torch, sr, anneal, prob, a["n_real"], one, R, D,
+                            width, dev)
+        draws = rank_adversarial_draws(torch, case, whole, D, prob.N, width,
+                                       gen)
+        got = rank_sweep_vs_plain(torch, sr, pb, R, D, draws,
+                                  [RANK_HOT_TEMP] * R, same)
+        if case == "all_rejected" and got[0]:
+            raise AssertionError(f"[ranks] all_rejected applied {got[0]}")
+        if case != "all_rejected" and not got[0]:
+            raise AssertionError(f"[ranks] {case} applied no move")
+        print(f"[ranks] adversarial {case}: M {width}, every 2x2 position's "
+              f"elect, apply and reduce equal to the plain version on the "
+              f"CPU; {got[0]} applied, {got[1]} touched nodes", flush=True)
 
-    # timing on position (0, 0)'s first-sweep inputs, each entry point from
-    # the state the one before it leaves
-    pos, (lp, st0, _sc), args, temp = (first["pos"], first["k"],
-                                       first["args"], first["temp"])
+    # timing on position (0, 0): its shard and the one-card run's state
+    pos, (lp, st0, _sc), _cpu = rank_positions(
+        torch, sr, anneal, prob, a["n_real"], one, R, D, M, dev)[0, 0]
+    from fleetflow_tpu_torch.tools import k7r_profile
+    with as_deployed(torch):
+        timed = k7r_profile.entry_times(torch, sr, sharded, lp, st0, pos, M,
+                                        RANK_TIMED_SWEEPS)
+    _hot, s_all, b_all, u_all = a["record"]["proposals"][0]
+    args = tuple(x[0, 0].to(dev).contiguous() for x in (s_all, b_all, u_all))
+    temp = sched.temps(0)[0]
     gathered = torch.zeros((D, lp.N, 3), dtype=torch.float32, device=dev)
 
     def fresh():
@@ -3962,24 +4092,20 @@ def check_rank_entries(torch, mods, a: dict, dev) -> dict:
 
     def elected():
         k = fresh()
-        sr.sharded_elect(*k, pos, *args, temp)
+        sr.sharded_elect_plain(*k, pos, *args, temp)
         return k
 
     def applied_():
         k = elected()
-        sr.sharded_apply(*k, pos)
+        sr.sharded_apply_plain(*k, pos)
         return k
 
-    recs = {}
-    runs = {
-        "k7_rank_elect": (lambda *k: sr.sharded_elect(*k, pos, *args, temp),
-                          lambda *k: sr.sharded_elect_plain(*k, pos, *args,
+    plain = {
+        "k7_rank_elect": (lambda *k: sr.sharded_elect_plain(*k, pos, *args,
                                                             temp), fresh),
-        "k7_rank_apply": (lambda *k: sr.sharded_apply(*k, pos),
-                          lambda *k: sr.sharded_apply_plain(*k, pos),
+        "k7_rank_apply": (lambda *k: sr.sharded_apply_plain(*k, pos),
                           elected),
-        "k7_rank_reduce": (lambda *k: sr.sharded_reduce(*k, pos, gathered),
-                           lambda *k: sr.sharded_reduce_plain(*k, pos,
+        "k7_rank_reduce": (lambda *k: sr.sharded_reduce_plain(*k, pos,
                                                               gathered),
                            applied_),
     }
@@ -3987,21 +4113,31 @@ def check_rank_entries(torch, mods, a: dict, dev) -> dict:
                            st0.coloc.shape[-1], D,
                            applied // (3 * R * D) or 1,
                            touched // (3 * R * D) or 1)
-    for name, (kernel, plain, setup) in runs.items():
-        ms = cuda_ms(torch, kernel, setup=setup, reps=20)
-        plain_ms = cuda_ms(torch, plain, setup=setup, reps=5)
+    recs = {}
+    for name, (fn, setup) in plain.items():
+        ms = statistics.median(timed[name]["event"])
+        host_ms = statistics.median(timed[name]["host"])
+        device_ms = timed[name]["device_ms"]
+        plain_ms = cuda_ms(torch, fn, setup=setup, reps=5)
         t_bytes, t_ops = per[name]
         bound, by = bound_of(t_bytes, t_ops)
         recs[name] = dict(
             name=name, route="cuda",
             source="fleetflow_tpu_torch/csrc/k7_sharded_sweep.cu",
             replaces=RANK_REPLACES[name], max_abs_err=err[name], ms=ms,
-            plain_ms=plain_ms, library_ms=None, bytes=t_bytes, ops=t_ops)
+            device_ms=device_ms, host_ms=host_ms, plain_ms=plain_ms,
+            library_ms=None, bytes=t_bytes, ops=t_ops,
+            adversarial=list(RANK_ADVERSARIAL))
+        dev_txt = ("not measured" if device_ms is None
+                   else f"{device_ms:.5f} ms")
         print(f"[ranks] {name}: S/D {lp.S} (global {prob.S}), N {lp.N}, M "
-              f"{M}: 3 sweeps of every 2x2 position equal to the plain "
-              f"version on the CPU (max |err| {err[name]}); {ms:.4f} ms, "
-              f"plain on the card {plain_ms:.3f} ms, bound {bound:.3g} ms "
-              f"({by})", flush=True)
+              f"{M}: 3 recorded sweeps and the {len(RANK_ADVERSARIAL)} "
+              f"adversarial cases of every 2x2 position equal to the plain "
+              f"version on the CPU (max |err| {err[name]}); as the loop "
+              f"launches it ({RANK_TIMED_SWEEPS} sweeps, one launcher): "
+              f"event {ms:.5f} ms, device {dev_txt}, host {host_ms:.5f} "
+              f"ms; plain on the card {plain_ms:.3f} ms, bound {bound:.3g} "
+              f"ms ({by})", flush=True)
     return recs
 
 

@@ -180,15 +180,17 @@ class K7RankArgs(ctypes.Structure):
     (its rows, the global padded S, its real rows), the shard count, its
     shard, the proposals a sweep, its replica's node state, the scratch
     between the three entry points, and the launch shape ``ff_k7r_bind``
-    fills; passed by pointer."""
+    fills (elect's and apply's cluster, CTA width, team and chunk);
+    passed by pointer."""
     _fields_ = [("p", ProblemArgs), ("D", ctypes.c_int), ("d", ctypes.c_int),
                 ("M", ctypes.c_int), ("assignment", ctypes.c_void_p),
                 ("load", ctypes.c_void_p), ("used", ctypes.c_void_p),
                 ("coloc", ctypes.c_void_p), ("topo", ctypes.c_void_p),
                 ("slots", ctypes.c_void_p), ("cand", ctypes.c_void_p),
                 ("partial", ctypes.c_void_p), ("deltas", ctypes.c_void_p),
-                ("threads", ctypes.c_int), ("H", ctypes.c_int),
-                ("reduce_grid", ctypes.c_int),
+                ("first", ctypes.c_void_p), ("cluster", ctypes.c_int),
+                ("threads", ctypes.c_int), ("team", ctypes.c_int),
+                ("chunk", ctypes.c_int), ("reduce_grid", ctypes.c_int),
                 ("smem_elect", ctypes.c_longlong),
                 ("smem_apply", ctypes.c_longlong)]
 

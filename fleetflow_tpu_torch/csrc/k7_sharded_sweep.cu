@@ -71,7 +71,7 @@
 // barrier), 9 the integer apply, 10 the float walk (to the block's
 // barrier), 6 its longest thread's walk, 11 the reduce after the second
 // barrier; 7 the applied moves, 8 M.
-#ifdef K7_PHASES
+#if defined(K7_PHASES) || defined(K7R_PHASES)
 #define FF_PHASES 1
 #endif
 #include <cooperative_groups.h>
@@ -491,17 +491,16 @@ __global__ void __launch_bounds__(kThreads) k7_sweep_kernel(
 // two grid barriers of the cooperative kernel above become collectives
 // between three launches (solver/sharded_ranks.py drives them):
 //   elect  the position's proposals against the pre-sweep state, each
-//          service's lowest accepted proposal its candidate (the hashed
-//          service table), each candidate's rank m + M·d posted into the
-//          (N,) election slots with atomicMin;
+//          service's lowest accepted proposal its candidate, each
+//          candidate's rank m + M·d posted into the (N,) election slots
+//          with atomicMin;
 //          -> all_reduce(MIN) of the slots over the replica's ranks;
 //   apply  the candidates whose rank won their target node: the shard's
 //          assignment, the integer deltas of the occupancy and topology
 //          planes and the touched-node counts (N·G | N·Gc1 | T | N, integer
 //          atomics, order-free), and the position's (N, 3) load partial in
-//          the cooperative kernel's order (the compacted departure walk:
-//          a node's departures in proposal order, then its arrival, from
-//          0.0);
+//          the cooperative kernel's order (a node's departures in proposal
+//          order, then its arrival, from 0.0);
 //          -> all_gather of the partials and all_reduce(SUM) of the integer
 //          deltas over the replica's ranks;
 //   reduce the gathered partials summed in shard order into the load of
@@ -513,9 +512,64 @@ __global__ void __launch_bounds__(kThreads) k7_sweep_kernel(
 // shard's Problem the planes are indexed by shard-local row, p.S is the
 // GLOBAL padded S (the move delta divides the preference and colocation
 // terms by it) and p.n_real the shard's real rows (phantoms are a suffix
-// of the global rows, so a prefix of each shard's real). elect and apply
-// are one block (the position is one cooperative block above); reduce is
-// a grid over the node planes. Latency-bound, like the cooperative form.
+// of the global rows, so a prefix of each shard's real).
+//
+// Bound: latency. A position's M proposals move a few tens of KB; the
+// time of elect and apply is their chains of dependent loads and their
+// barriers. As one block (the first design) elect spent 6.9 of its 8.4 µs
+// in one thread's move delta, a chain of ~14 dependent loads (the id and
+// skew loops one id at a time), and apply 4.0 of its 7.0 µs in its
+// integer atomics and departure walk (tools/k7r_profile.py's stamps, M
+// 256, H100). So both are now one thread-block cluster of C CTAs (2 to 8,
+// one launch, cudaLaunchKernelEx; grid = cluster), each CTA a contiguous
+// chunk of the M proposals, a team of g lanes (a power of two >= the id
+// and skew widths, at most 32) a proposal:
+//   elect  the team's lanes split the K conflict ids, the Kc coloc ids and
+//          the T-long skew loop (order-free integer sums, combined with
+//          shuffles), its reads go out in two waves, and every lane then
+//          computes the float terms in the plain version's order
+//          (move_delta_team): the chain is ~3 loads deep where one
+//          thread's move_delta was ~14. An accepted proposal posts m
+//          into the shard's (S/D,) `first` array (atomicMin, INT_MAX at
+//          rest); after ONE cluster barrier the proposal that reads its
+//          own m there is its service's candidate, posts its rank and
+//          puts `first` back at rest (a later proposal of the service
+//          then reads m or INT_MAX, never its own index). No service
+//          table to clear.
+//   apply  a team reads its candidate, the slot of its target and, beside
+//          it, the rows its move would apply (the id rows, the demand, the
+//          domains), so the won check and the integer atomics are ~2 loads
+//          deep; the chunk's applied moves are compacted in proposal order
+//          (a block scan) and pushed, with their sources, targets and
+//          demand, into every CTA's copy of the cluster's list (chunk q at
+//          rows [q·Mc, q·Mc + count[q]), distributed shared memory). After
+//          ONE cluster barrier each CTA holds the whole list (a few tens
+//          of moves, at most one arrival a node) and each of its chunk's
+//          rows makes one branch-free pass over it (broadcast reads of
+//          shared memory): its source's departures before and after it,
+//          the source's arrival, whether anything leaves its target. A
+//          row with no earlier departure from its source walks the
+//          source's departures from its own on, in list order, four rows
+//          read at a time, then adds the source's arrival, from 0.0: the
+//          first design's float order (a node's departures in proposal
+//          order, then its arrival); only a node left by several moves
+//          walks past its own row. A row whose target nothing leaves adds
+//          its arrival alone. No hash table (shared-memory CAS
+//          serialises: the first design's node tables and walk were 3.5
+//          of its 7.0 µs, a one-warp pass over such a table 10.8 µs
+//          here); nothing is read from another CTA after the barrier, so
+//          no CTA waits for the others to exit.
+// A card or a width the cluster cannot take (its shared memory, a card
+// without cluster launch) makes ff_k7r_bind fail; there is no single-block
+// path to fall back on. reduce is a grid over the node planes.
+//
+// Built with -DK7R_PHASES (fleetflow_tpu_torch/tools/k7r_profile.py),
+// thread 0 of each CTA stamps its cycles into row blockIdx.x; the slots
+// are named in solver/sharded_ranks.py's PHASE_SLOTS.
+
+constexpr int kRankThreads = 512;   // a CTA's threads (at most)
+constexpr int kRankCluster = 8;     // CTAs a cluster (at most; portable)
+constexpr int kRankTarget = 256;    // lanes a CTA the bind aims for
 
 struct K7RankStatic {
   Problem p;
@@ -529,160 +583,353 @@ struct K7RankStatic {
   int* cand;         // (4, M) service, source, target, standing
   float* partial;    // (N, 3) this position's load delta, 0 at rest
   int* deltas;       // N·G | N·Gc1 | T | N touched, 0 at rest
-  int threads, H, reduce_grid;
+  int* first;        // (S/D,) a service's lowest accepted proposal,
+                     // INT_MAX at rest
+  // the launch shape ff_k7r_bind fills: C CTAs of `threads`, teams of
+  // `team` lanes, chunks of `chunk` proposals
+  int cluster, threads, team, chunk, reduce_grid;
   long long smem_elect, smem_apply;
 };
 
-__global__ void __launch_bounds__(kThreads) k7r_elect_kernel(
+// the lanes of this thread's team (a power of two <= 32 within a warp)
+__device__ __forceinline__ unsigned team_mask(int g) {
+  const int lane = threadIdx.x & 31;
+  return g == 32 ? 0xffffffffu : (((1u << g) - 1u) << (lane & ~(g - 1)));
+}
+
+// the cluster barrier split in two: a relaxed arrive at a CTA's start and
+// the wait before its first access to another CTA's shared memory, which
+// then has started (a CTA's shared memory is there only once it runs)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// (max, min) of the topology counts, every lane of the warp; the whole
+// warp calls it
+__device__ __forceinline__ void warp_topo_range(const int* tp, int T,
+                                                int& tmax, int& tmin) {
+  int hi = INT_MIN, lo = INT_MAX;
+  for (int t = threadIdx.x & 31; t < T; t += 32) {
+    hi = max(hi, tp[t]);
+    lo = min(lo, tp[t]);
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+  }
+  tmax = hi;
+  tmin = lo;
+}
+
+__global__ void __launch_bounds__(kRankThreads) k7r_elect_kernel(
     K7RankStatic a, float temp, const int* __restrict__ s_loc,
     const int* __restrict__ b_idx, const float* __restrict__ u) {
+  cg::cluster_group cluster = cg::this_cluster();
   const Problem& p = a.p;
-  const int M = a.M, H = a.H;
+  const int M = a.M, g = a.team, Mc = a.chunk;
+  const int c = (int)cluster.block_rank();
+  const int lo = min(c * Mc, M), hi = min(lo + Mc, M);
+  const int tl = threadIdx.x & (g - 1), teams = blockDim.x / g;
+  const unsigned tmask = team_mask(g);
   extern __shared__ int sm[];
-  int* skey = sm;        // H: service table keys
-  int* sval = sm + H;    // H: lowest accepted index of the service
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
-  const unsigned smask = H - 1;
+  int* acc_sm = sm;             // Mc: the chunk's proposal accepted
+  int* svc_sm = sm + Mc;        // Mc: its service
+  int* tgt_sm = sm + 2 * Mc;    // Mc: its target
   int* c_s = a.cand;
   int* c_a = c_s + M;
   int* c_b = c_a + M;
   int* c_st = c_b + M;
-  for (int x = threadIdx.x; x < H; x += blockDim.x) {
-    skey[x] = -1;
-    sval[x] = M;
-  }
+#ifdef K7R_PHASES
+  unsigned long long* ph = ff_phase_row();
+  __shared__ unsigned long long longest;
+  __shared__ int n_acc;
+  if (threadIdx.x == 0) longest = 0, n_acc = 0;
+  if (ph) ph[0] = ff_globaltimer();
+  __syncthreads();
+  const long long c0 = clock64();
+#endif
   int tmax = 0, tmin = 0;
-  if (p.max_skew > 0) block_topo_range(a.topo, p.T, tmax, tmin, red_v, red_i);
+  if (p.max_skew > 0) warp_topo_range(a.topo, p.T, tmax, tmin);
   const float t = fmaxf(temp, 1e-8f);
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
+#ifdef K7R_PHASES
+  const long long c1 = clock64();
+#endif
+  for (int m = lo + (int)threadIdx.x / g; m < hi; m += teams) {
     const int s = s_loc[m], b = b_idx[m];
+    const float uu = u[m];
     const int src = a.assignment[s];
-    const float delta = move_delta(p, a.load, a.used, a.coloc, a.topo, tmax,
-                                   tmin, s, src, b);
-    const bool accept =
-        ((delta < 0.f) || (u[m] < expf(-delta / t))) && (src != b);
-    c_s[m] = s;
-    c_a[m] = src;
-    c_b[m] = b;
-    c_st[m] = accept ? kAccepted : kRejected;
-  }
-  __syncthreads();
-  for (int m = threadIdx.x; m < M; m += blockDim.x)
-    if (c_st[m] == kAccepted)
-      atomicMin(&sval[table_slot(skey, smask, c_s[m], true)], m);
-  __syncthreads();
-  for (int m = threadIdx.x; m < M; m += blockDim.x)
-    if (c_st[m] == kAccepted &&
-        sval[table_slot(skey, smask, c_s[m], false)] == m) {
-      c_st[m] = kCandidate;
-      atomicMin(&a.slots[c_b[m]], m + M * a.d);
+    const float delta = move_delta_team(p, a.load, a.used, a.coloc, a.topo,
+                                        tmax, tmin, s, src, b, tl, g, tmask);
+    if (tl == 0) {
+      const bool accept =
+          ((delta < 0.f) || (uu < expf(-delta / t))) && (src != b);
+      c_s[m] = s;
+      c_a[m] = src;
+      c_b[m] = b;
+      acc_sm[m - lo] = accept;
+      svc_sm[m - lo] = s;
+      tgt_sm[m - lo] = b;
+      if (accept) atomicMin(&a.first[s], m);
+#ifdef K7R_PHASES
+      if (accept) atomicAdd(&n_acc, 1);
+#endif
     }
+  }
+#ifdef K7R_PHASES
+  atomicMax(&longest, (unsigned long long)(clock64() - c1));
+  const long long c2 = clock64();
+#endif
+  cluster.sync();  // every accepted proposal has posted into `first`
+#ifdef K7R_PHASES
+  const long long c3 = clock64();
+#endif
+  for (int i = threadIdx.x; i < hi - lo; i += blockDim.x) {
+    const int m = lo + i;
+    int standing = kRejected;
+    if (acc_sm[i]) {
+      const int s = svc_sm[i];
+      standing = kAccepted;
+      if (__ldcg(&a.first[s]) == m) {
+        standing = kCandidate;
+        a.first[s] = INT_MAX;
+        atomicMin(&a.slots[tgt_sm[i]], m + M * a.d);
+      }
+    }
+    c_st[m] = standing;
+  }
+#ifdef K7R_PHASES
+  __syncthreads();
+  if (ph) {
+    const long long c4 = clock64();
+    ph[1] = ff_globaltimer();
+    ph[2] = c4 - c0;
+    ph[3] = c1 - c0;
+    ph[4] = c2 - c1;
+    ph[5] = c3 - c2;
+    ph[6] = c4 - c3;
+    ph[7] = n_acc;
+    ph[8] = M;
+    ph[9] = longest;
+  }
+#endif
 }
 
-__global__ void __launch_bounds__(kThreads) k7r_apply_kernel(K7RankStatic a,
-                                                             int* applied_out) {
+// The chunk's applied moves (flags `app_sm` over n entries) in order: each
+// thread takes a contiguous run, a warp scan and the warps' totals
+// (`warp_tot`, 32 ints) give each run its offset. `emit(i, j)` is called
+// for the applied entry i with its rank j. Returns the count to every
+// thread; ends with a barrier.
+template <class Emit>
+__device__ int scan_applied(const int* app_sm, int n, int* warp_tot,
+                            Emit emit) {
+  const int T = blockDim.x, t = threadIdx.x, lane = t & 31;
+  const int per = (n + T - 1) / T, i0 = min(t * per, n), i1 = min(i0 + per, n);
+  int k = 0;
+  for (int i = i0; i < i1; ++i) k += app_sm[i];
+  int incl = k;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) warp_tot[t >> 5] = incl;
+  __syncthreads();
+  int j = incl - k, total = 0;
+  for (int w = 0; w < (T >> 5); ++w) {
+    const int v = warp_tot[w];
+    if (w < (t >> 5)) j += v;
+    total += v;
+  }
+  for (int i = i0; i < i1; ++i)
+    if (app_sm[i]) emit(i, j++);
+  __syncthreads();
+  return total;
+}
+
+__global__ void __launch_bounds__(kRankThreads) k7r_apply_kernel(
+    K7RankStatic a, int* applied_out) {
+  cg::cluster_group cluster = cg::this_cluster();
   const Problem& p = a.p;
-  const int M = a.M, H = a.H, N = p.N;
+  const int M = a.M, N = p.N, g = a.team, Mc = a.chunk;
+  const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
+  const int lo = min(c * Mc, M), hi = min(lo + Mc, M);
+  const int tl = threadIdx.x & (g - 1), teams = blockDim.x / g;
   extern __shared__ int sm[];
-  int* s_sm = sm;              // M: the proposal's service
-  int* a_sm = sm + M;          // M: its node before the sweep
-  int* b_sm = sm + 2 * M;      // M: its target
-  int* st_sm = sm + 3 * M;     // M: its standing
-  int* nkey = sm + 4 * M;      // 2H: node table keys
-  int* ntgt = nkey + 2 * H;    // 2H: the applied arrival
-  int* ndep = ntgt + 2 * H;    // 2H: lowest applied proposal departing
-  int* ncnt = ndep + 2 * H;    // 2H: applied proposals departing
-  int* dep_m = ncnt + 2 * H;   // M: the applied departures, compacted
-  int* dep_a = dep_m + M;      // M: their sources
-  int* dep_pos = dep_a + M;    // M: a proposal's place among them
-  float* d_sm = reinterpret_cast<float*>(dep_pos + M);  // 3M: demand
-  __shared__ int red_i[32];
-  __shared__ int n_applied;
-  const unsigned nmask = 2 * H - 1;
+  int* app_sm = sm;                  // Mc: the chunk's move applied
+  int* src_sm = sm + Mc;             // Mc: its source
+  int* tgt_sm = sm + 2 * Mc;         // Mc: its target
+  float* dem_sm = reinterpret_cast<float*>(sm + 3 * Mc);  // 3Mc: demand
+  int* l_src = sm + 6 * Mc;          // C·Mc: the cluster's applied moves,
+  int* l_tgt = l_src + C * Mc;       // chunk q at rows [q·Mc, q·Mc +
+  float* l_dem = reinterpret_cast<float*>(l_tgt + C * Mc);  // count[q])
+  int* count = reinterpret_cast<int*>(l_dem + 3 * C * Mc);  // kRankCluster
+  __shared__ int warp_tot[32];
   int* dused = a.deltas;
   int* dcoloc = dused + (size_t)N * p.G;
   int* dtopo = dcoloc + (size_t)N * p.Gc1;
   int* touched = dtopo + p.T;
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    const int s = a.cand[m];
-    s_sm[m] = s;
-    a_sm[m] = a.cand[M + m];
-    b_sm[m] = a.cand[2 * M + m];
-    st_sm[m] = a.cand[3 * M + m];
-    for (int k = 0; k < 3; ++k) d_sm[m * 3 + k] = p.demand[(size_t)s * 3 + k];
-  }
-  for (int x = threadIdx.x; x < 2 * H; x += blockDim.x) {
-    nkey[x] = -1;
-    ntgt[x] = M;
-    ndep[x] = M;
-    ncnt[x] = 0;
-  }
-  if (threadIdx.x == 0) n_applied = 0;
-  __syncthreads();
-  int mine = 0;
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    if (st_sm[m] == kCandidate && a.slots[b_sm[m]] == m + M * a.d) {
-      st_sm[m] = kApplied;
-      const int h = table_slot(nkey, nmask, a_sm[m], true);
-      atomicMin(&ndep[h], m);
-      atomicAdd(&ncnt[h], 1);
-      ntgt[table_slot(nkey, nmask, b_sm[m], true)] = m;
-      ++mine;
-    } else {
-      a_sm[m] = -1;
-    }
-  }
-  if (mine) atomicAdd(&n_applied, mine);
-  __syncthreads();
-  const int n_dep = compact_applied(st_sm, a_sm, M, dep_m, dep_a, dep_pos,
-                                    red_i);
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    if (st_sm[m] != kApplied) continue;
-    const int s = s_sm[m], src = a_sm[m], b = b_sm[m];
-    for (int k = 0; k < p.K; ++k) {
-      const int id = p.cids[(size_t)s * p.K + k];
-      if (id < 0) continue;
-      atomicSub(&dused[(size_t)src * p.G + id], 1);
-      atomicAdd(&dused[(size_t)b * p.G + id], 1);
-    }
-    for (int k = 0; k < p.Kc; ++k) {
-      const int id = p.colids[(size_t)s * p.Kc + k];
-      if (id < 0) continue;
-      atomicSub(&dcoloc[(size_t)src * p.Gc1 + id], 1);
-      atomicAdd(&dcoloc[(size_t)b * p.Gc1 + id], 1);
-    }
-    if (s < p.n_real) {
-      atomicSub(&dtopo[p.ntopo[src]], 1);
-      atomicAdd(&dtopo[p.ntopo[b]], 1);
-    }
-    a.assignment[s] = b;
-    touched[src] = 1;
-    touched[b] = 1;
-    // the position's partial of the touched nodes, as the cooperative
-    // kernel's walk: the lowest applied departure from a node walks the
-    // applied departures from its own on, then adds the arrival
-    const int ha = table_slot(nkey, nmask, src, false);
-    if (ndep[ha] == m) {
-      float l[3] = {0.f, 0.f, 0.f};
-      for (int j = dep_pos[m], left = ncnt[ha]; left > 0; ++j) {
-        if (dep_a[j] != src) continue;
-        const float* dd = d_sm + dep_m[j] * 3;
-        for (int k = 0; k < 3; ++k) l[k] = l[k] + (-dd[k]);
-        --left;
+  cluster_arrive_relaxed();
+#ifdef K7R_PHASES
+  unsigned long long* ph = ff_phase_row();
+  if (ph) ph[0] = ff_globaltimer();
+  const long long c0 = clock64();
+#endif
+  // the won check and the integer deltas, a team a proposal; the move's
+  // rows are read beside its slot, before the check
+  for (int m = lo + (int)threadIdx.x / g; m < hi; m += teams) {
+    int app = 0;
+    if (a.cand[3 * M + m] == kCandidate) {
+      const int s = a.cand[m], src = a.cand[M + m], b = a.cand[2 * M + m];
+      const int won = a.slots[b];
+      const int cid = tl < p.K ? p.cids[(size_t)s * p.K + tl] : -1;
+      const int lid = tl < p.Kc ? p.colids[(size_t)s * p.Kc + tl] : -1;
+      float dm[3] = {0.f, 0.f, 0.f};
+      int ta = 0, tb = 0;
+      if (tl == 0) {
+        for (int k = 0; k < 3; ++k) dm[k] = p.demand[(size_t)s * 3 + k];
+        ta = p.ntopo[src];
+        tb = p.ntopo[b];
       }
-      if (ntgt[ha] < M)
-        for (int k = 0; k < 3; ++k) l[k] = l[k] + d_sm[ntgt[ha] * 3 + k];
-      for (int k = 0; k < 3; ++k) a.partial[(size_t)src * 3 + k] = l[k];
+      app = won == m + M * a.d;
+      if (app) {
+        for (int k = tl; k < p.K; k += g) {
+          const int id = k == tl ? cid : p.cids[(size_t)s * p.K + k];
+          if (id < 0) continue;
+          atomicSub(&dused[(size_t)src * p.G + id], 1);
+          atomicAdd(&dused[(size_t)b * p.G + id], 1);
+        }
+        for (int k = tl; k < p.Kc; k += g) {
+          const int id = k == tl ? lid : p.colids[(size_t)s * p.Kc + k];
+          if (id < 0) continue;
+          atomicSub(&dcoloc[(size_t)src * p.Gc1 + id], 1);
+          atomicAdd(&dcoloc[(size_t)b * p.Gc1 + id], 1);
+        }
+        if (tl == 0) {
+          if (s < p.n_real) {
+            atomicSub(&dtopo[ta], 1);
+            atomicAdd(&dtopo[tb], 1);
+          }
+          a.assignment[s] = b;
+          touched[src] = 1;
+          touched[b] = 1;
+          src_sm[m - lo] = src;
+          tgt_sm[m - lo] = b;
+          for (int k = 0; k < 3; ++k) dem_sm[(m - lo) * 3 + k] = dm[k];
+        }
+      }
     }
-    const int hb = table_slot(nkey, nmask, b, false);
-    if (ndep[hb] == M)  // an arrival where nothing leaves
-      for (int k = 0; k < 3; ++k)
-        a.partial[(size_t)b * 3 + k] = 0.f + d_sm[m * 3 + k];
+    if (tl == 0) app_sm[m - lo] = app;
   }
   __syncthreads();
-  if (threadIdx.x == 0) applied_out[0] = n_applied;
-  (void)n_dep;
+#ifdef K7R_PHASES
+  const long long c1 = clock64();
+#endif
+  // the chunk's applied moves in proposal order, as rows of this CTA's
+  // list, then pushed into every other CTA's
+  const int n_c = scan_applied(app_sm, hi - lo, warp_tot, [&](int i, int j) {
+    const int row = c * Mc + j;
+    l_src[row] = src_sm[i];
+    l_tgt[row] = tgt_sm[i];
+    for (int k = 0; k < 3; ++k) l_dem[row * 3 + k] = dem_sm[i * 3 + k];
+  });
+  cluster_wait();  // every CTA of the cluster runs
+  for (int x = threadIdx.x; x < n_c * C; x += blockDim.x) {
+    const int r = x % C, row = c * Mc + x / C;
+    if (r == c) continue;
+    cluster.map_shared_rank(l_src, r)[row] = l_src[row];
+    cluster.map_shared_rank(l_tgt, r)[row] = l_tgt[row];
+    float* rd = cluster.map_shared_rank(l_dem, r);
+    for (int k = 0; k < 3; ++k) rd[row * 3 + k] = l_dem[row * 3 + k];
+  }
+  if (threadIdx.x < C) cluster.map_shared_rank(count, threadIdx.x)[c] = n_c;
+#ifdef K7R_PHASES
+  const long long c2 = clock64();
+#endif
+  cluster.sync();  // every CTA holds the cluster's list and counts
+#ifdef K7R_PHASES
+  const long long c3 = clock64();
+  long long walk = 0;
+#endif
+  if (c == 0 && threadIdx.x == 0) {
+    int total = 0;
+    for (int q = 0; q < C; ++q) total += count[q];
+    applied_out[0] = total;
+  }
+  // each of this chunk's rows x: one branch-free pass over the list
+  // counts its source's departures before and after it, finds the
+  // source's arrival and whether anything leaves its target; x then walks
+  // its source's departures if none comes before it (its own, then the
+  // `after` later ones in list order, four rows read at a time, then the
+  // arrival; most nodes have one departure and walk nothing past their
+  // own row), and adds its target's partial alone if nothing leaves the
+  // target
+  for (int j = threadIdx.x; j < n_c; j += blockDim.x) {
+    const int x = c * Mc + j, src = l_src[x], b = l_tgt[x];
+    int before = 0, after = 0, arrival = -1;
+    bool lone = true;
+    for (int q = 0; q < C; ++q) {
+      const int y0 = q * Mc, y1 = y0 + count[q];
+#pragma unroll 4
+      for (int y = y0; y < y1; ++y) {
+        const int sy = l_src[y], ty = l_tgt[y];
+        before += (sy == src) & (y < x);
+        after += (sy == src) & (y > x);
+        lone &= sy != b;
+        arrival = ty == src ? y : arrival;
+      }
+    }
+#ifdef K7R_PHASES
+    const long long w0 = clock64();
+#endif
+    if (before == 0) {
+      float l[3];
+      for (int r = 0; r < 3; ++r) l[r] = 0.f + (-l_dem[x * 3 + r]);
+      for (int q = c, y = x + 1; after > 0 && q < C; y = ++q * Mc) {
+        for (const int y1 = q * Mc + count[q]; after > 0 && y < y1; y += 4) {
+          int sy[4];
+#pragma unroll
+          for (int v = 0; v < 4; ++v) sy[v] = y + v < y1 ? l_src[y + v] : -1;
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            if (sy[v] != src || after == 0) continue;
+            for (int r = 0; r < 3; ++r)
+              l[r] = l[r] + (-l_dem[(y + v) * 3 + r]);
+            --after;
+          }
+        }
+      }
+      if (arrival >= 0)
+        for (int r = 0; r < 3; ++r) l[r] = l[r] + l_dem[arrival * 3 + r];
+      for (int r = 0; r < 3; ++r) a.partial[(size_t)src * 3 + r] = l[r];
+    }
+    if (lone)
+      for (int r = 0; r < 3; ++r)
+        a.partial[(size_t)b * 3 + r] = 0.f + l_dem[x * 3 + r];
+#ifdef K7R_PHASES
+    walk = max(walk, clock64() - w0);
+#endif
+  }
+#ifdef K7R_PHASES
+  __shared__ unsigned long long walk_max;
+  if (threadIdx.x == 0) walk_max = 0;
+  __syncthreads();
+  atomicMax(&walk_max, (unsigned long long)walk);
+  __syncthreads();
+  if (ph) {
+    const long long c5 = clock64();
+    ph[1] = ff_globaltimer();
+    ph[2] = c5 - c0;
+    ph[3] = c1 - c0;
+    ph[4] = c2 - c1;
+    ph[5] = c3 - c2;
+    ph[6] = c5 - c3;
+    ph[7] = n_c;
+    ph[8] = M;
+    ph[9] = walk_max;
+  }
+#endif
 }
 
 __global__ void k7r_reduce_kernel(K7RankStatic a,
@@ -798,22 +1045,79 @@ FF_EXPORT int ff_k7r_static_size() {
   return static_cast<int>(sizeof(K7RankStatic));
 }
 
+// a cluster launch of `a.cluster` CTAs (the grid is one cluster)
+static cudaLaunchConfig_t rank_config(const K7RankStatic& a, size_t smem,
+                                      cudaStream_t stream,
+                                      cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.cluster);
+  cfg.blockDim = dim3(a.threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// a failed runtime call of the bind: its error is returned and cleared
+// from the runtime's last-error state, so no later launch check reads it
+static int bind_failed(cudaError_t e) {
+  (void)cudaGetLastError();
+  return static_cast<int>(e);
+}
+
 // Check a K7RankStatic (the wrapper's _ext.K7RankArgs) and fill its launch
-// shape: a block of a thread a proposal (at most 256), the service table
-// size H, the reduce's grid and the two blocks' dynamic shared memory
-// (elect 2H ints, apply 10M + 8H). Called once per bound launcher.
+// shape: the team g (a power of two >= the conflict-id, coloc-id and, with
+// a spread constraint, topology widths; at most 32), the cluster (M·g
+// lanes at ~kRankTarget a CTA, 2 to 8 CTAs of at most kRankThreads), the
+// chunk, the reduce's grid and the two kernels' dynamic shared memory
+// (elect 3·chunk ints, apply 6·chunk + 5·C·chunk + 8). Fails, and nothing
+// is launched, on a card without cluster launch or when a cluster of that
+// shape cannot be scheduled (apply's list past the shared memory: M above
+// 10,096 on an H100); a runtime call that fails there leaves no error
+// behind for a later launch's check. Called once per bound launcher.
 FF_EXPORT int ff_k7r_bind(void* args) {
   K7RankStatic* a = static_cast<K7RankStatic*>(args);
-  if (a->D < 1 || a->d < 0 || a->d >= a->D || a->M < 1 || a->p.N < 1 ||
-      a->p.S % a->D != 0)
+  const Problem& p = a->p;
+  if (a->D < 1 || a->d < 0 || a->d >= a->D || a->M < 1 || p.N < 1 ||
+      p.S % a->D != 0 || p.K < 0 || p.Kc < 0 || p.T < 1 ||
+      a->first == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  int H = 1;
-  while (H < 2 * a->M) H <<= 1;
-  int threads = ((a->M + 31) / 32) * 32;
-  if (threads > kThreads) threads = kThreads;
-  const size_t elect = (size_t)2 * H * sizeof(int);
-  const size_t apply = ((size_t)10 * a->M + (size_t)8 * H) * sizeof(int);
-  cudaError_t e = cudaSuccess;
+  int dev = 0, cluster_ok = 0, max_smem = 0;
+  cudaFuncAttributes fe = {}, fa = {};
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&cluster_ok, cudaDevAttrClusterLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fe, k7r_elect_kernel);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, k7r_apply_kernel);
+  if (e != cudaSuccess) return bind_failed(e);
+  if (!cluster_ok) return static_cast<int>(cudaErrorNotSupported);
+  int need = p.K > p.Kc ? p.K : p.Kc;
+  if (p.max_skew > 0 && p.T > need) need = p.T;
+  int g = 1;
+  while (g < need && g < 32) g <<= 1;
+  const long long lanes = (long long)a->M * g;
+  long long C = (lanes + kRankTarget - 1) / kRankTarget;
+  if (C < 2) C = 2;
+  if (C > kRankCluster) C = kRankCluster;
+  long long threads = (lanes + C - 1) / C;
+  threads = ((threads + 31) / 32) * 32;
+  if (threads > kRankThreads) threads = kRankThreads;
+  const int chunk = static_cast<int>((a->M + C - 1) / C);
+  const size_t elect = (size_t)3 * chunk * sizeof(int);
+  const size_t apply = ((size_t)6 * chunk + (size_t)5 * C * chunk +
+                        kRankCluster) * sizeof(int);
+  // the dynamic shared memory beside each kernel's static
+  if (apply + fa.sharedSizeBytes > (size_t)max_smem ||
+      elect + fe.sharedSizeBytes > (size_t)max_smem)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (elect > 48 * 1024)
     e = cudaFuncSetAttribute(k7r_elect_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -822,11 +1126,24 @@ FF_EXPORT int ff_k7r_bind(void* args) {
     e = cudaFuncSetAttribute(k7r_apply_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)apply);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  long long work = (long long)a->p.N * (a->p.G > a->p.Gc1 ? a->p.G : a->p.Gc1);
-  if (work < a->p.T) work = a->p.T;
-  a->threads = threads;
-  a->H = H;
+  if (e != cudaSuccess) return bind_failed(e);
+  a->cluster = static_cast<int>(C);
+  a->threads = static_cast<int>(threads);
+  a->team = g;
+  a->chunk = chunk;
+  // one cluster of this shape must fit on the card, for each kernel
+  cudaLaunchAttribute attr[1];
+  int fits = 0;
+  cudaLaunchConfig_t cfg = rank_config(*a, elect, 0, attr);
+  e = cudaOccupancyMaxActiveClusters(&fits, k7r_elect_kernel, &cfg);
+  if (e == cudaSuccess && fits >= 1) {
+    cfg = rank_config(*a, apply, 0, attr);
+    e = cudaOccupancyMaxActiveClusters(&fits, k7r_apply_kernel, &cfg);
+  }
+  if (e != cudaSuccess) return bind_failed(e);
+  if (fits < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  long long work = (long long)p.N * (p.G > p.Gc1 ? p.G : p.Gc1);
+  if (work < p.T) work = p.T;
   a->reduce_grid = ff_blocks(work, 256);
   a->smem_elect = static_cast<long long>(elect);
   a->smem_apply = static_cast<long long>(apply);
@@ -838,10 +1155,14 @@ FF_EXPORT int ff_k7r_bind(void* args) {
 FF_EXPORT int ff_k7r_elect(const void* args, float temp, const int* s_loc,
                            const int* b_idx, const float* u,
                            cudaStream_t stream) {
-  const K7RankStatic a = *static_cast<const K7RankStatic*>(args);
-  if (a.threads < 1) return static_cast<int>(cudaErrorInvalidValue);
-  k7r_elect_kernel<<<1, a.threads, (size_t)a.smem_elect, stream>>>(
-      a, temp, s_loc, b_idx, u);
+  const K7RankStatic& a = *static_cast<const K7RankStatic*>(args);
+  if (a.cluster < 2) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      rank_config(a, (size_t)a.smem_elect, stream, attr);
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, k7r_elect_kernel, a, temp, s_loc, b_idx, u);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -849,10 +1170,13 @@ FF_EXPORT int ff_k7r_elect(const void* args, float temp, const int* s_loc,
 // `applied` gets the position's applied moves (one int).
 FF_EXPORT int ff_k7r_apply(const void* args, int* applied,
                            cudaStream_t stream) {
-  const K7RankStatic a = *static_cast<const K7RankStatic*>(args);
-  if (a.threads < 1) return static_cast<int>(cudaErrorInvalidValue);
-  k7r_apply_kernel<<<1, a.threads, (size_t)a.smem_apply, stream>>>(a,
-                                                                   applied);
+  const K7RankStatic& a = *static_cast<const K7RankStatic*>(args);
+  if (a.cluster < 2) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      rank_config(a, (size_t)a.smem_apply, stream, attr);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, k7r_apply_kernel, a, applied);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

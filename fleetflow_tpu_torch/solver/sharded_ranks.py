@@ -70,6 +70,16 @@ REPLICA_AXIS = "replica"
 # the card; chip_smoke's [ranks] reads them)
 SWEEP_EVENTS: Optional[list] = None
 SVC_AXIS = "svc"
+# the cycle stamps of elect and apply when K7's library is built with
+# -DK7R_PHASES (csrc/k7_sharded_sweep.cu), slot -> phase, as
+# tools/k7r_profile.py prints them ("_count" slots are counts)
+PHASE_SLOTS = {
+    "k7_rank_elect": {3: "topo", 4: "delta", 5: "cluster_wait", 6: "post",
+                      7: "accepted_count", 9: "delta_longest_thread"},
+    "k7_rank_apply": {3: "won_integer", 4: "compact_push",
+                      5: "cluster_wait", 6: "pass", 7: "applied_count",
+                      9: "walk_longest_thread"},
+}
 
 # a proposal's standing after the election (the kernel's kRejected,
 # kAccepted, kCandidate)
@@ -138,12 +148,15 @@ class RankScratch(NamedTuple):
     the proposals' (service, source, target, standing) (4, M) written by
     elect; the (N,) election slots (INT_MAX); the position's (N, 3) load
     partial (0); the integer deltas N·G | N·Gc1 | T | N touched (0); the
-    position's applied moves (1,)."""
+    position's applied moves (1,); the (S/D,) lowest accepted proposal of
+    each of the shard's services, elect's own (INT_MAX; the plain version
+    does not use it)."""
     cand: torch.Tensor
     slots: torch.Tensor
     partial: torch.Tensor
     deltas: torch.Tensor
     applied: torch.Tensor
+    first: torch.Tensor
 
 
 def rank_scratch(lp: TorchProblem, st: ChainState, M: int) -> RankScratch:
@@ -156,7 +169,8 @@ def rank_scratch(lp: TorchProblem, st: ChainState, M: int) -> RankScratch:
         torch.zeros((N, 3), dtype=torch.float32, device=dev),
         torch.zeros((N * G + N * Gc1 + T + N,), dtype=torch.int32,
                     device=dev),
-        torch.zeros((1,), dtype=torch.int32, device=dev))
+        torch.zeros((1,), dtype=torch.int32, device=dev),
+        torch.full((lp.S,), _INT_MAX, dtype=torch.int32, device=dev))
 
 
 def _split_deltas(sc: RankScratch, st: ChainState):
@@ -263,16 +277,21 @@ def sharded_reduce_plain(lp: TorchProblem, st: ChainState, sc: RankScratch,
 class RankSweepLauncher:
     """K7's three cross-rank entry points bound to one rank's shard, its
     replica's state and one scratch for the sweeps of one anneal call
-    (``ff_k7r_bind`` once); each launches on the stream current when it
-    was built and counts its launch under its own name. Build one per
-    call and drop it with the call."""
+    (``ff_k7r_bind`` once: the tensors' devices, layouts and widths, and
+    the clusters' shape); each launches on the stream current when it
+    was built and counts its launch under its own name. A sweep passes
+    only its draws' pointers and its temperature (elect) or the gathered
+    partials' pointer (reduce): the layout of the draws and of the
+    gathered partials is checked at the first call, since a call's come
+    from one draw object and one gather. Build one per call and drop it
+    with the call."""
 
     def __init__(self, lp: TorchProblem, st: ChainState, pos: RankPosition,
                  M: int, scratch: Optional[RankScratch] = None):
         _check_rank(lp, st, pos)
         dev = st.assignment.device
         sc = rank_scratch(lp, st, M) if scratch is None else scratch
-        if sc.cand.shape != (4, M):
+        if sc.cand.shape != (4, M) or sc.first.shape != (lp.S,):
             raise ValueError("sharded sweep: scratch of another width")
         _ext.check_inputs("sharded_elect", *st, lp.demand, lp.capacity,
                           lp.conflict_ids, lp.coloc_ids, lp.eligible,
@@ -296,10 +315,11 @@ class RankSweepLauncher:
             pos.D, pos.d, M, st.assignment.data_ptr(), st.load.data_ptr(),
             st.used.data_ptr(), st.coloc.data_ptr(), st.topo.data_ptr(),
             sc.slots.data_ptr(), sc.cand.data_ptr(), sc.partial.data_ptr(),
-            sc.deltas.data_ptr(), 0, 0, 0, 0, 0)
+            sc.deltas.data_ptr(), sc.first.data_ptr())
         lib.ff_k7r_bind.argtypes = [ctypes.c_void_p]
         _ext.raise_error("k7_rank_elect",
                          lib.ff_k7r_bind(ctypes.addressof(self.args)))
+        self._addr = ctypes.addressof(self.args)
         self._elect = lib.ff_k7r_elect
         self._elect.argtypes = [ctypes.c_void_p, ctypes.c_float,
                                 ctypes.c_void_p, ctypes.c_void_p,
@@ -309,9 +329,11 @@ class RankSweepLauncher:
         self._reduce = lib.ff_k7r_reduce
         self._reduce.argtypes = [ctypes.c_void_p] * 3
         self.stream = torch.cuda.current_stream(dev).cuda_stream
+        self._applied = sc.applied.data_ptr()
+        self._draws_checked = self._gathered_checked = False
         self._keep = (lp, st)
 
-    def elect(self, s_loc, b_idx, u, temp: float) -> None:
+    def _check_draws(self, s_loc, b_idx, u) -> None:
         for x, dt in ((s_loc, torch.int32), (b_idx, torch.int32),
                       (u, torch.float32)):
             if (x.numel() != self.M or x.dtype != dt or x.device != self.dev
@@ -319,25 +341,31 @@ class RankSweepLauncher:
                 raise ValueError(f"sharded elect: proposals must be "
                                  f"contiguous ({self.M},) i32, i32, f32 on "
                                  f"{self.dev}")
+        self._draws_checked = True
+
+    def elect(self, s_loc, b_idx, u, temp: float) -> None:
+        if not self._draws_checked:
+            self._check_draws(s_loc, b_idx, u)
         _ext.raise_on("k7_rank_elect", self._elect(
-            ctypes.addressof(self.args), float(temp), s_loc.data_ptr(),
-            b_idx.data_ptr(), u.data_ptr(), self.stream))
+            self._addr, float(temp), s_loc.data_ptr(), b_idx.data_ptr(),
+            u.data_ptr(), self.stream))
 
     def apply(self) -> None:
         _ext.raise_on("k7_rank_apply", self._apply(
-            ctypes.addressof(self.args), self.scratch.applied.data_ptr(),
-            self.stream))
+            self._addr, self._applied, self.stream))
 
     def reduce(self, gathered: torch.Tensor) -> None:
-        N = self.scratch.slots.shape[0]
-        if (gathered.shape != (self.pos.D, N, 3)
-                or gathered.dtype != torch.float32
-                or gathered.device != self.dev
-                or not gathered.is_contiguous()):
-            raise ValueError(f"sharded reduce: contiguous ({self.pos.D}, {N}, "
-                             f"3) f32 partials on {self.dev}")
+        if not self._gathered_checked:
+            N = self.scratch.slots.shape[0]
+            if (gathered.shape != (self.pos.D, N, 3)
+                    or gathered.dtype != torch.float32
+                    or gathered.device != self.dev
+                    or not gathered.is_contiguous()):
+                raise ValueError(f"sharded reduce: contiguous ({self.pos.D}, "
+                                 f"{N}, 3) f32 partials on {self.dev}")
+            self._gathered_checked = True
         _ext.raise_on("k7_rank_reduce", self._reduce(
-            ctypes.addressof(self.args), gathered.data_ptr(), self.stream))
+            self._addr, gathered.data_ptr(), self.stream))
 
 
 class _PlainRankSweep:

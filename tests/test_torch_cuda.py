@@ -32,7 +32,8 @@ D = 1, 5 and 8, and its bound launcher reused over sweeps and built again
 after a merge, its loads bit-equal to the plain version on the CPU; K7's
 cross-rank entry points (elect, apply, reduce) for every position of 1 x 8
 and 2 x 4 meshes against their plain versions on the CPU, entry point by
-entry point.
+entry point, also at M 128, 256, 2,048 and the widest the bind takes, on
+chip_smoke's adversarial draws, and a wider M refused at bind time.
 
 Every test needs a CUDA card and skips without one. On the card (which has
 no JAX, so the repository's conftest cannot load):
@@ -1158,27 +1159,19 @@ def test_k6_best_effort_every_node_full(dev, N):
     assert len(set(out.tolist())) > 1
 
 
-@pytest.mark.parametrize("layout", [(1, 8), (2, 4)])
-@pytest.mark.parametrize("strategy", STRATEGIES)
-def test_k7_rank_entry_points_match_plain(dev, layout, strategy):
+def _rank_entry_sweeps(dev, prob, R, D, M, temps):
     """K7's cross-rank entry points (elect, apply, reduce) for every
     position of an R x D mesh on the card, the collectives between them
     done by hand (MIN of the slots over a replica's shards, the partials
     stacked in shard order, the integer deltas summed), against their
-    plain versions on CPU copies: each entry point's outputs equal (the
+    plain versions on CPU copies, one sweep a temperature of `temps` from
+    hot random replica states: each entry point's outputs equal (the
     slots and the proposals' standing, the deltas, partials and applied
-    counts, the reduced planes, loads bit-equal), three sweeps, from hot
-    random replica states at T = 1 and 0.01, one launch each a call."""
+    counts, the reduced planes, loads bit-equal), one launch each a call.
+    Returns the applied moves."""
     from fleetflow_tpu_torch.solver import sharded, sharded_ranks as sr
-    R, D = layout
-    _pt, prob = _problem(dev, S=2000, N=200, strategy=strategy,
-                         packed=strategy != "fill_lowest",
-                         preferred=strategy == "pack_into_dedicated",
-                         skew=3 if strategy == "fill_lowest" else 0,
-                         n_real=1990)
     whole = _sharded_state(dev, prob, R, 4)
     S_loc = prob.S // D
-    M = max(8, min(256, S_loc // 2))
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     draws = sharded.TorchDraws(gen)
@@ -1194,7 +1187,7 @@ def test_k7_rank_entry_points_match_plain(dev, layout, strategy):
             both[r, d] = (pos, (lp, st, sr.rank_scratch(lp, st, M)),
                           (_on_cpu(lp), st_c, sr.rank_scratch(lp, st_c, M)))
     applied = 0
-    for i, temp in enumerate((1.0, 0.01, 0.01)):
+    for i, temp in enumerate(temps):
         s_all, b_all, u_all = draws.proposals(
             i, sharded._hot(prob, whole, D), prob.N, M)
         for (r, d), (pos, k, c) in both.items():
@@ -1207,6 +1200,7 @@ def test_k7_rank_entry_points_match_plain(dev, layout, strategy):
                                    b_all[r, d].cpu(), u_all[r, d].cpu(), temp)
             assert torch.equal(k[2].slots.cpu(), c[2].slots)
             assert torch.equal(k[2].cand.cpu(), c[2].cand)
+            assert bool((k[2].first == 2**31 - 1).all())
         for r in range(R):
             for side in (1, 2):
                 slots = torch.stack([both[r, d][side][2].slots
@@ -1214,7 +1208,9 @@ def test_k7_rank_entry_points_match_plain(dev, layout, strategy):
                 for d in range(D):
                     both[r, d][side][2].slots.copy_(slots)
         for (r, d), (pos, k, c) in both.items():
+            n0 = _ext.LAUNCHES["k7_rank_apply"]
             sr.sharded_apply(*k, pos)
+            assert _ext.LAUNCHES["k7_rank_apply"] == n0 + 1
             sr.sharded_apply_plain(*c, pos)
             for name in ("deltas", "partial", "applied"):
                 assert torch.equal(getattr(k[2], name).cpu(),
@@ -1245,7 +1241,112 @@ def test_k7_rank_entry_points_match_plain(dev, layout, strategy):
                                              for d in range(D)])
             for t, u_ in zip(whole[1:], both[r, 0][1][1][1:]):
                 t[r] = u_[0]
-    assert applied > 0
+    return applied
+
+
+@pytest.mark.parametrize("layout", [(1, 8), (2, 4)])
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_k7_rank_entry_points_match_plain(dev, layout, strategy):
+    """K7's cross-rank entry points for every position of 1 x 8 and 2 x 4
+    meshes against their plain versions (_rank_entry_sweeps), three
+    sweeps at T = 1 and 0.01, each strategy, packed and dense, a
+    preference plane, a spread constraint."""
+    R, D = layout
+    _pt, prob = _problem(dev, S=2000, N=200, strategy=strategy,
+                         packed=strategy != "fill_lowest",
+                         preferred=strategy == "pack_into_dedicated",
+                         skew=3 if strategy == "fill_lowest" else 0,
+                         n_real=1990)
+    M = max(8, min(256, (prob.S // D) // 2))
+    assert _rank_entry_sweeps(dev, prob, R, D, M, (1.0, 0.01, 0.01)) > 0
+
+
+def _rank_widest(dev, prob):
+    """The widest M ff_k7r_bind takes on position (0, 0) of a 1 x 2 mesh
+    over `prob` (chip_smoke.rank_widest's bisection)."""
+    import chip_smoke
+    from fleetflow_tpu_torch.solver import sharded_ranks as sr
+    pos = sr.RankPosition(0, 0, 1, 2, prob.S, 0)
+    lp = sr.shard_rows(prob, pos)
+    st = anneal.chain_states_from_assignment(
+        lp, _sharded_state(dev, prob, 1, 3).assignment[:, :lp.S].clone())
+    return chip_smoke.rank_widest(sr, lp, st, pos), (lp, st, pos)
+
+
+@pytest.mark.parametrize("M", [128, 256, 2048, "widest"])
+def test_k7_rank_entry_points_widths(dev, M):
+    """The entry points at solve_sharded's proposals_per_step=128, the
+    default 256, the first design's widest 2,048 and the widest M
+    ff_k7r_bind takes (10,096 on an H100: clusters of 8 CTAs, several
+    proposals a team), 2 x 2 positions with a spread constraint (teams of
+    8 lanes), against their plain versions."""
+    _pt, prob = _problem(dev, S=2000, N=200, skew=3, n_real=1990)
+    if M == "widest":
+        M = _rank_widest(dev, prob)[0]
+        assert M >= 2048
+    assert _rank_entry_sweeps(dev, prob, 2, 2, M, (1.0, 0.01)) > 0
+
+
+@pytest.mark.parametrize("layout", [(1, 8), (2, 4)])
+@pytest.mark.parametrize("case", ["one_service", "one_target",
+                                  "all_rejected", "full_width"])
+def test_k7_rank_entry_points_adversarial(dev, layout, case):
+    """chip_smoke's adversarial draws for the election's tables and the
+    apply's list (chip_smoke.rank_adversarial_draws: every proposal for
+    one service; every proposal onto one node; every proposal rejected;
+    M equal to the shard's rows, the phantom rows among them), two sweeps
+    at T = 50 and 1 of every position, each entry point equal to its
+    plain version on the CPU; nothing applied when all are rejected."""
+    import chip_smoke
+    from fleetflow_tpu_torch.solver import sharded_ranks as sr
+    R, D = layout
+    _pt, prob = _problem(dev, S=2000, N=200, skew=3, n_real=1990)
+    S_loc = prob.S // D
+    M = S_loc if case == "full_width" else max(8, min(256, S_loc // 2))
+    whole = _sharded_state(dev, prob, R, 6)
+    both = chip_smoke.rank_positions(torch, sr, anneal, prob, 1990, whole,
+                                     R, D, M, dev)
+
+    def same(name, x, y):
+        assert torch.equal(x.cpu(), y), name
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    applied = 0
+    for temp in (chip_smoke.RANK_HOT_TEMP, 1.0):
+        now = torch.stack([torch.cat([both[r, d][1][1].assignment[0]
+                                      for d in range(D)])
+                           for r in range(R)])
+        draws = chip_smoke.rank_adversarial_draws(torch, case, now, D,
+                                                  prob.N, M, gen)
+        applied += chip_smoke.rank_sweep_vs_plain(
+            torch, sr, both, R, D, draws, [temp] * R, same)[0]
+    assert (applied == 0) == (case == "all_rejected")
+
+
+def test_k7_rank_bind_refuses_a_width_past_the_cluster(dev):
+    """A width whose apply cluster does not fit the card's shared memory
+    (past the widest the bind takes) raises at bind time, from the
+    launcher and from each entry point; nothing launches and nothing runs
+    the plain version in its place (the scratch stays at rest)."""
+    from fleetflow_tpu_torch.core.errors import KernelError
+    from fleetflow_tpu_torch.solver import sharded_ranks as sr
+    _pt, prob = _problem(dev, S=2000, N=200, n_real=1990)
+    widest, (lp, st, pos) = _rank_widest(dev, prob)
+    sr.rank_sweep(lp, st, pos, widest)
+    before = dict(_ext.LAUNCHES)
+    for M in (widest + 1, 4 * widest):
+        with pytest.raises(KernelError):
+            sr.rank_sweep(lp, st, pos, M)
+        sc = sr.rank_scratch(lp, st, M)
+        s = torch.zeros(M, dtype=torch.int32, device=dev)
+        with pytest.raises(KernelError):
+            sr.sharded_elect(lp, st, sc, pos, s, s, s.float(), 1.0)
+        with pytest.raises(KernelError):
+            sr.sharded_apply(lp, st, sc, pos)
+        assert bool((sc.slots == 2**31 - 1).all())
+        assert int(sc.cand.abs().sum()) == 0
+    assert _ext.LAUNCHES == before
 
 
 def _k7_against_cpu(prob, st_k, s_loc, b_idx, u, temps, sweep=None):

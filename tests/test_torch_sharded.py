@@ -293,75 +293,148 @@ class TestStep:
             sh.sharded_step_apply(tp, st, s.long(), s, u, [1.0])
 
 
+def _compose_vs_step(tpp, whole, R, D, M, draw, temps):
+    """K7's cross-rank entry points (plain versions), one per position
+    with the collectives done by hand (MIN of the slots over the
+    replica's shards, the partials stacked in shard order, the integer
+    deltas summed), against sharded_step_plain on the whole (R, S) state
+    `whole`, one sweep a temperature of `temps`, the (R, D, M) draws of
+    draw(sweep, whole): bit for bit every position's replica state, the
+    assignment shards and the applied counts, the scratch back at rest.
+    Returns the applied moves."""
+    from fleetflow_tpu_torch.solver import sharded_ranks as sr
+    S_loc = tpp.S // D
+    pos = {(r, d): sr.RankPosition(r, d, R, D, tpp.S, d * S_loc)
+           for r in range(R) for d in range(D)}
+    lp = {d: sr.shard_rows(tpp, pos[0, d]) for d in range(D)}
+    mine = {}
+    for (r, d), p in pos.items():
+        st = sh.ChainState(
+            whole.assignment[r:r + 1, d * S_loc:(d + 1) * S_loc].clone(),
+            *(t[r:r + 1].clone() for t in whole[1:]))
+        mine[r, d] = (st, sr.rank_scratch(lp[d], st, M))
+    total = 0
+    for sweep, temp in enumerate(temps):
+        s_loc, b_idx, u = draw(sweep, whole)
+        temps_r = [temp] * R
+        _, applied = sh.sharded_step_plain(tpp, whole, s_loc, b_idx, u,
+                                           temps_r)
+        for (r, d), (st, sc) in mine.items():
+            sr.sharded_elect(lp[d], st, sc, pos[r, d], s_loc[r, d],
+                             b_idx[r, d], u[r, d], temps_r[r])
+        for r in range(R):
+            slots = torch.stack([mine[r, d][1].slots
+                                 for d in range(D)]).min(0).values
+            for d in range(D):
+                mine[r, d][1].slots.copy_(slots)
+        for (r, d), (st, sc) in mine.items():
+            sr.sharded_apply(lp[d], st, sc, pos[r, d])
+            assert int(sc.applied[0]) == int(applied[r, d])
+        for r in range(R):
+            parts = torch.stack([mine[r, d][1].partial
+                                 for d in range(D)])
+            deltas = torch.stack([mine[r, d][1].deltas
+                                  for d in range(D)]).sum(0)
+            for d in range(D):
+                st, sc = mine[r, d]
+                sc.deltas.copy_(deltas)
+                sr.sharded_reduce(lp[d], st, sc, pos[r, d], parts)
+                assert int(sc.deltas.abs().sum()) == 0
+                assert int(sc.partial.abs().sum()) == 0
+                assert bool((sc.slots == 2**31 - 1).all())
+                assert bool((sc.first == 2**31 - 1).all())
+        for (r, d), (st, _sc) in mine.items():
+            assert torch.equal(
+                st.assignment[0],
+                whole.assignment[r, d * S_loc:(d + 1) * S_loc])
+            for f in ("load", "used", "coloc", "topo"):
+                assert torch.equal(getattr(st, f)[0],
+                                   getattr(whole, f)[r]), (f, r, d)
+        total += int(applied.sum())
+    return total
+
+
 class TestRankEntryPoints:
     @pytest.mark.parametrize("packed", [True, False])
     @pytest.mark.parametrize("layout", [(1, 8), (2, 4)])
     def test_composed_equal_the_plain_sweep(self, layout, packed):
         """K7's cross-rank entry points (plain versions), one per position
-        with the collectives done by hand (MIN of the slots over the
-        replica's shards, the partials stacked in shard order, the integer
-        deltas summed), equal sharded_step_plain bit for bit over three
-        sweeps: every position's replica state, the assignment shards and
-        the applied counts."""
-        from fleetflow_tpu_torch.solver import sharded_ranks as sr
+        with the collectives done by hand, equal sharded_step_plain bit
+        for bit over three sweeps (_compose_vs_step)."""
         R, D = layout
         _dp, tp, _, _ = staged_pair(200, 16, 8, packed=packed, coloc=True,
                                     max_skew=3, domains=4,
                                     preferred=not packed)
         tpp, orig = port_pad(tp, D)
         tpp.n_real = orig
-        S_loc = tpp.S // D
         rng = np.random.default_rng(8)
         a0 = torch.tensor(rng.integers(0, 16, (R, tpp.S)), dtype=torch.int32)
         whole = sh.chain_states_from_assignment(tpp, a0)
         gen = torch.Generator().manual_seed(8)
         M = 25
-        pos = {(r, d): sr.RankPosition(r, d, R, D, tpp.S, d * S_loc)
-               for r in range(R) for d in range(D)}
-        lp = {d: sr.shard_rows(tpp, pos[0, d]) for d in range(D)}
-        mine = {}
-        for (r, d), p in pos.items():
-            st = sh.ChainState(
-                whole.assignment[r:r + 1, d * S_loc:(d + 1) * S_loc].clone(),
-                *(t[r:r + 1].clone() for t in whole[1:]))
-            mine[r, d] = (st, sr.rank_scratch(lp[d], st, M))
-        for sweep in range(3):
-            s_loc, b_idx, u = sh.TorchDraws(gen).proposals(
-                sweep, sh._hot(tpp, whole, D), 16, M)
-            temps = [5.0 / (1 + sweep)] * R
-            _, applied = sh.sharded_step_plain(tpp, whole, s_loc, b_idx, u,
-                                               temps)
-            for (r, d), (st, sc) in mine.items():
-                sr.sharded_elect(lp[d], st, sc, pos[r, d], s_loc[r, d],
-                                 b_idx[r, d], u[r, d], temps[r])
-            for r in range(R):
-                slots = torch.stack([mine[r, d][1].slots
-                                     for d in range(D)]).min(0).values
-                for d in range(D):
-                    mine[r, d][1].slots.copy_(slots)
-            for (r, d), (st, sc) in mine.items():
-                sr.sharded_apply(lp[d], st, sc, pos[r, d])
-                assert int(sc.applied[0]) == int(applied[r, d])
-            for r in range(R):
-                parts = torch.stack([mine[r, d][1].partial
-                                     for d in range(D)])
-                deltas = torch.stack([mine[r, d][1].deltas
-                                      for d in range(D)]).sum(0)
-                for d in range(D):
-                    st, sc = mine[r, d]
-                    sc.deltas.copy_(deltas)
-                    sr.sharded_reduce(lp[d], st, sc, pos[r, d], parts)
-                    assert int(sc.deltas.abs().sum()) == 0
-                    assert int(sc.partial.abs().sum()) == 0
-                    assert bool((sc.slots == 2**31 - 1).all())
-            for (r, d), (st, _sc) in mine.items():
-                assert torch.equal(
-                    st.assignment[0],
-                    whole.assignment[r, d * S_loc:(d + 1) * S_loc])
-                for f in ("load", "used", "coloc", "topo"):
-                    assert torch.equal(getattr(st, f)[0],
-                                       getattr(whole, f)[r]), (f, r, d)
-        assert int(applied.sum()) > 0
+
+        def draw(sweep, now):
+            return sh.TorchDraws(gen).proposals(sweep, sh._hot(tpp, now, D),
+                                                16, M)
+
+        assert _compose_vs_step(tpp, whole, R, D, M, draw,
+                                [5.0 / (1 + i) for i in range(3)]) > 0
+
+    @pytest.mark.parametrize("layout", [(1, 8), (2, 4)])
+    @pytest.mark.parametrize("case", ["one_service", "one_target",
+                                      "all_rejected", "full_width"])
+    def test_adversarial_draws_equal_the_plain_sweep(self, layout, case):
+        """chip_smoke's adversarial draws (rank_adversarial_draws), on
+        which the kernels' election and list could go wrong: every
+        proposal for one service, every proposal onto one node, every
+        proposal rejected, and M equal to the shard's rows with the
+        phantom rows of a ragged fleet among them; the composed entry
+        points equal sharded_step_plain bit for bit over two sweeps (T =
+        50, then 1), nothing applied when every proposal is rejected."""
+        import chip_smoke
+        R, D = layout
+        _dp, tp, _, _ = staged_pair(197, 16, 8, packed=True, coloc=True,
+                                    max_skew=3, domains=4)
+        tpp, orig = port_pad(tp, D)
+        tpp.n_real = orig
+        assert orig < tpp.S
+        S_loc = tpp.S // D
+        M = S_loc if case == "full_width" else 25
+        rng = np.random.default_rng(11)
+        a0 = torch.tensor(rng.integers(0, 16, (R, tpp.S)), dtype=torch.int32)
+        whole = sh.chain_states_from_assignment(tpp, a0)
+        gen = torch.Generator().manual_seed(11)
+
+        def draw(_sweep, now):
+            return chip_smoke.rank_adversarial_draws(
+                torch, case, now.assignment, D, 16, M, gen)
+
+        applied = _compose_vs_step(tpp, whole, R, D, M, draw,
+                                   [chip_smoke.RANK_HOT_TEMP, 1.0])
+        assert (applied == 0) == (case == "all_rejected")
+
+    @pytest.mark.parametrize("layout", [(1, 8), (2, 4)])
+    def test_reference_draws_from_a_crowded_node(self, layout):
+        """Every service starts on node 0 (each position's proposals leave
+        one node, its departures walked in proposal order), the draws the
+        reference's (JaxDraws: its key schedule and categorical over the
+        hot services): the composed entry points equal sharded_step_plain
+        bit for bit over three sweeps."""
+        R, D = layout
+        _dp, tp, _, _ = staged_pair(200, 16, 8, packed=True, coloc=True,
+                                    max_skew=3, domains=4)
+        tpp, orig = port_pad(tp, D)
+        tpp.n_real = orig
+        whole = sh.chain_states_from_assignment(
+            tpp, torch.zeros((R, tpp.S), dtype=torch.int32))
+        draws = JaxDraws(jax.random.PRNGKey(5), R > 1)
+        M = 25
+
+        def draw(sweep, now):
+            return draws.proposals(sweep, sh._hot(tpp, now, D), 16, M)
+
+        assert _compose_vs_step(tpp, whole, R, D, M, draw,
+                                [5.0, 2.0, 1.0]) > 0
 
     def test_shard_rows_and_local_real(self):
         from fleetflow_tpu_torch.solver import sharded_ranks as sr
