@@ -3838,31 +3838,38 @@ def ranks_worker(directory: str) -> int:
     return 0
 
 
-def rank_entry_bytes(prob, M: int, T: int, G: int, Gc1: int, D: int,
-                     applied: int, touched: int) -> dict:
+def rank_entry_bytes(prob, M: int, T: int, D: int, words: int,
+                     moved: dict) -> dict:
     """(bytes, operations) each cross-rank entry point must move and do
-    for one position of this run (`applied` moves touching `touched`
-    nodes): elect reads its M proposals' rows (as a K7 proposal) and the
-    topology counts and writes (4, M) ints; apply reads the (4, M) ints
-    and the slots of the targets, and for each applied move its demand
-    and id rows, writes its row and the touched nodes' partial rows and
-    integer deltas; reduce reads the summed deltas and, for each touched
-    node, the D gathered partials, writes the planes the deltas moved and
-    resets the slots, the partial and the deltas. The clustered elect and
-    apply read and write the same inputs and outputs; their own scratch
-    (elect's `first`, at rest before and after; apply's list in shared
-    memory) is no input or output of the function and is not counted."""
+    for one position of this run; `moved` holds a position's mean applied
+    moves ("applied") and node entries ("entries") and a replica's mean
+    moves, id cells, node entries and distinct touched nodes
+    ("replica_applied", "replica_ids", "replica_entries",
+    "replica_nodes"): elect reads its M proposals' rows (as a K7
+    proposal) and the topology counts and writes (4, M) ints; apply reads
+    the (4, M) ints and the slots of the targets, and for each applied
+    move its demand and id rows, writes its assignment and the position's
+    records (every one of their `words` ints); reduce reads the D gathered
+    records' headers, move rows and node entries, reads and writes the
+    two cells of each id (and of the topology) a move changes ("ids"
+    counts a move's ids and its topology once each), writes the
+    slot of each move's target, reads and writes each touched node's load.
+    The clustered elect and apply read and write the same inputs and
+    outputs; their own scratch (elect's `first`, apply's list in shared
+    memory, reduce's node accumulator) is no input or output of the
+    function and is not counted."""
     K, Kc = prob.conflict_ids.shape[1], prob.coloc_ids.shape[1]
-    N = prob.N
     per_prop = sweep_prop_bytes(K, Kc, prob.preferred is not None)
     elect = (M * per_prop + 4.0 * T + 16.0 * M, M * 120.0)
     apply = (16.0 * M + 4.0 * M
-             + applied * (12.0 + 4.0 * (K + Kc) + 4.0)
-             + touched * (12.0 + 4.0 * (K + Kc + 2)), applied * 24.0)
-    delta_ints = N * G + N * Gc1 + T + N
-    reduce = (4.0 * delta_ints + touched * (12.0 * D + 24.0)
-              + 2 * 4.0 * applied * (K + Kc + 2) + 4.0 * N + 12.0 * N,
-              touched * 3.0 * D)
+             + moved["applied"] * (12.0 + 4.0 * (K + Kc) + 4.0)
+             + 4.0 * words, moved["applied"] * 24.0)
+    reduce = (16.0 * D
+              + moved["replica_applied"] * (4.0 * (3 + K + Kc) + 4.0)
+              + moved["replica_ids"] * 16.0
+              + moved["replica_entries"] * 16.0
+              + moved["replica_nodes"] * 24.0,
+              3.0 * (moved["replica_entries"] + moved["replica_nodes"]))
     return dict(zip(RANK_ENTRIES, (elect, apply, reduce)))
 
 
@@ -3960,15 +3967,18 @@ def rank_positions(torch, sr, anneal, prob, n_real, one, R: int, D: int,
 
 
 def rank_sweep_vs_plain(torch, sr, both: dict, R: int, D: int, draws,
-                        temps, same) -> tuple:
+                        temps, same) -> dict:
     """One cross-rank sweep of every position, the entry points on the
     card and their plain versions on the CPU copies, the collectives done
-    by hand (the slots' MIN over a replica's shards, the partials in
-    shard order, the deltas summed); `same(name, card, cpu)` compares
-    each entry point's outputs. Returns (applied, touched) over the
-    positions."""
+    by hand (the slots' MIN over a replica's shards, the records gathered
+    in shard order); `same(name, card, cpu)` compares each entry point's
+    outputs: elect's slots, proposals and `first`, apply's records (entry
+    for entry) and assignment, reduce's planes and the scratch back at
+    rest. Returns the sums over the positions and replicas of the applied
+    moves ("applied"), node entries ("entries"), id cells moved ("ids")
+    and distinct touched nodes of each replica ("nodes")."""
     s_all, b_all, u_all = draws
-    applied = touched = 0
+    out = dict(applied=0, entries=0, ids=0, nodes=0)
     for (r, d), (pos, k, c) in both.items():
         args = tuple(x[r, d].contiguous() for x in (s_all, b_all, u_all))
         sr.sharded_elect(*k, pos, *args, temps[r])
@@ -3985,27 +3995,38 @@ def rank_sweep_vs_plain(torch, sr, both: dict, R: int, D: int, draws,
     for (r, d), (pos, k, c) in both.items():
         sr.sharded_apply(*k, pos)
         sr.sharded_apply_plain(*c, pos)
-        for name in ("deltas", "partial", "applied"):
-            same("k7_rank_apply", getattr(k[2], name), getattr(c[2], name))
+        same("k7_rank_apply", k[2].records, c[2].records)
         same("k7_rank_apply", k[1].assignment, c[1].assignment)
-        applied += int(c[2].applied[0])
-        N = c[0].N
-        touched += int((c[2].deltas[-N:] > 0).sum())
     for r in range(R):
-        for side in (1, 2):
-            parts = torch.stack([both[r, d][side][2].partial
-                                 for d in range(D)])
-            deltas = torch.stack([both[r, d][side][2].deltas
-                                  for d in range(D)]).sum(0)
-            for d in range(D):
-                pos, lss = both[r, d][0], both[r, d][side]
-                lss[2].deltas.copy_(deltas)
-                (sr.sharded_reduce if side == 1
-                 else sr.sharded_reduce_plain)(*lss, pos, parts)
+        gathered = {side: torch.stack([both[r, d][side][2].records
+                                       for d in range(D)])
+                    for side in (1, 2)}
+        lp0, _st, sc0 = both[r, 0][2]
+        cap, wm, _words = sr.record_layout(
+            sc0.cand.shape[1], lp0.N, lp0.conflict_ids.shape[-1],
+            lp0.coloc_ids.shape[-1])
+        nodes = []
+        for rec in gathered[2]:
+            count, ent, mv = sr.record_views(rec, cap, wm)
+            n = int(count[0])
+            live = ent[:2 * n, 0]
+            nodes.append(live[live >= 0])
+            out["applied"] += n
+            out["entries"] += int((live >= 0).sum())
+            out["ids"] += int((mv[:n, 3:] >= 0).sum()) + int(
+                (mv[:n, 2] > 0).sum())
+        out["nodes"] += int(torch.cat(nodes).unique().numel())
+        for d in range(D):
+            pos = both[r, d][0]
+            sr.sharded_reduce(*both[r, d][1], pos, gathered[1])
+            sr.sharded_reduce_plain(*both[r, d][2], pos, gathered[2])
     for (r, d), (pos, k, c) in both.items():
         for x, y in zip(k[1], c[1]):
             same("k7_rank_reduce", x, y)
-    return applied, touched
+        same("k7_rank_reduce", k[2].slots,
+             torch.full_like(c[2].slots, 2**31 - 1))
+        same("k7_rank_reduce", k[2].acc, c[2].acc)  # at rest
+    return out
 
 
 def check_rank_entries(torch, mods, a: dict, dev) -> dict:
@@ -4016,12 +4037,14 @@ def check_rank_entries(torch, mods, a: dict, dev) -> dict:
     sweeps, then from the same state one sweep of each adversarial case
     (RANK_ADVERSARIAL at RANK_HOT_TEMP; full_width at M = S/D, every row
     of the shard once, the phantom row among them, or at the widest M the
-    bind takes if that is less), the collectives done by hand. Each entry point's outputs must equal its
-    plain version's on CPU copies of the same inputs (max |err| 0). Each
+    bind takes if that is less), the collectives done by hand. Each entry
+    point's outputs must equal its plain version's on CPU copies of the same inputs (max |err| 0). Each
     entry point is then timed as anneal_ranks launches it
-    (tools/k7r_profile.py's entry_times on position (0, 0)), its plain
-    version on the card with CUDA events. Returns each entry point's
-    record."""
+    (tools/k7r_profile.py's entry_times on position (0, 0), the other
+    position of its replica sweeping beside it, so reduce gets both
+    positions' records), its plain version on the card with CUDA events
+    on the same inputs; the bound counts what those timed sweeps moved.
+    Returns each entry point's record."""
     sharded, sr, anneal = mods
     prob = to_device(torch, a["prob"], dev)
     R = D = 2
@@ -4040,15 +4063,13 @@ def check_rank_entries(torch, mods, a: dict, dev) -> dict:
 
     both = rank_positions(torch, sr, anneal, prob, a["n_real"], one, R, D,
                           M, dev)
-    applied = touched = 0
+    applied = 0
     for i in range(3):
         _hot, s_all, b_all, u_all = a["record"]["proposals"][i]
-        got = rank_sweep_vs_plain(
+        applied += rank_sweep_vs_plain(
             torch, sr, both, R, D, tuple(x.to(dev) for x in (s_all, b_all,
                                                               u_all)),
-            sched.temps(i), same)
-        applied += got[0]
-        touched += got[1]
+            sched.temps(i), same)["applied"]
     if applied == 0:
         raise AssertionError("[ranks] the entry points applied no move")
     gen = torch.Generator(device=dev)
@@ -4066,28 +4087,35 @@ def check_rank_entries(torch, mods, a: dict, dev) -> dict:
                                        gen)
         got = rank_sweep_vs_plain(torch, sr, pb, R, D, draws,
                                   [RANK_HOT_TEMP] * R, same)
-        if case == "all_rejected" and got[0]:
-            raise AssertionError(f"[ranks] all_rejected applied {got[0]}")
-        if case != "all_rejected" and not got[0]:
+        if case == "all_rejected" and got["applied"]:
+            raise AssertionError(f"[ranks] all_rejected applied "
+                                 f"{got['applied']}")
+        if case != "all_rejected" and not got["applied"]:
             raise AssertionError(f"[ranks] {case} applied no move")
         print(f"[ranks] adversarial {case}: M {width}, every 2x2 position's "
-              f"elect, apply and reduce equal to the plain version on the "
-              f"CPU; {got[0]} applied, {got[1]} touched nodes", flush=True)
+              f"elect, apply (its records entry for entry) and reduce equal "
+              f"to the plain version on the CPU; {got['applied']} applied, "
+              f"{got['entries']} node entries, {got['nodes']} touched nodes",
+              flush=True)
 
-    # timing on position (0, 0): its shard and the one-card run's state
+    # timing on position (0, 0), the replica's other position sweeping
+    # beside it: its shard and the one-card run's state
     pos, (lp, st0, _sc), _cpu = rank_positions(
         torch, sr, anneal, prob, a["n_real"], one, R, D, M, dev)[0, 0]
+    whole = anneal.ChainState(*(t[:1].to(dev, copy=True).contiguous()
+                                for t in one))
     from fleetflow_tpu_torch.tools import k7r_profile
     with as_deployed(torch):
-        timed = k7r_profile.entry_times(torch, sr, sharded, lp, st0, pos, M,
-                                        RANK_TIMED_SWEEPS)
+        timed = k7r_profile.entry_times(
+            torch, sr, sharded, dataclasses.replace(prob, n_real=a["n_real"]),
+            whole, pos, M, RANK_TIMED_SWEEPS)
     _hot, s_all, b_all, u_all = a["record"]["proposals"][0]
     args = tuple(x[0, 0].to(dev).contiguous() for x in (s_all, b_all, u_all))
     temp = sched.temps(0)[0]
-    gathered = torch.zeros((D, lp.N, 3), dtype=torch.float32, device=dev)
+    st_r, gathered = timed["before_reduce"]
 
-    def fresh():
-        st = anneal.ChainState(*(t.clone() for t in st0))
+    def fresh(st=st0):
+        st = anneal.ChainState(*(t.clone() for t in st))
         return lp, st, sr.rank_scratch(lp, st, M)
 
     def elected():
@@ -4095,24 +4123,21 @@ def check_rank_entries(torch, mods, a: dict, dev) -> dict:
         sr.sharded_elect_plain(*k, pos, *args, temp)
         return k
 
-    def applied_():
-        k = elected()
-        sr.sharded_apply_plain(*k, pos)
-        return k
-
     plain = {
         "k7_rank_elect": (lambda *k: sr.sharded_elect_plain(*k, pos, *args,
                                                             temp), fresh),
         "k7_rank_apply": (lambda *k: sr.sharded_apply_plain(*k, pos),
                           elected),
-        "k7_rank_reduce": (lambda *k: sr.sharded_reduce_plain(*k, pos,
-                                                              gathered),
-                           applied_),
+        "k7_rank_reduce": (lambda lp_, st_, sc_, g: sr.sharded_reduce_plain(
+            lp_, st_, sc_, pos, g), lambda: (*fresh(st_r), gathered)),
     }
-    per = rank_entry_bytes(lp, M, st0.topo.shape[-1], st0.used.shape[-1],
-                           st0.coloc.shape[-1], D,
-                           applied // (3 * R * D) or 1,
-                           touched // (3 * R * D) or 1)
+    # the bound from what the timed sweeps moved: the position's moves and
+    # entries, the replica's in the gathered records reduce was given
+    words = sr.record_layout(M, lp.N, lp.conflict_ids.shape[-1],
+                             lp.coloc_ids.shape[-1])[2]
+    mean = {k: statistics.mean(m[k] for m in timed["moved"])
+            for k in timed["moved"][0]}
+    per = rank_entry_bytes(lp, M, st0.topo.shape[-1], D, words, mean)
     recs = {}
     for name, (fn, setup) in plain.items():
         ms = statistics.median(timed[name]["event"])
@@ -4134,10 +4159,11 @@ def check_rank_entries(torch, mods, a: dict, dev) -> dict:
               f"{M}: 3 recorded sweeps and the {len(RANK_ADVERSARIAL)} "
               f"adversarial cases of every 2x2 position equal to the plain "
               f"version on the CPU (max |err| {err[name]}); as the loop "
-              f"launches it ({RANK_TIMED_SWEEPS} sweeps, one launcher): "
+              f"launches it ({RANK_TIMED_SWEEPS} sweeps of the replica, a "
+              f"launcher a position): "
               f"event {ms:.5f} ms, device {dev_txt}, host {host_ms:.5f} "
               f"ms; plain on the card {plain_ms:.3f} ms, bound {bound:.3g} "
-              f"ms ({by})", flush=True)
+              f"ms ({by}, {t_bytes:.0f} B)", flush=True)
     return recs
 
 
@@ -4277,6 +4303,17 @@ def run_ranks_phase(torch, np, mods, lower, dev, card, pt_headline, recs):
               f"occupancy, topology), swaps {got['swaps']}, collectives "
               f"(calls, host ms) {json.dumps(got['collectives'])}",
               flush=True)
+    # a sweep's split, past each rank's first sweep (its warm-up)
+    split: dict = {}
+    for res in results:
+        for ms in res["anneal"]["sweeps"][1:]:
+            for k, v in (*ms.items(), ("sweep", sum(ms.values()))):
+                split.setdefault(k, []).append(v)
+    print("[ranks] a cross-rank sweep's event ms by entry point and "
+          "collective, median [min, max] over the ranks' sweeps 1-"
+          f"{RANKS_SWEEPS - 1}: " + ", ".join(
+              f"{k} {statistics.median(v):.3f} [{min(v):.3f}, {max(v):.3f}]"
+              for k, v in split.items()), flush=True)
     # (2)
     for res in results:
         for row, base in zip(res["sharded"], results[0]["sharded"]):

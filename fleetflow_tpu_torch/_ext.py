@@ -179,20 +179,23 @@ class K7RankArgs(ctypes.Structure):
     """``K7RankStatic`` of ``csrc/k7_sharded_sweep.cu``: one rank's shard
     (its rows, the global padded S, its real rows), the shard count, its
     shard, the proposals a sweep, its replica's node state, the scratch
-    between the three entry points, and the launch shape ``ff_k7r_bind``
-    fills (elect's and apply's cluster, CTA width, team and chunk);
-    passed by pointer."""
+    between the three entry points (the records' capacity and words
+    among it), and the launch shape ``ff_k7r_bind`` fills (elect's and
+    apply's cluster, CTA width, team and chunk; each kernel's dynamic
+    shared memory); passed by pointer."""
     _fields_ = [("p", ProblemArgs), ("D", ctypes.c_int), ("d", ctypes.c_int),
                 ("M", ctypes.c_int), ("assignment", ctypes.c_void_p),
                 ("load", ctypes.c_void_p), ("used", ctypes.c_void_p),
                 ("coloc", ctypes.c_void_p), ("topo", ctypes.c_void_p),
                 ("slots", ctypes.c_void_p), ("cand", ctypes.c_void_p),
-                ("partial", ctypes.c_void_p), ("deltas", ctypes.c_void_p),
-                ("first", ctypes.c_void_p), ("cluster", ctypes.c_int),
-                ("threads", ctypes.c_int), ("team", ctypes.c_int),
-                ("chunk", ctypes.c_int), ("reduce_grid", ctypes.c_int),
+                ("first", ctypes.c_void_p), ("acc", ctypes.c_void_p),
+                ("records", ctypes.c_void_p),
+                ("cap", ctypes.c_int), ("rec_words", ctypes.c_int),
+                ("cluster", ctypes.c_int), ("threads", ctypes.c_int),
+                ("team", ctypes.c_int), ("chunk", ctypes.c_int),
                 ("smem_elect", ctypes.c_longlong),
-                ("smem_apply", ctypes.c_longlong)]
+                ("smem_apply", ctypes.c_longlong),
+                ("smem_reduce", ctypes.c_longlong)]
 
 
 def lanes_arg(n_real, sticky_w=None, temp=None, active=None) -> Lanes:

@@ -495,18 +495,38 @@ __global__ void __launch_bounds__(kThreads) k7_sweep_kernel(
 //          candidate's rank m + M·d posted into the (N,) election slots
 //          with atomicMin;
 //          -> all_reduce(MIN) of the slots over the replica's ranks;
-//   apply  the candidates whose rank won their target node: the shard's
-//          assignment, the integer deltas of the occupancy and topology
-//          planes and the touched-node counts (N·G | N·Gc1 | T | N, integer
-//          atomics, order-free), and the position's (N, 3) load partial in
-//          the cooperative kernel's order (a node's departures in proposal
-//          order, then its arrival, from 0.0);
-//          -> all_gather of the partials and all_reduce(SUM) of the integer
-//          deltas over the replica's ranks;
-//   reduce the gathered partials summed in shard order into the load of
-//          every node some shard touched, the integer deltas added to the
-//          planes, and the slots, the partial and the deltas reset to
-//          their resting values (INT_MAX, 0, 0).
+//   apply  the candidates whose rank won their target node move (the
+//          shard's assignment) and are written, in proposal order, into
+//          the position's records: a buffer of cap = min(M, N) moves (an
+//          applied move's target is its own across the replica, so no
+//          position applies more) of rec_words int32 words,
+//            [count, 0, 0, 0]     the header;
+//            2·cap node entries   (node, the 3 float bits of its partial):
+//                                 entry 2x move x's source when x is its
+//                                 first departure (the source's
+//                                 departures in proposal order, then its
+//                                 arrival, from 0.0: the cooperative
+//                                 kernel's order), entry 2x + 1 its target
+//                                 when nothing leaves the target (0.0 +
+//                                 its demand), else (-1, 0, 0, 0);
+//            cap move rows        source, target, real row (0/1), the K
+//                                 conflict ids, the Kc coloc ids, of
+//                                 3 + K + Kc ints; -1 past the count;
+//            -1 up to a multiple of 4 words;
+//          every word written every sweep, so the buffer never depends on
+//          an earlier sweep (the plain version builds it bit for bit);
+//          -> all_gather of the records over the replica's ranks (about
+//          16 KB a position at M 256, K 4, Kc 1);
+//   reduce the gathered (D, rec_words) records into the replica's state:
+//          every position's integer deltas by atomics straight into the
+//          occupancy and topology planes (integer sums: any order), the
+//          slots of their targets back to INT_MAX (every slot the MIN left
+//          below INT_MAX is the target of one applied move), and the
+//          loads: a node's entry in the lowest position that has one owns
+//          it and adds the later positions' partials to its own in shard
+//          order, ((p0 + p1) + ...) + p_{D-1} (absent partials are +0.0,
+//          and no partial is -0.0, so skipping them changes no bit; a node
+//          has at most one entry a position), then the sum to the load.
 // The composition equals sharded_step_plain (sharded.py) bit for bit: the
 // same move delta, winner rules, rank encoding and float order. In the
 // shard's Problem the planes are indexed by shard-local row, p.S is the
@@ -536,32 +556,58 @@ __global__ void __launch_bounds__(kThreads) k7_sweep_kernel(
 //          puts `first` back at rest (a later proposal of the service
 //          then reads m or INT_MAX, never its own index). No service
 //          table to clear.
-//   apply  a team reads its candidate, the slot of its target and, beside
-//          it, the rows its move would apply (the id rows, the demand, the
-//          domains), so the won check and the integer atomics are ~2 loads
-//          deep; the chunk's applied moves are compacted in proposal order
-//          (a block scan) and pushed, with their sources, targets and
+//   apply  a thread reads its candidate, the slot of its target and, beside
+//          it, the demand its move would carry, so the won check is ~2
+//          loads deep (a won move's id rows are prefetched into L1 for its
+//          record); the chunk's applied moves are compacted in proposal
+//          order (a block scan) and pushed, with their sources, targets and
 //          demand, into every CTA's copy of the cluster's list (chunk q at
 //          rows [q·Mc, q·Mc + count[q]), distributed shared memory). After
 //          ONE cluster barrier each CTA holds the whole list (a few tens
-//          of moves, at most one arrival a node) and each of its chunk's
-//          rows makes one branch-free pass over it (broadcast reads of
-//          shared memory): its source's departures before and after it,
-//          the source's arrival, whether anything leaves its target. A
-//          row with no earlier departure from its source walks the
-//          source's departures from its own on, in list order, four rows
-//          read at a time, then adds the source's arrival, from 0.0: the
-//          first design's float order (a node's departures in proposal
-//          order, then its arrival); only a node left by several moves
-//          walks past its own row. A row whose target nothing leaves adds
-//          its arrival alone. No hash table (shared-memory CAS
+//          of moves, at most one arrival a node); its last threads write
+//          its chunk's move rows at their place in proposal order (the
+//          counts of the chunks before it) and its share of the empty rows
+//          while each of its chunk's rows, on its first threads, makes one
+//          branch-free pass over the list
+//          (broadcast reads of shared memory): its source's departures
+//          before and after it, the source's arrival, whether anything
+//          leaves its target. A row with no earlier departure from its
+//          source walks the source's departures from its own on, in list
+//          order, four rows read at a time, then adds the source's
+//          arrival, from 0.0: the first design's float order (a node's
+//          departures in proposal order, then its arrival); only a node
+//          left by several moves walks past its own row. A row whose
+//          target nothing leaves adds its arrival alone. Both go to the
+//          row's two node entries. No hash table (shared-memory CAS
 //          serialises: the first design's node tables and walk were 3.5
 //          of its 7.0 µs, a one-warp pass over such a table 10.8 µs
 //          here); nothing is read from another CTA after the barrier, so
-//          no CTA waits for the others to exit.
+//          no CTA waits for the others to exit. No global atomics: the
+//          integer deltas travel as the moves' id rows.
 // A card or a width the cluster cannot take (its shared memory, a card
 // without cluster launch) makes ff_k7r_bind fail; there is no single-block
-// path to fall back on. reduce is a grid over the node planes.
+// path to fall back on.
+//   reduce one CTA of kReduceThreads, its work in proportion to the moves
+//          the records hold: it reads the D counts into a list of the
+//          positions' moves in shard order; half the CTA then makes D
+//          passes over the node entries in shard order, a thread an entry
+//          adding its partial to its node's row of an (N, 4) accumulator
+//          in global memory (at rest between sweeps: nothing is filled a
+//          launch, and no node count is refused), the first entry of a
+//          node claiming the row (the first pass writes without a read;
+//          in the last a node's only entry adds to its load itself);
+//          after the last pass each claimed row's owner adds the sums to
+//          its node's load and puts the row back at rest.
+//          The other half applies the integer deltas, a thread a move,
+//          meanwhile (a barrier after the atomics would wait for them: 0.4
+//          µs at M 256). (A (D, N) map of the entries in shared memory in
+//          place of the accumulator bounds D·N by the shared memory and
+//          sets D·N ints a launch; a scan of the list's entries in shared
+//          memory by every owner, O(entries) a thread, took 8.0 µs at M
+//          256: chip_smoke's [ranks], H100.) The first design read all
+//          N·G + N·Gc1 + T + N cells of a dense delta plane (3.3 MB at
+//          [ranks]' shard) to find the few a sweep moved, after an
+//          all_reduce(SUM) of that plane across the ranks.
 //
 // Built with -DK7R_PHASES (fleetflow_tpu_torch/tools/k7r_profile.py),
 // thread 0 of each CTA stamps its cycles into row blockIdx.x; the slots
@@ -581,14 +627,19 @@ struct K7RankStatic {
   int* topo;         // (T,)
   int* slots;        // (N,) election slots, INT_MAX at rest
   int* cand;         // (4, M) service, source, target, standing
-  float* partial;    // (N, 3) this position's load delta, 0 at rest
-  int* deltas;       // N·G | N·Gc1 | T | N touched, 0 at rest
   int* first;        // (S/D,) a service's lowest accepted proposal,
                      // INT_MAX at rest
+  int* acc;          // (N, 4) reduce's node accumulator: owner, 3 float
+                     // sums; {-1, +0, +0, +0} at rest
+  int* records;      // (rec_words,) this position's applied moves, written
+                     // whole by apply (the layout above)
+  int cap, rec_words;  // min(M, N) moves; the records' words (the caller's,
+                       // checked by the bind)
   // the launch shape ff_k7r_bind fills: C CTAs of `threads`, teams of
-  // `team` lanes, chunks of `chunk` proposals
-  int cluster, threads, team, chunk, reduce_grid;
-  long long smem_elect, smem_apply;
+  // `team` lanes, chunks of `chunk` proposals; each kernel's dynamic
+  // shared memory
+  int cluster, threads, team, chunk;
+  long long smem_elect, smem_apply, smem_reduce;
 };
 
 // the lanes of this thread's team (a power of two <= 32 within a warp)
@@ -605,6 +656,11 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// a prefetch of the line holding `ptr` into L1
+__device__ __forceinline__ void prefetch_l1(const void* ptr) {
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(ptr));
 }
 
 // (max, min) of the topology counts, every lane of the warp; the whole
@@ -749,13 +805,12 @@ __device__ int scan_applied(const int* app_sm, int n, int* warp_tot,
 }
 
 __global__ void __launch_bounds__(kRankThreads) k7r_apply_kernel(
-    K7RankStatic a, int* applied_out) {
+    K7RankStatic a) {
   cg::cluster_group cluster = cg::this_cluster();
   const Problem& p = a.p;
-  const int M = a.M, N = p.N, g = a.team, Mc = a.chunk;
+  const int M = a.M, Mc = a.chunk;
   const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
   const int lo = min(c * Mc, M), hi = min(lo + Mc, M);
-  const int tl = threadIdx.x & (g - 1), teams = blockDim.x / g;
   extern __shared__ int sm[];
   int* app_sm = sm;                  // Mc: the chunk's move applied
   int* src_sm = sm + Mc;             // Mc: its source
@@ -766,61 +821,33 @@ __global__ void __launch_bounds__(kRankThreads) k7r_apply_kernel(
   float* l_dem = reinterpret_cast<float*>(l_tgt + C * Mc);  // count[q])
   int* count = reinterpret_cast<int*>(l_dem + 3 * C * Mc);  // kRankCluster
   __shared__ int warp_tot[32];
-  int* dused = a.deltas;
-  int* dcoloc = dused + (size_t)N * p.G;
-  int* dtopo = dcoloc + (size_t)N * p.Gc1;
-  int* touched = dtopo + p.T;
   cluster_arrive_relaxed();
 #ifdef K7R_PHASES
   unsigned long long* ph = ff_phase_row();
   if (ph) ph[0] = ff_globaltimer();
   const long long c0 = clock64();
 #endif
-  // the won check and the integer deltas, a team a proposal; the move's
-  // rows are read beside its slot, before the check
-  for (int m = lo + (int)threadIdx.x / g; m < hi; m += teams) {
+  // the won check, a thread a proposal; the move's demand is read beside
+  // its slot, before the check
+  for (int m = lo + (int)threadIdx.x; m < hi; m += blockDim.x) {
     int app = 0;
     if (a.cand[3 * M + m] == kCandidate) {
       const int s = a.cand[m], src = a.cand[M + m], b = a.cand[2 * M + m];
       const int won = a.slots[b];
-      const int cid = tl < p.K ? p.cids[(size_t)s * p.K + tl] : -1;
-      const int lid = tl < p.Kc ? p.colids[(size_t)s * p.Kc + tl] : -1;
-      float dm[3] = {0.f, 0.f, 0.f};
-      int ta = 0, tb = 0;
-      if (tl == 0) {
-        for (int k = 0; k < 3; ++k) dm[k] = p.demand[(size_t)s * 3 + k];
-        ta = p.ntopo[src];
-        tb = p.ntopo[b];
-      }
+      float dm[3];
+      for (int k = 0; k < 3; ++k) dm[k] = p.demand[(size_t)s * 3 + k];
       app = won == m + M * a.d;
       if (app) {
-        for (int k = tl; k < p.K; k += g) {
-          const int id = k == tl ? cid : p.cids[(size_t)s * p.K + k];
-          if (id < 0) continue;
-          atomicSub(&dused[(size_t)src * p.G + id], 1);
-          atomicAdd(&dused[(size_t)b * p.G + id], 1);
-        }
-        for (int k = tl; k < p.Kc; k += g) {
-          const int id = k == tl ? lid : p.colids[(size_t)s * p.Kc + k];
-          if (id < 0) continue;
-          atomicSub(&dcoloc[(size_t)src * p.Gc1 + id], 1);
-          atomicAdd(&dcoloc[(size_t)b * p.Gc1 + id], 1);
-        }
-        if (tl == 0) {
-          if (s < p.n_real) {
-            atomicSub(&dtopo[ta], 1);
-            atomicAdd(&dtopo[tb], 1);
-          }
-          a.assignment[s] = b;
-          touched[src] = 1;
-          touched[b] = 1;
-          src_sm[m - lo] = src;
-          tgt_sm[m - lo] = b;
-          for (int k = 0; k < 3; ++k) dem_sm[(m - lo) * 3 + k] = dm[k];
-        }
+        // its id rows, into L1 for the record written after the barrier
+        if (p.K > 0) prefetch_l1(p.cids + (size_t)s * p.K);
+        if (p.Kc > 0) prefetch_l1(p.colids + (size_t)s * p.Kc);
+        a.assignment[s] = b;
+        src_sm[m - lo] = src;
+        tgt_sm[m - lo] = b;
+        for (int k = 0; k < 3; ++k) dem_sm[(m - lo) * 3 + k] = dm[k];
       }
     }
-    if (tl == 0) app_sm[m - lo] = app;
+    app_sm[m - lo] = app;
   }
   __syncthreads();
 #ifdef K7R_PHASES
@@ -852,10 +879,46 @@ __global__ void __launch_bounds__(kRankThreads) k7r_apply_kernel(
   const long long c3 = clock64();
   long long walk = 0;
 #endif
-  if (c == 0 && threadIdx.x == 0) {
-    int total = 0;
-    for (int q = 0; q < C; ++q) total += count[q];
-    applied_out[0] = total;
+  int pre = 0, total = 0;  // the moves of the chunks before this one; all
+  for (int q = 0; q < C; ++q) {
+    pre += q < c ? count[q] : 0;
+    total += count[q];
+  }
+  const int cap = a.cap, K = p.K, Wm = 3 + K + p.Kc;
+  int* rec = a.records;
+  int4* ent = reinterpret_cast<int4*>(rec + 4);
+  int* mv = rec + 4 + 8 * (size_t)cap;
+  const int4 empty = make_int4(-1, 0, 0, 0);
+  if (c == 0 && threadIdx.x < 4) rec[threadIdx.x] = threadIdx.x ? 0 : total;
+  // this chunk's move rows (source, target, real row, its ids), then the
+  // rows past the position's moves and the padding, by the CTA's last
+  // threads first: its first n_c threads walk the list below meanwhile. A
+  // row's service is its proposal's, whose rank its target's slot holds
+  // (L1 hits: the won check read both)
+  const int back = (int)blockDim.x - 1 - (int)threadIdx.x;
+  for (int i = back; i < n_c * Wm; i += blockDim.x) {
+    const int j = i / Wm, w = i - j * Wm, b = l_tgt[c * Mc + j];
+    const int s = w < 2 ? 0 : a.cand[a.slots[b] - M * a.d];
+    int v;
+    if (w == 0)
+      v = l_src[c * Mc + j];
+    else if (w == 1)
+      v = b;
+    else if (w == 2)
+      v = s < p.n_real;
+    else if (w < 3 + K)
+      v = p.cids[(size_t)s * K + (w - 3)];
+    else
+      v = p.colids[(size_t)s * p.Kc + (w - 3 - K)];
+    mv[(size_t)(pre + j) * Wm + w] = v;
+  }
+  {
+    const int t = c * (int)blockDim.x + back;
+    const int nt = C * (int)blockDim.x;
+    for (int e = 2 * total + t; e < 2 * cap; e += nt) ent[e] = empty;
+    for (size_t w = 4 + 8 * (size_t)cap + (size_t)total * Wm + t;
+         w < (size_t)a.rec_words; w += nt)
+      rec[w] = -1;
   }
   // each of this chunk's rows x: one branch-free pass over the list
   // counts its source's departures before and after it, finds the
@@ -863,8 +926,8 @@ __global__ void __launch_bounds__(kRankThreads) k7r_apply_kernel(
   // its source's departures if none comes before it (its own, then the
   // `after` later ones in list order, four rows read at a time, then the
   // arrival; most nodes have one departure and walk nothing past their
-  // own row), and adds its target's partial alone if nothing leaves the
-  // target
+  // own row), and its target's entry is its arrival alone if nothing
+  // leaves the target
   for (int j = threadIdx.x; j < n_c; j += blockDim.x) {
     const int x = c * Mc + j, src = l_src[x], b = l_tgt[x];
     int before = 0, after = 0, arrival = -1;
@@ -883,6 +946,7 @@ __global__ void __launch_bounds__(kRankThreads) k7r_apply_kernel(
 #ifdef K7R_PHASES
     const long long w0 = clock64();
 #endif
+    int4 es = empty, et = empty;
     if (before == 0) {
       float l[3];
       for (int r = 0; r < 3; ++r) l[r] = 0.f + (-l_dem[x * 3 + r]);
@@ -902,11 +966,15 @@ __global__ void __launch_bounds__(kRankThreads) k7r_apply_kernel(
       }
       if (arrival >= 0)
         for (int r = 0; r < 3; ++r) l[r] = l[r] + l_dem[arrival * 3 + r];
-      for (int r = 0; r < 3; ++r) a.partial[(size_t)src * 3 + r] = l[r];
+      es = make_int4(src, __float_as_int(l[0]), __float_as_int(l[1]),
+                     __float_as_int(l[2]));
     }
     if (lone)
-      for (int r = 0; r < 3; ++r)
-        a.partial[(size_t)b * 3 + r] = 0.f + l_dem[x * 3 + r];
+      et = make_int4(b, __float_as_int(0.f + l_dem[x * 3]),
+                     __float_as_int(0.f + l_dem[x * 3 + 1]),
+                     __float_as_int(0.f + l_dem[x * 3 + 2]));
+    ent[2 * (pre + j)] = es;
+    ent[2 * (pre + j) + 1] = et;
 #ifdef K7R_PHASES
     walk = max(walk, clock64() - w0);
 #endif
@@ -932,50 +1000,144 @@ __global__ void __launch_bounds__(kRankThreads) k7r_apply_kernel(
 #endif
 }
 
-__global__ void k7r_reduce_kernel(K7RankStatic a,
-                                  const float* __restrict__ gathered) {
+constexpr int kReduceThreads = 1024;  // reduce's one CTA
+
+// position q of move g of the D positions' list, whose first moves are
+// off[0..D] (off[D] the total)
+__device__ __forceinline__ int position_of(const int* off, int D, int g) {
+  int q = 0;
+  while (q + 1 < D && off[q + 1] <= g) ++q;
+  return q;
+}
+
+__global__ void __launch_bounds__(kReduceThreads) k7r_reduce_kernel(
+    K7RankStatic a, const int* __restrict__ gathered) {
   const Problem& p = a.p;
-  const int N = p.N, D = a.D;
-  int* dused = a.deltas;
-  int* dcoloc = dused + (size_t)N * p.G;
-  int* dtopo = dcoloc + (size_t)N * p.Gc1;
-  int* touched = dtopo + p.T;
-  const size_t stride = (size_t)N * 3;
-  for (size_t n = grid_tid(); n < (size_t)N; n += grid_stride()) {
-    if (touched[n] > 0) {
-      const float* p0 = gathered + n * 3;
-      float s0 = p0[0], s1 = p0[1], s2 = p0[2];
-      for (int q = 1; q < D; ++q) {
-        const float* pq = p0 + q * stride;
-        s0 = s0 + pq[0];
-        s1 = s1 + pq[1];
-        s2 = s2 + pq[2];
-      }
-      float* ld = a.load + n * 3;
-      ld[0] = ld[0] + s0;
-      ld[1] = ld[1] + s1;
-      ld[2] = ld[2] + s2;
-      touched[n] = 0;
-    }
-    a.slots[n] = INT_MAX;
-    a.partial[n * 3] = a.partial[n * 3 + 1] = a.partial[n * 3 + 2] = 0.f;
+  const int D = a.D, W = a.rec_words, cap = a.cap;
+  const int ids = p.K + p.Kc, Wm = 3 + ids;
+  extern __shared__ int off[];  // D + 1: the list's positions
+  int4* acc = reinterpret_cast<int4*>(a.acc);
+#ifdef K7R_PHASES
+  unsigned long long* ph = ff_phase_row();
+  if (ph) ph[0] = ff_globaltimer();
+  const long long c0 = clock64();
+#endif
+  // the positions' moves in shard order as one list (the counts)
+  for (int q = threadIdx.x; q < D; q += blockDim.x)
+    off[q + 1] = __ldg(gathered + (size_t)q * W);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    off[0] = 0;
+    for (int q = 0; q < D; ++q) off[q + 1] += off[q];
   }
-  const size_t nu = (size_t)N * p.G, nc = (size_t)N * p.Gc1;
-  for (size_t i = grid_tid(); i < nu; i += grid_stride())
-    if (dused[i]) {
-      a.used[i] += dused[i];
-      dused[i] = 0;
+  __syncthreads();
+  const int moves = off[D];
+#ifdef K7R_PHASES
+  const long long c1 = clock64();
+  long long c2 = c1;
+#endif
+  // two teams of half the CTA each, which do not wait for each other. The
+  // first makes D passes in shard order, a barrier of its own between
+  // them: position q's node entries (a node has at most one a position)
+  // each add their partial to their node's row of the accumulator
+  // ({owner, 3 float sums}, {-1, +0, +0, +0} at rest), the first to reach
+  // a row claiming it. In the first pass every row is at rest (no read);
+  // in the last an entry that finds its row at rest is its node's only
+  // one and adds its partial to the load itself (the row stays at rest).
+  // Then each claimed row's owner adds the sums to its node's load and
+  // puts the row back at rest. The second team applies the moves' integer
+  // deltas straight into the replica's planes (a barrier after them would
+  // wait for their atomics).
+  const int team = blockDim.x / 2;
+  if ((int)threadIdx.x < team) {
+    for (int q = 0; q < D; ++q) {
+      const int4* ent =
+          reinterpret_cast<const int4*>(gathered + (size_t)q * W + 4);
+      const int e0 = 2 * off[q], n_e = 2 * off[q + 1] - e0;
+      for (int i = threadIdx.x; i < n_e; i += team) {
+        const int4 v = __ldg(ent + i);
+        if (v.x < 0) continue;
+        const int4 r = q == 0 ? make_int4(-1, 0, 0, 0) : acc[v.x];
+        const float s0 = __int_as_float(r.y) + __int_as_float(v.y);
+        const float s1 = __int_as_float(r.z) + __int_as_float(v.z);
+        const float s2 = __int_as_float(r.w) + __int_as_float(v.w);
+        if (q == D - 1 && r.x < 0) {
+          float* ld = a.load + (size_t)v.x * 3;
+          ld[0] = ld[0] + s0;
+          ld[1] = ld[1] + s1;
+          ld[2] = ld[2] + s2;
+        } else {
+          acc[v.x] = make_int4(r.x < 0 ? e0 + i : r.x, __float_as_int(s0),
+                               __float_as_int(s1), __float_as_int(s2));
+        }
+      }
+      if (D > 1) asm volatile("bar.sync 1, %0;" ::"r"(team) : "memory");
     }
-  for (size_t i = grid_tid(); i < nc; i += grid_stride())
-    if (dcoloc[i]) {
-      a.coloc[i] += dcoloc[i];
-      dcoloc[i] = 0;
+#ifdef K7R_PHASES
+    c2 = clock64();
+#endif
+    // the owners: entries of every position but the last
+    for (int q = 0; q + 1 < D; ++q) {
+      const int4* ent =
+          reinterpret_cast<const int4*>(gathered + (size_t)q * W + 4);
+      const int e0 = 2 * off[q], n_e = 2 * off[q + 1] - e0;
+      for (int i = threadIdx.x; i < n_e; i += team) {
+        const int n = __ldg(ent + i).x;
+        if (n < 0) continue;
+        float* ld = a.load + (size_t)n * 3;
+        const int4 r = acc[n];  // read beside the load, before the check
+        const float l0 = ld[0], l1 = ld[1], l2 = ld[2];
+        if (r.x != e0 + i) continue;
+        ld[0] = l0 + __int_as_float(r.y);
+        ld[1] = l1 + __int_as_float(r.z);
+        ld[2] = l2 + __int_as_float(r.w);
+        acc[n] = make_int4(-1, 0, 0, 0);
+      }
     }
-  for (size_t i = grid_tid(); i < (size_t)p.T; i += grid_stride())
-    if (dtopo[i]) {
-      a.topo[i] += dtopo[i];
-      dtopo[i] = 0;
+  } else {
+    // a move: its row's source, target, real flag and first 8 ids read in
+    // one wave; the slot of its target back at rest
+    for (int g = threadIdx.x - team; g < moves; g += team) {
+      const int q = position_of(off, D, g);
+      const int* row = gathered + (size_t)q * W + 4 + 8 * (size_t)cap +
+                       (size_t)(g - off[q]) * Wm;
+      const int src = __ldg(row), b = __ldg(row + 1), real = __ldg(row + 2);
+      int id[8];
+#pragma unroll
+      for (int v = 0; v < 8; ++v) id[v] = v < ids ? __ldg(row + 3 + v) : -1;
+      a.slots[b] = INT_MAX;
+      if (real) {
+        atomicSub(&a.topo[p.ntopo[src]], 1);
+        atomicAdd(&a.topo[p.ntopo[b]], 1);
+      }
+      for (int k0 = 0; k0 < ids; k0 += 8) {
+        if (k0 > 0)
+          for (int v = 0; v < 8; ++v)
+            id[v] = k0 + v < ids ? __ldg(row + 3 + k0 + v) : -1;
+#pragma unroll
+        for (int v = 0; v < 8; ++v) {
+          if (id[v] < 0) continue;
+          const bool occ = k0 + v < p.K;
+          int* plane = occ ? a.used : a.coloc;
+          const size_t width = occ ? p.G : p.Gc1;
+          atomicSub(&plane[(size_t)src * width + id[v]], 1);
+          atomicAdd(&plane[(size_t)b * width + id[v]], 1);
+        }
+      }
     }
+  }
+#ifdef K7R_PHASES
+  if (ph) {
+    const long long c3 = clock64();
+    ph[1] = ff_globaltimer();
+    ph[2] = c3 - c0;
+    ph[3] = c1 - c0;
+    ph[4] = c2 - c1;
+    ph[5] = c3 - c2;
+    ph[7] = moves;
+    ph[8] = a.M;
+  }
+#endif
 }
 
 }  // namespace
@@ -1070,22 +1232,33 @@ static int bind_failed(cudaError_t e) {
   return static_cast<int>(e);
 }
 
+// the records' words for cap moves of 3 + K + Kc ints (the layout above;
+// sharded_ranks.record_layout computes the same)
+static long long record_words(long long cap, int K, int Kc) {
+  const long long moves = cap * (3 + K + Kc);
+  return 4 + 8 * cap + (moves + 3) / 4 * 4;
+}
+
 // Check a K7RankStatic (the wrapper's _ext.K7RankArgs) and fill its launch
 // shape: the team g (a power of two >= the conflict-id, coloc-id and, with
 // a spread constraint, topology widths; at most 32), the cluster (M·g
 // lanes at ~kRankTarget a CTA, 2 to 8 CTAs of at most kRankThreads), the
-// chunk, the reduce's grid and the two kernels' dynamic shared memory
-// (elect 3·chunk ints, apply 6·chunk + 5·C·chunk + 8). Fails, and nothing
-// is launched, on a card without cluster launch or when a cluster of that
-// shape cannot be scheduled (apply's list past the shared memory: M above
-// 10,096 on an H100); a runtime call that fails there leaves no error
-// behind for a later launch's check. Called once per bound launcher.
+// chunk and the kernels' dynamic shared memory (elect 3·chunk ints, apply
+// 6·chunk + 5·C·chunk + 8, reduce D + 1). The
+// records must have the layout's size for cap = min(M, N). Fails, and
+// nothing is launched, on a card without cluster launch or when a cluster
+// of that shape cannot be scheduled (apply's list past the shared memory:
+// M above 10,096 on an H100); a runtime call that fails there leaves no
+// error behind for a later launch's check. Called once per bound launcher.
 FF_EXPORT int ff_k7r_bind(void* args) {
   K7RankStatic* a = static_cast<K7RankStatic*>(args);
   const Problem& p = a->p;
   if (a->D < 1 || a->d < 0 || a->d >= a->D || a->M < 1 || p.N < 1 ||
       p.S % a->D != 0 || p.K < 0 || p.Kc < 0 || p.T < 1 ||
-      a->first == nullptr)
+      a->first == nullptr || a->records == nullptr || a->acc == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cap = a->M < p.N ? a->M : p.N;
+  if (a->cap != cap || a->rec_words != record_words(cap, p.K, p.Kc))
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, cluster_ok = 0, max_smem = 0;
   cudaFuncAttributes fe = {}, fa = {};
@@ -1131,6 +1304,10 @@ FF_EXPORT int ff_k7r_bind(void* args) {
   a->threads = static_cast<int>(threads);
   a->team = g;
   a->chunk = chunk;
+  // reduce's one CTA: the positions' counts
+  const size_t reduce = ((size_t)a->D + 1) * sizeof(int);
+  if (reduce > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  a->smem_reduce = static_cast<long long>(reduce);
   // one cluster of this shape must fit on the card, for each kernel
   cudaLaunchAttribute attr[1];
   int fits = 0;
@@ -1142,9 +1319,6 @@ FF_EXPORT int ff_k7r_bind(void* args) {
   }
   if (e != cudaSuccess) return bind_failed(e);
   if (fits < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  long long work = (long long)p.N * (p.G > p.Gc1 ? p.G : p.Gc1);
-  if (work < p.T) work = p.T;
-  a->reduce_grid = ff_blocks(work, 256);
   a->smem_elect = static_cast<long long>(elect);
   a->smem_apply = static_cast<long long>(apply);
   return 0;
@@ -1166,26 +1340,26 @@ FF_EXPORT int ff_k7r_elect(const void* args, float temp, const int* s_loc,
   return static_cast<int>(cudaGetLastError());
 }
 
-// apply: the candidates that won their node, against the reduced slots;
-// `applied` gets the position's applied moves (one int).
-FF_EXPORT int ff_k7r_apply(const void* args, int* applied,
-                           cudaStream_t stream) {
+// apply: the candidates that won their node, against the reduced slots,
+// into the position's records (their header holds the applied count).
+FF_EXPORT int ff_k7r_apply(const void* args, cudaStream_t stream) {
   const K7RankStatic& a = *static_cast<const K7RankStatic*>(args);
   if (a.cluster < 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       rank_config(a, (size_t)a.smem_apply, stream, attr);
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, k7r_apply_kernel, a, applied);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, k7r_apply_kernel, a);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// reduce: `gathered` is the (D, N, 3) partials of the replica's shards in
-// shard order; the deltas hold the summed integer deltas.
-FF_EXPORT int ff_k7r_reduce(const void* args, const float* gathered,
+// reduce: `gathered` is the (D, rec_words) records of the replica's
+// shards in shard order.
+FF_EXPORT int ff_k7r_reduce(const void* args, const int* gathered,
                             cudaStream_t stream) {
-  const K7RankStatic a = *static_cast<const K7RankStatic*>(args);
-  if (a.reduce_grid < 1) return static_cast<int>(cudaErrorInvalidValue);
-  k7r_reduce_kernel<<<a.reduce_grid, 256, 0, stream>>>(a, gathered);
+  const K7RankStatic& a = *static_cast<const K7RankStatic*>(args);
+  if (a.smem_reduce < 1) return static_cast<int>(cudaErrorInvalidValue);
+  k7r_reduce_kernel<<<1, kReduceThreads, (size_t)a.smem_reduce, stream>>>(
+      a, gathered);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,8 +25,9 @@ A :class:`Mesh` of this port takes one of two forms.
   (``parallel.init_multihost``), one process a position, each on its own
   card (NCCL) or several sharing one (gloo). Each rank holds its shard's
   rows and its replica's node state, and a sweep is K7's cross-rank form
-  (elect, apply, reduce) with ``collectives.py``'s MIN, gather and integer
-  SUM between the launches; see ``solver/sharded_ranks.py``.
+  (elect, apply, reduce) with two of ``collectives.py``'s operations
+  between the launches, the slots' MIN and the gather of the applied
+  moves' records; see ``solver/sharded_ranks.py``.
 
 The block loops, best-ever tracking, the exchange rounds and the scores
 are plain PyTorch driven from the host, one K7 launch (three on ranks) a

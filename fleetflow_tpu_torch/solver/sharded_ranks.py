@@ -8,13 +8,20 @@ the reference's ``shard_map``: it holds its shard's rows [d·S/D,
 S/D rows, ``n_real`` its real rows), the node planes whole, and its
 replica's node state once (a one-chain ChainState). A sweep is K7's
 cross-rank form (``csrc/k7_sharded_sweep.cu``: elect, apply, reduce) with
-the reference's collectives between the launches (``collectives.py``):
+two of the reference's collectives between the launches
+(``collectives.py``):
 
     elect -> all_reduce(MIN) of the election slots over the replica's ranks
-    apply -> all_gather of the (N, 3) partials, all_reduce(SUM) of the
-             integer deltas over the replica's ranks
-    reduce (the partials summed in shard order: the loads stay bit-equal
-            to the one-device K7 and to the reference's CPU psum)
+    apply -> all_gather of the position's records over the replica's ranks
+             (its applied moves in proposal order: source, target, real
+             row, ids, and the touched nodes' load partials; a fixed
+             layout of min(M, N) moves, :func:`record_layout`)
+    reduce (every position's integer deltas into the planes, the partials
+            summed in shard order: the loads stay bit-equal to the
+            one-device K7 and to the reference's CPU psum)
+
+The reference sums dense delta planes (``psum``); integer sums are exact in
+any order, so the records carry only what moved.
 
 The block loop, best-ever tracking, adaptive exit and replica exchange
 mirror the one-device loop of ``sharded.anneal_sharded`` step for step:
@@ -58,7 +65,8 @@ from .kernels import CAP_TOL, k3_rebuild
 from .problem import TorchProblem, eligible_lookup
 
 __all__ = ["RankPosition", "rank_position", "shard_rows", "local_real",
-           "RankScratch", "rank_scratch", "sharded_elect",
+           "RankScratch", "rank_scratch", "record_layout", "empty_records",
+           "record_views", "sharded_elect",
            "sharded_elect_plain", "sharded_apply", "sharded_apply_plain",
            "sharded_reduce", "sharded_reduce_plain", "RankSweepLauncher",
            "rank_sweep", "rank_step", "anneal_ranks"]
@@ -76,9 +84,11 @@ SVC_AXIS = "svc"
 PHASE_SLOTS = {
     "k7_rank_elect": {3: "topo", 4: "delta", 5: "cluster_wait", 6: "post",
                       7: "accepted_count", 9: "delta_longest_thread"},
-    "k7_rank_apply": {3: "won_integer", 4: "compact_push",
-                      5: "cluster_wait", 6: "pass", 7: "applied_count",
-                      9: "walk_longest_thread"},
+    "k7_rank_apply": {3: "won", 4: "compact_push",
+                      5: "cluster_wait", 6: "records_pass",
+                      7: "applied_count", 9: "walk_longest_thread"},
+    "k7_rank_reduce": {3: "counts", 4: "passes", 5: "owners",
+                       7: "moves_count"},
 }
 
 # a proposal's standing after the election (the kernel's kRejected,
@@ -144,40 +154,67 @@ def shard_rows(prob: TorchProblem, pos: RankPosition) -> TorchProblem:
 # -- K7's cross-rank entry points and their plain versions --------------------
 
 class RankScratch(NamedTuple):
-    """The buffers between the three entry points, at rest between sweeps:
-    the proposals' (service, source, target, standing) (4, M) written by
-    elect; the (N,) election slots (INT_MAX); the position's (N, 3) load
-    partial (0); the integer deltas N·G | N·Gc1 | T | N touched (0); the
-    position's applied moves (1,); the (S/D,) lowest accepted proposal of
-    each of the shard's services, elect's own (INT_MAX; the plain version
-    does not use it)."""
+    """The buffers between the three entry points: the proposals'
+    (service, source, target, standing) (4, M) written by elect; the (N,)
+    election slots (INT_MAX at rest); the position's records, written
+    whole by apply (:func:`record_layout`) and gathered; `applied`, the
+    records' count word (a (1,) view); the (S/D,) lowest accepted
+    proposal of each of the shard's services, elect's own (INT_MAX at
+    rest); reduce's (N, 4) node accumulator (an owner entry and the 3
+    float bits of a sum; (-1, 0, 0, 0) at rest). The plain versions use
+    neither of the last two."""
     cand: torch.Tensor
     slots: torch.Tensor
-    partial: torch.Tensor
-    deltas: torch.Tensor
+    records: torch.Tensor
     applied: torch.Tensor
     first: torch.Tensor
+    acc: torch.Tensor
+
+
+def record_layout(M: int, N: int, K: int, Kc: int) -> tuple:
+    """(cap, move row ints, words) of a position's records: room for cap =
+    min(M, N) applied moves (an applied move's target is its own across
+    the replica), int32 words [count, 0, 0, 0], 2·cap node entries (node,
+    the 3 float bits of its partial; (-1, 0, 0, 0) where empty), cap move
+    rows (source, target, real row, the K conflict ids, the Kc coloc ids;
+    -1 past the count), -1 up to a multiple of 4 words. The kernel's
+    ``record_words`` computes the same."""
+    cap = min(M, N)
+    wm = 3 + K + Kc
+    return cap, wm, 4 + 8 * cap + -(-cap * wm // 4) * 4
+
+
+def record_views(rec: torch.Tensor, cap: int, wm: int):
+    """(count (1,), entries (2·cap, 4), move rows (cap, wm)): views of a
+    position's records."""
+    ent = rec[4:4 + 8 * cap].view(2 * cap, 4)
+    mv = rec[4 + 8 * cap:4 + 8 * cap + cap * wm].view(cap, wm)
+    return rec[:1], ent, mv
+
+
+def empty_records(cap: int, wm: int, words: int, device) -> torch.Tensor:
+    """The records of a position that applied nothing."""
+    rec = torch.full((words,), -1, dtype=torch.int32, device=device)
+    rec[:4] = 0
+    record_views(rec, cap, wm)[1][:, 1:] = 0
+    return rec
+
+
+def _layout(lp: TorchProblem, M: int) -> tuple:
+    return record_layout(M, lp.N, lp.conflict_ids.shape[-1],
+                         lp.coloc_ids.shape[-1])
 
 
 def rank_scratch(lp: TorchProblem, st: ChainState, M: int) -> RankScratch:
     dev = st.assignment.device
-    N, G, Gc1, T = lp.N, st.used.shape[-1], st.coloc.shape[-1], \
-        st.topo.shape[-1]
+    rec = empty_records(*_layout(lp, M), dev)
+    acc = torch.zeros((lp.N, 4), dtype=torch.int32, device=dev)
+    acc[:, 0] = -1
     return RankScratch(
         torch.zeros((4, M), dtype=torch.int32, device=dev),
-        torch.full((N,), _INT_MAX, dtype=torch.int32, device=dev),
-        torch.zeros((N, 3), dtype=torch.float32, device=dev),
-        torch.zeros((N * G + N * Gc1 + T + N,), dtype=torch.int32,
-                    device=dev),
-        torch.zeros((1,), dtype=torch.int32, device=dev),
-        torch.full((lp.S,), _INT_MAX, dtype=torch.int32, device=dev))
-
-
-def _split_deltas(sc: RankScratch, st: ChainState):
-    N = sc.slots.shape[0]
-    G, Gc1, T = st.used.shape[-1], st.coloc.shape[-1], st.topo.shape[-1]
-    du, dc, dt, touched = torch.split(sc.deltas, [N * G, N * Gc1, T, N])
-    return du.view(N, G), dc.view(N, Gc1), dt, touched
+        torch.full((lp.N,), _INT_MAX, dtype=torch.int32, device=dev),
+        rec, rec[:1],
+        torch.full((lp.S,), _INT_MAX, dtype=torch.int32, device=dev), acc)
 
 
 def _check_rank(lp: TorchProblem, st: ChainState, pos: RankPosition) -> None:
@@ -228,50 +265,79 @@ def sharded_apply_plain(lp: TorchProblem, st: ChainState, sc: RankScratch,
     m = torch.arange(M, device=dev)
     applied = (standing == _CANDIDATE) & (sc.slots.long()[b] == m + M * pos.d)
     w = applied.to(torch.float32)
-    wi = applied.to(torch.int32)
-    # the partial: departures, then arrivals, in proposal order from 0.0
+    # the partials: departures, then arrivals, in proposal order from 0.0
     dem = lp.demand[s]
     part = torch.zeros((N, 3), dtype=torch.float32, device=dev)
     part.index_add_(0, a, -dem * w[:, None])
     part.index_add_(0, b, dem * w[:, None])
-    sc.partial.copy_(part)
-    du, dc, dt, touched = _split_deltas(sc, st)
+    cap, wm, words = _layout(lp, M)
+    rec = empty_records(cap, wm, words, dev)
+    count, ent, mv = record_views(rec, cap, wm)
+    sx, ax, bx = s[applied], a[applied], b[applied]
+    n = sx.shape[0]
+    count.fill_(n)
+    mv[:n] = torch.cat([ax[:, None], bx[:, None],
+                        (sx < lp.real_rows).long()[:, None],
+                        lp.conflict_ids[sx].long(), lp.coloc_ids[sx].long()],
+                       1).to(torch.int32)
+    # entry 2x: x's source, when x is its first departure; 2x + 1: x's
+    # target, when nothing leaves it
+    x = torch.arange(n, device=dev)
+    first = torch.full((N,), n, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, ax, x, "amin")
+    leaves = torch.zeros((N,), dtype=torch.bool, device=dev)
+    leaves[ax] = True
+    bits = part.view(torch.int32)
+    for slot, nodes, keep in ((0, ax, first[ax] == x), (1, bx, ~leaves[bx])):
+        nd = nodes[keep]
+        ent[2 * x[keep] + slot] = torch.cat(
+            [nd[:, None].to(torch.int32), bits[nd]], 1)
+    sc.records.copy_(rec)
+    st.assignment[0, sx] = bx.to(torch.int32)
 
-    def occupancy(plane, ids):
-        width = plane.shape[1]
-        v = (ids >= 0).to(torch.int32) * wi[:, None]
-        sf = torch.where(ids >= 0, ids, 0).long()
-        flat = plane.view(-1)
-        flat.index_add_(0, (a[:, None] * width + sf).reshape(-1),
-                        -v.reshape(-1))
-        flat.index_add_(0, (b[:, None] * width + sf).reshape(-1),
-                        v.reshape(-1))
 
-    occupancy(du, lp.conflict_ids[s])
-    occupancy(dc, lp.coloc_ids[s])
-    wt = wi * (s < lp.real_rows).to(torch.int32)
-    topo = lp.node_topology.long()
-    dt.index_add_(0, topo[a], -wt)
-    dt.index_add_(0, topo[b], wt)
-    touched[a[applied]] = 1
-    touched[b[applied]] = 1
-    st.assignment[0, s[applied]] = b[applied].to(torch.int32)
-    sc.applied.copy_(wi.sum().reshape(1))
+def _move_ids(plane: torch.Tensor, ids: torch.Tensor, src: torch.Tensor,
+              tgt: torch.Tensor) -> None:
+    """Each move's ids (-1: none) leave its source's row of `plane` and
+    enter its target's."""
+    width = plane.shape[1]
+    v = (ids >= 0).to(torch.int32)
+    sf = torch.where(ids >= 0, ids, 0).long()
+    flat = plane.view(-1)
+    flat.index_add_(0, (src[:, None] * width + sf).reshape(-1),
+                    -v.reshape(-1))
+    flat.index_add_(0, (tgt[:, None] * width + sf).reshape(-1),
+                    v.reshape(-1))
 
 
 def sharded_reduce_plain(lp: TorchProblem, st: ChainState, sc: RankScratch,
                          pos: RankPosition, gathered: torch.Tensor) -> None:
     """Plain PyTorch version of K7's reduce; see :func:`sharded_reduce`."""
-    du, dc, dt, touched = _split_deltas(sc, st)
-    total = coll.ordered_sum(None, None, parts=gathered)
-    hit = (touched > 0)[:, None]
-    st.load[0].copy_(torch.where(hit, st.load[0] + total, st.load[0]))
-    st.used[0] += du
-    st.coloc[0] += dc
-    st.topo[0] += dt
-    sc.slots.fill_(_INT_MAX)
-    sc.partial.zero_()
-    sc.deltas.zero_()
+    cap, wm, _words = _layout(lp, sc.cand.shape[1])
+    K = lp.conflict_ids.shape[-1]
+    dev = gathered.device
+    total = torch.zeros((lp.N, 3), dtype=torch.float32, device=dev)
+    hit = torch.zeros((lp.N,), dtype=torch.bool, device=dev)
+    topo = lp.node_topology.long()
+    rows = torch.arange(2 * cap, device=dev)
+    for rec in gathered:
+        count, ent, mv = record_views(rec, cap, wm)
+        mv = mv[rows[:cap] < count]
+        src, tgt = mv[:, 0].long(), mv[:, 1].long()
+        _move_ids(st.used[0], mv[:, 3:3 + K], src, tgt)
+        _move_ids(st.coloc[0], mv[:, 3 + K:], src, tgt)
+        real = (mv[:, 2] > 0).to(torch.int32)
+        st.topo[0].index_add_(0, topo[src], -real)
+        st.topo[0].index_add_(0, topo[tgt], real)
+        sc.slots[tgt] = _INT_MAX
+        # this shard's partials onto the sum of the shards before it
+        ent = ent[rows < 2 * count]
+        ent = ent[ent[:, 0] >= 0]
+        node = ent[:, 0].long()
+        total[node] = total[node] + ent[:, 1:].contiguous().view(torch.float32)
+        hit[node] = True
+    st.load[0].copy_(torch.where(hit[:, None], st.load[0] + total,
+                                 st.load[0]))
 
 
 class RankSweepLauncher:
@@ -281,8 +347,8 @@ class RankSweepLauncher:
     the clusters' shape); each launches on the stream current when it
     was built and counts its launch under its own name. A sweep passes
     only its draws' pointers and its temperature (elect) or the gathered
-    partials' pointer (reduce): the layout of the draws and of the
-    gathered partials is checked at the first call, since a call's come
+    records' pointer (reduce): the layout of the draws and of the
+    gathered records is checked at the first call, since a call's come
     from one draw object and one gather. Build one per call and drop it
     with the call."""
 
@@ -291,7 +357,10 @@ class RankSweepLauncher:
         _check_rank(lp, st, pos)
         dev = st.assignment.device
         sc = rank_scratch(lp, st, M) if scratch is None else scratch
-        if sc.cand.shape != (4, M) or sc.first.shape != (lp.S,):
+        cap, _wm, words = _layout(lp, M)
+        if (sc.cand.shape != (4, M) or sc.first.shape != (lp.S,)
+                or sc.records.shape != (words,)
+                or sc.acc.shape != (lp.N, 4)):
             raise ValueError("sharded sweep: scratch of another width")
         _ext.check_inputs("sharded_elect", *st, lp.demand, lp.capacity,
                           lp.conflict_ids, lp.coloc_ids, lp.eligible,
@@ -302,6 +371,7 @@ class RankSweepLauncher:
             raise RuntimeError("k7_sharded_sweep: the C argument struct does "
                                "not match _ext.K7RankArgs")
         self.dev, self.M, self.scratch, self.pos = dev, M, sc, pos
+        self.words = words
         self.args = _ext.K7RankArgs(
             _ext.ProblemArgs(
                 pos.S, lp.N, lp.G, st.coloc.shape[-1], st.topo.shape[-1],
@@ -314,10 +384,12 @@ class RankSweepLauncher:
                 lp.strategy, lp.max_skew, lp.real_rows),
             pos.D, pos.d, M, st.assignment.data_ptr(), st.load.data_ptr(),
             st.used.data_ptr(), st.coloc.data_ptr(), st.topo.data_ptr(),
-            sc.slots.data_ptr(), sc.cand.data_ptr(), sc.partial.data_ptr(),
-            sc.deltas.data_ptr(), sc.first.data_ptr())
+            sc.slots.data_ptr(), sc.cand.data_ptr(), sc.first.data_ptr(),
+            sc.acc.data_ptr(), sc.records.data_ptr(), cap, words)
         lib.ff_k7r_bind.argtypes = [ctypes.c_void_p]
-        _ext.raise_error("k7_rank_elect",
+        # the bind checks the three entry points' shapes: named by their
+        # library
+        _ext.raise_error("k7_sharded_sweep",
                          lib.ff_k7r_bind(ctypes.addressof(self.args)))
         self._addr = ctypes.addressof(self.args)
         self._elect = lib.ff_k7r_elect
@@ -325,11 +397,10 @@ class RankSweepLauncher:
                                 ctypes.c_void_p, ctypes.c_void_p,
                                 ctypes.c_void_p, ctypes.c_void_p]
         self._apply = lib.ff_k7r_apply
-        self._apply.argtypes = [ctypes.c_void_p] * 3
+        self._apply.argtypes = [ctypes.c_void_p] * 2
         self._reduce = lib.ff_k7r_reduce
         self._reduce.argtypes = [ctypes.c_void_p] * 3
         self.stream = torch.cuda.current_stream(dev).cuda_stream
-        self._applied = sc.applied.data_ptr()
         self._draws_checked = self._gathered_checked = False
         self._keep = (lp, st)
 
@@ -351,18 +422,16 @@ class RankSweepLauncher:
             u.data_ptr(), self.stream))
 
     def apply(self) -> None:
-        _ext.raise_on("k7_rank_apply", self._apply(
-            self._addr, self._applied, self.stream))
+        _ext.raise_on("k7_rank_apply", self._apply(self._addr, self.stream))
 
     def reduce(self, gathered: torch.Tensor) -> None:
         if not self._gathered_checked:
-            N = self.scratch.slots.shape[0]
-            if (gathered.shape != (self.pos.D, N, 3)
-                    or gathered.dtype != torch.float32
+            if (gathered.shape != (self.pos.D, self.words)
+                    or gathered.dtype != torch.int32
                     or gathered.device != self.dev
                     or not gathered.is_contiguous()):
                 raise ValueError(f"sharded reduce: contiguous ({self.pos.D}, "
-                                 f"{N}, 3) f32 partials on {self.dev}")
+                                 f"{self.words}) i32 records on {self.dev}")
             self._gathered_checked = True
         _ext.raise_on("k7_rank_reduce", self._reduce(
             self._addr, gathered.data_ptr(), self.stream))
@@ -413,26 +482,29 @@ def sharded_elect(lp, st, sc, pos, s_loc, b_idx, u, temp) -> None:
 def sharded_apply(lp, st, sc, pos) -> None:
     """K7's apply on one rank, after the slots' MIN over the replica's
     ranks: the candidates that won their node move (the shard's
-    assignment), the integer deltas and touched counts go to
-    `sc.deltas`, the position's load partial to `sc.partial`, the applied
-    count to `sc.applied`."""
+    assignment) and are written, in proposal order, to `sc.records`
+    (:func:`record_layout`): each move's source, target, real row and
+    ids, the touched nodes' load partials (a node's departures in
+    proposal order, then its arrival, from 0.0), the applied count
+    (`sc.applied`)."""
     rank_sweep(lp, st, pos, sc.cand.shape[1], sc).apply()
 
 
 def sharded_reduce(lp, st, sc, pos, gathered) -> None:
-    """K7's reduce on one rank, after the partials' all_gather
-    (`gathered`, (D, N, 3) in shard order) and the deltas' SUM over the
-    replica's ranks: the touched nodes' loads take the partials summed in
-    shard order, the planes the deltas, and the scratch is reset."""
+    """K7's reduce on one rank, after the records' all_gather over the
+    replica's ranks (`gathered`, (D, words) int32 in shard order): every
+    position's moves' integer deltas go into the planes, the slots of
+    their targets back to INT_MAX, and each touched node's load takes the
+    partials summed in shard order; the scratch is back at rest."""
     rank_sweep(lp, st, pos, sc.cand.shape[1], sc).reduce(gathered)
 
 
 def rank_step(sweep, svc: coll.Group, s_loc, b_idx, u,
               temp: float) -> torch.Tensor:
-    """One cross-rank sweep: elect, MIN of the slots, apply, the partials
-    gathered and the deltas summed, reduce; returns the position's applied
-    moves (1,). With :data:`SWEEP_EVENTS` a list, the sweep's CUDA events
-    around each entry point and collective are appended to it."""
+    """One cross-rank sweep: elect, MIN of the slots, apply, the records
+    gathered, reduce; returns the position's applied moves (1,). With
+    :data:`SWEEP_EVENTS` a list, the sweep's CUDA events around each entry
+    point and collective are appended to it."""
     sc = sweep.scratch
     marks = [] if SWEEP_EVENTS is not None else None
 
@@ -449,9 +521,8 @@ def rank_step(sweep, svc: coll.Group, s_loc, b_idx, u,
     mark("all_min")
     sweep.apply()
     mark("apply")
-    gathered = coll.all_gather(sc.partial, svc)
-    coll.all_sum_int_(sc.deltas, svc)
-    mark("gather_sum")
+    gathered = coll.all_gather(sc.records, svc)
+    mark("gather")
     sweep.reduce(gathered)
     mark("reduce")
     if marks is not None:

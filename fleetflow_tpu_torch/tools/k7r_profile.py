@@ -23,25 +23,31 @@ the cases of LIST (comma-separated names; default all of them):
   widest   the solve staging at the widest M the tree's bind takes
            (bisection over binds of [1, 32,768])
   phases   every case above once more, the tree's kernels built with
-           -DK7R_PHASES: elect's and apply's own cycle stamps, per phase
+           -DK7R_PHASES: the entry points' own cycle stamps, per phase
 
-A case binds one RankSweepLauncher (``sharded_ranks.rank_sweep``) on the
-position's shard and its replica's state, as ``anneal_ranks`` does once a
-call, and runs SWEEPS sweeps through it: each sweep draws the position's
-proposals (``sharded.TorchDraws``, its hot mask from the current state),
-then elect, apply, and reduce with the position's own partial in shard
-order beside zeros and its own integer deltas (the collectives of a rank
-whose other shards moved nothing). Each entry point is timed on an idle
-card (a synchronize before it, as after a gloo collective): the CUDA-event
-ms of the wrapper call and the wrapper's host ms; a second run of the same
-sweeps under torch.profiler gives each kernel's device ms. One JSON line a
-case and entry point: the medians and ranges, the device ms, the applied
-moves and touched nodes a sweep. The phases case prints, per entry point,
-each phase's median over the sweeps in microseconds (the longest block's
-cycles at the SM clock the stamps imply) and the launch's device span from
-the first block's start to the last block's end; a tree without the stamps
-says so. The card's name and power limit come first. The sharded fleet is
-made and pickled by each tree's tools/k67_profile.py (its
+A case binds one RankSweepLauncher (``sharded_ranks.rank_sweep``) for
+each position of the replica of position (0, 0), each on its shard and
+its own copy of the replica's state, as ``anneal_ranks`` does on each rank
+once a call, and runs SWEEPS sweeps of the whole replica through them:
+each sweep draws every position's proposals (``sharded.TorchDraws``, its
+hot mask from the current states), then every elect, the slots' MIN over
+the positions, every apply, the records of every position stacked in
+shard order (the gather), every reduce on that one tensor; a tree whose
+apply writes a dense partial and integer deltas (the parent of the
+records) gathers the partials and sums the deltas instead, the
+collectives of the same replica. Position (0, 0)'s entry points are
+timed, each on an idle card (a synchronize before it, as after a gloo
+collective): the CUDA-event ms of the wrapper call and the wrapper's host
+ms; a second run of the same sweeps under torch.profiler gives each
+kernel's device ms. One JSON line a case and entry point: the medians and
+ranges, the device ms (a launch, over every position's launches), and the
+medians of what a sweep moved (``Sweeps.counts``). The phases case
+prints, per entry point, each phase's median over the sweeps in
+microseconds (the longest block's cycles at the SM clock the stamps
+imply) and the launch's device span from the first block's start to the
+last block's end, for each entry point the tree's PHASE_SLOTS names; a
+tree without the stamps says so. The card's name and power limit come
+first. The sharded fleet is made and pickled by each tree's tools/k67_profile.py (its
 _ext_build/fleets/ cache, shared with that tool's runs).
 
 ``--device cpu`` rehearses a tree on the plain versions (no events, no
@@ -118,79 +124,174 @@ def stagings(t: Tree, cases) -> list:
 
 
 def position(t: Tree, prob, seed):
-    """Position (0, 0) of a 2x2 mesh over `prob`: (its shard, its
-    replica's state from the (S,) assignment `seed`, the position)."""
-    torch, sr = t.torch, t.sr
-    pos = sr.RankPosition(0, 0, 2, 2, prob.S, 0)
+    """Position (0, 0) of a 2x2 mesh over `prob`: (`prob`, its replica's
+    one-replica state of all rows from the (S,) assignment `seed`, the
+    position)."""
+    pos = t.sr.RankPosition(0, 0, 2, 2, prob.S, 0)
     whole = t.anneal.chain_states_from_assignment(
-        prob, seed.to(torch.int32).reshape(1, -1).contiguous())
+        prob, seed.to(t.torch.int32).reshape(1, -1).contiguous())
+    return prob, whole, pos
+
+
+def shard(t: Tree, prob, seed):
+    """(its shard, its state, the position) of :func:`position`."""
+    prob, whole, pos = position(t, prob, seed)
     st = t.anneal.ChainState(whole.assignment[:, :pos.S_loc].contiguous(),
                              *(x.contiguous() for x in whole[1:]))
-    return sr.shard_rows(prob, pos), st, pos
+    return t.sr.shard_rows(prob, pos), st, pos
 
 
 class Sweeps:
-    """One launcher bound once (``sharded_ranks.rank_sweep``) on a copy
-    of the state `st` of shard `lp` at position `pos`, and each sweep's
-    three entry points: the position's proposals drawn from the current
-    state's hot mask (``sharded.TorchDraws``, seed 31), then elect, apply,
-    and reduce with the position's own partial in shard order beside
-    zeros and its own integer deltas (the collectives of a rank whose
-    other shards moved nothing)."""
+    """Every position of the replica of `pos` on one card, each with one
+    launcher bound once (``sharded_ranks.rank_sweep``) on its shard of
+    the whole padded problem `prob` and its own copy of the replica's
+    state (`whole`, a one-replica ChainState of all S rows), and each
+    sweep's calls as the D ranks of the replica make them: every
+    position's proposals drawn from the current states' hot mask
+    (``sharded.TorchDraws``, seed 31), each position's elect, the slots'
+    MIN over the positions, each apply, the records of every position
+    stacked in shard order (the gather), each reduce on that one tensor.
+    A tree without records (the parent of the records) gathers every
+    position's partial and sums their integer deltas instead. Only the
+    calls of position `pos` are named: the others are the rest of the
+    replica's work, not timed."""
 
-    def __init__(self, torch, sr, sharded, lp, st, pos, M: int):
-        self.torch, self.sr, self.lp, self.pos, self.M = torch, sr, lp, pos, M
-        dev = st.assignment.device
-        self.st = type(st)(*(x.clone() for x in st))
-        self.sweep = sr.rank_sweep(lp, self.st, pos, M)
+    def __init__(self, torch, sr, sharded, prob, whole, pos, M: int):
+        self.torch, self.sr, self.pos, self.M = torch, sr, pos, M
+        dev = whole.assignment.device
+        S_loc = pos.S_loc
+        self.shards = []
+        for d in range(pos.D):
+            at = sr.RankPosition(pos.r, d, pos.R, pos.D, pos.S, d * S_loc)
+            lp = sr.shard_rows(prob, at)
+            st = type(whole)(
+                whole.assignment[:, d * S_loc:(d + 1) * S_loc].clone(),
+                *(x.clone() for x in whole[1:]))
+            self.shards.append((at, lp, st, sr.rank_scratch(lp, st, M)))
+        self.lp, self.st = self.shards[pos.d][1], self.shards[pos.d][2]
+        self.sweeps = [sr.rank_sweep(lp, st, at, M, sc)
+                       for at, lp, st, sc in self.shards]
+        self.sweep = self.sweeps[pos.d]
         gen = torch.Generator(device=dev)
         gen.manual_seed(31)
         self.draws = sharded.TorchDraws(gen)
-        self.zeros = torch.zeros((lp.N, 3), dtype=torch.float32, device=dev)
-        self.hot = torch.zeros((pos.R, pos.D, lp.S), dtype=torch.bool,
+        self.records = hasattr(self.sweep.scratch, "records")
+        if self.records:
+            self.layout = sr.record_layout(M, self.lp.N,
+                                           self.lp.conflict_ids.shape[-1],
+                                           self.lp.coloc_ids.shape[-1])
+        self.hot = torch.zeros((pos.R, pos.D, S_loc), dtype=torch.bool,
                                device=dev)
+        self.gathered = None
         self.i = 0
 
     def calls(self):
         """[(entry point or None, thunk)] of the next sweep."""
-        pos, sweep, sc = self.pos, self.sweep, self.sweep.scratch
-        self.hot[pos.r, pos.d] = self.sr._hot(self.lp, self.st)[0]
-        s, b, u = (x[pos.r, pos.d].contiguous() for x in
-                   self.draws.proposals(self.i, self.hot, self.lp.N, self.M))
+        torch, pos, sr = self.torch, self.pos, self.sr
+        for (at, lp, st, _sc) in self.shards:
+            self.hot[pos.r, at.d] = sr._hot(lp, st)[0]
+        s_all, b_all, u_all = self.draws.proposals(self.i, self.hot,
+                                                   self.lp.N, self.M)
         temp = 0.1 * 0.9 ** (self.i % 32)
         self.i += 1
-        gathered = []
-        parts = [sc.partial if q == pos.d else self.zeros
-                 for q in range(pos.D)]
-        return [("k7_rank_elect", lambda: sweep.elect(s, b, u, temp)),
-                ("k7_rank_apply", sweep.apply),
-                (None, lambda: gathered.append(self.torch.stack(parts))),
-                ("k7_rank_reduce", lambda: sweep.reduce(gathered[0]))]
+        scs = [sw.scratch for sw in self.sweeps]
 
-    def counts(self):
-        """(applied moves, touched nodes) of the sweep in flight."""
-        sc = self.sweep.scratch
-        return (int(sc.applied[0]),
-                int((sc.deltas[-self.lp.N:] > 0).sum()))
+        def name(entry, d):
+            return entry if d == pos.d else None
+
+        def elect(d):
+            args = tuple(x[pos.r, d].contiguous()
+                         for x in (s_all, b_all, u_all))
+            return lambda: self.sweeps[d].elect(*args, temp)
+
+        def all_min():
+            slots = torch.stack([sc.slots for sc in scs]).min(0).values
+            for sc in scs:
+                sc.slots.copy_(slots)
+
+        def gather():
+            if self.records:
+                self.gathered = torch.stack([sc.records for sc in scs])
+                return
+            self.gathered = torch.stack([sc.partial for sc in scs])
+            total = torch.stack([sc.deltas for sc in scs]).sum(0)
+            for sc in scs:
+                sc.deltas.copy_(total)
+
+        def reduce(d):
+            return lambda: self.sweeps[d].reduce(self.gathered)
+
+        D = pos.D
+        return ([(name("k7_rank_elect", d), elect(d)) for d in range(D)]
+                + [(None, all_min)]
+                + [(name("k7_rank_apply", d), self.sweeps[d].apply)
+                   for d in range(D)]
+                + [(None, gather)]
+                + [(name("k7_rank_reduce", d), reduce(d))
+                   for d in range(D)])
+
+    def counts(self) -> dict:
+        """What the sweep in flight moved, read between the gather and the
+        reduces: the position's applied moves and node entries, and the
+        replica's moves, id and topology cells (a move's ids and its
+        topology once each), node entries and distinct touched nodes
+        ("replica_applied", "replica_ids", "replica_entries",
+        "replica_nodes"). A tree without records reports the moves and
+        the touched nodes."""
+        scs = [sw.scratch for sw in self.sweeps]
+        own = scs[self.pos.d]
+        if not self.records:
+            N = self.lp.N
+            return dict(applied=int(own.applied[0]),
+                        replica_applied=sum(int(sc.applied[0]) for sc in scs),
+                        replica_nodes=int((own.deltas[-N:] > 0).sum()))
+        cap, wm, _words = self.layout
+        out = dict(applied=0, entries=0, replica_applied=0, replica_ids=0,
+                   replica_entries=0)
+        nodes = []
+        for d, rec in enumerate(self.gathered):
+            count, ent, mv = self.sr.record_views(rec, cap, wm)
+            n = int(count[0])
+            live = ent[:2 * n, 0]
+            live = live[live >= 0]
+            nodes.append(live)
+            if d == self.pos.d:
+                out["applied"], out["entries"] = n, int(live.numel())
+            out["replica_applied"] += n
+            out["replica_entries"] += int(live.numel())
+            out["replica_ids"] += int((mv[:n, 3:] >= 0).sum()) + int(
+                (mv[:n, 2] > 0).sum())
+        out["replica_nodes"] = int(self.torch.cat(nodes).unique().numel())
+        return out
+
+    def before_reduce(self):
+        """Copies of the position's state and of the gathered records
+        between the gather and the reduces (a plain reduce's inputs)."""
+        return (type(self.st)(*(x.clone() for x in self.st)),
+                self.gathered.clone())
 
 
-def entry_times(torch, sr, sharded, lp, st, pos, M: int, sweeps: int,
+def entry_times(torch, sr, sharded, prob, whole, pos, M: int, sweeps: int,
                 cuda: bool = True) -> dict:
-    """Each cross-rank entry point as ``anneal_ranks`` launches it
-    (:class:`Sweeps`), `sweeps` sweeps after two, each entry point on an
-    idle card (a synchronize before it, as after a gloo collective):
-    {entry: {"event": [ms], "host": [ms], "device_ms": ms a launch from
-    torch.profiler over `sweeps` more, or None}, "applied": [...],
-    "touched": [...]}. With `cuda` False (the plain versions on the CPU)
-    no events and no device time."""
-    run = Sweeps(torch, sr, sharded, lp, st, pos, M)
+    """Each cross-rank entry point of position `pos` as ``anneal_ranks``
+    launches it, its replica's other positions sweeping beside it
+    (:class:`Sweeps` over the whole padded `prob` and the one-replica
+    state `whole`), `sweeps` sweeps after two, each entry point on an idle
+    card (a synchronize before it, as after a gloo collective): {entry:
+    {"event": [ms], "host": [ms], "device_ms": ms a launch from
+    torch.profiler over `sweeps` more (every position's launches), or
+    None}, "moved": [Sweeps.counts() a timed sweep], "before_reduce": the
+    last timed sweep's Sweeps.before_reduce()}. With `cuda` False (the
+    plain versions on the CPU) no events and no device time."""
+    run = Sweeps(torch, sr, sharded, prob, whole, pos, M)
     out = {k: {"event": [], "host": [], "device_ms": None} for k in ENTRIES}
-    out["applied"], out["touched"] = [], []
+    out["moved"] = []
     for i in range(sweeps + 2):
         marks = []
         for name, fn in run.calls():
-            if name == "k7_rank_reduce":
-                counts = run.counts()
+            if name == "k7_rank_reduce" and i >= 2:
+                out["moved"].append(run.counts())
+                out["before_reduce"] = run.before_reduce()
             if cuda:
                 torch.cuda.synchronize()
             if name is None:
@@ -213,8 +314,6 @@ def entry_times(torch, sr, sharded, lp, st, pos, M: int, sweeps: int,
         if i >= 2:
             for name, e0, e1 in marks:
                 out[name]["event"].append(e0.elapsed_time(e1))
-            out["applied"].append(counts[0])
-            out["touched"].append(counts[1])
     if cuda:
         from torch.profiler import ProfilerActivity, profile
         sums = {k: 0.0 for k in ENTRIES}
@@ -229,26 +328,28 @@ def entry_times(torch, sr, sharded, lp, st, pos, M: int, sweeps: int,
                     sums[k] += getattr(e, "self_device_time_total",
                                        getattr(e, "self_cuda_time_total", 0))
         for k in ENTRIES:
-            out[k]["device_ms"] = sums[k] / 1e3 / sweeps if sums[k] else None
+            out[k]["device_ms"] = (sums[k] / 1e3 / (sweeps * pos.D)
+                                   if sums[k] else None)
     return out
 
 
 def timed(t: Tree, case: str, prob, seed, M: int) -> None:
-    lp, st, pos = position(t, prob, seed)
-    got = entry_times(t.torch, t.sr, t.sharded, lp, st, pos, M, SWEEPS,
+    prob, whole, pos = position(t, prob, seed)
+    got = entry_times(t.torch, t.sr, t.sharded, prob, whole, pos, M, SWEEPS,
                       t.cuda)
+    moved = {k: statistics.median(m[k] for m in got["moved"])
+             for k in got["moved"][0]}
     for name in ENTRIES:
         times = sorted(got[name]["event"]) or [float("nan")]
         host = got[name]["host"]
         out = {"tree": t.tree, "case": case, "entry": name,
-               "S_loc": lp.S, "N": lp.N, "M": M,
+               "S_loc": pos.S_loc, "N": prob.N, "M": M,
                "event_ms_median": statistics.median(times),
                "event_ms_min": times[0], "event_ms_max": times[-1],
                "device_ms": got[name]["device_ms"],
                "host_ms_median": statistics.median(host),
                "host_ms_min": min(host),
-               "applied_median": statistics.median(got["applied"]),
-               "touched_median": statistics.median(got["touched"]),
+               **{f"{k}_median": v for k, v in moved.items()},
                "sweeps": SWEEPS}
         print(json.dumps(out), flush=True)
 
@@ -261,7 +362,7 @@ def widest(t: Tree, prob, seed):
     while bad - ok > 1:
         mid = (ok + bad) // 2
         try:
-            t.sr.rank_sweep(*position(t, prob, seed), mid)
+            t.sr.rank_sweep(*shard(t, prob, seed), mid)
         except KernelError as e:
             bad, refusal = mid, f"{e}"[:200]
         else:

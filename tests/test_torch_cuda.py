@@ -1162,13 +1162,14 @@ def test_k6_best_effort_every_node_full(dev, N):
 def _rank_entry_sweeps(dev, prob, R, D, M, temps):
     """K7's cross-rank entry points (elect, apply, reduce) for every
     position of an R x D mesh on the card, the collectives between them
-    done by hand (MIN of the slots over a replica's shards, the partials
-    stacked in shard order, the integer deltas summed), against their
-    plain versions on CPU copies, one sweep a temperature of `temps` from
-    hot random replica states: each entry point's outputs equal (the
-    slots and the proposals' standing, the deltas, partials and applied
-    counts, the reduced planes, loads bit-equal), one launch each a call.
-    Returns the applied moves."""
+    done by hand (MIN of the slots over a replica's shards, the records
+    stacked in shard order: the gather), against their plain versions on
+    CPU copies, one sweep a temperature of `temps` from hot random
+    replica states: each entry point's outputs equal (the slots and the
+    proposals' standing, the records entry for entry and the applied
+    counts, the reduced planes, loads bit-equal, the slots and reduce's
+    accumulator back at rest),
+    one launch each a call. Returns the applied moves."""
     from fleetflow_tpu_torch.solver import sharded, sharded_ranks as sr
     whole = _sharded_state(dev, prob, R, 4)
     S_loc = prob.S // D
@@ -1212,29 +1213,29 @@ def _rank_entry_sweeps(dev, prob, R, D, M, temps):
             sr.sharded_apply(*k, pos)
             assert _ext.LAUNCHES["k7_rank_apply"] == n0 + 1
             sr.sharded_apply_plain(*c, pos)
-            for name in ("deltas", "partial", "applied"):
+            for name in ("records", "applied"):
                 assert torch.equal(getattr(k[2], name).cpu(),
                                    getattr(c[2], name)), name
             assert torch.equal(k[1].assignment.cpu(), c[1].assignment)
             applied += int(c[2].applied[0])
         for r in range(R):
             for side in (1, 2):
-                parts = torch.stack([both[r, d][side][2].partial
-                                     for d in range(D)])
-                deltas = torch.stack([both[r, d][side][2].deltas
-                                      for d in range(D)]).sum(0)
+                gathered = torch.stack([both[r, d][side][2].records
+                                        for d in range(D)])
                 for d in range(D):
                     pos, lp_st_sc = both[r, d][0], both[r, d][side]
-                    lp_st_sc[2].deltas.copy_(deltas)
+                    n0 = _ext.LAUNCHES["k7_rank_reduce"]
                     reduce = (sr.sharded_reduce if side == 1
                               else sr.sharded_reduce_plain)
-                    reduce(*lp_st_sc, pos, parts)
+                    reduce(*lp_st_sc, pos, gathered)
+                    assert _ext.LAUNCHES["k7_rank_reduce"] == \
+                        n0 + (side == 1)
         for (r, d), (pos, k, c) in both.items():
             for x, y in zip(k[1], c[1]):
                 assert torch.equal(x.cpu(), y)
-            assert int(k[2].deltas.abs().sum()) == 0
             assert bool((k[2].slots == 2**31 - 1).all())
-            assert bool((k[2].partial == 0).all())
+            assert bool((c[2].slots == 2**31 - 1).all())
+            assert torch.equal(k[2].acc.cpu(), c[2].acc)  # at rest
         # the next sweep's hot mask reads the replicas' state
         for r in range(R):
             whole.assignment[r] = torch.cat([both[r, d][1][1].assignment[0]
@@ -1278,13 +1279,25 @@ def test_k7_rank_entry_points_widths(dev, M):
     """The entry points at solve_sharded's proposals_per_step=128, the
     default 256, the first design's widest 2,048 and the widest M
     ff_k7r_bind takes (10,096 on an H100: clusters of 8 CTAs, several
-    proposals a team), 2 x 2 positions with a spread constraint (teams of
+    proposals a thread), 2 x 2 positions with a spread constraint (teams of
     8 lanes), against their plain versions."""
     _pt, prob = _problem(dev, S=2000, N=200, skew=3, n_real=1990)
     if M == "widest":
         M = _rank_widest(dev, prob)[0]
         assert M >= 2048
     assert _rank_entry_sweeps(dev, prob, 2, 2, M, (1.0, 0.01)) > 0
+
+
+@pytest.mark.parametrize("layout", [(1, 8), (2, 4)])
+def test_k7_rank_records_at_the_widest(dev, layout):
+    """At the widest M ff_k7r_bind takes, hot (T = 50, then 1), so that
+    most of a replica's 200 nodes are won in a sweep: every position of
+    1 x 8 and 2 x 4 meshes, the records entry for entry, the planes and
+    loads after reduce bit-equal to the plain versions."""
+    R, D = layout
+    _pt, prob = _problem(dev, S=2000, N=200, skew=3, n_real=1990)
+    M = _rank_widest(dev, prob)[0]
+    assert _rank_entry_sweeps(dev, prob, R, D, M, (50.0, 1.0)) > 0
 
 
 @pytest.mark.parametrize("layout", [(1, 8), (2, 4)])
@@ -1320,7 +1333,7 @@ def test_k7_rank_entry_points_adversarial(dev, layout, case):
         draws = chip_smoke.rank_adversarial_draws(torch, case, now, D,
                                                   prob.N, M, gen)
         applied += chip_smoke.rank_sweep_vs_plain(
-            torch, sr, both, R, D, draws, [temp] * R, same)[0]
+            torch, sr, both, R, D, draws, [temp] * R, same)["applied"]
     assert (applied == 0) == (case == "all_rejected")
 
 
@@ -1347,6 +1360,17 @@ def test_k7_rank_bind_refuses_a_width_past_the_cluster(dev):
         assert bool((sc.slots == 2**31 - 1).all())
         assert int(sc.cand.abs().sum()) == 0
     assert _ext.LAUNCHES == before
+
+
+@pytest.mark.parametrize("layout", [(1, 8), (2, 4)])
+def test_k7_rank_many_nodes(dev, layout):
+    """A fleet of 16,000 nodes on 8 and on 4 shards (D·N far past what a
+    map of the entries in shared memory could hold): the bind takes it,
+    and two hot sweeps of every position equal their plain versions,
+    reduce's accumulator back at rest."""
+    R, D = layout
+    _pt, prob = _problem(dev, S=2048, N=16000, n_real=2040)
+    assert _rank_entry_sweeps(dev, prob, R, D, 128, (50.0, 1.0)) > 0
 
 
 def _k7_against_cpu(prob, st_k, s_loc, b_idx, u, temps, sweep=None):

@@ -383,6 +383,17 @@ def test_tempered_anneal_matches_the_reference(ranks_run):
     assert int(case["anneal"]["ref"].swap_attempts) > 0
 
 
+def test_a_cross_rank_sweep_has_two_collectives(ranks_run):
+    """One cross-rank sweep (rank_step) on each of the 4 gloo ranks
+    issues one all_min (the election slots) and one all_gather (the
+    records) over its replica's ranks, and no all_sum_int
+    (collectives.STATS)."""
+    _case, _expect, results = ranks_run
+    for r in results:
+        assert r["sweep_collectives"] == {"all_min": 1, "all_gather": 1}
+    assert sum(r["sweep_applied"] for r in results) > 0
+
+
 def test_tempered_anneal_equals_the_one_device_mesh(ranks_run):
     """From the one-device run's initial state: the assignment and every
     replica plane bit-equal to the one-device 2x2 mesh's."""

@@ -293,15 +293,17 @@ class TestStep:
             sh.sharded_step_apply(tp, st, s.long(), s, u, [1.0])
 
 
-def _compose_vs_step(tpp, whole, R, D, M, draw, temps):
+def _compose_vs_step(tpp, whole, R, D, M, draw, temps, seen=None):
     """K7's cross-rank entry points (plain versions), one per position
     with the collectives done by hand (MIN of the slots over the
-    replica's shards, the partials stacked in shard order, the integer
-    deltas summed), against sharded_step_plain on the whole (R, S) state
+    replica's shards, the positions' records stacked in shard order: one
+    gather), against sharded_step_plain on the whole (R, S) state
     `whole`, one sweep a temperature of `temps`, the (R, D, M) draws of
     draw(sweep, whole): bit for bit every position's replica state, the
-    assignment shards and the applied counts, the scratch back at rest.
-    Returns the applied moves."""
+    assignment shards and the applied counts, each position's records
+    those of its applied moves (_check_records), the scratch back at rest.
+    Each sweep's gathered (D, words) records of each replica are appended
+    to `seen` when it is a list. Returns the applied moves."""
     from fleetflow_tpu_torch.solver import sharded_ranks as sr
     S_loc = tpp.S // D
     pos = {(r, d): sr.RankPosition(r, d, R, D, tpp.S, d * S_loc)
@@ -317,6 +319,7 @@ def _compose_vs_step(tpp, whole, R, D, M, draw, temps):
     for sweep, temp in enumerate(temps):
         s_loc, b_idx, u = draw(sweep, whole)
         temps_r = [temp] * R
+        before = sh.ChainState(*(t.clone() for t in whole))
         _, applied = sh.sharded_step_plain(tpp, whole, s_loc, b_idx, u,
                                            temps_r)
         for (r, d), (st, sc) in mine.items():
@@ -330,19 +333,19 @@ def _compose_vs_step(tpp, whole, R, D, M, draw, temps):
         for (r, d), (st, sc) in mine.items():
             sr.sharded_apply(lp[d], st, sc, pos[r, d])
             assert int(sc.applied[0]) == int(applied[r, d])
+            _check_records(lp[d], sc, before, whole, r, d, S_loc, M)
         for r in range(R):
-            parts = torch.stack([mine[r, d][1].partial
-                                 for d in range(D)])
-            deltas = torch.stack([mine[r, d][1].deltas
-                                  for d in range(D)]).sum(0)
+            gathered = torch.stack([mine[r, d][1].records
+                                    for d in range(D)])
+            if seen is not None:
+                seen.append(gathered.clone())
             for d in range(D):
                 st, sc = mine[r, d]
-                sc.deltas.copy_(deltas)
-                sr.sharded_reduce(lp[d], st, sc, pos[r, d], parts)
-                assert int(sc.deltas.abs().sum()) == 0
-                assert int(sc.partial.abs().sum()) == 0
+                sr.sharded_reduce(lp[d], st, sc, pos[r, d], gathered)
                 assert bool((sc.slots == 2**31 - 1).all())
                 assert bool((sc.first == 2**31 - 1).all())
+                assert bool((sc.acc[:, 0] == -1).all())
+                assert not bool(sc.acc[:, 1:].any())
         for (r, d), (st, _sc) in mine.items():
             assert torch.equal(
                 st.assignment[0],
@@ -352,6 +355,55 @@ def _compose_vs_step(tpp, whole, R, D, M, draw, temps):
                                    getattr(whole, f)[r]), (f, r, d)
         total += int(applied.sum())
     return total
+
+
+def _check_records(lp, sc, before, after, r, d, S_loc, M):
+    """Position (r, d)'s records after apply against the moves the whole
+    sweep made (`before` and `after` the (R, S) states): the count, one
+    row a moved service of the shard in the order of its candidate
+    proposals, each row's source, target, real flag and ids, one entry a
+    touched node and none else, empty rows past the count and the
+    padding, the layout's size."""
+    from fleetflow_tpu_torch.solver import sharded_ranks as sr
+    cap, wm, words = sr.record_layout(M, lp.N, lp.conflict_ids.shape[-1],
+                                      lp.coloc_ids.shape[-1])
+    assert sc.records.shape == (words,) and cap == min(M, lp.N)
+    count, ent, mv = sr.record_views(sc.records, cap, wm)
+    n = int(count[0])
+    assert torch.equal(sc.records[1:4], torch.zeros(3, dtype=torch.int32))
+    lo = d * S_loc
+    a0 = before.assignment[r, lo:lo + S_loc]
+    a1 = after.assignment[r, lo:lo + S_loc]
+    moved = torch.nonzero(a0 != a1).reshape(-1)
+    assert n == moved.numel()
+    rows = mv[:n].long()
+    # a move's target is its own: the row's service is the moved one
+    # that went there; its candidate proposal orders the rows
+    svc, props = [], []
+    for tgt in rows[:, 1].tolist():
+        s_ = int(moved[a1[moved] == tgt][0])
+        svc.append(s_)
+        props.append(int(torch.nonzero((sc.cand[0] == s_)
+                                       & (sc.cand[3] == 2))[0, 0]))
+    assert sorted(svc) == moved.tolist()
+    assert props == sorted(props)
+    s = torch.tensor(svc, dtype=torch.long)
+    assert torch.equal(rows[:, 0], a0[s].long())
+    assert torch.equal(rows[:, 1], a1[s].long())
+    assert torch.equal(rows[:, 2], (s < lp.real_rows).long())
+    K = lp.conflict_ids.shape[-1]
+    assert torch.equal(rows[:, 3:3 + K], lp.conflict_ids[s].long())
+    assert torch.equal(rows[:, 3 + K:], lp.coloc_ids[s].long())
+    assert bool((mv[n:] == -1).all())
+    assert bool((sc.records[4 + 8 * cap + cap * wm:] == -1).all())
+    nodes = ent[:2 * n, 0]
+    live = nodes[nodes >= 0]
+    assert live.unique().numel() == live.numel()
+    touched = torch.cat([rows[:, 0], rows[:, 1]]).unique()
+    assert torch.equal(live.long().sort().values, touched)
+    assert bool((ent[2 * n:, 0] == -1).all())
+    assert bool((ent[:2 * n][nodes < 0, 1:] == 0).all())
+    assert bool((ent[2 * n:, 1:] == 0).all())
 
 
 class TestRankEntryPoints:
@@ -452,6 +504,121 @@ class TestRankEntryPoints:
             assert lp.real_rows == sr.local_real(orig, p) == \
                 min(max(orig - d * S_loc, 0), S_loc)
         assert sr.local_real(None, p) == S_loc
+
+
+RECORD_CASES = ("shard_order", "all_rejected", "full_width", "phantom_row",
+                "no_ids")
+
+
+def _records_case(case: str, packed: bool):
+    """(padded problem, (1, S) state, D, M, the (1, D, M) draws) of a
+    records case; one replica, every service i on node i % N, u = 0 at T
+    = 1e9 (every proposal to another node accepted), a proposal to its
+    service's own node rejected:
+      shard_order   1 x 4: node 0 left by a row of shard 0 and one of
+                    shard 1, entered by one of shard 2; shard 3 idle
+      all_rejected  1 x 2: every proposal to its service's own node
+      full_width    1 x 2, M = N: shard 0 moves N rows onto N distinct
+                    nodes (its records full to their capacity, min(M, N));
+                    shard 1 idle
+      phantom_row   1 x 2 over a ragged fleet: the last shard moves a
+                    phantom row and a real one (a spread constraint: the
+                    topology counts see the real one only)
+      no_ids        1 x 2: the moved rows have no conflict or coloc id"""
+    D = 4 if case == "shard_order" else 2
+    S = 61 if case == "phantom_row" else 64
+    _dp, tp, _, _ = staged_pair(S, 8, 3, packed=packed, coloc=True,
+                                max_skew=3, domains=4)
+    tpp, orig = port_pad(tp, D)
+    tpp.n_real = orig
+    N, S_loc = tpp.N, tpp.S // D
+    home = torch.arange(tpp.S, dtype=torch.int32) % N
+    M = N if case == "full_width" else 4
+    s = torch.arange(M, dtype=torch.int32).repeat(1, D, 1)
+    b = torch.stack([home[d * S_loc + s[0, d].long()]
+                     for d in range(D)])[None].clone()
+    moves = []          # (shard, local row, target)
+    if case == "shard_order":
+        s[0, 2, 0] = 5
+        moves = [(0, 0, 1), (1, 0, 2), (2, 5, 0)]
+        for (d, row, _t), dem in zip(moves, ((0.1, 0.7, 3.3),
+                                             (0.2, 0.35, 1.1),
+                                             (0.3, 1.05, 4.4))):
+            tpp.demand[d * S_loc + row] = torch.tensor(dem)
+    elif case == "full_width":
+        moves = [(0, i, (i + 1) % N) for i in range(M)]
+    elif case == "phantom_row":
+        d, last = D - 1, S_loc - 1
+        assert (D - 1) * S_loc + last >= orig
+        s[0, d, 0] = last
+        g = d * S_loc + last
+        moves = [(d, last, (int(home[g]) + 1) % N),
+                 (d, 1, (int(home[d * S_loc + 1]) + 3) % N)]
+    elif case == "no_ids":
+        moves = [(0, 0, 3), (1, 1, 4)]
+        for d, row, _t in moves:
+            tpp.conflict_ids[d * S_loc + row] = -1
+            tpp.coloc_ids[d * S_loc + row] = -1
+    for d, row, t in moves:
+        j = int(torch.nonzero(s[0, d] == row)[0, 0])
+        b[0, d, j] = t
+    whole = sh.chain_states_from_assignment(tpp, home[None].clone())
+    u = torch.zeros((1, D, M), dtype=torch.float32)
+    return tpp, whole, D, M, (s, b, u), moves
+
+
+class TestRankRecords:
+    @pytest.mark.parametrize("packed", [True, False])
+    @pytest.mark.parametrize("case", RECORD_CASES)
+    def test_records_compose_to_the_plain_sweep(self, case, packed):
+        """The records' edge cases (_records_case), packed and dense
+        eligibility: the composed entry points (one gather of the
+        records) equal sharded_step_plain bit for bit, each position's
+        records hold its moves (_compose_vs_step, _check_records), and
+        the case's own: the shard-order sum on a node three shards touch
+        (another order gives other bits here), nothing in the records
+        when every proposal is rejected, a record full to its capacity,
+        a phantom row's move without a topology delta, a move without
+        ids."""
+        from fleetflow_tpu_torch.solver import sharded_ranks as sr
+        tpp, whole, D, M, draws, moves = _records_case(case, packed)
+        before = sh.ChainState(*(t.clone() for t in whole))
+        seen = []
+        applied = _compose_vs_step(tpp, whole, 1, D, M,
+                                   lambda _i, _now: draws, [1e9], seen)
+        assert applied == len(moves)
+        K = tpp.conflict_ids.shape[-1]
+        cap, wm, words = sr.record_layout(M, tpp.N, K,
+                                          tpp.coloc_ids.shape[-1])
+        (gathered,) = seen
+        counts = [int(g[0]) for g in gathered]
+        rows = {d: sr.record_views(gathered[d], cap, wm)[2][:counts[d]]
+                for d in range(D)}
+        if case == "shard_order":
+            f = np.float32
+            dem = tpp.demand.numpy()
+            S_loc = tpp.S // D
+            d0, d1, d2 = (dem[d * S_loc + r] for d, r, _t in moves)
+            l0 = before.load[0, 0].numpy()
+            want = l0 + ((f(0) + -d0 + (f(0) + -d1)) + (f(0) + d2))
+            assert np.array_equal(whole.load[0, 0].numpy(), want)
+            other = ((l0 + -d0) + -d1) + d2
+            assert not np.array_equal(want, other)
+        elif case == "all_rejected":
+            assert counts == [0] * D
+            empty = sr.empty_records(cap, wm, words, "cpu")
+            assert all(torch.equal(g, empty) for g in gathered)
+            for x, y in zip(before, whole):
+                assert torch.equal(x, y)
+        elif case == "full_width":
+            assert counts == [cap, 0] and cap == tpp.N == M
+        elif case == "phantom_row":
+            assert sorted(rows[D - 1][:, 2].tolist()) == [0, 1]
+        elif case == "no_ids":
+            for d, _row, _t in moves:
+                assert bool((rows[d][:, 3:] == -1).all())
+                assert torch.equal(whole.used[0], before.used[0])
+                assert torch.equal(whole.coloc[0], before.coloc[0])
 
 
 class TestMesh:

@@ -195,6 +195,20 @@ def run(out_dir: str) -> dict:
     from fleetflow_tpu_torch.entry import dryrun_multichip
     out["dryrun"] = dryrun_multichip(w.size)
     out["collectives"] = {k: v[0] for k, v in coll.STATS.items()}
+
+    # one cross-rank sweep on its own, from the anneal's final state: the
+    # collectives it issues, by operation
+    from fleetflow_tpu_torch.solver import sharded_ranks as sr
+    pos = sr.rank_position(mesh, lp.S)
+    sweep = sr.rank_sweep(lp, ChainState(*(t.clone() for t in st)), pos, 16)
+    gen = torch.Generator().manual_seed(3 + w.rank)
+    s_loc = torch.randint(0, lp.S, (16,), generator=gen, dtype=torch.int32)
+    b_idx = torch.randint(0, lp.N, (16,), generator=gen, dtype=torch.int32)
+    coll.reset_stats()
+    applied = sr.rank_step(sweep, mesh.my_groups()["svc"], s_loc, b_idx,
+                           torch.rand(16, generator=gen), 50.0)
+    out["sweep_collectives"] = {k: v[0] for k, v in coll.STATS.items()}
+    out["sweep_applied"] = int(applied[0])
     out["seconds"] = time.perf_counter() - t0
     parallel.shutdown()
     return out
